@@ -1,0 +1,1 @@
+"""data of the editor_tpu_torch port."""

@@ -1,0 +1,1 @@
+"""engine of the editor_tpu_torch port."""

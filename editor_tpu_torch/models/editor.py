@@ -1,0 +1,206 @@
+"""EDITOR model assembly (the tri-modal eval forward).
+
+Counterpart of ``editor_tpu/models/editor.py``: one shared ViT pass over the
+modality-major 3B batch, the frequency mask, SFTS token selection, the
+compact tail (cls + at most ``_tail_keep_count`` selected patches per
+modality), the HMA fusion block, a masked mean pool and the three reduce
+heads, giving ``cls4t`` [B, 3C].
+
+The ``nn.Module`` tree carries exactly the reference's state_dict keys
+(``BACKBONE.base.*``, ``FUSE_block.*``, ``*_REDUCE``, ``*_HEAD``, ``*_BN``,
+``FREQ_INDEX.*``), so weights exported by
+``editor_tpu.utils.torch_convert.export_editor_to_torch`` or converted by
+:func:`editor_tpu_torch.utils.jax_weights.state_dict_from_jax` load with
+``load_state_dict(strict=True)``. Weights for a run without JAX come from
+:func:`editor_tpu_torch.models.init.editor_init`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from editor_tpu_torch.models.frequency import frequency_token_select
+from editor_tpu_torch.models.fusion import BlockMask
+from editor_tpu_torch.models.layers import BatchNorm1d, Linear
+from editor_tpu_torch.models.sfts import sfts_select
+from editor_tpu_torch.models.vit import ViTConfig, VisionTransformer
+
+MODALITIES = ("RGB", "NI", "TI")
+FUSION_HEADS = 12  # editor_apply passes num_heads=12 to the fusion block
+
+
+def vit_tiny_test_config(**kw) -> ViTConfig:
+    """Tiny backbone for CPU tests (not in the reference zoo)."""
+    return ViTConfig(embed_dim=96, depth=2, num_heads=4, mlp_ratio=2.0,
+                     qkv_bias=True, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class EditorConfig:
+    num_classes: int
+    vit: ViTConfig
+    head_keep: int = 2          # MODEL.HEAD_KEEP
+    frequency_keep: int = 10    # MODEL.FREQUENCY_KEEP
+    al: bool = False            # MODEL.AL supervision setting
+    ocfr_momentum: float = 0.8
+    num_modalities: int = 3
+    # True routes attention through the hand-written CUDA kernels (K1-K3) for
+    # CUDA tensors, and their plain versions for CPU tensors; False runs the
+    # plain versions on any device. Named as in the JAX config so configs
+    # transfer.
+    use_pallas: bool = True
+    compact_tail: bool = True   # TPU.COMPACT_TAIL (exact; see _compact_selected)
+    moe_experts: int = 0        # MODEL.MOE_EXPERTS (not ported: must be 0)
+    moe_aux_weight: float = 0.01
+
+    @property
+    def dim(self) -> int:
+        return self.vit.embed_dim
+
+    @property
+    def num_patches(self) -> int:
+        return self.vit.num_patches
+
+
+def flagship_config(num_classes: int = 171, camera: int = 6) -> EditorConfig:
+    """ViT-B/16 at 256x128, RGB+NIR+TIR, HEAD_KEEP 2, FREQUENCY_KEEP 10,
+    COMPACT_TAIL on: ``__graft_entry__._flagship_cfg()`` (RGBNT201)."""
+    vit = ViTConfig(img_size=(256, 128), patch_size=16, stride_size=(16, 16),
+                    embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0,
+                    qkv_bias=True, camera=camera, sie_xishu=3.0,
+                    drop_path_rate=0.1)
+    return EditorConfig(num_classes=num_classes, vit=vit, head_keep=2,
+                        frequency_keep=10)
+
+
+def _tail_keep_count(cfg: EditorConfig, num_mods: int) -> int:
+    """Static bound on SFTS-selected patches per sample: heads x HEAD_KEEP per
+    modality plus FREQUENCY_KEEP, padded so 1 + keep is a multiple of 8
+    (87 on the flagship)."""
+    P = cfg.num_patches
+    bound = min(P, cfg.frequency_keep + num_mods * cfg.vit.num_heads * cfg.head_keep)
+    return min(P, ((bound + 8) // 8) * 8 - 1)
+
+
+def _compact_selected(feats: List[torch.Tensor], index: torch.Tensor, keep: int
+                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Gather each modality down to [B, 1+keep, C]: cls + the selected patches
+    first (ascending), then unselected ones whose mask stays 0. Exact: the
+    dropped rows are zero and carry zero attention weight and pool weight."""
+    sel = torch.sort(index[:, :, 0], dim=1, descending=True, stable=True).indices[:, :keep]
+    cindex = torch.gather(index, 1, sel[:, :, None])
+    out = []
+    for f in feats:
+        g = torch.gather(f[:, 1:], 1, sel[:, :, None].expand(-1, -1, f.shape[-1]))
+        out.append(torch.cat([f[:, :1], g], dim=1))
+    return out, cindex
+
+
+def _masked_mean_pool(fused: torch.Tensor, index: torch.Tensor, seg_len: int,
+                      num_mods: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per modality: (cls, sum of patch tokens / number of selected patches)."""
+    num = index.sum(dim=1)  # [B, 1]
+    outs = []
+    for i in range(num_mods):
+        seg = fused[:, i * seg_len:(i + 1) * seg_len]
+        outs.append((seg[:, 0], seg[:, 1:].sum(dim=1) / num.to(seg.dtype)))
+    return outs
+
+
+class Backbone(nn.Module):
+    """Holds the ViT under ``BACKBONE.base`` (the reference's build_transformer)."""
+
+    def __init__(self, cfg: ViTConfig, device=None):
+        super().__init__()
+        self.base = VisionTransformer(cfg, device=device)
+
+
+class _HaarFilters(nn.Module):
+    """The reference's constant Haar filter buffers (``FREQ_INDEX.*``), kept
+    so checkpoints load strictly; the Haar shortcut never reads them."""
+
+    def __init__(self, names: Tuple[str, str], device=None):
+        super().__init__()
+        s = 1.0 / 2.0 ** 0.5
+        lo = torch.tensor([s, s], device=device)
+        hi = torch.tensor([s, -s], device=device)
+        for name, taps in zip(names, (lo, hi)):
+            self.register_buffer(f"{name}_col", taps.reshape(1, 1, 2, 1).clone())
+            self.register_buffer(f"{name}_row", taps.reshape(1, 1, 1, 2).clone())
+
+
+class Editor(nn.Module):
+    def __init__(self, cfg: EditorConfig, device=None):
+        super().__init__()
+        if cfg.moe_experts > 0:
+            raise NotImplementedError("the MoE fusion MLP (moe_experts > 0) is not "
+                                      "ported: use moe_experts=0")
+        self.cfg = cfg
+        d, M = cfg.dim, cfg.num_modalities
+        self.BACKBONE = Backbone(cfg.vit, device=device)
+        self.FUSE_block = BlockMask(d, cfg.num_classes, mlp_ratio=4.0,
+                                    num_heads=FUSION_HEADS, device=device)
+        self.RGB_REDUCE = Linear(2 * d, d, device=device)
+        self.NIR_REDUCE = Linear(2 * d, d, device=device)
+        self.TIR_REDUCE = Linear(2 * d, d, device=device)
+        self.FUSE_HEAD = Linear(M * d, cfg.num_classes, bias=False, device=device)
+        self.BACKBONE_HEAD = Linear(d, cfg.num_classes, bias=False, device=device)
+        self.FUSE_BN = BatchNorm1d(M * d, device=device)
+        self.BACKBONE_BN = BatchNorm1d(d, device=device)
+        if cfg.al:
+            self.AL_HEAD = Linear(M * d, cfg.num_classes, bias=False, device=device)
+            self.AL_BN = BatchNorm1d(M * d, device=device)
+        self.FREQ_INDEX = nn.Module()
+        self.FREQ_INDEX.DWT = _HaarFilters(("h0", "h1"), device=device)
+        self.FREQ_INDEX.IDWT = _HaarFilters(("g0", "g1"), device=device)
+
+    def forward(self, images: Dict[str, torch.Tensor],
+                cam_ids: Optional[torch.Tensor] = None,
+                view_ids: Optional[torch.Tensor] = None,
+                training: bool = False, tp_mesh=None, seq_mesh=None,
+                backbone=None) -> torch.Tensor:
+        """images: {'RGB', 'NI', 'TI'} NHWC float tensors ('TI' optional).
+        Returns cls4t [B, M*dim] in the images' dtype.
+
+        ``training``, ``tp_mesh``, ``seq_mesh`` and ``backbone`` are the JAX
+        ``editor_apply`` options that are not ported yet: each raises."""
+        if training:
+            raise NotImplementedError("the training forward is not ported yet; "
+                                      "call with training=False")
+        for name, value in (("tp_mesh", tp_mesh), ("seq_mesh", seq_mesh),
+                            ("backbone", backbone)):
+            if value is not None:
+                raise NotImplementedError(f"{name}= is not ported yet")
+        cfg = self.cfg
+        use_kernels = cfg.use_pallas
+        mods = [images["RGB"], images["NI"]]
+        if images.get("TI") is not None:
+            mods.append(images["TI"])
+        M = len(mods)
+        B = mods[0].shape[0]
+
+        mask_fre = frequency_token_select(mods, keep=cfg.frequency_keep,
+                                          stride=cfg.vit.stride_size[0],
+                                          window=cfg.vit.patch_size)
+        cams = cam_ids.repeat(M) if cam_ids is not None else None
+        views = view_ids.repeat(M) if view_ids is not None else None
+        tokens, rollout = self.BACKBONE.base(torch.cat(mods), cams, views, use_kernels)
+        toks, rolls = list(tokens.split(B)), list(rollout.split(B))
+
+        feats, index = sfts_select(toks, rolls, mask_fre, cfg.head_keep)
+        seg_len = cfg.num_patches + 1
+        if cfg.compact_tail:
+            keep = _tail_keep_count(cfg, M)
+            if keep < cfg.num_patches:
+                feats, index = _compact_selected(feats, index, keep)
+                seg_len = keep + 1
+
+        fused = self.FUSE_block(feats, index, use_kernels)
+        pooled = _masked_mean_pool(fused, index, seg_len, M)
+        heads = (self.RGB_REDUCE, self.NIR_REDUCE, self.TIR_REDUCE)[:M]
+        return torch.cat([head(torch.cat([cls, pool], dim=-1))
+                          for head, (cls, pool) in zip(heads, pooled)], dim=-1)

@@ -1,0 +1,147 @@
+"""HMA: the hierarchical masked aggregation fusion block (eval path).
+
+Counterpart of ``editor_tpu/models/fusion.py``: per-modality masked
+attention + masked MLP residual blocks (batched modality-major), a joint
+masked block over the concatenated [RGB|NIR|TIR] tokens, output LayerNorm
+and re-mask. Masking as in the reference: tokens multiplied by the mask
+before qkv and fc1, logits filled with -65504 where ``mask_q * mask_k == 0``,
+attention rows multiplied by the query mask. LayerNorm eps is torch's default
+1e-5 and every Linear is bias-free. Attention goes through K3
+(:func:`~editor_tpu_torch.ops.masked_attention_qkv`) or, with
+``use_kernels=False``, its plain version. The OCFR loss and the MoE joint MLP
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import operator
+from typing import List
+
+import torch
+from torch import nn
+
+from editor_tpu_torch import ops
+from editor_tpu_torch.models.layers import LayerNorm, Linear, gelu
+from editor_tpu_torch.ops._checks import compute_dtype
+
+LN_EPS = 1e-5  # torch nn.LayerNorm default (BlockMask uses the default)
+MODALITY_NAMES = ("R", "N", "T")
+
+
+class MaskedAttention(nn.Module):
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.qkv = Linear(dim, 3 * dim, bias=False, device=device)
+        self.proj = Linear(dim, dim, bias=False, device=device)
+
+
+class MaskedMlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, device=None):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden, bias=False, device=device)
+        self.fc2 = Linear(hidden, dim, bias=False, device=device)
+
+
+class ClassCenters(nn.Module):
+    """OCFR class-center memory (training state, kept for strict loading)."""
+
+    def __init__(self, num_classes: int, dim: int, device=None):
+        super().__init__()
+        for name in ("RGB", "NIR", "TIR"):
+            self.register_buffer(f"{name}_centers",
+                                 torch.zeros(num_classes, dim, device=device))
+
+
+def _tile_mask(mask: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """Repeat a [B, n, 1] mask along tokens when the sequence is a k x concat."""
+    if mask.shape[1] != n_tokens:
+        mask = mask.repeat(1, n_tokens // mask.shape[1], 1)
+    return mask
+
+
+def _attention(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+               use_kernels: bool) -> torch.Tensor:
+    scale = (qkv.shape[-1] // 3 // num_heads) ** -0.5
+    fn = ops.masked_attention_qkv if use_kernels else ops.masked_attention_qkv_plain
+    return fn(qkv, mask, num_heads, scale, ops.MASK_FILL)
+
+
+def _ln_modal(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over [M, B, n, C] with per-modality affine [M, C]."""
+    cd = compute_dtype(x.dtype)
+    y = torch.nn.functional.layer_norm(x.to(cd), x.shape[-1:], eps=LN_EPS)
+    y = y * weight[:, None, None, :].to(cd) + bias[:, None, None, :].to(cd)
+    return y.to(x.dtype)
+
+
+def _linear_modal(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """[M, B, n, C] @ per-modality torch-layout weights [M, D, C]^T (no bias),
+    as one batched matmul over [M, B*n, C]: a broadcast [M, 1, C, D] weight
+    would be materialised B times by ``torch.matmul``."""
+    M, B, n, C = x.shape
+    y = torch.bmm(x.reshape(M, B * n, C), weight.to(x.dtype).transpose(1, 2))
+    return y.reshape(M, B, n, -1)
+
+
+class BlockMask(nn.Module):
+    """Parameter names follow the reference ``BlockMask`` (``FUSE_block.*``)."""
+
+    def __init__(self, dim: int, num_classes: int, mlp_ratio: float = 4.0,
+                 num_heads: int = 12, device=None):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.num_heads = num_heads
+        for mod in MODALITY_NAMES:
+            setattr(self, f"norm{mod}", LayerNorm(dim, LN_EPS, device=device))
+            setattr(self, f"attn{mod}", MaskedAttention(dim, device=device))
+            setattr(self, f"norm{mod}_", LayerNorm(dim, LN_EPS, device=device))
+            setattr(self, f"mlp{mod}", MaskedMlp(dim, hidden, device=device))
+        self.norm1 = LayerNorm(dim, LN_EPS, device=device)
+        self.attn1 = MaskedAttention(dim, device=device)
+        self.norm2 = LayerNorm(dim, LN_EPS, device=device)
+        self.mlp = MaskedMlp(dim, hidden, device=device)
+        self.out_norm = LayerNorm(dim, LN_EPS, device=device)
+        self.memory_cls = ClassCenters(num_classes, dim, device=device)
+
+    def _stack(self, fmt: str, path: str, M: int) -> torch.Tensor:
+        """One parameter of the first M per-modality modules, stacked: [M, ...]."""
+        get = operator.attrgetter(path)
+        return torch.stack([get(getattr(self, fmt.format(m))) for m in MODALITY_NAMES[:M]])
+
+    def _modal_blocks(self, feats: List[torch.Tensor], mask: torch.Tensor,
+                      use_kernels: bool) -> List[torch.Tensor]:
+        """The per-modality masked attention + MLP residual blocks, batched
+        modality-major over a [M, B, n, C] stack (same math as M calls)."""
+        X = torch.stack(feats)
+        M, B, n, C = X.shape
+        m4 = mask[None].to(X.dtype)                # [1, B, n, 1]
+        mask_flat = mask[..., 0].repeat(M, 1)      # [M*B, n]
+        y = _ln_modal(X, self._stack("norm{}", "weight", M),
+                      self._stack("norm{}", "bias", M))
+        qkv = _linear_modal(y * m4, self._stack("attn{}", "qkv.weight", M))
+        out = _attention(qkv.reshape(M * B, n, 3 * C), mask_flat, self.num_heads,
+                         use_kernels)
+        X = X + _linear_modal(out.reshape(M, B, n, C),
+                              self._stack("attn{}", "proj.weight", M))
+        y = _ln_modal(X, self._stack("norm{}_", "weight", M),
+                      self._stack("norm{}_", "bias", M))
+        h = gelu(_linear_modal(y * m4, self._stack("mlp{}", "fc1.weight", M)))
+        X = X + _linear_modal(h, self._stack("mlp{}", "fc2.weight", M))
+        return list(X.unbind(0))
+
+    def forward(self, modal_feats: List[torch.Tensor], mask_patches: torch.Tensor,
+                use_kernels: bool = True) -> torch.Tensor:
+        """modal_feats: 2-3 per-modality [B, 1+P, C]; mask_patches: [B, P, 1]
+        float union mask (no cls entry). Returns fused [B, M(1+P), C]."""
+        B = modal_feats[0].shape[0]
+        dtype = modal_feats[0].dtype
+        ones = torch.ones((B, 1, 1), dtype=mask_patches.dtype, device=mask_patches.device)
+        mask = torch.cat([ones, mask_patches], dim=1)  # [B, 1+P, 1]
+        refined = self._modal_blocks(modal_feats, mask, use_kernels)
+
+        x = torch.cat(refined, dim=1)
+        m = _tile_mask(mask, x.shape[1]).to(dtype)
+        qkv = self.attn1.qkv(self.norm1(x) * m)
+        x = x + self.attn1.proj(_attention(qkv, m[..., 0], self.num_heads, use_kernels))
+        x = x + self.mlp.fc2(gelu(self.mlp.fc1(self.norm2(x) * m)))
+        return self.out_norm(x) * m

@@ -1,0 +1,157 @@
+"""Where the time of the flagship eval forward goes on one CUDA device.
+
+    python3 -m editor_tpu_torch.tools.profile_forward [--batch 128 1] [--iters 10]
+
+For each batch size: the forward's time per call from CUDA events over
+``--iters`` back-to-back calls of ``build_eval_step`` (bf16, seeded random
+weights and images) after two warm-ups, images per second, peak device
+memory, and a ``torch.profiler`` trace of ``--profile-iters`` more calls. The
+trace's device time is grouped per forward into the port's kernels (K1-K3),
+GEMMs, LayerNorm, GELU, the patch conv and the remaining elementwise and copy
+kernels; the device's idle share is 1 - (device busy time / event time). The
+card's name and power limit head the output; the full per-kernel tables go to
+``--out`` (by default the git-ignored
+``editor_tpu_torch/_build/profile_forward.txt``). Exits non-zero without a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+# the first pattern that matches the lower-case kernel name wins; the conv
+# comes before the GEMMs because cuDNN's conv kernels are implicit GEMMs
+CATEGORIES = (
+    ("K1 attention_qkv", r"attention_qkv_kernel"),
+    ("K2 rollout_chain", r"rollout_chain_kernel"),
+    ("K3 masked_attention", r"masked_attention_kernel"),
+    ("patch conv (cuDNN)", r"fprop|cudnn|nchw|nhwc|conv(?!ert)"),
+    ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|cublas"),
+    ("LayerNorm", r"layer_?norm"),
+    ("GELU", r"gelu"),
+)
+OTHER = "other elementwise / copy / reduce"
+
+
+def category(kernel_name: str) -> str:
+    name = kernel_name.lower()
+    for label, pattern in CATEGORIES:
+        if re.search(pattern, name):
+            return label
+    return OTHER
+
+
+def _batch(gen: torch.Generator, B: int, size) -> dict:
+    batch = {m: torch.randn(B, *size, 3, generator=gen, device="cuda")
+             for m in ("RGB", "NI", "TI")}
+    batch["camid"] = torch.arange(B, device="cuda") % 6
+    return batch
+
+
+def _event_ms(fn, iters: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_kernels(prof) -> list:
+    """(name, self device ms, launches) of every device kernel in the trace."""
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        if us > 0:
+            rows.append((evt.key, us / 1e3, evt.count))
+    if not rows:
+        raise RuntimeError("the profiler recorded no device time; time with CUDA events")
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_batch(step, gen, B: int, size, iters: int, profile_iters: int,
+                  log) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = _batch(gen, B, size)
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _event_ms(lambda: step(batch), iters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(profile_iters):
+            step(batch)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    groups: dict = {}
+    for name, kms, count in kernels:
+        g = groups.setdefault(category(name), [0.0, 0])
+        g[0] += kms / profile_iters
+        g[1] += count / profile_iters
+    busy = sum(g[0] for g in groups.values())
+    log(f"== B={B}: {ms:.3f} ms per forward (CUDA events, {iters} calls), "
+        f"{B / ms * 1e3:.1f} img/s, peak {peak_gb:.3f} GB; device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / ms:.3f}")
+    log(f"{'category':36s} {'ms/fwd':>9s} {'share':>7s} {'launches/fwd':>13s}")
+    for label, (gms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"{label:36s} {gms:9.3f} {gms / busy:7.1%} {n:13.1f}")
+    return dict(B=B, ms=ms, img_s=B / ms * 1e3, peak_gb=peak_gb, busy_ms=busy,
+                idle_share=1 - busy / ms,
+                launches=sum(g[1] for g in groups.values()),
+                groups={k: round(v[0], 4) for k, v in groups.items()},
+                kernels=[(n, kms / profile_iters, c / profile_iters)
+                         for n, kms, c in kernels])
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, nargs="+", default=[128, 1])
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--profile-iters", type=int, default=3)
+    ap.add_argument("--out", default="editor_tpu_torch/_build/profile_forward.txt")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("profile_forward: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.models.editor import flagship_config
+    from editor_tpu_torch.models.init import editor_init
+
+    cfg = flagship_config()
+    step = build_eval_step(editor_init(cfg, seed=0, device="cuda"), torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = [profile_batch(step, gen, B, cfg.vit.img_size, args.iters,
+                             args.profile_iters, lambda s: print(s, flush=True))
+               for B in args.batch]
+
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with out.open("w") as f:
+        f.write(card + "\n")
+        for r in results:
+            f.write(f"\n== B={r['B']}: per forward, self device time\n")
+            for name, kms, count in r["kernels"]:
+                f.write(f"{kms:10.4f} ms {count:7.1f}x  [{category(name)}] {name}\n")
+    print(json.dumps({"card": card, "results": [
+        {k: v for k, v in r.items() if k != "kernels"} for r in results]}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,32 @@
+"""The forward profiler's kernel grouping, and its refusal to run without a
+CUDA device."""
+
+import pytest
+import torch
+
+from editor_tpu_torch.tools import profile_forward as pf
+
+
+@pytest.mark.parametrize("name, label", [
+    ("attention_qkv_kernel(__nv_bfloat16 const*, ...)", "K1 attention_qkv"),
+    ("rollout_chain_kernel(__nv_bfloat16 const*, float*, int, int, int)", "K2 rollout_chain"),
+    ("masked_attention_kernel(__nv_bfloat16 const*, float const*, ...)", "K3 masked_attention"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "patch conv (cuDNN)"),
+    ("nvjet_hsh_128x256_64x4_2x1_v_bz_coopB_TNN", "GEMM (cuBLAS)"),
+    ("void cutlass::Kernel2<cutlass_80_wmma_tensorop_bf16_s161616gemm>", "GEMM (cuBLAS)"),
+    ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float>",
+     "LayerNorm"),
+    ("void at::native::vectorized_elementwise_kernel<4, GeluCUDAKernelImpl>", "GELU"),
+    # a dtype conversion is not a convolution
+    ("void at::native::unrolled_elementwise_kernel<direct_copy_kernel_cuda, convert>",
+     pf.OTHER),
+])
+def test_kernel_categories(name, label):
+    assert pf.category(name) == label
+
+
+def test_exits_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        pf.main([])
+    assert exc.value.code != 0
