@@ -1,0 +1,268 @@
+// The attention backward shared by K4 (csrc/attention_qkv_bwd.cu, the VJP of
+// K1) and K5 (csrc/masked_attention_bwd.cu, the VJP of K3): for one (head,
+// sequence) pair, d(softmax(q k^T * scale) v)/d(qkv) in the raw qkv layout.
+//
+// Contract (the plain versions are attention_qkv_bwd_plain and
+// masked_attention_qkv_bwd_plain in editor_tpu_torch/ops/):
+//   qkv  [B, N, 3C] bf16, g [B, N, C] bf16 (cotangent of the [B, N, C] output)
+//   dqkv [B, N, 3C] bf16, written in place into the q, k and v column slices
+//   pst, dlst [B * H, N, N] bf16 global scratch: the rounded probabilities and
+//   logit cotangents of every row, written by the row pass and read back by
+//   the column pass of the same block (the caller allocates them).
+// Math per query row n (fp32 sums):
+//   p = softmax(l), l = q_n . k_m * scale  (masked: fill where mask_m == 0)
+//   dp_m = g_n . v_m, r = sum_m dp_m p_m, dl_m = p_m (dp_m - r) scale
+//   dq_n = sum_m dl_m k_m;  dk_m = sum_n dl_{n,m} q_n;  dv_m = sum_n p_{n,m} g_n
+// Rounding points of the TPU kernels: p and dl are rounded to bf16 before the
+// three products, except (unmasked K4 only) the cls key m = 0, whose p and dl
+// stay fp32, as in _qkv_bwd_kernel's split cls/patch form. Masked (K5): a
+// query row with mask 0 gets exactly zero gradient and contributes nothing;
+// a masked key of a valid row gets p = 0 exactly (exp underflow), hence zero
+// dk and dv, as in _qkv_masked_full_bwd_kernel.
+//
+// What bounds it on the H100: 10 B H N^2 D FLOP (the recomputed logits, dp,
+// dq, dk, dv) against qkv + g + dqkv = 8 B N C bytes; 49 GFLOP and 0.53 GB
+// for K4 at [384, 129]. This first version runs every product on the CUDA
+// cores in fp32 (no mma/wgmma), so FMA issue and shared-memory reads bound
+// it, not the bytes.
+//
+// Design: one block per (head, sequence) pair, 4 warps, two passes.
+//  * Row pass: the head's k and v slices are staged in padded shared memory
+//    (as in K1/K3). Each warp owns one query row at a time: lanes over keys
+//    for the logits, the softmax and dp (fp32 q and g rows broadcast from the
+//    warp's scratch), then over head-dim pairs for dq = dl . k, written
+//    straight into dqkv. The row's rounded p and dl go to the global scratch,
+//    coalesced along the row.
+//  * Column pass: q and g of the head replace k and v in shared memory. The
+//    block loads 32 columns of p and dl at a time (all N rows, bf16) into a
+//    shared tile; each warp owns 8 of those columns and, with lanes over
+//    head-dim pairs, accumulates dk and dv for all 8 at once, so each q and g
+//    pair read from shared memory feeds 32 FMAs.
+// The scratch of one block (2 N^2 bf16: 66 KB at N = 129, 279 KB at N = 264)
+// is written and read back by that block while it is still in the 50 MB L2.
+// K5 at N = 264 needs this: q, k, v, g plus fp32 dk/dv of one head would take
+// 270 KB of shared memory, over the 227 KB a block may have. Shared memory
+// here is 2 N (D + 4) bf16 + 3 N fp32 + max(row scratch, column tile):
+// 53 KB at N = 129, 109 KB at N = 264, 211 KB at N = 512.
+#pragma once
+
+#include "common.cuh"
+
+namespace editor_kernels {
+
+constexpr int kBwdWarps = 4;
+constexpr int kBwdTileCols = 32;  // columns per column-pass tile, 8 per warp
+
+__host__ __device__ inline size_t bwd_align16(size_t bytes) {
+  return (bytes + 15) & ~size_t(15);
+}
+
+struct BwdSmem {
+  size_t buf, vec, scratch, tile, total;
+};
+
+__host__ __device__ inline BwdSmem bwd_smem_layout(int N, int D) {
+  const int Np = (N + 3) & ~3;
+  BwdSmem s;
+  s.buf = bwd_align16((size_t)N * (D + kRowPad) * sizeof(bf16));
+  s.vec = bwd_align16((size_t)Np * sizeof(float));
+  s.scratch = (size_t)kBwdWarps * (2 * D + 2 * Np) * sizeof(float);
+  s.tile = 2 * (size_t)N * kBwdTileCols * sizeof(bf16);
+  const size_t un = s.scratch > s.tile ? s.scratch : s.tile;
+  s.total = 2 * s.buf + 3 * s.vec + bwd_align16(un);
+  return s;
+}
+
+// Stage the [N, D] slice at column offset `col` of rows with stride `row_stride`
+// into shared memory [N, D + kRowPad], bf16 pairs.
+__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, bf16* dst,
+                                           int N, int row_stride, int col, int D) {
+  const int ld = D + kRowPad;
+  const int D2 = D / 2;
+  for (int i = threadIdx.x; i < N * D2; i += blockDim.x) {
+    const int m = i / D2, d2 = i - m * D2;
+    reinterpret_cast<bf16x2*>(dst + m * ld)[d2] =
+        reinterpret_cast<const bf16x2*>(src + (size_t)m * row_stride + col)[d2];
+  }
+}
+
+template <bool kMasked>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                     const bf16* __restrict__ g, bf16* __restrict__ dqkv,
+                     bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
+                     int D, float scale, float fill) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int C = H * D, C3 = 3 * C;
+  const int ld = D + kRowPad;
+  const int Np = (N + 3) & ~3;
+  const int D2 = D / 2;
+  const BwdSmem lay = bwd_smem_layout(N, D);
+  bf16* buf0 = reinterpret_cast<bf16*>(smem);              // k, then q
+  bf16* buf1 = reinterpret_cast<bf16*>(smem + lay.buf);    // v, then g
+  float* mk = reinterpret_cast<float*>(smem + 2 * lay.buf);
+  float* pc = reinterpret_cast<float*>(smem + 2 * lay.buf + lay.vec);
+  float* dlc = reinterpret_cast<float*>(smem + 2 * lay.buf + 2 * lay.vec);
+  unsigned char* un = smem + 2 * lay.buf + 3 * lay.vec;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  const bf16* seq = qkv + (size_t)b * N * C3;
+  const bf16* gseq = g + (size_t)b * N * C;
+  bf16* dseq = dqkv + (size_t)b * N * C3;
+  const size_t bh = (size_t)b * H + h;
+  bf16* P = pst + bh * N * N;
+  bf16* DL = dlst + bh * N * N;
+
+  // ---- row pass: p, dp, dl and dq of every query row -------------------
+  stage_rows(seq, buf0, N, C3, C + h * D, D);
+  stage_rows(seq, buf1, N, C3, 2 * C + h * D, D);
+  for (int m = threadIdx.x; m < N; m += blockDim.x)
+    mk[m] = kMasked ? mask[(size_t)b * N + m] : 1.f;
+  __syncthreads();
+
+  float* qr = reinterpret_cast<float*>(un) + warp * (2 * D + 2 * Np);
+  float* gr = qr + D;
+  float* pr = gr + D;
+  float* wr = pr + Np;
+  for (int n = warp; n < N; n += kBwdWarps) {
+    bf16* dq_row = dseq + (size_t)n * C3 + h * D;
+    if (kMasked && mk[n] == 0.f) {  // re-masked row: exactly zero gradient
+      for (int d = lane; d < D; d += 32) dq_row[d] = __float2bfloat16(0.f);
+      continue;
+    }
+    load_q(seq, qr, n, C, h, D, lane);
+    for (int d = lane; d < D; d += 32)
+      gr[d] = __bfloat162float(gseq[(size_t)n * C + h * D + d]);
+    __syncwarp();
+    float mx = -INFINITY;
+    for (int m = lane; m < N; m += 32) {
+      const float s = (kMasked && mk[m] == 0.f) ? fill
+                                                 : dot_q_k(qr, buf0 + m * ld, D) * scale;
+      pr[m] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int m = lane; m < N; m += 32) {
+      const float e = expf(pr[m] - mx);
+      pr[m] = e;
+      sum += e;
+    }
+    const float inv = 1.f / warp_sum(sum);  // the max element gives 1: sum >= 1
+    float r = 0.f;
+    for (int m = lane; m < N; m += 32) {
+      const float p = pr[m] * inv;
+      const float dp = dot_q_k(gr, buf1 + m * ld, D);
+      pr[m] = p;
+      wr[m] = dp;
+      r = fmaf(dp, p, r);
+    }
+    r = warp_sum(r);
+    bf16* prow = P + (size_t)n * N;
+    bf16* dlrow = DL + (size_t)n * N;
+    for (int m = lane; m < N; m += 32) {
+      const float p = pr[m];
+      const float dl = p * (wr[m] - r) * scale;
+      if (!kMasked && m == 0) {  // K4's cls key stays fp32
+        pc[n] = p;
+        dlc[n] = dl;
+        wr[m] = dl;
+      } else {
+        const bf16 db = __float2bfloat16(dl);
+        prow[m] = __float2bfloat16(p);
+        dlrow[m] = db;
+        wr[m] = __bfloat162float(db);
+      }
+    }
+    __syncwarp();
+    weighted_v_row(wr, buf0, N, D, 1.f, dq_row, lane);  // dq = dl . k
+    __syncwarp();  // the row scratch is rewritten for the next row
+  }
+  __syncthreads();  // k, v no longer needed; every row's p and dl written
+
+  // ---- column pass: dk = dl^T q, dv = p^T g -------------------------------
+  stage_rows(seq, buf0, N, C3, h * D, D);
+  stage_rows(gseq, buf1, N, C, h * D, D);
+  bf16* tp = reinterpret_cast<bf16*>(un);
+  bf16* tl = tp + (size_t)N * kBwdTileCols;
+  for (int m0 = 0; m0 < N; m0 += kBwdTileCols) {
+    __syncthreads();  // staging done, or the previous tile consumed
+    for (int i = threadIdx.x; i < N * kBwdTileCols; i += blockDim.x) {
+      const int n = i / kBwdTileCols, c = i - n * kBwdTileCols;
+      const int m = m0 + c;
+      // masked rows were never written: load zeros in their place
+      const bool ok = m < N && mk[n] != 0.f;
+      tp[i] = ok ? P[(size_t)n * N + m] : __float2bfloat16(0.f);
+      tl[i] = ok ? DL[(size_t)n * N + m] : __float2bfloat16(0.f);
+    }
+    __syncthreads();
+    const int c0 = warp * 8;
+    for (int d2 = lane; d2 < D2; d2 += 32) {
+      float av[8][2], ak[8][2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) av[j][0] = av[j][1] = ak[j][0] = ak[j][1] = 0.f;
+      for (int n = 0; n < N; ++n) {
+        const float2 qf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf0 + n * ld)[d2]);
+        const float2 gf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf1 + n * ld)[d2]);
+        const uint4 pv = *reinterpret_cast<const uint4*>(tp + n * kBwdTileCols + c0);
+        const uint4 lv = *reinterpret_cast<const uint4*>(tl + n * kBwdTileCols + c0);
+        const unsigned pw[4] = {pv.x, pv.y, pv.z, pv.w};
+        const unsigned lw[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+        for (int j2 = 0; j2 < 4; ++j2) {
+          const float2 p2 = __bfloat1622float2(*reinterpret_cast<const bf16x2*>(&pw[j2]));
+          const float2 l2 = __bfloat1622float2(*reinterpret_cast<const bf16x2*>(&lw[j2]));
+          av[2 * j2][0] = fmaf(p2.x, gf.x, av[2 * j2][0]);
+          av[2 * j2][1] = fmaf(p2.x, gf.y, av[2 * j2][1]);
+          av[2 * j2 + 1][0] = fmaf(p2.y, gf.x, av[2 * j2 + 1][0]);
+          av[2 * j2 + 1][1] = fmaf(p2.y, gf.y, av[2 * j2 + 1][1]);
+          ak[2 * j2][0] = fmaf(l2.x, qf.x, ak[2 * j2][0]);
+          ak[2 * j2][1] = fmaf(l2.x, qf.y, ak[2 * j2][1]);
+          ak[2 * j2 + 1][0] = fmaf(l2.y, qf.x, ak[2 * j2 + 1][0]);
+          ak[2 * j2 + 1][1] = fmaf(l2.y, qf.y, ak[2 * j2 + 1][1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int m = m0 + c0 + j;
+        if (m >= N || (!kMasked && m == 0)) continue;
+        bf16* row = dseq + (size_t)m * C3 + h * D;
+        reinterpret_cast<bf16x2*>(row + C)[d2] = __floats2bfloat162_rn(ak[j][0], ak[j][1]);
+        reinterpret_cast<bf16x2*>(row + 2 * C)[d2] = __floats2bfloat162_rn(av[j][0], av[j][1]);
+      }
+    }
+  }
+  if (!kMasked && warp == 0) {  // K4's cls key from the fp32 p and dl
+    for (int d2 = lane; d2 < D2; d2 += 32) {
+      float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
+      for (int n = 0; n < N; ++n) {
+        const float2 qf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf0 + n * ld)[d2]);
+        const float2 gf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf1 + n * ld)[d2]);
+        v0 = fmaf(pc[n], gf.x, v0);
+        v1 = fmaf(pc[n], gf.y, v1);
+        k0 = fmaf(dlc[n], qf.x, k0);
+        k1 = fmaf(dlc[n], qf.y, k1);
+      }
+      reinterpret_cast<bf16x2*>(dseq + C + h * D)[d2] = __floats2bfloat162_rn(k0, k1);
+      reinterpret_cast<bf16x2*>(dseq + 2 * C + h * D)[d2] = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+template <bool kMasked>
+inline int launch_attention_bwd(const void* qkv, const void* mask, const void* g,
+                                void* dqkv, void* pst, void* dlst, int B, int N, int H,
+                                int D, float scale, float fill, void* stream) {
+  const size_t smem = bwd_smem_layout(N, D).total;
+  cudaError_t err = allow_dynamic_smem(attention_bwd_kernel<kMasked>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd_kernel<kMasked><<<dim3(H, B), kBwdWarps * 32, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
+      static_cast<const bf16*>(g), static_cast<bf16*>(dqkv), static_cast<bf16*>(pst),
+      static_cast<bf16*>(dlst), N, H, D, scale, fill);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace editor_kernels

@@ -1,1 +1,1 @@
-"""engine of the editor_tpu_torch port."""
+"""Eval and train steps of the port."""

@@ -1,10 +1,13 @@
-"""EDITOR model assembly (the tri-modal eval forward).
+"""EDITOR model assembly (the tri-modal eval and training forward).
 
 Counterpart of ``editor_tpu/models/editor.py``: one shared ViT pass over the
 modality-major 3B batch, the frequency mask, SFTS token selection, the
 compact tail (cls + at most ``_tail_keep_count`` selected patches per
 modality), the HMA fusion block, a masked mean pool and the three reduce
-heads, giving ``cls4t`` [B, 3C].
+heads, giving ``cls4t`` [B, 3C]. In training the forward also returns the
+reference's output tuple (:class:`EditorTrainOutput`): the fused BN-neck
+score, the per-modality (or AL) BN-neck heads, and the BCC + OCFR aux loss;
+the BN running stats and the OCFR centers advance in their buffers.
 
 The ``nn.Module`` tree carries exactly the reference's state_dict keys
 (``BACKBONE.base.*``, ``FUSE_block.*``, ``*_REDUCE``, ``*_HEAD``, ``*_BN``,
@@ -18,7 +21,7 @@ The ``nn.Module`` tree carries exactly the reference's state_dict keys
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -26,11 +29,22 @@ from torch import nn
 from editor_tpu_torch.models.frequency import frequency_token_select
 from editor_tpu_torch.models.fusion import BlockMask
 from editor_tpu_torch.models.layers import BatchNorm1d, Linear
-from editor_tpu_torch.models.sfts import sfts_select
+from editor_tpu_torch.models.sfts import bcc_loss, sfts_select
 from editor_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
 MODALITIES = ("RGB", "NI", "TI")
 FUSION_HEADS = 12  # editor_apply passes num_heads=12 to the fusion block
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point builds on: ``device`` when given, else the
+    current CUDA device; without a CUDA device the caller must ask for the
+    CPU explicitly."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def vit_tiny_test_config(**kw) -> ViTConfig:
@@ -75,6 +89,16 @@ def flagship_config(num_classes: int = 171, camera: int = 6) -> EditorConfig:
                     drop_path_rate=0.1)
     return EditorConfig(num_classes=num_classes, vit=vit, head_keep=2,
                         frequency_keep=10)
+
+
+@dataclasses.dataclass
+class EditorTrainOutput:
+    """Training outputs in the reference's tuple protocol (``EditorTrainOutput``
+    of the JAX package)."""
+    score: torch.Tensor                 # fused classifier logits
+    cls4t: torch.Tensor                 # fused [B, M*dim] embedding
+    pairs: List[Tuple[torch.Tensor, torch.Tensor]]  # (score_i, feat_i), fused first
+    aux_loss: torch.Tensor              # BCC + OCFR, fp32
 
 
 def _tail_keep_count(cfg: EditorConfig, num_mods: int) -> int:
@@ -134,11 +158,15 @@ class _HaarFilters(nn.Module):
 
 
 class Editor(nn.Module):
+    """The EDITOR model on ``device`` (by default the current CUDA device;
+    without one, pass ``device='cpu'``)."""
+
     def __init__(self, cfg: EditorConfig, device=None):
         super().__init__()
         if cfg.moe_experts > 0:
             raise NotImplementedError("the MoE fusion MLP (moe_experts > 0) is not "
                                       "ported: use moe_experts=0")
+        device = default_device(device)
         self.cfg = cfg
         d, M = cfg.dim, cfg.num_modalities
         self.BACKBONE = Backbone(cfg.vit, device=device)
@@ -162,15 +190,19 @@ class Editor(nn.Module):
                 cam_ids: Optional[torch.Tensor] = None,
                 view_ids: Optional[torch.Tensor] = None,
                 training: bool = False, tp_mesh=None, seq_mesh=None,
-                backbone=None) -> torch.Tensor:
+                backbone=None, labels: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Union[torch.Tensor, EditorTrainOutput]:
         """images: {'RGB', 'NI', 'TI'} NHWC float tensors ('TI' optional).
-        Returns cls4t [B, M*dim] in the images' dtype.
+        Eval: returns cls4t [B, M*dim] in the images' dtype. Training
+        (``labels`` [B] required, drop path and dropout drawn from
+        ``generator``): returns an :class:`EditorTrainOutput` and advances
+        the BN running stats and OCFR centers in place.
 
-        ``training``, ``tp_mesh``, ``seq_mesh`` and ``backbone`` are the JAX
-        ``editor_apply`` options that are not ported yet: each raises."""
-        if training:
-            raise NotImplementedError("the training forward is not ported yet; "
-                                      "call with training=False")
+        ``tp_mesh``, ``seq_mesh`` and ``backbone`` are the JAX
+        ``editor_apply`` options that are not ported: each raises."""
+        if training and labels is None:
+            raise ValueError("the training forward needs labels")
         for name, value in (("tp_mesh", tp_mesh), ("seq_mesh", seq_mesh),
                             ("backbone", backbone)):
             if value is not None:
@@ -188,10 +220,23 @@ class Editor(nn.Module):
                                           window=cfg.vit.patch_size)
         cams = cam_ids.repeat(M) if cam_ids is not None else None
         views = view_ids.repeat(M) if view_ids is not None else None
-        tokens, rollout = self.BACKBONE.base(torch.cat(mods), cams, views, use_kernels)
+        tokens, rollout = self.BACKBONE.base(torch.cat(mods), cams, views, use_kernels,
+                                             training, generator)
         toks, rolls = list(tokens.split(B)), list(rollout.split(B))
 
+        head_pairs = []
+        if training:
+            cls4tri = [t[:, 0] for t in toks]
+            if cfg.al:  # AL supervision on the joint raw cls tokens
+                ori = torch.cat(cls4tri, dim=-1)
+                head_pairs.append((self.AL_HEAD(self.AL_BN(ori, True)), ori))
+            else:  # the shared BN head, per modality in order: the running
+                # stats move three times, RGB, NI, TI
+                for cls in cls4tri:
+                    head_pairs.append((self.BACKBONE_HEAD(self.BACKBONE_BN(cls, True)), cls))
+
         feats, index = sfts_select(toks, rolls, mask_fre, cfg.head_keep)
+        bcc = bcc_loss(toks, index) if training else None
         seg_len = cfg.num_patches + 1
         if cfg.compact_tail:
             keep = _tail_keep_count(cfg, M)
@@ -199,8 +244,19 @@ class Editor(nn.Module):
                 feats, index = _compact_selected(feats, index, keep)
                 seg_len = keep + 1
 
-        fused = self.FUSE_block(feats, index, use_kernels)
+        fused = self.FUSE_block(feats, index, use_kernels,
+                                labels=labels if training else None,
+                                ocfr_momentum=cfg.ocfr_momentum)
+        if training:
+            fused, ocfr_loss = fused
         pooled = _masked_mean_pool(fused, index, seg_len, M)
         heads = (self.RGB_REDUCE, self.NIR_REDUCE, self.TIR_REDUCE)[:M]
-        return torch.cat([head(torch.cat([cls, pool], dim=-1))
-                          for head, (cls, pool) in zip(heads, pooled)], dim=-1)
+        cls4t = torch.cat([head(torch.cat([cls, pool], dim=-1))
+                           for head, (cls, pool) in zip(heads, pooled)], dim=-1)
+        if not training:
+            return cls4t
+        score = self.FUSE_HEAD(self.FUSE_BN(cls4t, True))
+        # the JAX function holds the aux loss in fp32 (so an fp64 run rounds here)
+        return EditorTrainOutput(score=score, cls4t=cls4t,
+                                 pairs=[(score, cls4t)] + head_pairs,
+                                 aux_loss=(bcc + ocfr_loss).to(torch.float32))

@@ -1,4 +1,4 @@
-"""HMA: the hierarchical masked aggregation fusion block (eval path).
+"""HMA: the hierarchical masked aggregation fusion block.
 
 Counterpart of ``editor_tpu/models/fusion.py``: per-modality masked
 attention + masked MLP residual blocks (batched modality-major), a joint
@@ -7,21 +7,23 @@ and re-mask. Masking as in the reference: tokens multiplied by the mask
 before qkv and fc1, logits filled with -65504 where ``mask_q * mask_k == 0``,
 attention rows multiplied by the query mask. LayerNorm eps is torch's default
 1e-5 and every Linear is bias-free. Attention goes through K3
-(:func:`~editor_tpu_torch.ops.masked_attention_qkv`) or, with
-``use_kernels=False``, its plain version. The OCFR loss and the MoE joint MLP
-are not ported yet.
+(:func:`~editor_tpu_torch.ops.masked_attention_qkv_fn`, whose backward is K5)
+or, with ``use_kernels=False``, its plain version. In training the OCFR loss
+(:mod:`~editor_tpu_torch.models.ocfr`) runs on the refined per-modality cls
+tokens and moves the ``memory_cls`` centers. The MoE joint MLP is not ported.
 """
 
 from __future__ import annotations
 
 import operator
-from typing import List
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from editor_tpu_torch import ops
 from editor_tpu_torch.models.layers import LayerNorm, Linear, gelu
+from editor_tpu_torch.models.ocfr import ocfr_update_and_loss
 from editor_tpu_torch.ops._checks import compute_dtype
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default (BlockMask uses the default)
@@ -43,7 +45,8 @@ class MaskedMlp(nn.Module):
 
 
 class ClassCenters(nn.Module):
-    """OCFR class-center memory (training state, kept for strict loading)."""
+    """OCFR class-center memory: training state, moved in place by
+    :func:`~editor_tpu_torch.models.ocfr.ocfr_update_and_loss`."""
 
     def __init__(self, num_classes: int, dim: int, device=None):
         super().__init__()
@@ -62,7 +65,7 @@ def _tile_mask(mask: torch.Tensor, n_tokens: int) -> torch.Tensor:
 def _attention(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
                use_kernels: bool) -> torch.Tensor:
     scale = (qkv.shape[-1] // 3 // num_heads) ** -0.5
-    fn = ops.masked_attention_qkv if use_kernels else ops.masked_attention_qkv_plain
+    fn = ops.masked_attention_qkv_fn if use_kernels else ops.masked_attention_qkv_plain
     return fn(qkv, mask, num_heads, scale, ops.MASK_FILL)
 
 
@@ -130,18 +133,29 @@ class BlockMask(nn.Module):
         return list(X.unbind(0))
 
     def forward(self, modal_feats: List[torch.Tensor], mask_patches: torch.Tensor,
-                use_kernels: bool = True) -> torch.Tensor:
+                use_kernels: bool = True, labels: Optional[torch.Tensor] = None,
+                ocfr_momentum: float = 0.8
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """modal_feats: 2-3 per-modality [B, 1+P, C]; mask_patches: [B, P, 1]
-        float union mask (no cls entry). Returns fused [B, M(1+P), C]."""
+        float union mask (no cls entry). Returns fused [B, M(1+P), C]; in
+        training (``labels`` [B] given) returns (fused, OCFR loss) and moves
+        the class centers."""
         B = modal_feats[0].shape[0]
         dtype = modal_feats[0].dtype
         ones = torch.ones((B, 1, 1), dtype=mask_patches.dtype, device=mask_patches.device)
         mask = torch.cat([ones, mask_patches], dim=1)  # [B, 1+P, 1]
         refined = self._modal_blocks(modal_feats, mask, use_kernels)
+        ocfr_loss = None
+        if labels is not None:
+            mem = self.memory_cls
+            ocfr_loss = ocfr_update_and_loss(
+                [mem.RGB_centers, mem.NIR_centers, mem.TIR_centers][:len(refined)],
+                [f[:, 0] for f in refined], labels, momentum=ocfr_momentum)
 
         x = torch.cat(refined, dim=1)
         m = _tile_mask(mask, x.shape[1]).to(dtype)
         qkv = self.attn1.qkv(self.norm1(x) * m)
         x = x + self.attn1.proj(_attention(qkv, m[..., 0], self.num_heads, use_kernels))
         x = x + self.mlp.fc2(gelu(self.mlp.fc1(self.norm2(x) * m)))
-        return self.out_norm(x) * m
+        fused = self.out_norm(x) * m
+        return fused if ocfr_loss is None else (fused, ocfr_loss)

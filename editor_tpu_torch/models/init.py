@@ -35,7 +35,8 @@ def _fill(param: torch.Tensor, draw) -> None:
 
 @torch.no_grad()
 def editor_init(cfg: EditorConfig, seed: int = 0, device=None) -> Editor:
-    """A new :class:`Editor` on ``device`` with seeded random weights."""
+    """A new :class:`Editor` with seeded random weights, on ``device``: by
+    default the current CUDA device; without one, pass ``device='cpu'``."""
     model = Editor(cfg, device=device)
     gen = torch.Generator().manual_seed(seed)
 

@@ -67,10 +67,41 @@ class LayerNorm(nn.Module):
         return layernorm(x, self.weight, self.bias, self.eps)
 
 
+def drop_path(x: torch.Tensor, rate: float, u: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-sample stochastic depth (``_drop_path_scan``): ``u`` holds one
+    uniform [0, 1) draw per sample, shaped to broadcast over ``x`` (None in
+    eval: identity). A sample survives when ``keep + u >= 1`` and is scaled
+    by 1/keep. Like the JAX function, the branch is rounded through fp32
+    even at rate 0 (so an fp64 run keeps fp32 precision there)."""
+    if u is None:
+        return x
+    keep = 1.0 - rate
+    y = x.to(torch.float32) / keep
+    if rate > 0:
+        y = y * torch.floor(keep + u)
+    return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+            ) -> torch.Tensor:
+    """Inverted dropout with an explicit generator (identity at rate 0 or
+    without a generator, as ``layers.dropout`` without a key)."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 class BatchNorm1d(nn.Module):
-    """Parameters and running stats of a BN-neck head, kept so that a
-    checkpoint loads strictly. The eval output (``cls4t``) never uses it:
-    the heads it feeds score training losses only."""
+    """BN-neck head over [B, C] (``layers.batchnorm1d``): in training it
+    normalises with the biased batch variance and moves the running stats by
+    ``momentum`` towards the batch mean and the unbiased batch variance, in
+    place (``num_batches_tracked`` counts the updates, as torch's does); in
+    eval it normalises with the running stats. Math in at least fp32, the
+    output in x's dtype."""
+
+    eps, momentum = 1e-5, 0.1  # torch's defaults, as batchnorm1d_init
 
     def __init__(self, dim: int, device=None):
         super().__init__()
@@ -80,3 +111,22 @@ class BatchNorm1d(nn.Module):
         self.register_buffer("running_var", torch.empty(dim, device=device))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
+
+    def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        cd = compute_dtype(x.dtype)
+        xf = x.to(cd)
+        if training:
+            mu = xf.mean(dim=0)
+            var = (xf - mu).square().mean(dim=0)
+            n = x.shape[0]
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var.detach() * (n / max(n - 1, 1))
+                rm, rv = self.running_mean, self.running_var
+                rm.copy_((1 - m) * rm + m * mu.detach().to(rm.dtype))
+                rv.copy_((1 - m) * rv + m * unbiased.to(rv.dtype))
+                self.num_batches_tracked += 1
+        else:
+            mu, var = self.running_mean.to(cd), self.running_var.to(cd)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (y * self.weight.to(cd) + self.bias.to(cd)).to(x.dtype)

@@ -1,9 +1,10 @@
-"""SFTS: spatial-frequency token selection (eval path).
+"""SFTS: spatial-frequency token selection.
 
 Counterpart of ``editor_tpu/models/sfts.py``: per-head top-k of each
 modality's rollout cls row, OR-ed over heads, across modalities and with the
-frequency mask; the union multiplies the patch tokens. The background
-consistency loss (BCC) is training-only and not ported yet.
+frequency mask; the union multiplies the patch tokens. In training,
+:func:`bcc_loss` adds the background consistency loss (``sfts_select``'s
+``bcc``).
 """
 
 from __future__ import annotations
@@ -34,3 +35,18 @@ def sfts_select(feats: List[torch.Tensor], rollouts: List[torch.Tensor],
     index = union[:, :, None].to(feats[0].dtype)
     masked = [torch.cat([f[:, :1], f[:, 1:] * index], dim=1) for f in feats]
     return masked, index
+
+
+def bcc_loss(feats: List[torch.Tensor], index: torch.Tensor) -> torch.Tensor:
+    """Background consistency (BCC): the sum over modality pairs of the mean
+    squared difference of their background patch tokens (patches outside the
+    union ``index`` [B, P, 1]), from the unmasked per-modality [B, 1+P, C]
+    tokens. In fp32 whatever the tokens' dtype, as the JAX function computes
+    it (so an fp64 run rounds here too)."""
+    bg = (1.0 - index).to(torch.float32)
+    bgs = [f[:, 1:].to(torch.float32) * bg for f in feats]
+    loss = torch.zeros((), dtype=torch.float32, device=index.device)
+    for i in range(len(bgs)):
+        for j in range(i + 1, len(bgs)):
+            loss = loss + (bgs[i] - bgs[j]).square().mean()
+    return loss

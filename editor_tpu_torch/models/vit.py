@@ -1,4 +1,4 @@
-"""ViT backbone for object ReID (eval forward).
+"""ViT backbone for object ReID (eval and training forward).
 
 Counterpart of ``editor_tpu/models/vit.py``: patch embed (a strided conv),
 cls token, learned pos embed, SIE camera/view embedding scaled by
@@ -7,23 +7,37 @@ the attention rollout that SFTS consumes. Public layout as in JAX: NHWC
 images in, ``[B, 1+P, C]`` tokens and a ``[B, H, P]`` rollout out.
 
 Each block's attention runs from the raw ``[B, N, 3C]`` qkv through K1
-(:func:`~editor_tpu_torch.ops.attention_qkv`), which writes that layer's
-probabilities into one stacked ``[L, B, H, N, N]`` buffer; K2
+(:func:`~editor_tpu_torch.ops.attention_qkv_fn`, whose backward is K4),
+which writes that layer's probabilities into one stacked ``[L, B, H, N, N]``
+buffer outside the autograd graph; K2
 (:func:`~editor_tpu_torch.ops.rollout_chain`) reduces the stack. With
-``use_kernels=False`` the plain versions run instead, on any device.
+``use_kernels=False`` the plain versions run instead, on any device, and
+autograd differentiates them directly.
+
+Training adds per-sample stochastic depth at ``linspace(0, drop_path_rate,
+depth)`` per block (one fp32 uniform draw per sample and branch, drawn for
+all blocks up front from the caller's generator), dropout where
+``drop_rate > 0``, and, with ``remat``, ``torch.utils.checkpoint`` around
+each block (the JAX ``"block"`` policy; the drop-path draws are made before
+the checkpoint so the recompute sees the same masks, and dropout, whose
+masks would be redrawn, raises with it). Attention dropout
+(``attn_drop_rate > 0`` in training) has no kernel and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from editor_tpu_torch import ops
-from editor_tpu_torch.models.layers import LayerNorm, Linear, gelu, new_param
+from editor_tpu_torch.models.layers import (LayerNorm, Linear, drop_path, dropout, gelu,
+                                            new_param)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +60,8 @@ class ViTConfig:
     sie_xishu: float = 3.0
     ln_eps: float = 1e-6
     num_fc_classes: int = 1000  # legacy ImageNet head kept for checkpoint parity
-    # activation recompute options of the JAX train step (training is not
-    # ported yet; kept so configs transfer)
+    # activation recompute of the train step: "block" is torch.utils.checkpoint
+    # around each block (the first depth - remat_skip_last blocks)
     remat: bool = False
     remat_policy: str = "block"
     remat_skip_last: int = 0
@@ -105,8 +119,10 @@ class Mlp(nn.Module):
         self.fc1 = Linear(cfg.embed_dim, hid, device=device)
         self.fc2 = Linear(hid, cfg.embed_dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = dropout(gelu(self.fc1(x)), rate, generator)
+        return dropout(self.fc2(y), rate, generator)
 
 
 class Block(nn.Module):
@@ -118,18 +134,24 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(cfg.embed_dim, cfg.ln_eps, device=device)
         self.mlp = Mlp(cfg, device=device)
 
-    def forward(self, x: torch.Tensor, probs_out: torch.Tensor,
-                use_kernels: bool) -> torch.Tensor:
-        """Pre-LN block; writes this layer's attention maps into probs_out."""
+    def forward(self, x: torch.Tensor, probs_out: torch.Tensor, use_kernels: bool,
+                rate: float = 0.0, u: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Pre-LN block; writes this layer's attention maps into probs_out.
+
+        Training: ``u`` [2, B, 1, 1] holds the drop-path draws of the two
+        branches at this block's ``rate``; ``generator`` feeds dropout."""
         cfg = self.cfg
         qkv = self.attn.qkv(self.norm1(x))
         if use_kernels:
-            out, _ = ops.attention_qkv(qkv, cfg.num_heads, cfg.scale, probs_out)
+            out, _ = ops.attention_qkv_fn(qkv, cfg.num_heads, cfg.scale, probs_out)
         else:
             out, probs = ops.attention_qkv_plain(qkv, cfg.num_heads, cfg.scale, True)
-            probs_out.copy_(probs)
-        x = x + self.attn.proj(out)
-        return x + self.mlp(self.norm2(x))
+            probs_out.copy_(probs.detach())  # the rollout stays outside the graph
+        mid = dropout(self.attn.proj(out), cfg.drop_rate, generator)
+        x = x + drop_path(mid, rate, None if u is None else u[0])
+        mlp = self.mlp(self.norm2(x), cfg.drop_rate, generator)
+        return x + drop_path(mlp, rate, None if u is None else u[1])
 
 
 class VisionTransformer(nn.Module):
@@ -178,19 +200,44 @@ class VisionTransformer(nn.Module):
         return tokens + cfg.sie_xishu * self.sie_embed[row].to(tokens.dtype)
 
     def forward(self, x: torch.Tensor, camera_id: Optional[torch.Tensor] = None,
-                view_id: Optional[torch.Tensor] = None, use_kernels: bool = True
+                view_id: Optional[torch.Tensor] = None, use_kernels: bool = True,
+                training: bool = False, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, H, W, 3] NHWC -> (tokens [B, 1+P, C], rollout [B, H, P]).
 
         The rollout is at least fp32: the patch part of the cls row of
-        A_{L-1} @ ... @ A_0 (SFTS's ``last_map[:, :, 0, 1:]``)."""
+        A_{L-1} @ ... @ A_0 (SFTS's ``last_map[:, :, 0, 1:]``). In training
+        the random draws come from ``generator`` (on x's device)."""
         cfg = self.cfg
+        if training and cfg.attn_drop_rate > 0:
+            raise NotImplementedError("attention dropout (attn_drop_rate > 0) is not "
+                                      "ported: the attention kernels have none")
+        if cfg.remat and cfg.remat_policy != "block":
+            raise NotImplementedError(f"remat policy {cfg.remat_policy!r} is not "
+                                      "ported: use 'block'")
+        if training and cfg.remat and cfg.drop_rate > 0:
+            raise NotImplementedError("remat with dropout (drop_rate > 0) is not "
+                                      "ported: the recompute would redraw the masks")
         tokens = self.embed(x, camera_id, view_id)
         B, N, _ = tokens.shape
+        if training:
+            tokens = dropout(tokens, cfg.drop_rate, generator)
+            rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.depth,
+                                   dtype=torch.float64).tolist()
+            draws = torch.rand((cfg.depth, 2, B, 1, 1), generator=generator,
+                               device=tokens.device, dtype=torch.float32)
+        n_remat = (max(cfg.depth - cfg.remat_skip_last, 0)
+                   if training and cfg.remat else 0)
         probs = torch.empty((cfg.depth, B, cfg.num_heads, N, N), dtype=tokens.dtype,
                             device=tokens.device)
         for l, blk in enumerate(self.blocks):
-            tokens = blk(tokens, probs[l], use_kernels)
+            # the probs slice rides in the closure: the recompute writes it
+            # again, which a checkpointed input may not see
+            run = functools.partial(blk, probs_out=probs[l], use_kernels=use_kernels)
+            if training:
+                run = functools.partial(run, rate=rates[l], u=draws[l], generator=generator)
+            tokens = (checkpoint(run, tokens, use_reentrant=False) if l < n_remat
+                      else run(tokens))
         tokens = self.norm(tokens)
         rollout = (ops.rollout_chain(probs) if use_kernels
                    else ops.rollout_from_probs_plain(probs))

@@ -41,6 +41,10 @@ SIGNATURES = {
     "editor_rollout_chain": [_P, _P, _I, _I, _I, _P],
     # qkv, mask, out, B, N, H, D, scale, fill, stream
     "editor_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # qkv, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, stream
+    "editor_attention_qkv_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, stream
+    "editor_masked_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -7,7 +7,11 @@ rollout (K2, :mod:`editor_tpu_torch.ops.rollout`) reads.
 
 On a CUDA tensor :func:`attention_qkv` launches the hand-written kernel
 ``csrc/attention_qkv.cu`` (bf16 only) or raises; on a CPU tensor it runs
-:func:`attention_qkv_plain`.
+:func:`attention_qkv_plain`. Its VJP (K4) is :func:`attention_qkv_bwd`:
+``csrc/attention_qkv_bwd.cu`` on a CUDA tensor, :func:`attention_qkv_bwd_plain`
+on a CPU tensor. :func:`attention_qkv_fn` joins the two under autograd for
+the train step; the probabilities it writes carry no gradient, as in the JAX
+``custom_vjp`` (they only feed the rollout's top-k).
 """
 
 from __future__ import annotations
@@ -37,6 +41,36 @@ def attention_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float,
     out = torch.matmul(probs.to(cd), v.to(cd)).to(qkv.dtype)
     out = out.transpose(1, 2).reshape(B, N, C)
     return (out, probs) if with_probs else out
+
+
+def attention_qkv_bwd_plain(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
+                            scale: float) -> torch.Tensor:
+    """The VJP of :func:`attention_qkv_plain`'s output: qkv [B, N, 3C], g
+    [B, N, C] -> dqkv [B, N, 3C] in qkv.dtype.
+
+    Explicit softmax VJP in at least fp32 (the math of ``jax.vjp`` of
+    ``_xla_attention_qkv``), rounded to qkv.dtype where the TPU kernel
+    ``_qkv_bwd_kernel`` rounds: the patch-key probabilities before p^T g and
+    the logit cotangents before dq and dk; the cls key's stay unrounded."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    H, D = num_heads, C // num_heads
+    cd = compute_dtype(qkv.dtype)
+    q, k, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4).to(cd)  # [B, H, N, D]
+    gh = g.reshape(B, N, H, D).transpose(1, 2).to(cd)
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    cls_key = torch.arange(N, device=qkv.device) == 0
+
+    def rnd(t):  # the TPU kernel's rounding, cls-key column kept
+        return torch.where(cls_key, t, t.to(qkv.dtype).to(cd))
+
+    dv = torch.matmul(rnd(p).transpose(-1, -2), gh)
+    dp = torch.matmul(gh, v.transpose(-1, -2))
+    dl = rnd(p * (dp - (dp * p).sum(-1, keepdim=True)) * scale)
+    dq = torch.matmul(dl, k)
+    dk = torch.matmul(dl.transpose(-1, -2), q)
+    return torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(
+        B, N, C3).to(qkv.dtype)
 
 
 def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -82,3 +116,69 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
 
 
 attention_qkv.launches = 0
+
+
+def attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
+                      scale: float) -> torch.Tensor:
+    """K4: dqkv [B, N, 3C] from qkv [B, N, 3C] and the output's cotangent g
+    [B, N, C]. CUDA: ``csrc/attention_qkv_bwd.cu`` (bf16, contiguous); CPU:
+    :func:`attention_qkv_bwd_plain`."""
+    B, N, C3 = qkv.shape
+    if C3 % (3 * num_heads):
+        raise ValueError(f"qkv width {C3} is not 3 x heads ({num_heads}) x D")
+    if g.shape != (B, N, C3 // 3):
+        raise ValueError(f"g {tuple(g.shape)} != {(B, N, C3 // 3)}")
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_plain(qkv, g, num_heads, scale)
+    D = C3 // 3 // num_heads
+    check_kernel_tensor("attention_qkv_bwd qkv", qkv, 3, D, N, align=4)
+    check_kernel_tensor("attention_qkv_bwd g", g, 3, D, N, align=4)
+    from editor_tpu_torch.ops import _build
+
+    dqkv = torch.empty_like(qkv)
+    # per-(b, h) scratch of the rounded p and dl rows (csrc/attention_bwd.cuh)
+    pst = torch.empty((B * num_heads, N, N), dtype=qkv.dtype, device=qkv.device)
+    dlst = torch.empty_like(pst)
+    code = _build.library().editor_attention_qkv_bwd(
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), pst.data_ptr(), dlst.data_ptr(),
+        B, N, num_heads, D, float(scale),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(code, "attention_qkv_bwd")
+    attention_qkv_bwd.launches += 1
+    return dqkv
+
+
+attention_qkv_bwd.launches = 0
+
+
+class _AttentionQKV(torch.autograd.Function):
+    """K1 forward, K4 backward; the probs output is non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, probs_box):
+        out, probs = attention_qkv(qkv, num_heads, scale, probs_box[0])
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        if probs is None:
+            return out
+        ctx.mark_non_differentiable(probs)
+        return out, probs
+
+    @staticmethod
+    def backward(ctx, g_out, *_g_probs):  # the probs cotangent is dropped
+        (qkv,) = ctx.saved_tensors
+        dqkv = attention_qkv_bwd(qkv, g_out.contiguous(), ctx.num_heads, ctx.scale)
+        return dqkv, None, None, None
+
+
+def attention_qkv_fn(qkv: torch.Tensor, num_heads: int, scale: float,
+                     probs_out: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`attention_qkv` under autograd, with :func:`attention_qkv_bwd` as
+    its backward. Returns (out, probs_out); the probabilities written into
+    ``probs_out`` carry no gradient. (``probs_out`` rides in a tuple so that
+    autograd does not count the buffer as an input of the graph.)"""
+    res = _AttentionQKV.apply(qkv, num_heads, scale, (probs_out,))
+    if probs_out is None:
+        return res, None
+    return res

@@ -32,9 +32,12 @@ CATEGORIES = (
     ("K1 attention_qkv", r"attention_qkv_kernel"),
     ("K2 rollout_chain", r"rollout_chain_kernel"),
     ("K3 masked_attention", r"masked_attention_kernel"),
-    ("patch conv (cuDNN)", r"fprop|cudnn|nchw|nhwc|conv(?!ert)"),
+    ("K4 attention_qkv_bwd", r"attention_bwd_kernel<false>"),
+    ("K5 masked_attention_bwd", r"attention_bwd_kernel<true>"),
+    ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
+    ("patch conv (cuDNN)", r"fprop|dgrad|wgrad|cudnn|nchw|nhwc|conv(?!ert)"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|cublas"),
-    ("LayerNorm", r"layer_?norm"),
+    ("LayerNorm", r"layer_?norm|gamma_?beta"),
     ("GELU", r"gelu"),
 )
 OTHER = "other elementwise / copy / reduce"
@@ -80,20 +83,22 @@ def _device_kernels(prof) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profile_batch(step, gen, B: int, size, iters: int, profile_iters: int,
-                  log) -> dict:
+def profile_calls(call, B: int, iters: int, profile_iters: int, log,
+                  what: str = "forward") -> dict:
+    """Time ``call()`` (one forward or one train step of B images) with CUDA
+    events after two warm-ups, then trace ``profile_iters`` more calls and
+    group the device time per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = _batch(gen, B, size)
     for _ in range(2):
-        step(batch)
+        call()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = _event_ms(lambda: step(batch), iters)
+    ms = _event_ms(call, iters)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(profile_iters):
-            step(batch)
+            call()
         torch.cuda.synchronize()
     kernels = _device_kernels(prof)
     groups: dict = {}
@@ -102,12 +107,12 @@ def profile_batch(step, gen, B: int, size, iters: int, profile_iters: int,
         g[0] += kms / profile_iters
         g[1] += count / profile_iters
     busy = sum(g[0] for g in groups.values())
-    log(f"== B={B}: {ms:.3f} ms per forward (CUDA events, {iters} calls), "
+    log(f"== B={B}: {ms:.3f} ms per {what} (CUDA events, {iters} calls), "
         f"{B / ms * 1e3:.1f} img/s, peak {peak_gb:.3f} GB; device busy "
         f"{busy:.3f} ms, idle share {1 - busy / ms:.3f}")
-    log(f"{'category':36s} {'ms/fwd':>9s} {'share':>7s} {'launches/fwd':>13s}")
+    log(f"{'category':36s} {'ms/call':>9s} {'share':>7s} {'launches/call':>14s}")
     for label, (gms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"{label:36s} {gms:9.3f} {gms / busy:7.1%} {n:13.1f}")
+        log(f"{label:36s} {gms:9.3f} {gms / busy:7.1%} {n:14.1f}")
     return dict(B=B, ms=ms, img_s=B / ms * 1e3, peak_gb=peak_gb, busy_ms=busy,
                 idle_share=1 - busy / ms,
                 launches=sum(g[1] for g in groups.values()),
@@ -125,9 +130,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_forward: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = card_name()
     print(card, flush=True)
 
     from editor_tpu_torch.engine.evaluate import build_eval_step
@@ -137,16 +140,30 @@ def main(argv=None) -> None:
     cfg = flagship_config()
     step = build_eval_step(editor_init(cfg, seed=0, device="cuda"), torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = [profile_batch(step, gen, B, cfg.vit.img_size, args.iters,
-                             args.profile_iters, lambda s: print(s, flush=True))
-               for B in args.batch]
+    results = []
+    for B in args.batch:
+        batch = _batch(gen, B, cfg.vit.img_size)
+        results.append(profile_calls(lambda: step(batch), B, args.iters,
+                                     args.profile_iters, lambda s: print(s, flush=True)))
 
-    out = Path(args.out)
+    write_report(args.out, card, results, "forward")
+
+
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def write_report(path: str, card: str, results: list, what: str) -> None:
+    """The per-kernel tables to ``path``; one JSON summary line to stdout."""
+    out = Path(path)
     out.parent.mkdir(parents=True, exist_ok=True)
     with out.open("w") as f:
         f.write(card + "\n")
         for r in results:
-            f.write(f"\n== B={r['B']}: per forward, self device time\n")
+            f.write(f"\n== B={r['B']}: per {what}, self device time\n")
             for name, kms, count in r["kernels"]:
                 f.write(f"{kms:10.4f} ms {count:7.1f}x  [{category(name)}] {name}\n")
     print(json.dumps({"card": card, "results": [

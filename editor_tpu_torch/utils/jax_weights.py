@@ -4,7 +4,11 @@ The same mapping as ``editor_tpu.utils.torch_convert.export_editor_to_torch``
 without importing JAX: Linear weights [in, out] become torch's [out, in],
 the HWIO patch conv becomes OIHW, the depth-stacked block parameters become
 ``blocks.{i}.*``, BN running stats and OCFR centers come from the state, and
-the constant Haar filter buffers are added. Arrays keep their dtype.
+the constant Haar filter buffers are added. Arrays keep their dtype. A
+``(params, state)`` taken after JAX train steps maps the same way, so the
+tests compare the two packages' parameters, BN running stats and OCFR
+centers after a step through it (``num_batches_tracked``, which JAX does not
+keep, comes out 0).
 """
 
 from __future__ import annotations

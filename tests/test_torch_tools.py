@@ -1,10 +1,11 @@
-"""The forward profiler's kernel grouping, and its refusal to run without a
-CUDA device."""
+"""The forward and train profilers' kernel grouping, and their refusal to run
+without a CUDA device."""
 
 import pytest
 import torch
 
 from editor_tpu_torch.tools import profile_forward as pf
+from editor_tpu_torch.tools import profile_train as pt
 
 
 @pytest.mark.parametrize("name, label", [
@@ -17,6 +18,16 @@ from editor_tpu_torch.tools import profile_forward as pf
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float>",
      "LayerNorm"),
     ("void at::native::vectorized_elementwise_kernel<4, GeluCUDAKernelImpl>", "GELU"),
+    ("void editor_kernels::attention_bwd_kernel<false>(__nv_bfloat16 const*, ...)",
+     "K4 attention_qkv_bwd"),
+    ("void editor_kernels::attention_bwd_kernel<true>(__nv_bfloat16 const*, ...)",
+     "K5 masked_attention_bwd"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<TensorListMetadata<3>>",
+     "optimizer (foreach)"),
+    ("sm90_xmma_wgrad_implicit_gemm_indexed_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "patch conv (cuDNN)"),
+    ("void at::native::(anonymous namespace)::GammaBetaBackwardCUDAKernel<float, float>",
+     "LayerNorm"),
     # a dtype conversion is not a convolution
     ("void at::native::unrolled_elementwise_kernel<direct_copy_kernel_cuda, convert>",
      pf.OTHER),
@@ -25,8 +36,9 @@ def test_kernel_categories(name, label):
     assert pf.category(name) == label
 
 
-def test_exits_without_cuda(monkeypatch):
+@pytest.mark.parametrize("main", [pf.main, pt.main], ids=["forward", "train"])
+def test_exits_without_cuda(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
-        pf.main([])
+        main([])
     assert exc.value.code != 0

@@ -49,7 +49,7 @@ def test_bridge_loads_strictly_and_round_trips(al):
     jcfg = _tiny(al=al)
     params, state = jax_editor(jcfg, dtype=None)
     sd = state_dict_from_jax(params, state, jcfg)
-    model = Editor(torch_editor_config(jcfg))
+    model = Editor(torch_editor_config(jcfg), device="cpu")
     model.load_state_dict(sd, strict=True)
     model.load_state_dict(export_editor_to_torch(params, state, jcfg), strict=True)
     back = model.state_dict()
@@ -66,7 +66,7 @@ def test_port_init_has_the_jax_layout():
     params, state = jax.eval_shape(lambda: editor_init_jax(jcfg))
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), (params, state))
     ref = export_editor_to_torch(*zeros, jcfg)
-    got = editor_init(torch_editor_config(jcfg), seed=0).state_dict()
+    got = editor_init(torch_editor_config(jcfg), seed=0, device="cpu").state_dict()
     assert set(got) == set(ref)
     for k, v in ref.items():
         shape = () if k.endswith("num_batches_tracked") else v.shape
@@ -80,7 +80,7 @@ def test_port_init_distributions():
     from editor_tpu_torch.models.editor import flagship_config
     cfg = flagship_config()
     cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, depth=2))
-    sd = editor_init(cfg, seed=3).state_dict()
+    sd = editor_init(cfg, seed=3, device="cpu").state_dict()
     C = cfg.dim
 
     def std(k):
@@ -100,8 +100,8 @@ def test_port_init_distributions():
     for k in ("BACKBONE.base.norm.weight", "FUSE_BN.running_var", "FUSE_block.normR.weight"):
         assert torch.all(sd[k] == 1), k
     # the same seed gives the same weights; another seed others
-    again = editor_init(cfg, seed=3).state_dict()
-    other = editor_init(cfg, seed=4).state_dict()
+    again = editor_init(cfg, seed=3, device="cpu").state_dict()
+    other = editor_init(cfg, seed=4, device="cpu").state_dict()
     k = "BACKBONE.base.blocks.0.attn.qkv.weight"
     assert torch.equal(sd[k], again[k]) and not torch.equal(sd[k], other[k])
 
@@ -110,16 +110,17 @@ def test_unported_options_raise():
     jcfg = _tiny()
     cfg = torch_editor_config(jcfg)
     with pytest.raises(NotImplementedError):
-        Editor(dataclasses.replace(cfg, moe_experts=4))
+        Editor(dataclasses.replace(cfg, moe_experts=4), device="cpu")
     params, state = jax_editor(jcfg, dtype=None)
-    model = Editor(cfg)
+    model = Editor(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(params, state, jcfg))
     imgs = {m: torch.zeros(1, 64, 32, 3) for m in ("RGB", "NI", "TI")}
     cam = torch.zeros(1, dtype=torch.long)
-    for kw in (dict(training=True), dict(tp_mesh=object()), dict(seq_mesh=object()),
-               dict(backbone=object())):
+    for kw in (dict(tp_mesh=object()), dict(seq_mesh=object()), dict(backbone=object())):
         with pytest.raises(NotImplementedError):
             model(imgs, cam, **kw)
+    with pytest.raises(ValueError, match="labels"):  # training is ported; it needs labels
+        model(imgs, cam, training=True)
     moe = to_numpy_tree({"FUSE_block": {"moe_mlp": {}}})
     with pytest.raises(NotImplementedError):
         state_dict_from_jax(moe, state, jcfg)

@@ -67,7 +67,7 @@ def port_editor(jcfg, params_np, state_np, dtype=torch.float64, **overrides):
     """The port's Editor loaded (strictly) with the JAX weights."""
     from editor_tpu_torch.models.editor import Editor
     from editor_tpu_torch.utils.jax_weights import state_dict_from_jax
-    model = Editor(torch_editor_config(jcfg, **overrides)).to(dtype)
+    model = Editor(torch_editor_config(jcfg, **overrides), device="cpu").to(dtype)
     model.load_state_dict(state_dict_from_jax(params_np, state_np, jcfg), strict=True)
     return model
 
