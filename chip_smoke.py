@@ -1,20 +1,22 @@
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, each printing one line:
+Phases, each printing its lines and its seconds:
   0. card check: CUDA present, card name and power limit (nvidia-smi); TF32
      is switched off so the fp32 reference runs are true fp32;
-  1. build: nvcc compiles editor_tpu_torch/csrc/*.cu for sm_90a;
-  2. kernels: each hand-written kernel (K1-K3 forward, K4-K5 backward)
-     against its plain PyTorch version at the flagship shapes in bf16, with
-     kernel, plain and library-call times from CUDA events and the bound
-     (the least time the card could take) worked out from this run's inputs;
+  1. build: nvcc compiles editor_tpu_torch/csrc/*.cu for sm_90a, one
+     process per source, all started together;
+  2. kernels: each hand-written kernel (K1-K3 and K6 forward, K4, K5 and K7
+     backward, K8 LayerNorm -> matmul -> GELU) against its plain PyTorch
+     version at the main paths' shapes in bf16, with kernel, plain and
+     library-call times from CUDA events and the bound (the least time the
+     card could take) worked out from this run's inputs;
   3. forward: the flagship tri-modal eval forward (ViT-B/16, 256x128,
-     seeded random weights, B=128, bf16) through build_eval_step; the launch
-     counters must show every kernel ran, and the features must match the same
-     model run with the plain ops in fp32 (per-row cosine >= 0.99, rel-L2 <=
-     0.08);
+     seeded random weights, B=128, bf16, compact tail) through
+     build_eval_step; one forward launches K1 12, K2 1 and K3 2 times, and
+     the features match the same model run with the plain ops in fp32
+     (per-row cosine >= 0.99, rel-L2 <= 0.08);
   4. serving: FeatureExtractor + GalleryIndex over 64 synthetic identities;
      queries of 1, 3 and 32 repeated gallery items must each retrieve
      themselves at rank 1; batch-1 p50 latency;
@@ -25,10 +27,19 @@ Phases, each printing one line:
      the plain ops in fp32 (same weights, batch and random draws) and the
      parameter norm within 2%; losses and gradients are finite, the BN stats
      and OCFR centers move; 20 steps on one fixed batch lower the loss; step
-     time, img/s and peak memory.
-Then one JSON line with each kernel's numbers, and last the result line
-{"ok": true, "device": {...}}. Any failed check raises, so the script exits
-non-zero without the result line; it does the same without a CUDA device.
+     time, img/s and peak memory;
+  6. uncompacted: the same model with TPU.COMPACT_TAIL off (129 tokens per
+     modality, 387 joint): (a) the eval forward launches K1 12, K2 1, K6 2
+     and K3 0 times and matches the plain fp32 run as in phase 3; (b) the
+     compact and uncompacted models with the same weights, both plain fp32,
+     agree to rel-L2 <= 1e-4 (the compaction is exact); (c) the train step
+     launches K1 12, K2 1, K4 12, K6 2, K7 2 and K3, K5 0 times and matches
+     the plain fp32 run as in phase 5; (d) its time and memory.
+The model configs come from load_config(None, RGBNT201_PRESET + overrides)
+through editor_config_from. Then one JSON line with each kernel's numbers,
+and last the result line {"ok": true, "device": {...}}. Any failed check
+raises, so the script exits non-zero without the result line; it does the
+same without a CUDA device.
 """
 
 from __future__ import annotations
@@ -58,6 +69,12 @@ KERNELS = {
                               replaces="editor_tpu/ops/fused_attention.py:205"),
     "masked_attention_qkv_bwd": dict(source="editor_tpu_torch/csrc/masked_attention_bwd.cu",
                                      replaces="editor_tpu/ops/masked_attention.py:183"),
+    "masked_attention_tiled": dict(source="editor_tpu_torch/csrc/masked_attention.cu",
+                                   replaces="editor_tpu/ops/masked_attention.py:264"),
+    "masked_attention_tiled_bwd": dict(source="editor_tpu_torch/csrc/masked_attention_bwd.cu",
+                                       replaces="editor_tpu/ops/masked_attention.py:394"),
+    "ln_matmul": dict(source="editor_tpu_torch/csrc/ln_matmul.cu",
+                      replaces="editor_tpu/ops/fused_linear.py:75"),
 }
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and
 # HBM3. A bound is the larger of bytes / HBM rate and operations / peak.
@@ -158,9 +175,6 @@ def kernel_phase(gen: torch.Generator) -> dict:
     def randn(*shape, mul=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * mul).to(torch.bfloat16)
 
-    def scaled(got, ref):
-        return _max_err(got, ref, max(float(ref.float().abs().max()), 1e-6))
-
     # K1 at the backbone shape [3 x 128, 129, 3C]
     Bk, N = 3 * B_EVAL, 129
     qkv = randn(Bk, N, 3 * C)
@@ -177,7 +191,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
     if not torch.isfinite(out30.float()).all():
         raise AssertionError("attention_qkv: non-finite output at |logit| ~ 1e3")
-    e30 = scaled(out30, ref30)
+    e30 = _scaled(out30, ref30)
     _require("attention_qkv x30 (scaled)", e30, 1e-2)
     # the batch-1 serving shape [3, 129, 3C]
     q1 = randn(3, N, 3 * C)
@@ -205,13 +219,13 @@ def kernel_phase(gen: torch.Generator) -> dict:
     dq30 = ops.attention_qkv_bwd(qkv30, g, H, SCALE)
     ref_dq30 = ops.attention_qkv_bwd_plain(qkv30, g, H, SCALE)
     torch.cuda.synchronize()
-    e4, e4_30 = scaled(dq, ref_dq), scaled(dq30, ref_dq30)
+    e4, e4_30 = _scaled(dq, ref_dq), _scaled(dq30, ref_dq30)
     _require("attention_qkv_bwd (scaled)", e4, 1e-2)
     if not torch.isfinite(dq30.float()).all():
         raise AssertionError("attention_qkv_bwd: non-finite at |logit| ~ 1e3")
     _require("attention_qkv_bwd x30 (scaled)", e4_30, 1e-2)
     g1 = randn(3, N, C)
-    e4_b1 = scaled(ops.attention_qkv_bwd(q1, g1, H, SCALE),
+    e4_b1 = _scaled(ops.attention_qkv_bwd(q1, g1, H, SCALE),
                    ops.attention_qkv_bwd_plain(q1, g1, H, SCALE))
     _require("attention_qkv_bwd batch-1 (scaled)", e4_b1, 1e-2)
     ms = cuda_ms(lambda: ops.attention_qkv_bwd(qkv, g, H, SCALE))
@@ -275,7 +289,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
                      ops.masked_attention_qkv_plain(qkv, m, H, SCALE, FILL))
         _require(f"masked_attention_qkv batch-1 N={N}", e, 2e-2)
         g = randn(Bm, N, C)
-        e = scaled(ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL),
+        e = _scaled(ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL),
                    ops.masked_attention_qkv_bwd_plain(qkv, m, g, H, SCALE, FILL))
         _require(f"masked_attention_qkv_bwd batch-1 N={N} (scaled)", e, 1e-2)
     fwd, bwd = [], []
@@ -297,7 +311,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         if not torch.isfinite(got30.float()).all():
             raise AssertionError("masked_attention_qkv: non-finite at |logit| ~ 1e3")
-        e30 = scaled(got30, ref30)
+        e30 = _scaled(got30, ref30)
         _require(f"masked_attention_qkv N={N} x30 (scaled)", e30, 1e-2)
         ms = cuda_ms(lambda: ops.masked_attention_qkv(qkv, m, H, SCALE, FILL))
         plain_ms = cuda_ms(lambda: ops.masked_attention_qkv_plain(qkv, m, H, SCALE, FILL))
@@ -320,7 +334,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
         dq30 = ops.masked_attention_qkv_bwd(qkv30, m, g, H, SCALE, FILL)
         ref_dq30 = ops.masked_attention_qkv_bwd_plain(qkv30, m, g, H, SCALE, FILL)
         torch.cuda.synchronize()
-        e5, e5_30 = scaled(dq, ref_dq), scaled(dq30, ref_dq30)
+        e5, e5_30 = _scaled(dq, ref_dq), _scaled(dq30, ref_dq30)
         _require(f"masked_attention_qkv_bwd N={N} (scaled)", e5, 1e-2)
         if not torch.isfinite(dq30.float()).all():
             raise AssertionError("masked_attention_qkv_bwd: non-finite at |logit| ~ 1e3")
@@ -339,15 +353,168 @@ def kernel_phase(gen: torch.Generator) -> dict:
             sdpa_bwd_ms=f"{lib_ms:.4f}")
         del qkv, qkv30, got, ref, got30, ref30, g, dq, ref_dq, dq30, ref_dq30
     # one forward (one train step) runs each shape once: report the sums
-    for name, calls in (("masked_attention_qkv", fwd), ("masked_attention_qkv_bwd", bwd)):
-        b = bound(sum(c["flops"] for c in calls), sum(c["bytes"] for c in calls))
-        results[name] = dict(max_abs_err=max(c["err"] for c in calls),
-                             ms=sum(c["ms"] for c in calls),
-                             plain_ms=sum(c["plain_ms"] for c in calls),
-                             library_ms=sum(c["library_ms"] for c in calls), **b)
-        say(f"2 sum {name}", ms=f"{results[name]['ms']:.4f}",
-            bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
+    _sum_rows(results, "masked_attention_qkv", fwd)
+    _sum_rows(results, "masked_attention_qkv_bwd", bwd)
+    tiled_kernels(randn, gen, results)
+    ln_matmul_kernel(randn, gen, results)
     return results
+
+
+def _sum_rows(results: dict, name: str, calls: list) -> None:
+    """One row of the kernels line from the shapes one forward (or one train
+    step) runs once each: times and work summed, the largest error."""
+    b = bound(sum(c["flops"] for c in calls), sum(c["bytes"] for c in calls))
+    results[name] = dict(max_abs_err=max(c["err"] for c in calls),
+                         ms=sum(c["ms"] for c in calls),
+                         plain_ms=sum(c["plain_ms"] for c in calls),
+                         library_ms=sum(c["library_ms"] for c in calls), **b)
+    say(f"2 sum {name}", ms=f"{results[name]['ms']:.4f}",
+        bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
+
+
+def _scaled(got, ref) -> float:
+    return _max_err(got, ref, max(float(ref.float().abs().max()), 1e-6))
+
+
+def tiled_kernels(randn, gen: torch.Generator, results: dict) -> None:
+    """K6 and K7 at the uncompacted tail's shapes: per modality [384, 129]
+    (one tile) and joint [128, 387] (three tiles), both on the flagship path,
+    and the two-modality joint [128, 258] (two tiles), checked and timed on
+    its own. Tolerances of tests/test_pallas_tpu.py:92-111."""
+    from editor_tpu_torch import ops
+
+    F = torch.nn.functional
+    dev, T = "cuda", 129
+    fwd, bwd = [], []
+    for Bm, N in ((3 * B_EVAL, T), (B_EVAL, 3 * T), (B_EVAL, 2 * T)):
+        qkv = randn(Bm, N, 3 * C)
+        m = torch.rand(Bm, N, generator=gen, device=dev) < 0.5
+        m = (m | (torch.arange(N, device=dev) % T == 0)[None, :]).float()
+        m[0, 1:T] = 0.0  # a first tile with only its cls token
+        got = ops.masked_attention_tiled(qkv, m, H, SCALE, FILL, T)
+        ref = ops.masked_attention_tiled_plain(qkv, m, H, SCALE, FILL, T)
+        torch.cuda.synchronize()
+        e = _max_err(got, ref)
+        _require(f"masked_attention_tiled N={N}", e, 2e-2)
+        if got[m == 0].abs().max() != 0:
+            raise AssertionError("masked_attention_tiled: masked query rows not 0")
+        qkv30 = randn(Bm, N, 3 * C, mul=30.0)
+        got30 = ops.masked_attention_tiled(qkv30, m, H, SCALE, FILL, T)
+        ref30 = ops.masked_attention_tiled_plain(qkv30, m, H, SCALE, FILL, T)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got30.float()).all():
+            raise AssertionError("masked_attention_tiled: non-finite at |logit| ~ 1e3")
+        e30 = _scaled(got30, ref30)
+        _require(f"masked_attention_tiled N={N} x30 (scaled)", e30, 1e-2)
+        del got30, ref30
+        # the work this mask needs: valid query rows x valid keys
+        pairs = float((m.sum(1) ** 2).sum())
+        keys = m.bool()[:, None, None, :]
+        row = dict(err=e, flops=4.0 * H * D * pairs,
+                   bytes=2.0 * Bm * N * (3 * C + C) + 4.0 * Bm * N,
+                   ms=cuda_ms(lambda: ops.masked_attention_tiled(qkv, m, H, SCALE, FILL, T)),
+                   plain_ms=cuda_ms(lambda: ops.masked_attention_tiled_plain(
+                       qkv, m, H, SCALE, FILL, T)),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                       *_heads(qkv), attn_mask=keys, scale=SCALE)))
+        say("2 kernel masked_attention_tiled", shape=list(qkv.shape), tiles=N // T, err=e,
+            x30_scaled_err=e30, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
+            sdpa_ms=f"{row['library_ms']:.4f}",
+            bound_ms=f"{bound(row['flops'], row['bytes'])['bound_ms']:.4f}")
+        if N != 2 * T:
+            fwd.append(row)
+
+        g = randn(Bm, N, C)
+        dq = ops.masked_attention_tiled_bwd(qkv, m, g, H, SCALE, FILL, T)
+        ref_dq = ops.masked_attention_tiled_bwd_plain(qkv, m, g, H, SCALE, FILL, T)
+        dq30 = ops.masked_attention_tiled_bwd(qkv30, m, g, H, SCALE, FILL, T)
+        ref_dq30 = ops.masked_attention_tiled_bwd_plain(qkv30, m, g, H, SCALE, FILL, T)
+        torch.cuda.synchronize()
+        e7, e7_30 = _scaled(dq, ref_dq), _scaled(dq30, ref_dq30)
+        _require(f"masked_attention_tiled_bwd N={N} (scaled)", e7, 1e-2)
+        if not torch.isfinite(dq30.float()).all():
+            raise AssertionError("masked_attention_tiled_bwd: non-finite at |logit| ~ 1e3")
+        _require(f"masked_attention_tiled_bwd N={N} x30 (scaled)", e7_30, 1e-2)
+        if dq[..., :C][m == 0].abs().max() != 0 or dq[..., C:][m == 0].abs().max() != 0:
+            raise AssertionError("masked_attention_tiled_bwd: masked rows get a gradient")
+        # every cls key of every tile: dv of every head written, and dk too
+        # but in sequence 0, whose only valid key is its cls token (softmax
+        # over one key has no gradient)
+        cls_kv = dq[:, ::T, C:].reshape(Bm, N // T, 2, H, D).abs().amax(-1)
+        if not ((cls_kv[:, :, 1] > 0).all() and (cls_kv[1:, :, 0] > 0).all()):
+            raise AssertionError("masked_attention_tiled_bwd: a cls key's dk or dv is zero")
+        del qkv30, dq30, ref_dq30, ref_dq
+        row = dict(err=e7, flops=10.0 * H * D * pairs,
+                   bytes=2.0 * Bm * N * (3 * C + C + 3 * C) + 4.0 * Bm * N,
+                   ms=cuda_ms(lambda: ops.masked_attention_tiled_bwd(qkv, m, g, H, SCALE,
+                                                                     FILL, T)),
+                   plain_ms=cuda_ms(lambda: ops.masked_attention_tiled_bwd_plain(
+                       qkv, m, g, H, SCALE, FILL, T)),
+                   library_ms=_sdpa_bwd_ms(qkv, g, m.bool()))
+        say("2 kernel masked_attention_tiled_bwd", shape=list(qkv.shape), tiles=N // T,
+            scaled_err=e7, x30_scaled_err=e7_30, ms=f"{row['ms']:.4f}",
+            plain_ms=f"{row['plain_ms']:.4f}", sdpa_bwd_ms=f"{row['library_ms']:.4f}",
+            bound_ms=f"{bound(row['flops'], row['bytes'])['bound_ms']:.4f}",
+            scratch_gb=f"{2 * 2.0 * Bm * H * N * N / 1e9:.3f}")
+        if N != 2 * T:
+            bwd.append(row)
+        del qkv, got, ref, g, dq
+        torch.cuda.empty_cache()
+    _sum_rows(results, "masked_attention_tiled", fwd)
+    _sum_rows(results, "masked_attention_tiled_bwd", bwd)
+
+
+def ln_matmul_kernel(randn, gen: torch.Generator, results: dict) -> None:
+    """K8 on the backbone's shapes (T = 384 x 129 tokens, C = 768): norm1 ->
+    qkv (O = 2304) and norm2 -> fc1 + GELU (O = 3072), against its plain
+    version (scaled max error <= 1e-2); a ragged row count and no bias
+    checked too. K8 is on no model path (as in the JAX package), so its
+    launches on the main path are 0. Library time: the three-call chain
+    F.layer_norm -> F.linear -> F.gelu in bf16, what the backbone runs."""
+    from editor_tpu_torch import ops
+
+    F = torch.nn.functional
+    dev, Tk = "cuda", 3 * B_EVAL * 129
+
+    def params(O):
+        return (torch.randn(O, C, generator=gen, device=dev) * 0.02,
+                torch.randn(O, generator=gen, device=dev) * 0.02,
+                1.0 + 0.1 * torch.randn(C, generator=gen, device=dev),
+                0.1 * torch.randn(C, generator=gen, device=dev))
+
+    xr = randn(1000, C, mul=2.0)  # 1000 rows: not a multiple of the 64-row tile
+    wr = params(256)
+    e_ragged = _scaled(ops.ln_matmul(xr, wr[0], None, *wr[2:], act="gelu"),
+                       ops.ln_matmul_plain(xr, wr[0], None, *wr[2:], act="gelu"))
+    _require("ln_matmul ragged rows, no bias (scaled)", e_ragged, 1e-2)
+    rows = []
+    x = randn(Tk, C, mul=2.0)
+    for O, act in ((3 * C, ""), (4 * C, "gelu")):
+        w, b, gm, bt = params(O)
+        got = ops.ln_matmul(x, w, b, gm, bt, 1e-6, act)
+        ref = ops.ln_matmul_plain(x, w, b, gm, bt, 1e-6, act)
+        torch.cuda.synchronize()
+        e = _scaled(got, ref)
+        _require(f"ln_matmul O={O} {act or 'linear'} (scaled)", e, 1e-2)
+        del got, ref
+        wb, bb, gb, btb = (t.to(torch.bfloat16) for t in (w, b, gm, bt))
+
+        def chain():
+            y = F.linear(F.layer_norm(x, (C,), gb, btb, 1e-6), wb, bb)
+            return F.gelu(y) if act else y
+        row = dict(err=e, flops=2.0 * Tk * C * O,
+                   bytes=2.0 * Tk * C + 4.0 * O * C + 4.0 * O + 8.0 * C + 2.0 * Tk * O,
+                   ms=cuda_ms(lambda: ops.ln_matmul(x, w, b, gm, bt, 1e-6, act)),
+                   plain_ms=cuda_ms(lambda: ops.ln_matmul_plain(x, w, b, gm, bt, 1e-6, act)),
+                   library_ms=cuda_ms(chain))
+        b_ = bound(row["flops"], row["bytes"])
+        say("2 kernel ln_matmul", shape=[Tk, C, O], act=act or "none", scaled_err=e,
+            ragged_scaled_err=e_ragged, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
+            chain3_ms=f"{row['library_ms']:.4f}", bound_ms=f"{b_['bound_ms']:.4f}",
+            bound_by=b_["bound_by"], tflops=f"{row['flops'] / row['ms'] / 1e9:.1f}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    _sum_rows(results, "ln_matmul", rows)
 
 
 def _eval_batch(gen: torch.Generator, B: int) -> dict:
@@ -357,51 +524,83 @@ def _eval_batch(gen: torch.Generator, B: int) -> dict:
     return images
 
 
-def forward_phase(gen: torch.Generator):
-    """Flagship eval forward through the kernels vs the plain fp32 run."""
+def flagship(opts=()):
+    """(Config, EditorConfig): the RGBNT201 preset with ``opts`` on top,
+    through editor_config_from, so one source sets the solver and the model."""
+    from editor_tpu_torch.tools.profile_forward import flagship_from_opts
+
+    return flagship_from_opts(opts)
+
+
+def launch_counts() -> dict:
+    from editor_tpu_torch import ops
+
+    return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+
+
+def expected(**counts) -> dict:
+    """Launch counts of one call: every kernel 0 unless named."""
+    return {name: counts.get(name, 0) for name in launch_counts()}
+
+
+def _feature_agreement(got, ref):
+    """(min per-row cosine, max per-row rel-L2) of two feature batches."""
+    got, ref = got.double(), ref.double()
+    cos = (torch.nn.functional.normalize(got, dim=1)
+           * torch.nn.functional.normalize(ref, dim=1)).sum(1)
+    rel = (got - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-12)
+    return float(cos.min()), float(rel.max())
+
+
+def eval_check(ecfg, gen: torch.Generator, label: str, want: dict):
+    """The eval forward of ``ecfg`` (seeded weights, B=128, bf16) through
+    build_eval_step: the launch counts of one forward, the features against
+    the same model run with the plain ops in fp32 (per-row cosine >= 0.99,
+    rel-L2 <= 0.08), and the forward's time from CUDA events."""
     from editor_tpu_torch import ops
     from editor_tpu_torch.engine.evaluate import build_eval_step
-    from editor_tpu_torch.models.editor import Editor, flagship_config
+    from editor_tpu_torch.models.editor import Editor
     from editor_tpu_torch.models.init import editor_init
 
-    cfg = flagship_config()
     t0 = time.perf_counter()
-    model = editor_init(cfg, seed=0)
+    model = editor_init(ecfg, seed=0)
     init_s = time.perf_counter() - t0
-    ref_model = Editor(dataclasses.replace(cfg, use_pallas=False))
+    ref_model = Editor(dataclasses.replace(ecfg, use_pallas=False))
     ref_model.load_state_dict(model.state_dict(), strict=True)
     batch = _eval_batch(gen, B_EVAL)
     step = build_eval_step(model, torch.bfloat16)
-    ref_step = build_eval_step(ref_model, torch.float32)
 
     step(batch)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
     feats = step(batch)
     torch.cuda.synchronize()
-    fwd_ms = (time.perf_counter() - t0) * 1e3
-    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
-    want = {"attention_qkv": cfg.vit.depth, "rollout_chain": 1, "masked_attention_qkv": 2,
-            "attention_qkv_bwd": 0, "masked_attention_qkv_bwd": 0}
+    launches = launch_counts()
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} in one forward")
     if feats.shape != (B_EVAL, 3 * C) or feats.dtype != torch.float32:
         raise AssertionError(f"features {tuple(feats.shape)} {feats.dtype}")
     if not torch.isfinite(feats).all():
         raise AssertionError("non-finite features")
-    ref = ref_step(batch)
+    ref = build_eval_step(ref_model, torch.float32)(batch)
     torch.cuda.synchronize()
-    got, ref = feats.double(), ref.double()
-    cos = (torch.nn.functional.normalize(got, dim=1)
-           * torch.nn.functional.normalize(ref, dim=1)).sum(1)
-    rel = (got - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-12)
-    if not (cos.min() >= 0.99 and rel.max() <= 0.08):
-        raise AssertionError(f"bf16 kernels vs fp32 plain: min cos {cos.min()}, "
-                             f"max rel-L2 {rel.max()}")
-    say("3 forward", B=B_EVAL, shape=list(feats.shape), launches=json.dumps(launches),
-        min_cos=f"{float(cos.min()):.6f}", max_rel_l2=f"{float(rel.max()):.6f}",
-        fwd_ms=f"{fwd_ms:.2f}", init_s=f"{init_s:.2f}")
+    min_cos, max_rel = _feature_agreement(feats, ref)
+    if not (min_cos >= 0.99 and max_rel <= 0.08):
+        raise AssertionError(f"bf16 kernels vs fp32 plain: min cos {min_cos}, "
+                             f"max rel-L2 {max_rel}")
+    fwd_ms = cuda_ms(lambda: step(batch), iters=5)
+    say(label, B=B_EVAL, compact_tail=ecfg.compact_tail, shape=list(feats.shape),
+        launches=json.dumps(launches), min_cos=f"{min_cos:.6f}", max_rel_l2=f"{max_rel:.6f}",
+        fwd_ms=f"{fwd_ms:.2f}", img_s=f"{B_EVAL / fwd_ms * 1e3:.1f}", init_s=f"{init_s:.2f}")
+    return model, ref_model, batch, ref, launches
+
+
+def forward_phase(gen: torch.Generator):
+    """Phase 3: the flagship eval forward (compact tail) through K1-K3."""
+    _, ecfg = flagship()
+    model, _, _, _, launches = eval_check(
+        ecfg, gen, "3 forward",
+        expected(attention_qkv=ecfg.vit.depth, rollout_chain=1, masked_attention_qkv=2))
     return model, launches
 
 
@@ -436,15 +635,6 @@ def serving_phase(model, gen: torch.Generator, card: str) -> None:
         batch1_p50_ms=f"{float(np.median(lat[1:])):.2f}", card=repr(card))
 
 
-# the solver, input and sampler settings of configs/RGBNT201.yaml (the card's
-# machine is not promised yaml, so they are restated here as overrides)
-RGBNT201_PRESET = ["SOLVER.OPTIMIZER_NAME", "SGD", "SOLVER.BASE_LR", "0.001",
-                   "SOLVER.WARMUP_ITERS", "10", "SOLVER.IMS_PER_BATCH", "128",
-                   "SOLVER.MAX_EPOCHS", "70", "INPUT.PROB", "0.5", "INPUT.RE_PROB", "0.5",
-                   "INPUT.PADDING", "10", "DATALOADER.NUM_INSTANCE", "16",
-                   "MODEL.HEAD_KEEP", "2", "MODEL.FREQUENCY_KEEP", "10"]
-
-
 def _param_norm(model) -> float:
     return float(torch.stack([p.detach().float().norm() for p in model.parameters()]).norm())
 
@@ -454,19 +644,23 @@ def _grads_finite(model) -> bool:
     return bool(torch.isfinite(torch.stack(torch._foreach_norm(grads))).all())
 
 
-def train_phase(gen: torch.Generator) -> dict:
-    """The flagship train step through the kernels vs the plain fp32 run."""
-    from editor_tpu_torch import ops
-    from editor_tpu_torch.config import load_config
+def train_check(cfg, ecfg, gen: torch.Generator, label: str, want: dict,
+                learn: bool) -> dict:
+    """The train step of ``ecfg`` with the solver of ``cfg`` (B=128 as 8 ids x
+    16, uint8 images through the augmentation, bf16) through
+    build_train_step: the launch counts of each of 3 steps; losses within 3%
+    and the parameter norm within 2% of the same model run with the plain
+    ops in fp32 (same weights, batch and random draws); finite losses and
+    gradients; BN stats and OCFR centers move; step time, img/s and peak
+    memory; with ``learn``, 20 steps on one fixed batch lower the loss."""
     from editor_tpu_torch.data.transforms import make_eval_transform, make_train_augment
     from editor_tpu_torch.engine.train import build_train_step
+    from editor_tpu_torch import ops
     from editor_tpu_torch.losses import make_loss
-    from editor_tpu_torch.models.editor import Editor, flagship_config
+    from editor_tpu_torch.models.editor import Editor
     from editor_tpu_torch.models.init import editor_init
     from editor_tpu_torch.solver import make_optimizer, make_scheduler
 
-    cfg = load_config(None, RGBNT201_PRESET)
-    ecfg = flagship_config()
     B, K = cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_INSTANCE
     model = editor_init(ecfg, seed=0)
     ref_model = Editor(dataclasses.replace(ecfg, use_pallas=False))
@@ -489,13 +683,11 @@ def train_phase(gen: torch.Generator) -> dict:
     step = make_step(model, torch.bfloat16)
     before = states(model)
     start = [p.detach().clone() for p in model.parameters()]
-    want = {"attention_qkv": ecfg.vit.depth, "rollout_chain": 1, "masked_attention_qkv": 2,
-            "attention_qkv_bwd": ecfg.vit.depth, "masked_attention_qkv_bwd": 2}
     losses = []
     for epoch in (1, 2, 3):
         ops.reset_launch_counts()
         loss = float(step(batch, epoch)["loss"])
-        launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+        launches = launch_counts()
         if launches != want:
             raise AssertionError(f"kernel launches {launches} != {want} in one train step")
         if not (np.isfinite(loss) and _grads_finite(model)):
@@ -523,7 +715,7 @@ def train_phase(gen: torch.Generator) -> dict:
     if not (max(dloss) <= 0.03 and dnorm <= 0.02):
         raise AssertionError(f"bf16 kernels vs fp32 plain: losses {losses} vs {ref_losses}, "
                              f"param norm {norm} vs {ref_norm}")
-    say("5 train", B=B, ids=B // K, launches=json.dumps(launches),
+    say(label, B=B, ids=B // K, compact_tail=ecfg.compact_tail, launches=json.dumps(launches),
         loss=json.dumps([round(x, 5) for x in losses]),
         ref_loss=json.dumps([round(x, 5) for x in ref_losses]),
         max_rel_dloss=f"{max(dloss):.5f}", rel_dnorm=f"{dnorm:.2e}",
@@ -537,34 +729,99 @@ def train_phase(gen: torch.Generator) -> dict:
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(lambda: step(batch, epoch), iters=5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    # learning: 20 steps on one fixed batch (no augmentation) at that lr
-    norm_img = make_eval_transform(cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
-    fixed = {m: norm_img(batch[m]) for m in ("RGB", "NI", "TI")}
-    fixed.update(pid=batch["pid"], camid=batch["camid"])
-    learn = make_step(model, torch.bfloat16, augment=False)
-    curve = [float(learn(fixed, epoch)["loss"]) for _ in range(20)]
-    if not np.mean(curve[-5:]) < np.mean(curve[:5]):
-        raise AssertionError(f"the loss did not go down on a fixed batch: {curve}")
-    say("5 train timing", step_ms=f"{step_ms:.2f}", img_s=f"{B / step_ms * 1e3:.1f}",
-        peak_gb=f"{peak_gb:.2f}", learn_first5=f"{np.mean(curve[:5]):.4f}",
-        learn_last5=f"{np.mean(curve[-5:]):.4f}")
+    timing = dict(step_ms=f"{step_ms:.2f}", img_s=f"{B / step_ms * 1e3:.1f}",
+                  peak_gb=f"{peak_gb:.2f}")
+    if learn:  # 20 steps on one fixed batch (no augmentation) at that lr
+        norm_img = make_eval_transform(cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
+        fixed = {m: norm_img(batch[m]) for m in ("RGB", "NI", "TI")}
+        fixed.update(pid=batch["pid"], camid=batch["camid"])
+        learner = make_step(model, torch.bfloat16, augment=False)
+        curve = [float(learner(fixed, epoch)["loss"]) for _ in range(20)]
+        if not np.mean(curve[-5:]) < np.mean(curve[:5]):
+            raise AssertionError(f"the loss did not go down on a fixed batch: {curve}")
+        timing.update(learn_first5=f"{np.mean(curve[:5]):.4f}",
+                      learn_last5=f"{np.mean(curve[-5:]):.4f}")
+    say(f"{label} timing", **timing)
     return launches
+
+
+def train_phase(gen: torch.Generator) -> dict:
+    """Phase 5: the flagship train step (compact tail): K1, K2, K3 forward,
+    K4, K5 backward."""
+    cfg, ecfg = flagship()
+    L = ecfg.vit.depth
+    return train_check(cfg, ecfg, gen, "5 train",
+                       expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2,
+                                attention_qkv_bwd=L, masked_attention_qkv_bwd=2),
+                       learn=True)
+
+
+def uncompacted_phase(gen: torch.Generator):
+    """Phase 6: the flagship model with TPU.COMPACT_TAIL off, through
+    load_config -> editor_config_from: 129 tokens per modality and 387 joint,
+    so the fusion block's attention runs K6 forward and K7 backward.
+    (a) the eval forward against the plain fp32 run; (b) the compaction is
+    exact on the card: the compact model with the same weights, both through
+    the plain ops in fp32, gives the same features (rel-L2 <= 1e-4); (c) the
+    train step against the plain fp32 run; (d) its time."""
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.models.editor import Editor
+
+    cfg, ecfg = flagship(["TPU.COMPACT_TAIL", "False"])
+    if ecfg.compact_tail:
+        raise AssertionError("TPU.COMPACT_TAIL False did not reach the model config")
+    L = ecfg.vit.depth
+    model, ref_model, batch, ref, eval_launches = eval_check(
+        ecfg, gen, "6a uncompacted forward",
+        expected(attention_qkv=L, rollout_chain=1, masked_attention_tiled=2))
+    compact = Editor(dataclasses.replace(ecfg, compact_tail=True, use_pallas=False))
+    compact.load_state_dict(ref_model.state_dict(), strict=True)
+    comp = build_eval_step(compact, torch.float32)(batch)
+    torch.cuda.synchronize()
+    _, rel = _feature_agreement(comp, ref)
+    if not rel <= 1e-4:
+        raise AssertionError(f"compact vs uncompacted tail (fp32 plain): rel-L2 {rel}")
+    say("6b compaction exact", max_rel_l2=f"{rel:.3e}", limit="1e-4")
+    del model, ref_model, compact, batch, ref, comp
+    torch.cuda.empty_cache()
+    train_launches = train_check(
+        cfg, ecfg, gen, "6c uncompacted train",
+        expected(attention_qkv=L, rollout_chain=1, attention_qkv_bwd=L,
+                 masked_attention_tiled=2, masked_attention_tiled_bwd=2),
+        learn=False)
+    return eval_launches, train_launches
+
+
+def timed(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"{name} time", seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
 
 
 def main() -> None:
     card = card_check()
-    build_phase()
+    timed("1 build", build_phase)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = kernel_phase(gen)
-    model, eval_launches = forward_phase(gen)
-    serving_phase(model, gen, card)
+    kernels = timed("2 kernels", kernel_phase, gen)
+    model, eval_launches = timed("3 forward", forward_phase, gen)
+    timed("4 serving", serving_phase, model, gen, card)
     del model
     torch.cuda.empty_cache()
-    launches = train_phase(gen)
-    # launches: per train step (phase 5); launches_eval: per eval forward (phase 3)
-    rows = [dict(name=name, route="cuda", **KERNELS[name], launches=launches[name],
-                 launches_eval=eval_launches[name], **kernels[name]) for name in KERNELS]
+    launches = timed("5 train", train_phase, gen)
+    torch.cuda.empty_cache()
+    un_eval, un_train = timed("6 uncompacted", uncompacted_phase, gen)
+    # launches, launches_eval: per train step and per eval forward, summed
+    # over the two paths (compact: phases 3 and 5; uncompacted: phase 6),
+    # each path counted from zero just before it runs
+    rows = []
+    for name in KERNELS:
+        by_path = {"compact": {"train": launches[name], "eval": eval_launches[name]},
+                   "uncompacted": {"train": un_train[name], "eval": un_eval[name]}}
+        rows.append(dict(name=name, route="cuda", **KERNELS[name],
+                         launches=launches[name] + un_train[name],
+                         launches_eval=eval_launches[name] + un_eval[name],
+                         launches_by_path=by_path, **kernels[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

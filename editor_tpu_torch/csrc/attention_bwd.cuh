@@ -1,24 +1,29 @@
 // The attention backward shared by K4 (csrc/attention_qkv_bwd.cu, the VJP of
-// K1) and K5 (csrc/masked_attention_bwd.cu, the VJP of K3): for one (head,
-// sequence) pair, d(softmax(q k^T * scale) v)/d(qkv) in the raw qkv layout.
+// K1), K5 and K7 (csrc/masked_attention_bwd.cu, the VJPs of K3 and K6): for
+// one (head, sequence) pair, d(softmax(q k^T * scale) v)/d(qkv) in the raw qkv
+// layout.
 //
-// Contract (the plain versions are attention_qkv_bwd_plain and
-// masked_attention_qkv_bwd_plain in editor_tpu_torch/ops/):
+// Contract (the plain versions are attention_qkv_bwd_plain,
+// masked_attention_qkv_bwd_plain and masked_attention_tiled_bwd_plain in
+// editor_tpu_torch/ops/):
 //   qkv  [B, N, 3C] bf16, g [B, N, C] bf16 (cotangent of the [B, N, C] output)
 //   dqkv [B, N, 3C] bf16, written in place into the q, k and v column slices
 //   pst, dlst [B * H, N, N] bf16 global scratch: the rounded probabilities and
 //   logit cotangents of every row, written by the row pass and read back by
 //   the column pass of the same block (the caller allocates them).
 // Math per query row n (fp32 sums):
-//   p = softmax(l), l = q_n . k_m * scale  (masked: fill where mask_m == 0)
+//   p = softmax(l), l = q_n . k_m * scale  (masked: where mask_m == 0 the
+//   logit is fill (K5) or l + fill (K7), as in their forward kernels)
 //   dp_m = g_n . v_m, r = sum_m dp_m p_m, dl_m = p_m (dp_m - r) scale
 //   dq_n = sum_m dl_m k_m;  dk_m = sum_n dl_{n,m} q_n;  dv_m = sum_n p_{n,m} g_n
 // Rounding points of the TPU kernels: p and dl are rounded to bf16 before the
-// three products, except (unmasked K4 only) the cls key m = 0, whose p and dl
-// stay fp32, as in _qkv_bwd_kernel's split cls/patch form. Masked (K5): a
+// three products, except the cls keys, whose p and dl stay fp32, as in the
+// split cls/patch form of _qkv_bwd_kernel and _qkv_masked_bwd_kernel. The cls
+// keys: K4's is m = 0, K7's are m % tile == 0 (tile = 129: m = 0, 129, 258),
+// K5 has none. Masked (K5, K7): a
 // query row with mask 0 gets exactly zero gradient and contributes nothing;
 // a masked key of a valid row gets p = 0 exactly (exp underflow), hence zero
-// dk and dv, as in _qkv_masked_full_bwd_kernel.
+// dk and dv, as in _qkv_masked_full_bwd_kernel and _qkv_masked_bwd_kernel.
 //
 // What bounds it on the H100: 10 B H N^2 D FLOP (the recomputed logits, dp,
 // dq, dk, dv) against qkv + g + dqkv = 8 B N C bytes; 49 GFLOP and 0.53 GB
@@ -34,24 +39,27 @@
 //    straight into dqkv. The row's rounded p and dl go to the global scratch,
 //    coalesced along the row.
 //  * Column pass: q and g of the head replace k and v in shared memory. The
-//    block loads 32 columns of p and dl at a time (all N rows, bf16) into a
-//    shared tile; each warp owns 8 of those columns and, with lanes over
-//    head-dim pairs, accumulates dk and dv for all 8 at once, so each q and g
-//    pair read from shared memory feeds 32 FMAs.
+//    block loads 8 columns per warp of p and dl at a time (all N rows, bf16)
+//    into a shared tile; each warp owns 8 of those columns and, with lanes
+//    over head-dim pairs, accumulates dk and dv for all 8 at once, so each q
+//    and g pair read from shared memory feeds 32 FMAs.
 // The scratch of one block (2 N^2 bf16: 66 KB at N = 129, 279 KB at N = 264)
 // is written and read back by that block while it is still in the 50 MB L2.
 // K5 at N = 264 needs this: q, k, v, g plus fp32 dk/dv of one head would take
 // 270 KB of shared memory, over the 227 KB a block may have. Shared memory
-// here is 2 N (D + 4) bf16 + 3 N fp32 + max(row scratch, column tile):
-// 53 KB at N = 129, 109 KB at N = 264, 211 KB at N = 512.
+// here is 2 N (D + 4) bf16 + (1 + 2 n_tiles) N fp32 (the key mask and each
+// tile's fp32 cls p and dl columns) + max(row scratch, column tile): with 4
+// warps 53 KB at N = 129 (K4), 105 KB at N = 264 (K5), 162 KB at N = 387; K7
+// with 8 warps 70 KB at N = 129 and 210 KB at N = 387. The cls columns are
+// reduced at the end, one tile per warp.
 #pragma once
 
 #include "common.cuh"
 
 namespace editor_kernels {
 
-constexpr int kBwdWarps = 4;
-constexpr int kBwdTileCols = 32;  // columns per column-pass tile, 8 per warp
+constexpr int kBwdWarps = 4;      // K4 and K5; K7 picks 4 or 8 (see its source)
+constexpr int kBwdColsPerWarp = 8;  // column-pass tile: 8 columns per warp
 
 __host__ __device__ inline size_t bwd_align16(size_t bytes) {
   return (bytes + 15) & ~size_t(15);
@@ -61,15 +69,17 @@ struct BwdSmem {
   size_t buf, vec, scratch, tile, total;
 };
 
-__host__ __device__ inline BwdSmem bwd_smem_layout(int N, int D) {
+// n_tiles: the number of fp32 cls columns (N / tile, or 0 without tiles);
+// warps: the block's warps (each has a row of scratch and 8 tile columns)
+__host__ __device__ inline BwdSmem bwd_smem_layout(int N, int D, int n_tiles, int warps) {
   const int Np = (N + 3) & ~3;
   BwdSmem s;
   s.buf = bwd_align16((size_t)N * (D + kRowPad) * sizeof(bf16));
   s.vec = bwd_align16((size_t)Np * sizeof(float));
-  s.scratch = (size_t)kBwdWarps * (2 * D + 2 * Np) * sizeof(float);
-  s.tile = 2 * (size_t)N * kBwdTileCols * sizeof(bf16);
+  s.scratch = (size_t)warps * (2 * D + 2 * Np) * sizeof(float);
+  s.tile = 2 * (size_t)N * warps * kBwdColsPerWarp * sizeof(bf16);
   const size_t un = s.scratch > s.tile ? s.scratch : s.tile;
-  s.total = 2 * s.buf + 3 * s.vec + bwd_align16(un);
+  s.total = 2 * s.buf + (1 + 2 * (size_t)n_tiles) * s.vec + bwd_align16(un);
   return s;
 }
 
@@ -86,26 +96,34 @@ __device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, bf16* d
   }
 }
 
-template <bool kMasked>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
-                     const bf16* __restrict__ g, bf16* __restrict__ dqkv,
-                     bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
-                     int D, float scale, float fill) {
+// K4 <false, false>: unmasked, the cls key m = 0 keeps fp32 p and dl.
+// K5 <true, false>: masked (fill replaces a masked logit), no cls key.
+// K7 <true, true>: masked (fill added to a masked logit), the keys
+// m % tile == 0 are cls keys with fp32 p and dl. Both flags are compile-time,
+// so K4 and K5 pay nothing for K7's runtime tile. kWarps warps per block.
+template <bool kMasked, bool kTiled, int kWarps>
+__device__ __forceinline__ void attention_bwd_body(
+    const bf16* __restrict__ qkv, const float* __restrict__ mask,
+    const bf16* __restrict__ g, bf16* __restrict__ dqkv, bf16* __restrict__ pst,
+    bf16* __restrict__ dlst, int N, int H, int D, float scale, float fill, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int C = H * D, C3 = 3 * C;
   const int ld = D + kRowPad;
   const int Np = (N + 3) & ~3;
   const int D2 = D / 2;
-  const BwdSmem lay = bwd_smem_layout(N, D);
+  const int n_tiles = kTiled ? N / tile : (kMasked ? 0 : 1);
+  constexpr int kCols = kWarps * kBwdColsPerWarp;  // columns per column-pass tile
+  const BwdSmem lay = bwd_smem_layout(N, D, n_tiles, kWarps);
   bf16* buf0 = reinterpret_cast<bf16*>(smem);              // k, then q
   bf16* buf1 = reinterpret_cast<bf16*>(smem + lay.buf);    // v, then g
   float* mk = reinterpret_cast<float*>(smem + 2 * lay.buf);
+  // fp32 p and dl of tile t's cls key for every row n: pc[t * Np + n]
   float* pc = reinterpret_cast<float*>(smem + 2 * lay.buf + lay.vec);
-  float* dlc = reinterpret_cast<float*>(smem + 2 * lay.buf + 2 * lay.vec);
-  unsigned char* un = smem + 2 * lay.buf + 3 * lay.vec;
+  float* dlc = pc + (size_t)n_tiles * Np;
+  unsigned char* un = smem + 2 * lay.buf + (1 + 2 * (size_t)n_tiles) * lay.vec;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto is_cls = [tile](int m) { return kTiled ? m % tile == 0 : !kMasked && m == 0; };
 
   const bf16* seq = qkv + (size_t)b * N * C3;
   const bf16* gseq = g + (size_t)b * N * C;
@@ -125,10 +143,12 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
   float* gr = qr + D;
   float* pr = gr + D;
   float* wr = pr + Np;
-  for (int n = warp; n < N; n += kBwdWarps) {
+  for (int n = warp; n < N; n += kWarps) {
     bf16* dq_row = dseq + (size_t)n * C3 + h * D;
     if (kMasked && mk[n] == 0.f) {  // re-masked row: exactly zero gradient
       for (int d = lane; d < D; d += 32) dq_row[d] = __float2bfloat16(0.f);
+      if (kTiled)
+        for (int t = lane; t < n_tiles; t += 32) pc[t * Np + n] = dlc[t * Np + n] = 0.f;
       continue;
     }
     load_q(seq, qr, n, C, h, D, lane);
@@ -137,8 +157,11 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
     __syncwarp();
     float mx = -INFINITY;
     for (int m = lane; m < N; m += 32) {
-      const float s = (kMasked && mk[m] == 0.f) ? fill
-                                                 : dot_q_k(qr, buf0 + m * ld, D) * scale;
+      float s;
+      if (kMasked && mk[m] == 0.f)
+        s = kTiled ? dot_q_k(qr, buf0 + m * ld, D) * scale + fill : fill;
+      else
+        s = dot_q_k(qr, buf0 + m * ld, D) * scale;
       pr[m] = s;
       mx = fmaxf(mx, s);
     }
@@ -164,9 +187,10 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
     for (int m = lane; m < N; m += 32) {
       const float p = pr[m];
       const float dl = p * (wr[m] - r) * scale;
-      if (!kMasked && m == 0) {  // K4's cls key stays fp32
-        pc[n] = p;
-        dlc[n] = dl;
+      if (is_cls(m)) {  // a cls key's p and dl stay fp32
+        const int t = kTiled ? m / tile : 0;
+        pc[t * Np + n] = p;
+        dlc[t * Np + n] = dl;
         wr[m] = dl;
       } else {
         const bf16 db = __float2bfloat16(dl);
@@ -185,11 +209,11 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
   stage_rows(seq, buf0, N, C3, h * D, D);
   stage_rows(gseq, buf1, N, C, h * D, D);
   bf16* tp = reinterpret_cast<bf16*>(un);
-  bf16* tl = tp + (size_t)N * kBwdTileCols;
-  for (int m0 = 0; m0 < N; m0 += kBwdTileCols) {
+  bf16* tl = tp + (size_t)N * kCols;
+  for (int m0 = 0; m0 < N; m0 += kCols) {
     __syncthreads();  // staging done, or the previous tile consumed
-    for (int i = threadIdx.x; i < N * kBwdTileCols; i += blockDim.x) {
-      const int n = i / kBwdTileCols, c = i - n * kBwdTileCols;
+    for (int i = threadIdx.x; i < N * kCols; i += blockDim.x) {
+      const int n = i / kCols, c = i - n * kCols;
       const int m = m0 + c;
       // masked rows were never written: load zeros in their place
       const bool ok = m < N && mk[n] != 0.f;
@@ -197,7 +221,7 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
       tl[i] = ok ? DL[(size_t)n * N + m] : __float2bfloat16(0.f);
     }
     __syncthreads();
-    const int c0 = warp * 8;
+    const int c0 = warp * kBwdColsPerWarp;
     for (int d2 = lane; d2 < D2; d2 += 32) {
       float av[8][2], ak[8][2];
 #pragma unroll
@@ -205,8 +229,8 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
       for (int n = 0; n < N; ++n) {
         const float2 qf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf0 + n * ld)[d2]);
         const float2 gf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf1 + n * ld)[d2]);
-        const uint4 pv = *reinterpret_cast<const uint4*>(tp + n * kBwdTileCols + c0);
-        const uint4 lv = *reinterpret_cast<const uint4*>(tl + n * kBwdTileCols + c0);
+        const uint4 pv = *reinterpret_cast<const uint4*>(tp + n * kCols + c0);
+        const uint4 lv = *reinterpret_cast<const uint4*>(tl + n * kCols + c0);
         const unsigned pw[4] = {pv.x, pv.y, pv.z, pv.w};
         const unsigned lw[4] = {lv.x, lv.y, lv.z, lv.w};
 #pragma unroll
@@ -226,35 +250,51 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int m = m0 + c0 + j;
-        if (m >= N || (!kMasked && m == 0)) continue;
+        if (m >= N || is_cls(m)) continue;
         bf16* row = dseq + (size_t)m * C3 + h * D;
         reinterpret_cast<bf16x2*>(row + C)[d2] = __floats2bfloat162_rn(ak[j][0], ak[j][1]);
         reinterpret_cast<bf16x2*>(row + 2 * C)[d2] = __floats2bfloat162_rn(av[j][0], av[j][1]);
       }
     }
   }
-  if (!kMasked && warp == 0) {  // K4's cls key from the fp32 p and dl
+  // the cls keys from their fp32 p and dl, one tile per warp (masked rows
+  // hold zeros there); q and g stay staged, nothing else writes these rows
+  for (int t = warp; t < n_tiles; t += kWarps) {
+    const float* pt = pc + t * Np;
+    const float* lt = dlc + t * Np;
+    bf16* row = dseq + (size_t)t * tile * C3 + h * D;
     for (int d2 = lane; d2 < D2; d2 += 32) {
       float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
       for (int n = 0; n < N; ++n) {
         const float2 qf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf0 + n * ld)[d2]);
         const float2 gf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf1 + n * ld)[d2]);
-        v0 = fmaf(pc[n], gf.x, v0);
-        v1 = fmaf(pc[n], gf.y, v1);
-        k0 = fmaf(dlc[n], qf.x, k0);
-        k1 = fmaf(dlc[n], qf.y, k1);
+        v0 = fmaf(pt[n], gf.x, v0);
+        v1 = fmaf(pt[n], gf.y, v1);
+        k0 = fmaf(lt[n], qf.x, k0);
+        k1 = fmaf(lt[n], qf.y, k1);
       }
-      reinterpret_cast<bf16x2*>(dseq + C + h * D)[d2] = __floats2bfloat162_rn(k0, k1);
-      reinterpret_cast<bf16x2*>(dseq + 2 * C + h * D)[d2] = __floats2bfloat162_rn(v0, v1);
+      reinterpret_cast<bf16x2*>(row + C)[d2] = __floats2bfloat162_rn(k0, k1);
+      reinterpret_cast<bf16x2*>(row + 2 * C)[d2] = __floats2bfloat162_rn(v0, v1);
     }
   }
+}
+
+// K4 (unmasked, one tile: the cls key m = 0) and K5 (masked, no tile)
+template <bool kMasked>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                     const bf16* __restrict__ g, bf16* __restrict__ dqkv,
+                     bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
+                     int D, float scale, float fill) {
+  attention_bwd_body<kMasked, false, kBwdWarps>(qkv, mask, g, dqkv, pst, dlst, N, H, D,
+                                                scale, fill, 0);
 }
 
 template <bool kMasked>
 inline int launch_attention_bwd(const void* qkv, const void* mask, const void* g,
                                 void* dqkv, void* pst, void* dlst, int B, int N, int H,
                                 int D, float scale, float fill, void* stream) {
-  const size_t smem = bwd_smem_layout(N, D).total;
+  const size_t smem = bwd_smem_layout(N, D, kMasked ? 0 : 1, kBwdWarps).total;
   cudaError_t err = allow_dynamic_smem(attention_bwd_kernel<kMasked>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_bwd_kernel<kMasked><<<dim3(H, B), kBwdWarps * 32, smem,

@@ -1,29 +1,45 @@
-// K3: masked multi-head attention from the raw qkv projection (full logits,
-// any N <= 512), the hot op of the HMA fusion block.
+// K3 and K6: masked multi-head attention from the raw qkv projection, the
+// hot op of the HMA fusion block. K3 takes any N <= 512 with full logits (the
+// compacted tail, N = 88 and 264); K6 takes sequences made of 1 + 128-token
+// tiles (the uncompacted tail, TPU.COMPACT_TAIL off: N = 129, 258, 387).
 //
-// Replaces the TPU kernel editor_tpu/ops/masked_attention.py::_pallas_masked_full
-// (_qkv_masked_full_kernel).
+// Replaces the TPU kernels editor_tpu/ops/masked_attention.py::_pallas_masked_full
+// (_qkv_masked_full_kernel, K3) and ::_pallas_masked_from_qkv
+// (_qkv_masked_kernel, K6).
 //
-// Contract (same as the plain version, editor_tpu_torch/ops/masked_attention.py):
+// Contract (same as the plain versions masked_attention_qkv_plain and
+// masked_attention_tiled_plain, editor_tpu_torch/ops/masked_attention.py):
 //   qkv  [B, N, 3C] bf16, mask [B, N] fp32 (1 = keep), out [B, N, C] bf16.
-//   A logit whose pair mask mask[n] * mask[m] is 0 is REPLACED by `fill`
-//   (-65504), as the plain version does; the TPU kernel adds `fill` as a bias
-//   instead. Both give exactly 0 weight to every masked key of a row that has a
-//   valid key. Output rows are multiplied by the query mask, so a fully masked
-//   query row is written as exact zeros (this kernel skips its work).
+//   K3: a logit whose pair mask mask[n] * mask[m] is 0 is REPLACED by `fill`
+//   (-65504), as its plain version does; its TPU kernel adds `fill` instead.
+//   K6: `fill` is ADDED to such a logit (lp + pair_bias), as its TPU kernel
+//   does. Both forms give exactly 0 weight to every masked key of a row that
+//   has a valid key (its own). Output rows are multiplied by the query mask, so
+//   a fully masked query row is written as exact zeros (this kernel skips its
+//   work).
 //   As on the TPU: the row-max-stabilised exps are rounded to bf16 before the
 //   e.v product and the 1/sum normalisation (times the query mask) scales the
-//   [N, D] output row ("lazy normalisation"), not the [N, N] weights.
+//   [N, D] output row ("lazy normalisation"), not the [N, N] weights. K6 keeps
+//   the exp of each tile's cls key (m % tile == 0) in fp32 in the e.v sum, as
+//   the TPU kernel's separate fp32 cls-key column does; every other exp is
+//   rounded.
 //
-// What bounds it on the H100: at the flagship shapes ([384, 88, 2304] per
-// modality and [128, 264, 2304] joint) the bytes are small (~100 MB per call);
-// the fp32 products on the CUDA cores bound this first version.
+// What bounds it on the H100: the bytes are small (qkv read once, out written
+// once: ~0.1 GB per call at [384, 88, 2304] and [128, 264, 2304], 0.3 GB at
+// [384, 129, 2304] and [128, 387, 2304], ~0.1 ms at 3.35 TB/s); the q.k and
+// e.v products run on the CUDA cores in fp32 in this first version, so FMA
+// issue and shared-memory reads bound it, not the bytes. Left on the table:
+// tensor cores (mma/wgmma over 64-row query tiles), and at N = 387 a block per
+// head does 3x the work of N = 129 with the same 4 warps.
 //
 // Design: one block per (head, sequence) pair, 4 warps, the same layout as K1
 // (csrc/attention_qkv.cu): the head's k and v slices staged in padded dynamic
-// shared memory (72 KB at N = 264, 139 KB at N = 512, hence the opt-in
-// attribute), one query row per warp, lanes over keys for the logits and over
-// head-dim pairs for e.v. The key mask sits in shared memory beside k and v.
+// shared memory (72 KB at N = 264, 114 KB at N = 387, 139 KB at N = 512, hence
+// the opt-in attribute), one query row per warp, lanes over keys for the
+// logits and over head-dim pairs for e.v. The key mask sits in shared memory
+// beside k and v. The TPU's split into per-tile patch logits plus cls columns
+// (a 128-lane layout artefact) is gone: one row of N logits per warp, with the
+// cls keys recognised by their index.
 #include "common.cuh"
 
 namespace editor_kernels {
@@ -31,10 +47,17 @@ namespace {
 
 constexpr int kWarps = 4;
 
-__global__ void __launch_bounds__(kWarps * 32)
-masked_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
-                        bf16* __restrict__ out, int N, int H, int D, float scale,
-                        float fill) {
+size_t masked_smem_bytes(int N, int D) {
+  const int Np = (N + 3) & ~3;
+  return 2 * (size_t)N * (D + kRowPad) * sizeof(bf16) + (size_t)Np * sizeof(float) +
+         (size_t)kWarps * (D + Np) * sizeof(float);
+}
+
+// tile == 0: K3 (fill replaces the logit, every exp rounded); tile > 0: K6
+// (fill added, the exps of the keys m % tile == 0 kept in fp32).
+__device__ __forceinline__ void masked_attention_body(
+    const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out,
+    int N, int H, int D, float scale, float fill, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int C = H * D;
@@ -64,7 +87,11 @@ masked_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
     __syncwarp();
     float mx = -INFINITY;
     for (int m = lane; m < N; m += 32) {
-      const float s = mq * mk[m] == 0.f ? fill : dot_q_k(q, ks + m * ld, D) * scale;
+      float s;
+      if (tile > 0)
+        s = dot_q_k(q, ks + m * ld, D) * scale + (mq * mk[m] == 0.f ? fill : 0.f);
+      else
+        s = mq * mk[m] == 0.f ? fill : dot_q_k(q, ks + m * ld, D) * scale;
       e[m] = s;
       mx = fmaxf(mx, s);
     }
@@ -73,13 +100,28 @@ masked_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
     for (int m = lane; m < N; m += 32) {
       const float em = expf(e[m] - mx);
       sum += em;
-      e[m] = __bfloat162float(__float2bfloat16(em));
+      const bool cls_key = tile > 0 && m % tile == 0;
+      e[m] = cls_key ? em : __bfloat162float(__float2bfloat16(em));
     }
     const float rw = mq / warp_sum(sum);  // the max element gives 1: sum >= 1
     __syncwarp();
     weighted_v_row(e, vs, N, D, rw, orow, lane);
     __syncwarp();  // q and e are rewritten for the next row
   }
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+masked_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                        bf16* __restrict__ out, int N, int H, int D, float scale,
+                        float fill) {
+  masked_attention_body(qkv, mask, out, N, H, D, scale, fill, 0);
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+masked_attention_tiled_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                              bf16* __restrict__ out, int N, int H, int D, float scale,
+                              float fill, int tile) {
+  masked_attention_body(qkv, mask, out, N, H, D, scale, fill, tile);
 }
 
 }  // namespace
@@ -89,15 +131,27 @@ extern "C" int editor_masked_attention(const void* qkv, const void* mask, void* 
                                        int B, int N, int H, int D, float scale,
                                        float fill, void* stream) {
   using namespace editor_kernels;
-  const int Np = (N + 3) & ~3;
-  const size_t smem = 2 * (size_t)N * (D + kRowPad) * sizeof(bf16) +
-                      (size_t)Np * sizeof(float) +
-                      (size_t)kWarps * (D + Np) * sizeof(float);
+  const size_t smem = masked_smem_bytes(N, D);
   cudaError_t err = allow_dynamic_smem(masked_attention_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   masked_attention_kernel<<<dim3(H, B), kWarps * 32, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
       static_cast<bf16*>(out), N, H, D, scale, fill);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: `tile` tokens per tile (129 on the model path), N % tile == 0.
+extern "C" int editor_masked_attention_tiled(const void* qkv, const void* mask, void* out,
+                                             int B, int N, int H, int D, float scale,
+                                             float fill, int tile, void* stream) {
+  using namespace editor_kernels;
+  const size_t smem = masked_smem_bytes(N, D);
+  cudaError_t err = allow_dynamic_smem(masked_attention_tiled_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  masked_attention_tiled_kernel<<<dim3(H, B), kWarps * 32, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
+      static_cast<bf16*>(out), N, H, D, scale, fill, tile);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,7 @@ The ``nn.Module`` tree carries exactly the reference's state_dict keys
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -30,7 +30,11 @@ from editor_tpu_torch.models.frequency import frequency_token_select
 from editor_tpu_torch.models.fusion import BlockMask
 from editor_tpu_torch.models.layers import BatchNorm1d, Linear
 from editor_tpu_torch.models.sfts import bcc_loss, sfts_select
-from editor_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from editor_tpu_torch.models.vit import (ViTConfig, VisionTransformer, deit_small_config,
+                                         vit_base_config, vit_small_config)
+
+if TYPE_CHECKING:
+    from editor_tpu_torch.config import Config
 
 MODALITIES = ("RGB", "NI", "TI")
 FUSION_HEADS = 12  # editor_apply passes num_heads=12 to the fusion block
@@ -51,6 +55,16 @@ def vit_tiny_test_config(**kw) -> ViTConfig:
     """Tiny backbone for CPU tests (not in the reference zoo)."""
     return ViTConfig(embed_dim=96, depth=2, num_heads=4, mlp_ratio=2.0,
                      qkv_bias=True, **kw)
+
+
+VIT_FACTORY = {
+    # reference factory __factory_T_type (make_model.py:363-368)
+    "vit_base_patch16_224": vit_base_config,
+    "deit_base_patch16_224": vit_base_config,
+    "vit_small_patch16_224": vit_small_config,
+    "deit_small_patch16_224": deit_small_config,
+    "vit_tiny_test": vit_tiny_test_config,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,9 +94,44 @@ class EditorConfig:
         return self.vit.num_patches
 
 
+def editor_config_from(cfg: "Config", num_classes: int, camera_num: int) -> EditorConfig:
+    """The EditorConfig of a framework :class:`~editor_tpu_torch.config.Config`
+    (the same mapping as the JAX ``editor_config_from``; reference:
+    modeling/make_model.py:34-98,371-374): MODEL.TRANSFORMER_TYPE picks the
+    backbone factory, SIE_CAMERA, SIE_COE, DROP_PATH, DROP_OUT, ATT_DROP_RATE,
+    HEAD_KEEP, FREQUENCY_KEEP, AL, MOE_* and TPU.REMAT*, TPU.COMPACT_TAIL set
+    the rest."""
+    camera = camera_num if cfg.MODEL.SIE_CAMERA else 0
+    factory = VIT_FACTORY[cfg.MODEL.TRANSFORMER_TYPE]
+    vit_cfg = factory(
+        img_size=tuple(cfg.INPUT.SIZE_TRAIN),
+        stride_size=tuple(cfg.MODEL.STRIDE_SIZE),
+        camera=camera,
+        view=0,
+        sie_xishu=cfg.MODEL.SIE_COE,
+        drop_path_rate=cfg.MODEL.DROP_PATH,
+        drop_rate=cfg.MODEL.DROP_OUT,
+        attn_drop_rate=cfg.MODEL.ATT_DROP_RATE,
+        remat=bool(cfg.TPU.REMAT),
+        remat_policy=str(cfg.TPU.REMAT_POLICY),
+        remat_skip_last=int(cfg.TPU.REMAT_SKIP_LAST),
+    )
+    return EditorConfig(
+        num_classes=num_classes,
+        vit=vit_cfg,
+        head_keep=int(cfg.MODEL.HEAD_KEEP),
+        frequency_keep=int(cfg.MODEL.FREQUENCY_KEEP),
+        al=bool(cfg.MODEL.AL),
+        compact_tail=bool(cfg.TPU.COMPACT_TAIL),
+        moe_experts=int(cfg.MODEL.MOE_EXPERTS),
+        moe_aux_weight=float(cfg.MODEL.MOE_AUX_WEIGHT),
+    )
+
+
 def flagship_config(num_classes: int = 171, camera: int = 6) -> EditorConfig:
     """ViT-B/16 at 256x128, RGB+NIR+TIR, HEAD_KEEP 2, FREQUENCY_KEEP 10,
-    COMPACT_TAIL on: ``__graft_entry__._flagship_cfg()`` (RGBNT201)."""
+    COMPACT_TAIL on: ``__graft_entry__._flagship_cfg()`` (RGBNT201), equal to
+    ``editor_config_from(load_config(None, RGBNT201_PRESET), 171, 6)``."""
     vit = ViTConfig(img_size=(256, 128), patch_size=16, stride_size=(16, 16),
                     embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0,
                     qkv_bias=True, camera=camera, sie_xishu=3.0,

@@ -6,9 +6,12 @@ masked block over the concatenated [RGB|NIR|TIR] tokens, output LayerNorm
 and re-mask. Masking as in the reference: tokens multiplied by the mask
 before qkv and fc1, logits filled with -65504 where ``mask_q * mask_k == 0``,
 attention rows multiplied by the query mask. LayerNorm eps is torch's default
-1e-5 and every Linear is bias-free. Attention goes through K3
-(:func:`~editor_tpu_torch.ops.masked_attention_qkv_fn`, whose backward is K5)
-or, with ``use_kernels=False``, its plain version. In training the OCFR loss
+1e-5 and every Linear is bias-free. Attention goes through
+:func:`~editor_tpu_torch.ops.masked_attention_from_qkv` with the tile JAX
+passes (the per-modality length in the modality blocks, the mask's length in
+the joint block): the uncompacted tail (1 + 128-token tiles) runs K6 with
+K7 as its backward, the compact tail K3 with K5; with ``use_kernels=False``
+the plain version of the XLA math. In training the OCFR loss
 (:mod:`~editor_tpu_torch.models.ocfr`) runs on the refined per-modality cls
 tokens and moves the ``memory_cls`` centers. The MoE joint MLP is not ported.
 """
@@ -62,11 +65,11 @@ def _tile_mask(mask: torch.Tensor, n_tokens: int) -> torch.Tensor:
     return mask
 
 
-def _attention(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+def _attention(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int, tile: int,
                use_kernels: bool) -> torch.Tensor:
     scale = (qkv.shape[-1] // 3 // num_heads) ** -0.5
-    fn = ops.masked_attention_qkv_fn if use_kernels else ops.masked_attention_qkv_plain
-    return fn(qkv, mask, num_heads, scale, ops.MASK_FILL)
+    return ops.masked_attention_from_qkv(qkv, mask, num_heads, scale, ops.MASK_FILL, tile,
+                                         use_kernels)
 
 
 def _ln_modal(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -122,7 +125,7 @@ class BlockMask(nn.Module):
         y = _ln_modal(X, self._stack("norm{}", "weight", M),
                       self._stack("norm{}", "bias", M))
         qkv = _linear_modal(y * m4, self._stack("attn{}", "qkv.weight", M))
-        out = _attention(qkv.reshape(M * B, n, 3 * C), mask_flat, self.num_heads,
+        out = _attention(qkv.reshape(M * B, n, 3 * C), mask_flat, self.num_heads, n,
                          use_kernels)
         X = X + _linear_modal(out.reshape(M, B, n, C),
                               self._stack("attn{}", "proj.weight", M))
@@ -155,7 +158,9 @@ class BlockMask(nn.Module):
         x = torch.cat(refined, dim=1)
         m = _tile_mask(mask, x.shape[1]).to(dtype)
         qkv = self.attn1.qkv(self.norm1(x) * m)
-        x = x + self.attn1.proj(_attention(qkv, m[..., 0], self.num_heads, use_kernels))
+        # the tile is the per-modality length, before the mask is repeated
+        x = x + self.attn1.proj(_attention(qkv, m[..., 0], self.num_heads, mask.shape[1],
+                                           use_kernels))
         x = x + self.mlp.fc2(gelu(self.mlp.fc1(self.norm2(x) * m)))
         fused = self.out_norm(x) * m
         return fused if ocfr_loss is None else (fused, ocfr_loss)

@@ -87,6 +87,26 @@ class ViTConfig:
         return self.qk_scale if self.qk_scale is not None else self.head_dim ** -0.5
 
 
+def vit_base_config(**kw) -> ViTConfig:
+    """vit_base_patch16_224 factory args (reference: vit_pytorch.py:693-701)."""
+    return ViTConfig(embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0,
+                     qkv_bias=True, **kw)
+
+
+def vit_small_config(**kw) -> ViTConfig:
+    """vit_small_patch16_224 (reference: vit_pytorch.py:704-714): its qk
+    scale is 768^-0.5, not head_dim^-0.5."""
+    kw.setdefault("qk_scale", 768 ** -0.5)
+    return ViTConfig(embed_dim=768, depth=8, num_heads=8, mlp_ratio=3.0,
+                     qkv_bias=False, **kw)
+
+
+def deit_small_config(**kw) -> ViTConfig:
+    """deit_small_patch16_224 (reference: vit_pytorch.py:717-727)."""
+    return ViTConfig(embed_dim=384, depth=12, num_heads=6, mlp_ratio=4.0,
+                     qkv_bias=True, **kw)
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, cfg: ViTConfig, device=None):
         super().__init__()

@@ -1,5 +1,5 @@
-"""Attention ops of the eval and train paths, each a hand-written CUDA kernel
-for Hopper beside its plain PyTorch version.
+"""Attention and fused-linear ops of the eval and train paths, each a
+hand-written CUDA kernel for Hopper beside its plain PyTorch version.
 
 | wrapper | kernel source | plain version |
 | --- | --- | --- |
@@ -8,26 +8,42 @@ for Hopper beside its plain PyTorch version.
 | :func:`masked_attention_qkv` (K3) | ``csrc/masked_attention.cu`` | :func:`masked_attention_qkv_plain` |
 | :func:`attention_qkv_bwd` (K4) | ``csrc/attention_qkv_bwd.cu`` | :func:`attention_qkv_bwd_plain` |
 | :func:`masked_attention_qkv_bwd` (K5) | ``csrc/masked_attention_bwd.cu`` | :func:`masked_attention_qkv_bwd_plain` |
+| :func:`masked_attention_tiled` (K6) | ``csrc/masked_attention.cu`` | :func:`masked_attention_tiled_plain` |
+| :func:`masked_attention_tiled_bwd` (K7) | ``csrc/masked_attention_bwd.cu`` | :func:`masked_attention_tiled_bwd_plain` |
+| :func:`ln_matmul` (K8) | ``csrc/ln_matmul.cu`` | :func:`ln_matmul_plain` |
 
-A wrapper runs its plain version for a CPU tensor; for a CUDA tensor it
-launches its kernel (built on first use by :mod:`._build`) or raises. Each
-wrapper counts its kernel launches in its ``launches`` attribute.
-:func:`attention_qkv_fn` (K1 + K4) and :func:`masked_attention_qkv_fn`
-(K3 + K5) are the autograd forms the train step uses.
+K4, K5 and K7 share ``csrc/attention_bwd.cuh``. A wrapper runs its plain
+version for a CPU tensor; for a CUDA tensor it launches its kernel (built on
+first use by :mod:`._build`) or raises. Each wrapper counts its kernel
+launches in its ``launches`` attribute. :func:`attention_qkv_fn` (K1 + K4),
+:func:`masked_attention_qkv_fn` (K3 + K5), :func:`masked_attention_tiled_fn`
+(K6 + K7) and :func:`ln_matmul_fn` (K8, plain backward) are the autograd
+forms; :func:`masked_attention_from_qkv` picks the fusion block's pair (K6/K7
+for 1 + 128-token tiles, else K3/K5). K8 is on no model path, as in the JAX
+package.
 """
 
 from editor_tpu_torch.ops.fused_attention import (attention_qkv, attention_qkv_bwd,
                                                   attention_qkv_bwd_plain,
                                                   attention_qkv_fn, attention_qkv_plain)
-from editor_tpu_torch.ops.masked_attention import (MASK_FILL, masked_attention_qkv,
+from editor_tpu_torch.ops.fused_linear import ln_matmul, ln_matmul_fn, ln_matmul_plain
+from editor_tpu_torch.ops.masked_attention import (MASK_FILL, masked_attention_from_qkv,
+                                                   masked_attention_qkv,
                                                    masked_attention_qkv_bwd,
                                                    masked_attention_qkv_bwd_plain,
                                                    masked_attention_qkv_fn,
-                                                   masked_attention_qkv_plain)
+                                                   masked_attention_qkv_plain,
+                                                   masked_attention_route,
+                                                   masked_attention_tiled,
+                                                   masked_attention_tiled_bwd,
+                                                   masked_attention_tiled_bwd_plain,
+                                                   masked_attention_tiled_fn,
+                                                   masked_attention_tiled_plain)
 from editor_tpu_torch.ops.rollout import rollout_chain, rollout_from_probs_plain
 
 KERNEL_WRAPPERS = (attention_qkv, rollout_chain, masked_attention_qkv,
-                   attention_qkv_bwd, masked_attention_qkv_bwd)
+                   attention_qkv_bwd, masked_attention_qkv_bwd, masked_attention_tiled,
+                   masked_attention_tiled_bwd, ln_matmul)
 
 
 def reset_launch_counts() -> None:
@@ -37,7 +53,10 @@ def reset_launch_counts() -> None:
 
 __all__ = ["MASK_FILL", "KERNEL_WRAPPERS", "attention_qkv", "attention_qkv_bwd",
            "attention_qkv_bwd_plain", "attention_qkv_fn", "attention_qkv_plain",
+           "ln_matmul", "ln_matmul_fn", "ln_matmul_plain", "masked_attention_from_qkv",
            "masked_attention_qkv", "masked_attention_qkv_bwd",
            "masked_attention_qkv_bwd_plain", "masked_attention_qkv_fn",
-           "masked_attention_qkv_plain", "reset_launch_counts", "rollout_chain",
-           "rollout_from_probs_plain"]
+           "masked_attention_qkv_plain", "masked_attention_route", "masked_attention_tiled",
+           "masked_attention_tiled_bwd", "masked_attention_tiled_bwd_plain",
+           "masked_attention_tiled_fn", "masked_attention_tiled_plain",
+           "reset_launch_counts", "rollout_chain", "rollout_from_probs_plain"]

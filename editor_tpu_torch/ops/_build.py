@@ -3,7 +3,8 @@
 All of ``editor_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into one shared library with a plain C interface (no PyTorch headers, so the
 build takes seconds), at first use, into ``editor_tpu_torch/_build/`` (listed
-in ``.gitignore``). The library's file name carries a hash of the sources and
+in ``.gitignore``): one ``nvcc -c`` per source, all started together, then one
+link. The library's file name carries a hash of the sources and
 flags, so an edited source is rebuilt and a stale library is never loaded.
 Only sources in the repository are compiled; nothing is downloaded.
 
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +46,13 @@ SIGNATURES = {
     "editor_attention_qkv_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, stream
     "editor_masked_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # qkv, mask, out, B, N, H, D, scale, fill, tile, stream
+    "editor_masked_attention_tiled": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, tile, stream
+    "editor_masked_attention_tiled_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                                          _I, _P],
+    # x, w, bias (or null), gamma, beta, out, T, C, O, eps, gelu, stream
+    "editor_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -83,19 +91,28 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in cu]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(cu, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for cmd in compiles]
+        failed = []
+        for cmd, proc in zip(compiles, procs):
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                              f"{stdout}\n{stderr}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = str(Path(tmp) / out.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
     return out
 
 

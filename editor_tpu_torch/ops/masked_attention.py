@@ -1,29 +1,57 @@
-"""Masked multi-head attention from the raw qkv projection (K3).
+"""Masked multi-head attention from the raw qkv projection (K3, K6) and its
+VJPs (K5, K7).
 
 Counterpart of ``editor_tpu/ops/masked_attention.py``, the hot op of the HMA
-fusion block: logits are filled with ``mask_fill`` (-65504) where
+fusion block: logits are masked with ``mask_fill`` (-65504) where
 ``mask_q * mask_k == 0``, softmaxed, and output rows multiplied by the query
 mask, so fully masked rows come out 0.
 
-On a CUDA tensor :func:`masked_attention_qkv` launches
-``csrc/masked_attention.cu`` (bf16 qkv, any N <= 512) or raises; on a CPU
-tensor it runs :func:`masked_attention_qkv_plain`. The TPU's tiled kernel
-for 1+128-token tiles (COMPACT_TAIL off) is not ported: every sequence of the
-compact-tail path goes through the full-logits kernel.
+Two kernel pairs, chosen by :func:`masked_attention_from_qkv` with the JAX
+dispatch rule (:func:`masked_attention_route`):
 
-Its VJP (K5) is :func:`masked_attention_qkv_bwd`: ``csrc/masked_attention_bwd.cu``
-on a CUDA tensor, :func:`masked_attention_qkv_bwd_plain` on a CPU tensor.
-:func:`masked_attention_qkv_fn` joins the two under autograd for the train
-step; the mask gets no gradient.
+* sequences of 1 + 128-token tiles (the uncompacted fusion tail, N = 129 per
+  modality and 258 or 387 joint) go to K6, :func:`masked_attention_tiled`
+  (``csrc/masked_attention.cu``), and its VJP K7,
+  :func:`masked_attention_tiled_bwd` (``csrc/masked_attention_bwd.cu``): the
+  TPU kernels' split form, each tile's cls-key column in fp32 and the fill
+  added as a bias;
+* any other N <= 512 (the compact tail, N = 88 and 264) goes to K3,
+  :func:`masked_attention_qkv` (``csrc/masked_attention.cu``), and its VJP K5,
+  :func:`masked_attention_qkv_bwd` (``csrc/masked_attention_bwd.cu``): full
+  logits, every weight rounded.
+
+On a CUDA tensor each wrapper launches its kernel (bf16 qkv, N <= 512) or
+raises; on a CPU tensor it runs its plain version. :func:`masked_attention_qkv_fn`
+and :func:`masked_attention_tiled_fn` join each pair under autograd for the
+train step; the mask gets no gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
-from editor_tpu_torch.ops._checks import check_kernel_tensor, compute_dtype
+from editor_tpu_torch.ops._checks import MAX_TOKENS, check_kernel_tensor, compute_dtype
 
 MASK_FILL = -65504.0  # reference: vit_pytorch.py:252
+
+
+def _heads(qkv: torch.Tensor, num_heads: int):
+    """[B, N, 3C] -> q, k, v [B, H, N, D] in the compute dtype."""
+    B, N, C3 = qkv.shape
+    D = C3 // 3 // num_heads
+    qkv5 = qkv.reshape(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)
+    return qkv5.to(compute_dtype(qkv.dtype)).unbind(0)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """[B, H, N, D] -> [B, N, H * D]."""
+    B, H, N, D = t.shape
+    return t.transpose(1, 2).reshape(B, N, H * D)
+
+
+def _cls_keys(N: int, tile: int, device) -> torch.Tensor:
+    """[N] bool: the cls key of each ``tile``-token tile (m % tile == 0)."""
+    return torch.arange(N, device=device) % tile == 0
 
 
 def masked_attention_qkv_plain(qkv: torch.Tensor, mask: torch.Tensor,
@@ -34,19 +62,73 @@ def masked_attention_qkv_plain(qkv: torch.Tensor, mask: torch.Tensor,
     Same math as ``_xla_masked_from_qkv``: at-least-fp32 logits, masked
     pairs replaced by ``mask_fill``, softmax, query rows re-masked, weights
     cast to qkv.dtype before the product with v."""
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    H, D = num_heads, C // num_heads
-    cd = compute_dtype(qkv.dtype)
-    qkv5 = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)  # [3, B, H, N, D]
-    q, k, v = qkv5[0].to(cd), qkv5[1].to(cd), qkv5[2].to(cd)
+    q, k, v = _heads(qkv, num_heads)
+    cd = q.dtype
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     m = mask.to(cd)
     pair = m[:, None, :, None] * m[:, None, None, :]
     logits = torch.where(pair == 0, torch.full_like(logits, mask_fill), logits)
     attn = torch.softmax(logits, dim=-1) * m[:, None, :, None]
     out = torch.matmul(attn.to(qkv.dtype).to(cd), v).to(qkv.dtype)
-    return out.transpose(1, 2).reshape(B, N, C)
+    return _merge_heads(out)
+
+
+def masked_attention_tiled_plain(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                                 scale: float, mask_fill: float = MASK_FILL,
+                                 tile: int = 129) -> torch.Tensor:
+    """K6's function in its TPU kernel's form (``_qkv_masked_kernel``):
+    qkv [B, N, 3C], mask [B, N], N a multiple of ``tile`` -> [B, N, C].
+
+    At-least-fp32 logits with ``mask_fill`` ADDED where the pair mask is 0;
+    a row-max-stabilised softmax over all tiles; the exps of patch keys
+    rounded to qkv.dtype before e.v, each tile's cls key (m % tile == 0)
+    kept in fp32; the sum of the unrounded exps and the query mask scale the
+    output rows (lazy normalisation). At f64 it equals
+    ``_xla_masked_from_qkv``."""
+    q, k, v = _heads(qkv, num_heads)
+    cd = q.dtype
+    m = mask.to(cd)
+    pair = m[:, None, :, None] * m[:, None, None, :]
+    logits = (torch.matmul(q, k.transpose(-1, -2)) * scale
+              + torch.where(pair == 0, mask_fill, 0.0).to(cd))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    rw = m[:, None, :, None] / e.sum(-1, keepdim=True)
+    e = torch.where(_cls_keys(qkv.shape[1], tile, qkv.device), e, e.to(qkv.dtype).to(cd))
+    return _merge_heads((torch.matmul(e, v) * rw).to(qkv.dtype))
+
+
+def _masked_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill, tile):
+    """The masked attention VJP in its TPU kernels' form: tile 0 is K5
+    (``_qkv_masked_full_bwd_kernel``), tile > 0 is K7
+    (``_qkv_masked_bwd_kernel``: fill added, cls keys unrounded)."""
+    q, k, v = _heads(qkv, num_heads)
+    cd = q.dtype
+    B, N, C = g.shape
+    gh = g.reshape(B, N, num_heads, C // num_heads).transpose(1, 2).to(cd)
+    m = mask.to(cd)
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    pair = m[:, None, :, None] * m[:, None, None, :]
+    if tile:
+        logits = logits + torch.where(pair == 0, mask_fill, 0.0).to(cd)
+    else:
+        logits = torch.where(pair == 0, torch.full_like(logits, mask_fill), logits)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    inv = 1.0 / e.sum(-1, keepdim=True)
+    attn = e * inv * m[:, None, :, None]
+    dat = torch.matmul(gh, v.transpose(-1, -2))
+    r0 = (dat * e).sum(-1, keepdim=True) * inv
+    dl = attn * (dat - r0) * scale
+    if tile:
+        cls = _cls_keys(N, tile, qkv.device)
+        dl = torch.where(cls, dl, dl.to(qkv.dtype).to(cd))
+        ab = torch.where(cls, attn, attn.to(qkv.dtype).to(cd))
+    else:
+        dl, ab = dl.to(qkv.dtype).to(cd), attn.to(qkv.dtype).to(cd)
+    dq = torch.matmul(dl, k)
+    dk = torch.matmul(dl.transpose(-1, -2), q)
+    dv = torch.matmul(ab.transpose(-1, -2), gh)
+    return torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(
+        B, N, 3 * C).to(qkv.dtype)
 
 
 def masked_attention_qkv_bwd_plain(qkv: torch.Tensor, mask: torch.Tensor,
@@ -60,53 +142,68 @@ def masked_attention_qkv_bwd_plain(qkv: torch.Tensor, mask: torch.Tensor,
     (``_qkv_masked_full_bwd_kernel``): r0 = sum(dat * e) / sum(e) over the
     row, dl = attn * (dat - r0) * scale with attn already re-masked, attn
     and dl rounded to qkv.dtype before the products."""
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    H, D = num_heads, C // num_heads
-    cd = compute_dtype(qkv.dtype)
-    q, k, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4).to(cd)  # [B, H, N, D]
-    gh = g.reshape(B, N, H, D).transpose(1, 2).to(cd)
-    m = mask.to(cd)
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
-    pair = m[:, None, :, None] * m[:, None, None, :]
-    logits = torch.where(pair == 0, torch.full_like(logits, mask_fill), logits)
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    inv = 1.0 / e.sum(-1, keepdim=True)
-    attn = e * inv * m[:, None, :, None]
-    dat = torch.matmul(gh, v.transpose(-1, -2))
-    r0 = (dat * e).sum(-1, keepdim=True) * inv
-    dl = (attn * (dat - r0) * scale).to(qkv.dtype).to(cd)
-    ab = attn.to(qkv.dtype).to(cd)
-    dq = torch.matmul(dl, k)
-    dk = torch.matmul(dl.transpose(-1, -2), q)
-    dv = torch.matmul(ab.transpose(-1, -2), gh)
-    return torch.stack([dq, dk, dv], dim=2).permute(0, 3, 2, 1, 4).reshape(
-        B, N, C3).to(qkv.dtype)
+    return _masked_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill, 0)
 
 
-def masked_attention_qkv(qkv: torch.Tensor, mask: torch.Tensor,
-                         num_heads: int, scale: float,
-                         mask_fill: float = MASK_FILL) -> torch.Tensor:
-    """Masked attention from the raw qkv; ``mask`` [B, N] in any dtype."""
+def masked_attention_tiled_bwd_plain(qkv: torch.Tensor, mask: torch.Tensor,
+                                     g: torch.Tensor, num_heads: int, scale: float,
+                                     mask_fill: float = MASK_FILL,
+                                     tile: int = 129) -> torch.Tensor:
+    """K7's function, the VJP of :func:`masked_attention_tiled_plain` in
+    qkv, in its TPU kernel's form (``_qkv_masked_bwd_kernel``): as
+    :func:`masked_attention_qkv_bwd_plain` with the fill added as a bias and
+    each tile's cls-key attn and dl kept in fp32 (only the patch keys' are
+    rounded to qkv.dtype). At f64 it equals ``jax.vjp`` of
+    ``_xla_masked_from_qkv``."""
+    return _masked_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill, tile)
+
+
+def _check_args(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                g: torch.Tensor = None, tile: int = 0) -> int:
+    """Shape checks shared by the wrappers; returns the head dim."""
     B, N, C3 = qkv.shape
     if C3 % (3 * num_heads):
         raise ValueError(f"qkv width {C3} is not 3 x heads ({num_heads}) x D")
     if mask.shape != (B, N):
         raise ValueError(f"mask {tuple(mask.shape)} != {(B, N)}")
-    if qkv.device.type == "cpu":
-        return masked_attention_qkv_plain(qkv, mask, num_heads, scale, mask_fill)
-    D = C3 // 3 // num_heads
-    check_kernel_tensor("masked_attention_qkv", qkv, 3, D, N, align=4)
+    if g is not None and g.shape != (B, N, C3 // 3):
+        raise ValueError(f"g {tuple(g.shape)} != {(B, N, C3 // 3)}")
+    if tile and N % tile:
+        raise ValueError(f"{N} tokens are not a whole number of {tile}-token tiles")
+    return C3 // 3 // num_heads
+
+
+def _kernel_inputs(name: str, qkv: torch.Tensor, mask: torch.Tensor, D: int,
+                   g: torch.Tensor = None) -> torch.Tensor:
+    """Check the CUDA tensors; returns the mask as contiguous fp32."""
+    N = qkv.shape[1]
+    check_kernel_tensor(f"{name} qkv", qkv, 3, D, N, align=4)
+    if g is not None:
+        check_kernel_tensor(f"{name} g", g, 3, D, N, align=4)
     if mask.device != qkv.device:
         raise ValueError(f"mask on {mask.device}, qkv on {qkv.device}")
+    return mask.to(torch.float32).contiguous()
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def masked_attention_qkv(qkv: torch.Tensor, mask: torch.Tensor,
+                         num_heads: int, scale: float,
+                         mask_fill: float = MASK_FILL) -> torch.Tensor:
+    """K3: masked attention from the raw qkv; ``mask`` [B, N] in any dtype."""
+    D = _check_args(qkv, mask, num_heads)
+    if qkv.device.type == "cpu":
+        return masked_attention_qkv_plain(qkv, mask, num_heads, scale, mask_fill)
+    mask32 = _kernel_inputs("masked_attention_qkv", qkv, mask, D)
     from editor_tpu_torch.ops import _build
 
-    mask32 = mask.to(torch.float32).contiguous()
+    B, N, C3 = qkv.shape
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     code = _build.library().editor_masked_attention(
         qkv.data_ptr(), mask32.data_ptr(), out.data_ptr(), B, N, num_heads, D,
-        float(scale), float(mask_fill),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+        float(scale), float(mask_fill), _stream(qkv))
     _build.check(code, "masked_attention_qkv")
     masked_attention_qkv.launches += 1
     return out
@@ -115,29 +212,45 @@ def masked_attention_qkv(qkv: torch.Tensor, mask: torch.Tensor,
 masked_attention_qkv.launches = 0
 
 
+def masked_attention_tiled(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                           scale: float, mask_fill: float = MASK_FILL,
+                           tile: int = 129) -> torch.Tensor:
+    """K6: masked attention from the raw qkv over ``tile``-token tiles (N a
+    multiple of ``tile``); ``mask`` [B, N] in any dtype. CUDA:
+    ``csrc/masked_attention.cu`` (bf16, contiguous); CPU:
+    :func:`masked_attention_tiled_plain`."""
+    D = _check_args(qkv, mask, num_heads, tile=tile)
+    if qkv.device.type == "cpu":
+        return masked_attention_tiled_plain(qkv, mask, num_heads, scale, mask_fill, tile)
+    mask32 = _kernel_inputs("masked_attention_tiled", qkv, mask, D)
+    from editor_tpu_torch.ops import _build
+
+    B, N, C3 = qkv.shape
+    out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    code = _build.library().editor_masked_attention_tiled(
+        qkv.data_ptr(), mask32.data_ptr(), out.data_ptr(), B, N, num_heads, D,
+        float(scale), float(mask_fill), tile, _stream(qkv))
+    _build.check(code, "masked_attention_tiled")
+    masked_attention_tiled.launches += 1
+    return out
+
+
+masked_attention_tiled.launches = 0
+
+
 def masked_attention_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                              num_heads: int, scale: float,
                              mask_fill: float = MASK_FILL) -> torch.Tensor:
     """K5: dqkv [B, N, 3C] from qkv, the mask [B, N] and the output's
     cotangent g [B, N, C]. CUDA: ``csrc/masked_attention_bwd.cu`` (bf16,
     contiguous); CPU: :func:`masked_attention_qkv_bwd_plain`."""
-    B, N, C3 = qkv.shape
-    if C3 % (3 * num_heads):
-        raise ValueError(f"qkv width {C3} is not 3 x heads ({num_heads}) x D")
-    if mask.shape != (B, N):
-        raise ValueError(f"mask {tuple(mask.shape)} != {(B, N)}")
-    if g.shape != (B, N, C3 // 3):
-        raise ValueError(f"g {tuple(g.shape)} != {(B, N, C3 // 3)}")
+    D = _check_args(qkv, mask, num_heads, g)
     if qkv.device.type == "cpu":
         return masked_attention_qkv_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill)
-    D = C3 // 3 // num_heads
-    check_kernel_tensor("masked_attention_qkv_bwd qkv", qkv, 3, D, N, align=4)
-    check_kernel_tensor("masked_attention_qkv_bwd g", g, 3, D, N, align=4)
-    if mask.device != qkv.device:
-        raise ValueError(f"mask on {mask.device}, qkv on {qkv.device}")
+    mask32 = _kernel_inputs("masked_attention_qkv_bwd", qkv, mask, D, g)
     from editor_tpu_torch.ops import _build
 
-    mask32 = mask.to(torch.float32).contiguous()
+    B, N, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     # per-(b, h) scratch of the rounded attn and dl rows (csrc/attention_bwd.cuh)
     pst = torch.empty((B * num_heads, N, N), dtype=qkv.dtype, device=qkv.device)
@@ -145,7 +258,7 @@ def masked_attention_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Ten
     code = _build.library().editor_masked_attention_bwd(
         qkv.data_ptr(), mask32.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         pst.data_ptr(), dlst.data_ptr(), B, N, num_heads, D, float(scale),
-        float(mask_fill), torch.cuda.current_stream(qkv.device).cuda_stream)
+        float(mask_fill), _stream(qkv))
     _build.check(code, "masked_attention_qkv_bwd")
     masked_attention_qkv_bwd.launches += 1
     return dqkv
@@ -154,25 +267,100 @@ def masked_attention_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Ten
 masked_attention_qkv_bwd.launches = 0
 
 
-class _MaskedAttentionQKV(torch.autograd.Function):
-    """K3 forward, K5 backward; no gradient for the mask."""
+def masked_attention_tiled_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
+                               num_heads: int, scale: float, mask_fill: float = MASK_FILL,
+                               tile: int = 129) -> torch.Tensor:
+    """K7: dqkv [B, N, 3C] of K6 from qkv, the mask [B, N] and the output's
+    cotangent g [B, N, C]. CUDA: ``csrc/masked_attention_bwd.cu`` (bf16,
+    contiguous; a [B H, N, N] bf16 scratch pair, 0.92 GB at [128, 387]);
+    CPU: :func:`masked_attention_tiled_bwd_plain`."""
+    D = _check_args(qkv, mask, num_heads, g, tile=tile)
+    if qkv.device.type == "cpu":
+        return masked_attention_tiled_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill,
+                                                tile)
+    mask32 = _kernel_inputs("masked_attention_tiled_bwd", qkv, mask, D, g)
+    from editor_tpu_torch.ops import _build
+
+    B, N, _ = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    pst = torch.empty((B * num_heads, N, N), dtype=qkv.dtype, device=qkv.device)
+    dlst = torch.empty_like(pst)
+    code = _build.library().editor_masked_attention_tiled_bwd(
+        qkv.data_ptr(), mask32.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+        pst.data_ptr(), dlst.data_ptr(), B, N, num_heads, D, float(scale),
+        float(mask_fill), tile, _stream(qkv))
+    _build.check(code, "masked_attention_tiled_bwd")
+    masked_attention_tiled_bwd.launches += 1
+    return dqkv
+
+
+masked_attention_tiled_bwd.launches = 0
+
+
+class _MaskedAttention(torch.autograd.Function):
+    """tile 0: K3 forward, K5 backward; tile > 0: K6 forward, K7 backward.
+    No gradient for the mask."""
 
     @staticmethod
-    def forward(ctx, qkv, mask, num_heads, scale, mask_fill):
+    def forward(ctx, qkv, mask, num_heads, scale, mask_fill, tile):
         ctx.save_for_backward(qkv, mask)
-        ctx.num_heads, ctx.scale, ctx.mask_fill = num_heads, scale, mask_fill
-        return masked_attention_qkv(qkv, mask, num_heads, scale, mask_fill)
+        ctx.args = (num_heads, scale, mask_fill)
+        ctx.tile = tile
+        if tile:
+            return masked_attention_tiled(qkv, mask, *ctx.args, tile)
+        return masked_attention_qkv(qkv, mask, *ctx.args)
 
     @staticmethod
     def backward(ctx, g_out):
         qkv, mask = ctx.saved_tensors
-        dqkv = masked_attention_qkv_bwd(qkv, mask, g_out.contiguous(), ctx.num_heads,
-                                        ctx.scale, ctx.mask_fill)
-        return dqkv, None, None, None, None
+        g_out = g_out.contiguous()
+        if ctx.tile:
+            dqkv = masked_attention_tiled_bwd(qkv, mask, g_out, *ctx.args, ctx.tile)
+        else:
+            dqkv = masked_attention_qkv_bwd(qkv, mask, g_out, *ctx.args)
+        return dqkv, None, None, None, None, None
 
 
 def masked_attention_qkv_fn(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
                             scale: float, mask_fill: float = MASK_FILL) -> torch.Tensor:
     """:func:`masked_attention_qkv` under autograd, with
     :func:`masked_attention_qkv_bwd` as its backward."""
-    return _MaskedAttentionQKV.apply(qkv, mask.detach(), num_heads, scale, mask_fill)
+    return _MaskedAttention.apply(qkv, mask.detach(), num_heads, scale, mask_fill, 0)
+
+
+def masked_attention_tiled_fn(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                              scale: float, mask_fill: float = MASK_FILL,
+                              tile: int = 129) -> torch.Tensor:
+    """:func:`masked_attention_tiled` under autograd, with
+    :func:`masked_attention_tiled_bwd` as its backward."""
+    if tile <= 0:
+        raise ValueError(f"tile must be positive, got {tile}")
+    return _MaskedAttention.apply(qkv, mask.detach(), num_heads, scale, mask_fill, tile)
+
+
+def masked_attention_route(n_tokens: int, tile: int) -> str:
+    """The kernel pair the JAX dispatch (``masked_attention_from_qkv``,
+    editor_tpu/ops/masked_attention.py:505-514) gives a sequence of
+    ``n_tokens`` cut into ``tile``-token tiles: ``"tiled"`` (K6/K7) when it is
+    a whole number of 1 + 128k-token tiles, else ``"full"`` (K3/K5) up to
+    512 tokens, else ``"plain"`` (where JAX takes its XLA path)."""
+    if tile and n_tokens % tile == 0 and (tile - 1) % 128 == 0:
+        return "tiled"
+    if n_tokens <= MAX_TOKENS:
+        return "full"
+    return "plain"
+
+
+def masked_attention_from_qkv(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                              scale: float, mask_fill: float = MASK_FILL,
+                              tile: int = 129, use_kernels: bool = True) -> torch.Tensor:
+    """Masked attention from the raw qkv under autograd, through the kernel
+    pair :func:`masked_attention_route` picks (``use_kernels=False``: the
+    plain version of the XLA oracle's math, :func:`masked_attention_qkv_plain`,
+    differentiated by autograd). qkv [B, N, 3C], mask [B, N] -> [B, N, C]."""
+    route = masked_attention_route(qkv.shape[1], tile) if use_kernels else "plain"
+    if route == "tiled":
+        return masked_attention_tiled_fn(qkv, mask, num_heads, scale, mask_fill, tile)
+    if route == "full":
+        return masked_attention_qkv_fn(qkv, mask, num_heads, scale, mask_fill)
+    return masked_attention_qkv_plain(qkv, mask, num_heads, scale, mask_fill)

@@ -1,14 +1,19 @@
 """Where the time of the flagship eval forward goes on one CUDA device.
 
     python3 -m editor_tpu_torch.tools.profile_forward [--batch 128 1] [--iters 10]
+        [--opts KEY VALUE ...]
 
-For each batch size: the forward's time per call from CUDA events over
-``--iters`` back-to-back calls of ``build_eval_step`` (bf16, seeded random
-weights and images) after two warm-ups, images per second, peak device
-memory, and a ``torch.profiler`` trace of ``--profile-iters`` more calls. The
-trace's device time is grouped per forward into the port's kernels (K1-K3),
-GEMMs, LayerNorm, GELU, the patch conv and the remaining elementwise and copy
-kernels; the device's idle share is 1 - (device busy time / event time). The
+The model is the flagship one, ``editor_config_from(load_config(None,
+RGBNT201_PRESET + opts), 171, 6)``: ``--opts TPU.COMPACT_TAIL False``
+profiles the uncompacted fusion tail (K6), any other ``load_config`` override
+works the same way. For each batch size: the forward's time per call from
+CUDA events over ``--iters`` back-to-back calls of ``build_eval_step`` (bf16,
+seeded random weights and images) after two warm-ups, images per second,
+peak device memory, and a ``torch.profiler`` trace of ``--profile-iters``
+more calls. The trace's device time is grouped per forward into the port's
+kernels (K1-K8), GEMMs, LayerNorm, GELU, the patch conv and the remaining
+elementwise and copy kernels; the device's idle share is 1 - (device busy
+time / event time). The
 card's name and power limit head the output; the full per-kernel tables go to
 ``--out`` (by default the git-ignored
 ``editor_tpu_torch/_build/profile_forward.txt``). Exits non-zero without a
@@ -34,6 +39,9 @@ CATEGORIES = (
     ("K3 masked_attention", r"masked_attention_kernel"),
     ("K4 attention_qkv_bwd", r"attention_bwd_kernel<false>"),
     ("K5 masked_attention_bwd", r"attention_bwd_kernel<true>"),
+    ("K6 masked_attention_tiled", r"masked_attention_tiled_kernel"),
+    ("K7 masked_attention_tiled_bwd", r"masked_attention_tiled_bwd_kernel"),
+    ("K8 ln_matmul", r"ln_matmul_kernel"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
     ("patch conv (cuDNN)", r"fprop|dgrad|wgrad|cudnn|nchw|nhwc|conv(?!ert)"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|cublas"),
@@ -49,6 +57,22 @@ def category(kernel_name: str) -> str:
         if re.search(pattern, name):
             return label
     return OTHER
+
+
+def flagship_from_opts(opts) -> tuple:
+    """(Config, EditorConfig) of the flagship preset with ``opts`` (a flat
+    KEY VALUE list of ``load_config`` overrides) on top: one source for the
+    solver, the input and the model."""
+    from editor_tpu_torch.config import RGBNT201_PRESET, load_config
+    from editor_tpu_torch.models.editor import editor_config_from
+
+    cfg = load_config(None, RGBNT201_PRESET + list(opts or []))
+    return cfg, editor_config_from(cfg, num_classes=171, camera_num=6)
+
+
+def add_opts_arg(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--opts", nargs="+", default=[], metavar="KEY VALUE",
+                    help="load_config overrides, e.g. TPU.COMPACT_TAIL False")
 
 
 def _batch(gen: torch.Generator, B: int, size) -> dict:
@@ -127,6 +151,7 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--profile-iters", type=int, default=3)
     ap.add_argument("--out", default="editor_tpu_torch/_build/profile_forward.txt")
+    add_opts_arg(ap)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_forward: no CUDA device")
@@ -134,10 +159,10 @@ def main(argv=None) -> None:
     print(card, flush=True)
 
     from editor_tpu_torch.engine.evaluate import build_eval_step
-    from editor_tpu_torch.models.editor import flagship_config
     from editor_tpu_torch.models.init import editor_init
 
-    cfg = flagship_config()
+    _, cfg = flagship_from_opts(args.opts)
+    print(f"compact_tail={cfg.compact_tail} opts={args.opts}", flush=True)
     step = build_eval_step(editor_init(cfg, seed=0, device="cuda"), torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = []

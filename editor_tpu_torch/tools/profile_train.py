@@ -1,14 +1,17 @@
 """Where the time of the flagship train step goes on one CUDA device.
 
     python3 -m editor_tpu_torch.tools.profile_train [--batch 128] [--iters 5]
+        [--opts KEY VALUE ...]
 
-The train step of ``chip_smoke.py`` phase 5: flagship config (ViT-B/16,
-256x128, RGB+NIR+TIR), seeded random weights, SGD with the RGBNT201 preset's
-solver, bf16 compute, B images as 8 ids x B/8 instances of random uint8
-images through the on-device augmentation. Its time per step from CUDA events
-over ``--iters`` back-to-back steps after two warm-ups, images per second,
-peak device memory, and a ``torch.profiler`` trace of ``--profile-iters``
-more steps grouped per step as in ``profile_forward`` (K1-K5, GEMMs,
+The train step of ``chip_smoke.py`` phase 5: the flagship model and solver,
+``load_config(None, RGBNT201_PRESET + opts)`` through ``editor_config_from``
+(ViT-B/16, 256x128, RGB+NIR+TIR; ``--opts TPU.COMPACT_TAIL False`` for the
+uncompacted tail, phase 6), seeded random weights, SGD, bf16 compute, B images
+as 8 ids x B/8 instances of random uint8 images through the on-device
+augmentation. Its time per step from CUDA events over ``--iters``
+back-to-back steps after two warm-ups, images per second, peak device
+memory, and a ``torch.profiler`` trace of ``--profile-iters`` more steps
+grouped per step as in ``profile_forward`` (K1-K8, GEMMs,
 LayerNorm, GELU, the patch conv, the optimizer's foreach kernels, the rest);
 the idle share is 1 - (device busy time / event time). The card's name and
 power limit head the output; the per-kernel table goes to ``--out`` (by
@@ -23,21 +26,22 @@ import sys
 
 import torch
 
-from editor_tpu_torch.tools.profile_forward import card_name, profile_calls, write_report
+from editor_tpu_torch.tools.profile_forward import (add_opts_arg, card_name,
+                                                    flagship_from_opts, profile_calls,
+                                                    write_report)
 
 
-def build_flagship_train_step(batch: int, seed: int = 0):
-    """(step, batch dict): the flagship train step on the current CUDA device
-    and one synthetic uint8 batch of ``batch`` images, 8 ids x batch/8."""
-    from editor_tpu_torch.config import Config
+def build_flagship_train_step(batch: int, seed: int = 0, opts=()):
+    """(step, batch dict): the flagship train step (the preset with ``opts``
+    on top) on the current CUDA device and one synthetic uint8 batch of
+    ``batch`` images, 8 ids x batch/8."""
     from editor_tpu_torch.data.transforms import make_train_augment
     from editor_tpu_torch.engine.train import build_train_step
     from editor_tpu_torch.losses import make_loss
-    from editor_tpu_torch.models.editor import flagship_config
     from editor_tpu_torch.models.init import editor_init
     from editor_tpu_torch.solver import make_optimizer, make_scheduler
 
-    ecfg, cfg = flagship_config(), Config()
+    cfg, ecfg = flagship_from_opts(opts)
     model = editor_init(ecfg, seed=seed)
     step = build_train_step(model, make_optimizer(cfg, model), make_loss(cfg, ecfg.num_classes),
                             make_scheduler(cfg), cfg.SOLVER.BASE_LR, torch.bfloat16,
@@ -58,12 +62,14 @@ def main(argv=None) -> None:
     ap.add_argument("--profile-iters", type=int, default=2)
     ap.add_argument("--epoch", type=int, default=11, help="epoch fed to the schedule")
     ap.add_argument("--out", default="editor_tpu_torch/_build/profile_train.txt")
+    add_opts_arg(ap)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile_train: no CUDA device")
     card = card_name()
     print(card, flush=True)
-    step, data = build_flagship_train_step(args.batch)
+    print(f"opts={args.opts}", flush=True)
+    step, data = build_flagship_train_step(args.batch, opts=args.opts)
     result = profile_calls(lambda: step(data, args.epoch), args.batch, args.iters,
                            args.profile_iters, lambda s: print(s, flush=True), "train step")
     write_report(args.out, card, [result], "train step")

@@ -28,6 +28,13 @@ from editor_tpu_torch.tools import profile_train as pt
      "patch conv (cuDNN)"),
     ("void at::native::(anonymous namespace)::GammaBetaBackwardCUDAKernel<float, float>",
      "LayerNorm"),
+    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_kernel(...)",
+     "K6 masked_attention_tiled"),
+    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel(...)",
+     "K7 masked_attention_tiled_bwd"),
+    ("void editor_kernels::(anonymous namespace)::masked_attention_kernel(...)",
+     "K3 masked_attention"),
+    ("void editor_kernels::(anonymous namespace)::ln_matmul_kernel(...)", "K8 ln_matmul"),
     # a dtype conversion is not a convolution
     ("void at::native::unrolled_elementwise_kernel<direct_copy_kernel_cuda, convert>",
      pf.OTHER),
