@@ -34,10 +34,16 @@ Phases, each printing its lines and its seconds:
      compact and uncompacted models with the same weights, both plain fp32,
      agree to rel-L2 <= 1e-4 (the compaction is exact); (c) the train step
      launches K1 12, K2 1, K4 12, K6 2, K7 2 and K3, K5 0 times and matches
-     the plain fp32 run as in phase 5; (d) its time and memory.
+     the plain fp32 run as in phase 5; (d) its time and memory;
+  7. variants: the design-variant kernels T1-T6 of editor_tpu_torch/tools/
+     (bench_attn, bench_attn2, bench_attn_layer, bench_rollout,
+     bench_rollout2, bench_full_kernel), each at the flagship shape in one
+     configuration, against its plain version, with kernel, plain and
+     library-call times and the bound. They are on no model path: phases 3-6
+     count 0 launches of each (the full sweeps are the tools' own).
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
-through editor_config_from. Then one JSON line with each kernel's numbers,
-and last the result line {"ok": true, "device": {...}}. Any failed check
+through editor_config_from. Then one JSON line with each kernel's numbers
+(K1-K8, T1-T6), and last the result line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero without the result line; it does the
 same without a CUDA device.
 """
@@ -76,10 +82,25 @@ KERNELS = {
     "ln_matmul": dict(source="editor_tpu_torch/csrc/ln_matmul.cu",
                       replaces="editor_tpu/ops/fused_linear.py:75"),
 }
-# Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and
-# HBM3. A bound is the larger of bytes / HBM rate and operations / peak.
-PEAK_BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
+# The design-variant kernels T1-T6 (phase 7), each counted where it launches:
+# T1-T5 by the wrapper of the same name in their tool module, T6 by K3's and
+# K5's launches at another warp count than the model paths' (launch_counts)
+VARIANTS = {
+    "headgrid_attn": dict(tool="bench_attn", source="editor_tpu_torch/csrc/attention_qkv.cu",
+                          replaces="tools/bench_attn.py:68"),
+    "nomax_attn": dict(tool="bench_attn2", source="editor_tpu_torch/csrc/attention_qkv.cu",
+                       replaces="tools/bench_attn2.py:56"),
+    "attn_layer": dict(tool="bench_attn_layer", source="editor_tpu_torch/csrc/attn_layer.cu",
+                       replaces="tools/bench_attn_layer.py:77"),
+    "chain": dict(tool="bench_rollout", source="editor_tpu_torch/csrc/rollout_chain.cu",
+                  replaces="tools/bench_rollout.py:71"),
+    "chain_multi": dict(tool="bench_rollout2", source="editor_tpu_torch/csrc/rollout_chain.cu",
+                        replaces="tools/bench_rollout2.py:64"),
+    "masked_full": dict(tool="bench_full_kernel",
+                        source="editor_tpu_torch/csrc/masked_attention.cu",
+                        source_bwd="editor_tpu_torch/csrc/masked_attention_bwd.cu",
+                        replaces="tools/bench_full_kernel.py:33"),
+}
 
 
 def say(phase: str, **fields) -> None:
@@ -112,16 +133,10 @@ def build_phase() -> None:
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """ms per call from CUDA events over ``iters`` calls after 2 warm-ups."""
+    from editor_tpu_torch.tools import _bench
+
+    return _bench.cuda_ms(fn, iters, warmup=2)
 
 
 def _max_err(got, ref, scale: float = 1.0) -> float:
@@ -134,11 +149,13 @@ def _require(name: str, err: float, tol: float) -> None:
 
 
 def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: bytes over the HBM rate or
-    operations over the bf16 tensor-core peak, whichever is larger (ms)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                flops=flops, bytes=nbytes)
+    """The least time the card could take (``_bench.bound``: bytes over the
+    HBM rate or operations over the bf16 tensor-core peak, the larger), with
+    the work it was worked out from."""
+    from editor_tpu_torch.tools import _bench
+
+    ms, by = _bench.bound(flops, nbytes)
+    return dict(bound_ms=ms, bound_by=by, flops=flops, bytes=nbytes)
 
 
 def _heads(qkv):
@@ -360,7 +377,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
     return results
 
 
-def _sum_rows(results: dict, name: str, calls: list) -> None:
+def _sum_rows(results: dict, name: str, calls: list, phase: str = "2") -> None:
     """One row of the kernels line from the shapes one forward (or one train
     step) runs once each: times and work summed, the largest error."""
     b = bound(sum(c["flops"] for c in calls), sum(c["bytes"] for c in calls))
@@ -368,7 +385,7 @@ def _sum_rows(results: dict, name: str, calls: list) -> None:
                          ms=sum(c["ms"] for c in calls),
                          plain_ms=sum(c["plain_ms"] for c in calls),
                          library_ms=sum(c["library_ms"] for c in calls), **b)
-    say(f"2 sum {name}", ms=f"{results[name]['ms']:.4f}",
+    say(f"{phase} sum {name}", ms=f"{results[name]['ms']:.4f}",
         bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"])
 
 
@@ -517,6 +534,221 @@ def ln_matmul_kernel(randn, gen: torch.Generator, results: dict) -> None:
     _sum_rows(results, "ln_matmul", rows)
 
 
+def variant_phase(gen: torch.Generator) -> dict:
+    """Phase 7: the design-variant kernels T1-T6 at the flagship shapes, one
+    configuration each, against their plain versions with the phase 2
+    limits (T4/T5's bf16 chain: one bf16 ulp of the output's largest
+    magnitude, and at most 5% of the outputs more than 8 fp32 ulps off the
+    plain bf16 chain), with kernel, plain and library-call times and the
+    bound."""
+    from editor_tpu_torch import ops
+    from editor_tpu_torch.tools import (_bench, bench_attn, bench_attn2, bench_attn_layer,
+                                        bench_full_kernel, bench_rollout, bench_rollout2)
+
+    F = torch.nn.functional
+    dev, Bk, N = "cuda", 3 * B_EVAL, 129
+    bf = torch.bfloat16
+    results = {}
+
+    def randn(*shape, mul=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * mul).to(bf)
+
+    def head_views(*ts):
+        return [t.view(t.shape[0], t.shape[1], H, D).transpose(1, 2) for t in ts]
+
+    # T1: separate q, k, v, 2 heads and 1 sequence per block, with and without probs
+    q, k, v = (randn(Bk, N, C) for _ in range(3))
+    probs = torch.empty(Bk, H, N, N, dtype=bf, device=dev)
+    out, _ = bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2, probs)
+    out_np, _ = bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2)
+    ref, ref_probs = bench_attn.headgrid_attn_plain(q, k, v, H, SCALE, True)
+    torch.cuda.synchronize()
+    e_out = max(_max_err(out, ref), _max_err(out_np, ref))
+    e_probs = _max_err(probs, ref_probs)
+    _require("headgrid_attn out", e_out, 2e-2)
+    _require("headgrid_attn probs", e_probs, 1e-2)
+    flops = 4.0 * Bk * H * N * N * D
+    b = bound(flops, 2.0 * (Bk * N * 3 * C + Bk * N * C + Bk * H * N * N))
+    b_np = bound(flops, 2.0 * (Bk * N * 3 * C + Bk * N * C))
+    row = dict(max_abs_err=max(e_out, e_probs),
+               ms=cuda_ms(lambda: bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2, probs)),
+               plain_ms=cuda_ms(lambda: bench_attn.headgrid_attn_plain(q, k, v, H, SCALE, True)),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*head_views(q, k, v),
+                                                                         scale=SCALE)),
+               ms_no_probs=cuda_ms(lambda: bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2)),
+               bound_ms_no_probs=b_np["bound_ms"], config="hps=2 g=1, separate q, k, v",
+               **b)
+    results["headgrid_attn"] = row
+    say("7 variant headgrid_attn (T1)", shape=list(q.shape), config=repr(row["config"]),
+        out_err=e_out, probs_err=e_probs, ms=f"{row['ms']:.4f}",
+        ms_no_probs=f"{row['ms_no_probs']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
+        sdpa_ms=f"{row['library_ms']:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+        bound_ms_no_probs=f"{b_np['bound_ms']:.4f}")
+    del q, k, v, out, out_np, ref, ref_probs
+
+    # T2 on random-normal inputs: without the row max, |logit| must stay < ~80,
+    # so the x30 stress of phase 2 is not for it
+    qkv = randn(Bk, N, 3 * C)
+    out = bench_attn2.nomax_attn(qkv, H, SCALE, 1)
+    ref = bench_attn2.nomax_attn_plain(qkv, H, SCALE)
+    k1, _ = ops.attention_qkv(qkv, H, SCALE)
+    torch.cuda.synchronize()
+    e = _max_err(out, ref)
+    _require("nomax_attn", e, 2e-2)
+    row = dict(max_abs_err=e, ms=cuda_ms(lambda: bench_attn2.nomax_attn(qkv, H, SCALE, 1)),
+               plain_ms=cuda_ms(lambda: bench_attn2.nomax_attn_plain(qkv, H, SCALE)),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   *head_views(*qkv.split(C, -1)), scale=SCALE)),
+               config="g=1", **b_np)
+    results["nomax_attn"] = row
+    say("7 variant nomax_attn (T2)", shape=list(qkv.shape), config="'g=1'", err=e,
+        vs_k1_err=_max_err(out, k1), ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
+        sdpa_ms=f"{row['library_ms']:.4f}", bound_ms=f"{b_np['bound_ms']:.4f}")
+    del qkv, out, ref, k1
+
+    # T3: the half-layer, 1 sequence per block, with and without probs
+    ins = bench_attn_layer.layer_inputs(gen)
+    out, _ = bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, 1, probs)
+    out_np, _ = bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, 1)
+    ref, ref_probs = bench_attn_layer.attn_layer_plain(*ins, H, SCALE, 1e-6, True)
+    torch.cuda.synchronize()
+    e_out = max(_scaled(out, ref), _scaled(out_np, ref))
+    e_probs = _max_err(probs, ref_probs)
+    _require("attn_layer out (scaled)", e_out, 1e-2)
+    _require("attn_layer probs", e_probs, 1e-2)
+    b = dict(zip(("bound_ms", "bound_by"), bench_attn_layer.layer_bound(with_probs=True)))
+    sdpa = lambda t: bench_attn_layer.sdpa_from_qkv(t, H, SCALE)
+    row = dict(max_abs_err=max(e_out, e_probs),
+               ms=cuda_ms(lambda: bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, 1, probs)),
+               plain_ms=cuda_ms(lambda: bench_attn_layer.attn_layer_plain(*ins, H, SCALE, 1e-6,
+                                                                          True)),
+               library_ms=cuda_ms(lambda: bench_attn_layer.composed(*ins, H, SCALE,
+                                                                    attention=sdpa)),
+               composed_k1_ms=cuda_ms(lambda: bench_attn_layer.composed(*ins, H, SCALE,
+                                                                        probs_out=probs)),
+               ms_no_probs=cuda_ms(lambda: bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, 1)),
+               config="g=1", **b)
+    results["attn_layer"] = row
+    say("7 variant attn_layer (T3)", shape=list(ins[0].shape), config="'g=1'",
+        scaled_err=e_out, probs_err=e_probs, ms=f"{row['ms']:.4f}",
+        ms_no_probs=f"{row['ms_no_probs']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
+        chain4_sdpa_ms=f"{row['library_ms']:.4f}",
+        composed_k1_ms=f"{row['composed_k1_ms']:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+        bound_by=b["bound_by"],
+        tflops=f"{(8.0 * Bk * N * C * C + 4.0 * Bk * N * N * C) / row['ms'] / 1e9:.1f}")
+    del ins, out, out_np, ref, ref_probs, probs
+    torch.cuda.empty_cache()
+
+    # T4 and T5 on phase 2's peaked maps (L = 12, Z = 4608, N = 129). The bf16
+    # chain rounds v[n >= 1] to bf16 before each patch product on both sides;
+    # a different fp32 summation order moves a v[n] across a rounding boundary
+    # now and then, which changes an output by at most one bf16 step of that
+    # v[n] times weights that sum to 1: the max limit is one bf16 ulp of the
+    # output's largest magnitude. That limit is wider than the whole gap
+    # between the bf16 and the fp32 chain, so the rounding points are held by
+    # the share of outputs more than 8 fp32 ulps off the plain bf16 chain: at
+    # most 5% for the kernels (another summation order leaves well under 1%
+    # off), at least 50% for the plain fp32 chain (the check tells the two
+    # chains apart). `rows` is fp32 math in another order: K2's limit, 1e-5.
+    L = 12
+    maps = torch.empty(L, Bk, H, N, N, dtype=bf, device=dev)
+    for l in range(L):
+        maps[l] = torch.softmax(4.0 * torch.randn(Bk, H, N, N, generator=gen, device=dev),
+                                dim=-1).to(bf)
+    b = bound(2.0 * (L - 1) * Bk * H * N * N, 2.0 * L * Bk * H * N * N + 4.0 * Bk * H * (N - 1))
+    ref_bf = bench_rollout.chain_plain(maps, "bf16")
+    ref_f32 = bench_rollout.chain_plain(maps, "f32")
+    tol_bf, share_tol = _bench.ulp_of_max(ref_bf), 0.05
+    f32_share = _bench.mismatch_share(ref_f32, ref_bf)
+    if not f32_share >= 0.5:
+        raise AssertionError(f"plain fp32 vs bf16 chain: only {f32_share} of the outputs differ")
+
+    def rounding_check(name, got):
+        e, share = _max_err(got, ref_bf), _bench.mismatch_share(got, ref_bf)
+        _require(f"{name} max", e, tol_bf)
+        _require(f"{name} share off the plain bf16 chain", share, share_tol)
+        return e, share
+
+    got_bf = bench_rollout.chain(maps, "bf16", 1)
+    got_rows = bench_rollout.chain(maps, "rows", 1)
+    torch.cuda.synchronize()
+    e_bf, share_bf = rounding_check("chain bf16", got_bf)
+    e_rows = _max_err(got_rows, ref_f32)
+    _require("chain rows", e_rows, 1e-5)
+    row = dict(max_abs_err=e_bf, ms=cuda_ms(lambda: bench_rollout.chain(maps, "bf16", 1)),
+               plain_ms=cuda_ms(lambda: bench_rollout.chain_plain(maps, "bf16")),
+               library_ms=None, tol=tol_bf, mismatch_share=share_bf,
+               f32_mismatch_share=f32_share, rows_err=e_rows,
+               rows_ms=cuda_ms(lambda: bench_rollout.chain(maps, "rows", 1)),
+               config="bf16 g=1; rows g=1", **b)
+    results["chain"] = row
+    say("7 variant chain (T4)", L=L, Z=Bk * H, N=N, bf16_err=e_bf, tol=tol_bf,
+        mismatch_share=share_bf, share_tol=share_tol, f32_chain_mismatch_share=f32_share,
+        bf16_vs_f32_err=_max_err(got_bf, ref_f32), rows_err=e_rows, rows_tol=1e-5,
+        ms=f"{row['ms']:.4f}", rows_ms=f"{row['rows_ms']:.4f}",
+        plain_ms=f"{row['plain_ms']:.4f}", bound_ms=f"{b['bound_ms']:.4f}")
+    got = bench_rollout2.chain_multi(maps, 4, 1)
+    torch.cuda.synchronize()
+    e, share = rounding_check("chain_multi", got)
+    row = dict(max_abs_err=e, ms=cuda_ms(lambda: bench_rollout2.chain_multi(maps, 4, 1)),
+               plain_ms=cuda_ms(lambda: bench_rollout2.chain_multi_plain(maps)),
+               library_ms=None, tol=tol_bf, mismatch_share=share, config="T=4 g=1", **b)
+    results["chain_multi"] = row
+    say("7 variant chain_multi (T5)", L=L, Z=Bk * H, N=N, config="'T=4 g=1'", err=e, tol=tol_bf,
+        mismatch_share=share, share_tol=share_tol,
+        equal_to_chain_bf16=bool(torch.equal(got, got_bf)), ms=f"{row['ms']:.4f}",
+        plain_ms=f"{row['plain_ms']:.4f}", bound_ms=f"{b['bound_ms']:.4f}")
+    del maps, ref_bf, ref_f32, got_bf, got_rows, got
+    torch.cuda.empty_cache()
+
+    # T6: K3 and K5 with 8 warps per block at the compact tail's shapes, masks
+    # as phase 2's; one forward and one backward of each shape. The counts sit
+    # at the launch: the 8-warp pair counts as T6 alone, the 4-warp pair as K3
+    # and K5 alone
+    calls = []
+    for Bm, Nm in ((3 * B_EVAL, 88), (B_EVAL, 264)):
+        qkv = randn(Bm, Nm, 3 * C)
+        m = torch.rand(Bm, Nm, generator=gen, device=dev) < 0.5
+        m = (m | (torch.arange(Nm, device=dev) % 88 == 0)[None, :]).float()
+        g = randn(Bm, Nm, C)
+        reset_counts()
+        fwd = bench_full_kernel.masked_full(qkv, m, H, SCALE, 8)
+        bwd = bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 8)
+        counts = [launch_counts()]
+        e_f = _max_err(fwd, bench_full_kernel.masked_full_plain(qkv, m, H, SCALE))
+        e_b = _scaled(bwd, bench_full_kernel.masked_full_bwd_plain(qkv, m, g, H, SCALE))
+        same = (torch.equal(fwd, bench_full_kernel.masked_full(qkv, m, H, SCALE, 4)),
+                torch.equal(bwd, bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 4)))
+        counts.append(launch_counts())
+        torch.cuda.synchronize()
+        seen = [(c["masked_full"], c["masked_attention_qkv"], c["masked_attention_qkv_bwd"])
+                for c in counts]
+        if seen != [(2, 0, 0), (2, 1, 1)]:
+            raise AssertionError(f"(T6, K3, K5) launches after the 8-warp pair and then the "
+                                 f"4-warp pair: {seen} != [(2, 0, 0), (2, 1, 1)]")
+        _require(f"masked_full N={Nm}", e_f, 2e-2)
+        _require(f"masked_full_bwd N={Nm} (scaled)", e_b, 1e-2)
+        pairs = float((m.sum(1) ** 2).sum())
+        keys = m.bool()[:, None, None, :]
+        c = dict(err=max(e_f, e_b), flops=14.0 * H * D * pairs,
+                 bytes=2.0 * Bm * Nm * (4 * C + 7 * C) + 8.0 * Bm * Nm,
+                 ms=cuda_ms(lambda: bench_full_kernel.masked_full(qkv, m, H, SCALE, 8))
+                 + cuda_ms(lambda: bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 8)),
+                 plain_ms=cuda_ms(lambda: bench_full_kernel.masked_full_plain(qkv, m, H, SCALE))
+                 + cuda_ms(lambda: bench_full_kernel.masked_full_bwd_plain(qkv, m, g, H, SCALE)),
+                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                     *_heads(qkv), attn_mask=keys, scale=SCALE)) + _sdpa_bwd_ms(qkv, g, m.bool()))
+        calls.append(c)
+        say("7 variant masked_full (T6)", shape=list(qkv.shape), warps=8, fwd_err=e_f,
+            bwd_scaled_err=e_b, equal_to_4_warps=json.dumps(same), ms=f"{c['ms']:.4f}",
+            plain_ms=f"{c['plain_ms']:.4f}", sdpa_fwd_bwd_ms=f"{c['library_ms']:.4f}",
+            bound_ms=f"{bound(c['flops'], c['bytes'])['bound_ms']:.4f}")
+        del qkv, g, fwd, bwd
+    _sum_rows(results, "masked_full", calls, phase="7")
+    results["masked_full"]["config"] = "8 warps per block, forward + backward"
+    return results
+
+
 def _eval_batch(gen: torch.Generator, B: int) -> dict:
     images = {m: torch.randn(B, 256, 128, 3, generator=gen, device="cuda")
               for m in ("RGB", "NI", "TI")}
@@ -533,9 +765,37 @@ def flagship(opts=()):
 
 
 def launch_counts() -> dict:
+    """Launches of each kernel row since the last reset_counts(), counted
+    where the kernel launches: K1-K8 by their wrappers (K3, K5 and K6 at the
+    model paths' 4 warps), T1-T5 by the wrapper of the same name in their tool
+    module, T6 (masked_full) by K3's and K5's launches at other warp counts,
+    and K6's own at other warp counts (a sweep of bench_attn2) apart."""
+    import importlib
+
     from editor_tpu_torch import ops
 
-    return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    counts = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    for name, spec in VARIANTS.items():
+        if name != "masked_full":
+            mod = importlib.import_module(f"editor_tpu_torch.tools.{spec['tool']}")
+            counts[name] = getattr(mod, name).launches
+    counts["masked_full"] = (ops.masked_attention_qkv.variant_launches
+                             + ops.masked_attention_qkv_bwd.variant_launches)
+    counts["masked_attention_tiled (other warps)"] = ops.masked_attention_tiled.variant_launches
+    return counts
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0, the T-kernels' too."""
+    import importlib
+
+    from editor_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    for name, spec in VARIANTS.items():
+        if name != "masked_full":
+            getattr(importlib.import_module(f"editor_tpu_torch.tools.{spec['tool']}"),
+                    name).launches = 0
 
 
 def expected(**counts) -> dict:
@@ -572,7 +832,7 @@ def eval_check(ecfg, gen: torch.Generator, label: str, want: dict):
 
     step(batch)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    ops.reset_launch_counts()
+    reset_counts()
     feats = step(batch)
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -685,7 +945,7 @@ def train_check(cfg, ecfg, gen: torch.Generator, label: str, want: dict,
     start = [p.detach().clone() for p in model.parameters()]
     losses = []
     for epoch in (1, 2, 3):
-        ops.reset_launch_counts()
+        reset_counts()
         loss = float(step(batch, epoch)["loss"])
         launches = launch_counts()
         if launches != want:
@@ -811,14 +1071,17 @@ def main() -> None:
     launches = timed("5 train", train_phase, gen)
     torch.cuda.empty_cache()
     un_eval, un_train = timed("6 uncompacted", uncompacted_phase, gen)
+    torch.cuda.empty_cache()
+    kernels.update(timed("7 variants", variant_phase, gen))
     # launches, launches_eval: per train step and per eval forward, summed
     # over the two paths (compact: phases 3 and 5; uncompacted: phase 6),
     # each path counted from zero just before it runs
     rows = []
-    for name in KERNELS:
+    for name, spec in {**KERNELS, **VARIANTS}.items():
         by_path = {"compact": {"train": launches[name], "eval": eval_launches[name]},
                    "uncompacted": {"train": un_train[name], "eval": un_eval[name]}}
-        rows.append(dict(name=name, route="cuda", **KERNELS[name],
+        info = {k: v for k, v in spec.items() if k != "tool"}
+        rows.append(dict(name=name, route="cuda", **info,
                          launches=launches[name] + un_train[name],
                          launches_eval=eval_launches[name] + un_eval[name],
                          launches_by_path=by_path, **kernels[name]))

@@ -58,7 +58,7 @@
 
 namespace editor_kernels {
 
-constexpr int kBwdWarps = 4;      // K4 and K5; K7 picks 4 or 8 (see its source)
+constexpr int kBwdWarps = 4;      // K4 and K5 (8 in T6's sweep); K7 picks 4 or 8
 constexpr int kBwdColsPerWarp = 8;  // column-pass tile: 8 columns per warp
 
 __host__ __device__ inline size_t bwd_align16(size_t bytes) {
@@ -279,26 +279,28 @@ __device__ __forceinline__ void attention_bwd_body(
   }
 }
 
-// K4 (unmasked, one tile: the cls key m = 0) and K5 (masked, no tile)
-template <bool kMasked>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+// K4 (unmasked, one tile: the cls key m = 0) and K5 (masked, no tile), with
+// kWarps warps per block: 4 on the model paths, 8 in T6's block-shape sweep
+// (tools/bench_full_kernel.py:72)
+template <bool kMasked, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                      const bf16* __restrict__ g, bf16* __restrict__ dqkv,
                      bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
                      int D, float scale, float fill) {
-  attention_bwd_body<kMasked, false, kBwdWarps>(qkv, mask, g, dqkv, pst, dlst, N, H, D,
-                                                scale, fill, 0);
+  attention_bwd_body<kMasked, false, kWarps>(qkv, mask, g, dqkv, pst, dlst, N, H, D, scale,
+                                             fill, 0);
 }
 
-template <bool kMasked>
+template <bool kMasked, int kWarps = kBwdWarps>
 inline int launch_attention_bwd(const void* qkv, const void* mask, const void* g,
                                 void* dqkv, void* pst, void* dlst, int B, int N, int H,
                                 int D, float scale, float fill, void* stream) {
-  const size_t smem = bwd_smem_layout(N, D, kMasked ? 0 : 1, kBwdWarps).total;
-  cudaError_t err = allow_dynamic_smem(attention_bwd_kernel<kMasked>, smem);
+  const size_t smem = bwd_smem_layout(N, D, kMasked ? 0 : 1, kWarps).total;
+  cudaError_t err = allow_dynamic_smem(attention_bwd_kernel<kMasked, kWarps>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_kernel<kMasked><<<dim3(H, B), kBwdWarps * 32, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  attention_bwd_kernel<kMasked, kWarps><<<dim3(H, B), kWarps * 32, smem,
+                                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
       static_cast<const bf16*>(g), static_cast<bf16*>(dqkv), static_cast<bf16*>(pst),
       static_cast<bf16*>(dlst), N, H, D, scale, fill);

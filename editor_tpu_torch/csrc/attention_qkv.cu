@@ -1,16 +1,21 @@
 // K1: multi-head softmax attention straight from the raw qkv projection,
-// optionally writing the post-softmax probabilities for the attention rollout.
+// optionally writing the post-softmax probabilities for the attention rollout;
+// and its design variants T1 and T2.
 //
-// Replaces the TPU kernel editor_tpu/ops/fused_attention.py::_pallas_attention_qkv
-// (_qkv_kernel, math in _head_split_softmax_av).
+// Replaces the TPU kernels editor_tpu/ops/fused_attention.py::_pallas_attention_qkv
+// (_qkv_kernel, math in _head_split_softmax_av; K1),
+// tools/bench_attn.py::headgrid_attn (_headgrid_kernel; T1) and
+// tools/bench_attn2.py::nomax_attn (_kernel_nomax; T2).
 //
-// Contract (same as the plain version, editor_tpu_torch/ops/fused_attention.py):
+// Contract (same as the plain versions: attention_qkv_plain in
+// editor_tpu_torch/ops/fused_attention.py, headgrid_attn_plain and
+// nomax_attn_plain in editor_tpu_torch/tools/bench_attn{,2}.py):
 //   qkv   [B, N, 3C] bf16, laid out [q_h0..q_hH | k_h0.. | v_h0..], C = H * D
+//         (T1: separate q, k, v [B, N, C], each with its own row stride)
 //   out   [B, N, C]  bf16 = softmax(q k^T * scale) v, heads at columns h*D
 //   probs [B, H, N, N] bf16 post-softmax rows (may be null)
-// Logits, row max, exp and sum are fp32. As on the TPU, the probabilities of
-// the patch keys (m >= 1) are rounded to bf16 before the p.v product and the
-// cls key's (m = 0) stays fp32.
+// The math and rounding points: csrc/attention_rows.cuh. T2 drops the row
+// max (exp of the raw logits), valid only while |logit| < ~80.
 //
 // What bounds it on the H100: at the flagship shape (B = 384, N = 129, H = 12,
 // D = 64) one call reads 228 MB of qkv and writes 76 MB of output plus 153 MB
@@ -28,7 +33,15 @@
 // as float4) and over head-dim pairs for p.v, so the probs row store and the
 // output store are both coalesced. Logits are row-max stabilised, so
 // |logit| ~ 1e3 stays finite.
-#include "common.cuh"
+//
+// The variants (editor_attention_variant) change the block's shape, not the
+// math: q, k and v as three pointers with row strides (T1 reads separate
+// head-contiguous tensors, or the q/k/v column views of the packed qkv with
+// no copy), 1 or 2 heads per block (4 warps per head, 70 KB of k/v at N = 129
+// for 2 heads), g sequences per block one after another, and kNoMax (T2).
+// K1 is the instantiation <packed, 1 head, 1 sequence, max> under its own
+// symbol.
+#include "attention_rows.cuh"
 
 namespace editor_kernels {
 namespace {
@@ -39,49 +52,39 @@ __global__ void __launch_bounds__(kWarps * 32)
 attention_qkv_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                      bf16* __restrict__ probs, int N, int H, int D, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
   const int C = H * D;
-  const int ld = D + kRowPad;
-  const int Np = (N + 3) & ~3;
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + (size_t)N * ld;
-  float* scratch = reinterpret_cast<float*>(vs + (size_t)N * ld);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* q = scratch + warp * (D + Np);
-  float* p = q + D;
+  attention_block<kWarps, 1, false>(qkv, qkv + C, qkv + 2 * C, 3 * C, 3 * C, 3 * C, out,
+                                    probs, blockIdx.y, 1, blockIdx.x, N, H, D, scale, smem);
+}
 
-  const bf16* seq = qkv + (size_t)b * N * 3 * C;
-  stage_kv(seq, ks, vs, N, C, h, D);
-  __syncthreads();
+// T1, T2 and K1's block-shape sweep: kHeads heads of `seqs` sequences per block
+template <int kHeads, bool kNoMax>
+__global__ void __launch_bounds__(kWarps * kHeads * 32)
+attention_variant_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, int ldq, int ldk, int ldv,
+                         bf16* __restrict__ out, bf16* __restrict__ probs, int B, int N,
+                         int H, int D, float scale, int seqs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b0 = blockIdx.y * seqs;
+  const int nseq = min(seqs, B - b0);
+  attention_block<kWarps, kHeads, kNoMax>(q, k, v, ldq, ldk, ldv, out, probs, b0, nseq,
+                                          blockIdx.x * kHeads, N, H, D, scale, smem);
+}
 
-  for (int n = warp; n < N; n += kWarps) {
-    load_q(seq, q, n, C, h, D, lane);
-    __syncwarp();
-    float mx = -INFINITY;
-    for (int m = lane; m < N; m += 32) {
-      const float s = dot_q_k(q, ks + m * ld, D) * scale;
-      p[m] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int m = lane; m < N; m += 32) {
-      const float e = expf(p[m] - mx);
-      p[m] = e;
-      sum += e;
-    }
-    const float inv = 1.f / warp_sum(sum);  // the max element gives e = 1: sum >= 1
-    bf16* prow = probs ? probs + (((size_t)b * H + h) * N + n) * N : nullptr;
-    for (int m = lane; m < N; m += 32) {
-      const float pm = p[m] * inv;
-      const bf16 pb = __float2bfloat16(pm);
-      if (prow) prow[m] = pb;
-      p[m] = m == 0 ? pm : __bfloat162float(pb);
-    }
-    __syncwarp();
-    weighted_v_row(p, vs, N, D, 1.f, out + ((size_t)b * N + n) * C + h * D, lane);
-    __syncwarp();  // q and p are rewritten for the next row
-  }
+template <int kHeads, bool kNoMax>
+int launch_variant(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
+                   void* out, void* probs, int B, int N, int H, int D, float scale,
+                   int seqs, void* stream) {
+  const size_t smem = attention_smem_bytes(N, D, kHeads, kWarps * kHeads);
+  cudaError_t err = allow_dynamic_smem(attention_variant_kernel<kHeads, kNoMax>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(H / kHeads, (B + seqs - 1) / seqs);
+  attention_variant_kernel<kHeads, kNoMax><<<grid, kWarps * kHeads * 32, smem,
+                                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      ldq, ldk, ldv, static_cast<bf16*>(out), static_cast<bf16*>(probs), B, N, H, D, scale,
+      seqs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -90,9 +93,7 @@ attention_qkv_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 extern "C" int editor_attention_qkv(const void* qkv, void* out, void* probs, int B,
                                     int N, int H, int D, float scale, void* stream) {
   using namespace editor_kernels;
-  const int Np = (N + 3) & ~3;
-  const size_t smem = 2 * (size_t)N * (D + kRowPad) * sizeof(bf16) +
-                      (size_t)kWarps * (D + Np) * sizeof(float);
+  const size_t smem = attention_smem_bytes(N, D, 1, kWarps);
   cudaError_t err = allow_dynamic_smem(attention_qkv_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_qkv_kernel<<<dim3(H, B), kWarps * 32, smem,
@@ -100,4 +101,27 @@ extern "C" int editor_attention_qkv(const void* qkv, void* out, void* probs, int
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
       static_cast<bf16*>(probs), N, H, D, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// T1/T2: q, k, v with row strides ldq, ldk, ldv (elements); heads per block 1
+// or 2 (H even for 2); seqs >= 1 sequences per block; nomax 0 or 1.
+extern "C" int editor_attention_variant(const void* q, const void* k, const void* v,
+                                        int ldq, int ldk, int ldv, void* out, void* probs,
+                                        int B, int N, int H, int D, float scale,
+                                        int heads, int seqs, int nomax, void* stream) {
+  using namespace editor_kernels;
+  if (seqs < 1 || (heads == 2 && H % 2)) return static_cast<int>(cudaErrorInvalidValue);
+  if (heads == 1 && !nomax)
+    return launch_variant<1, false>(q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale,
+                                    seqs, stream);
+  if (heads == 1 && nomax)
+    return launch_variant<1, true>(q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale,
+                                   seqs, stream);
+  if (heads == 2 && !nomax)
+    return launch_variant<2, false>(q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale,
+                                    seqs, stream);
+  if (heads == 2 && nomax)
+    return launch_variant<2, true>(q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale,
+                                   seqs, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -58,28 +58,41 @@ __device__ __forceinline__ float dot_q_k(const float* __restrict__ q,
   return s;
 }
 
-// Stage the k and v slices of head h of one sequence from the raw
-// [N, 3C] qkv rows into shared memory ([N, D + kRowPad] each), with bf16x2
-// loads: neighbouring threads read neighbouring words of one row.
-__device__ __forceinline__ void stage_kv(const bf16* __restrict__ seq, bf16* ks,
-                                         bf16* vs, int N, int C, int h, int D) {
+// Stage N rows of D elements of k (row stride ldk) and v (row stride ldv)
+// into shared memory ([N, D + kRowPad] each), with bf16x2 loads:
+// neighbouring threads read neighbouring words of one row. The strides and
+// pointers must keep every row 4-byte aligned.
+__device__ __forceinline__ void stage_kv_rows(const bf16* __restrict__ ksrc,
+                                              const bf16* __restrict__ vsrc, int ldk,
+                                              int ldv, bf16* ks, bf16* vs, int N, int D) {
   const int ld = D + kRowPad;
   const int D2 = D / 2;
   for (int i = threadIdx.x; i < N * D2; i += blockDim.x) {
     const int m = i / D2, d2 = i - m * D2;
-    const bf16* row = seq + (size_t)m * 3 * C + h * D;
     reinterpret_cast<bf16x2*>(ks + m * ld)[d2] =
-        reinterpret_cast<const bf16x2*>(row + C)[d2];
+        reinterpret_cast<const bf16x2*>(ksrc + (size_t)m * ldk)[d2];
     reinterpret_cast<bf16x2*>(vs + m * ld)[d2] =
-        reinterpret_cast<const bf16x2*>(row + 2 * C)[d2];
+        reinterpret_cast<const bf16x2*>(vsrc + (size_t)m * ldv)[d2];
   }
 }
 
-// Load query row n of head h (fp32) into a warp's shared scratch row.
+// Stage the k and v slices of head h of one sequence from the raw
+// [N, 3C] qkv rows.
+__device__ __forceinline__ void stage_kv(const bf16* __restrict__ seq, bf16* ks,
+                                         bf16* vs, int N, int C, int h, int D) {
+  stage_kv_rows(seq + C + h * D, seq + 2 * C + h * D, 3 * C, 3 * C, ks, vs, N, D);
+}
+
+// Load one query row (D bf16 at src) as fp32 into a warp's shared scratch row.
+__device__ __forceinline__ void load_q_row(const bf16* __restrict__ src, float* q, int D,
+                                           int lane) {
+  for (int d = lane; d < D; d += 32) q[d] = __bfloat162float(src[d]);
+}
+
+// Load query row n of head h of the raw [N, 3C] qkv rows.
 __device__ __forceinline__ void load_q(const bf16* __restrict__ seq, float* q,
                                        int n, int C, int h, int D, int lane) {
-  const bf16* src = seq + (size_t)n * 3 * C + h * D;
-  for (int d = lane; d < D; d += 32) q[d] = __bfloat162float(src[d]);
+  load_q_row(seq + (size_t)n * 3 * C + h * D, q, D, lane);
 }
 
 // out[d] = sum_m w[m] * v[m, d] for the d pairs of one lane; w is a

@@ -5,7 +5,9 @@
 //
 // Replaces the TPU kernels editor_tpu/ops/masked_attention.py::_pallas_masked_full
 // (_qkv_masked_full_kernel, K3) and ::_pallas_masked_from_qkv
-// (_qkv_masked_kernel, K6).
+// (_qkv_masked_kernel, K6); with 8 or 16 warps per block, the forward half of
+// T6, tools/bench_full_kernel.py:54 (_qkv_masked_full_kernel at other group
+// sizes).
 //
 // Contract (same as the plain versions masked_attention_qkv_plain and
 // masked_attention_tiled_plain, editor_tpu_torch/ops/masked_attention.py):
@@ -32,7 +34,9 @@
 // tensor cores (mma/wgmma over 64-row query tiles), and at N = 387 a block per
 // head does 3x the work of N = 129 with the same 4 warps.
 //
-// Design: one block per (head, sequence) pair, 4 warps, the same layout as K1
+// Design: one block per (head, sequence) pair, 4 warps on the model paths
+// (a compile-time parameter: 8 and 16 for the block-shape sweeps of T6,
+// tools/bench_full_kernel.py, and of tools/bench_attn2.py), the same layout as K1
 // (csrc/attention_qkv.cu): the head's k and v slices staged in padded dynamic
 // shared memory (72 KB at N = 264, 114 KB at N = 387, 139 KB at N = 512, hence
 // the opt-in attribute), one query row per warp, lanes over keys for the
@@ -45,16 +49,15 @@
 namespace editor_kernels {
 namespace {
 
-constexpr int kWarps = 4;
-
-size_t masked_smem_bytes(int N, int D) {
+size_t masked_smem_bytes(int N, int D, int warps) {
   const int Np = (N + 3) & ~3;
   return 2 * (size_t)N * (D + kRowPad) * sizeof(bf16) + (size_t)Np * sizeof(float) +
-         (size_t)kWarps * (D + Np) * sizeof(float);
+         (size_t)warps * (D + Np) * sizeof(float);
 }
 
 // tile == 0: K3 (fill replaces the logit, every exp rounded); tile > 0: K6
 // (fill added, the exps of the keys m % tile == 0 kept in fp32).
+template <int kW>
 __device__ __forceinline__ void masked_attention_body(
     const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out,
     int N, int H, int D, float scale, float fill, int tile) {
@@ -76,7 +79,7 @@ __device__ __forceinline__ void masked_attention_body(
   for (int m = threadIdx.x; m < N; m += blockDim.x) mk[m] = mask[(size_t)b * N + m];
   __syncthreads();
 
-  for (int n = warp; n < N; n += kWarps) {
+  for (int n = warp; n < N; n += kW) {
     bf16* orow = out + ((size_t)b * N + n) * C + h * D;
     const float mq = mk[n];
     if (mq == 0.f) {  // fully masked query row: the re-mask makes it exactly 0
@@ -110,48 +113,68 @@ __device__ __forceinline__ void masked_attention_body(
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+template <int kW>
+__global__ void __launch_bounds__(kW * 32)
 masked_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                         bf16* __restrict__ out, int N, int H, int D, float scale,
                         float fill) {
-  masked_attention_body(qkv, mask, out, N, H, D, scale, fill, 0);
+  masked_attention_body<kW>(qkv, mask, out, N, H, D, scale, fill, 0);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+template <int kW>
+__global__ void __launch_bounds__(kW * 32)
 masked_attention_tiled_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                               bf16* __restrict__ out, int N, int H, int D, float scale,
                               float fill, int tile) {
-  masked_attention_body(qkv, mask, out, N, H, D, scale, fill, tile);
+  masked_attention_body<kW>(qkv, mask, out, N, H, D, scale, fill, tile);
+}
+
+// tile == 0: K3, else K6, with kW warps per block
+template <int kW>
+int launch_masked(const void* qkv, const void* mask, void* out, int B, int N, int H, int D,
+                  float scale, float fill, int tile, void* stream) {
+  const size_t smem = masked_smem_bytes(N, D, kW);
+  cudaError_t err = tile ? allow_dynamic_smem(masked_attention_tiled_kernel<kW>, smem)
+                         : allow_dynamic_smem(masked_attention_kernel<kW>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* q = static_cast<const bf16*>(qkv);
+  const auto* m = static_cast<const float*>(mask);
+  auto* o = static_cast<bf16*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (tile)
+    masked_attention_tiled_kernel<kW><<<dim3(H, B), kW * 32, smem, st>>>(q, m, o, N, H, D,
+                                                                        scale, fill, tile);
+  else
+    masked_attention_kernel<kW><<<dim3(H, B), kW * 32, smem, st>>>(q, m, o, N, H, D, scale,
+                                                                  fill);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_masked_warps(const void* qkv, const void* mask, void* out, int B, int N, int H,
+                        int D, float scale, float fill, int tile, int warps, void* stream) {
+  switch (warps) {
+    case 4: return launch_masked<4>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
+    case 8: return launch_masked<8>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
+    case 16: return launch_masked<16>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 }  // namespace editor_kernels
 
+// warps: 4 (the model paths), 8 or 16
 extern "C" int editor_masked_attention(const void* qkv, const void* mask, void* out,
                                        int B, int N, int H, int D, float scale,
-                                       float fill, void* stream) {
-  using namespace editor_kernels;
-  const size_t smem = masked_smem_bytes(N, D);
-  cudaError_t err = allow_dynamic_smem(masked_attention_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  masked_attention_kernel<<<dim3(H, B), kWarps * 32, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
-      static_cast<bf16*>(out), N, H, D, scale, fill);
-  return static_cast<int>(cudaGetLastError());
+                                       float fill, int warps, void* stream) {
+  return editor_kernels::launch_masked_warps(qkv, mask, out, B, N, H, D, scale, fill, 0,
+                                             warps, stream);
 }
 
 // K6: `tile` tokens per tile (129 on the model path), N % tile == 0.
 extern "C" int editor_masked_attention_tiled(const void* qkv, const void* mask, void* out,
                                              int B, int N, int H, int D, float scale,
-                                             float fill, int tile, void* stream) {
-  using namespace editor_kernels;
-  const size_t smem = masked_smem_bytes(N, D);
-  cudaError_t err = allow_dynamic_smem(masked_attention_tiled_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  masked_attention_tiled_kernel<<<dim3(H, B), kWarps * 32, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
-      static_cast<bf16*>(out), N, H, D, scale, fill, tile);
-  return static_cast<int>(cudaGetLastError());
+                                             float fill, int tile, int warps, void* stream) {
+  return editor_kernels::launch_masked_warps(qkv, mask, out, B, N, H, D, scale, fill, tile,
+                                             warps, stream);
 }

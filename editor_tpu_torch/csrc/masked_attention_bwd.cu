@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernels editor_tpu/ops/masked_attention.py::_pallas_masked_full_bwd
 // (_qkv_masked_full_bwd_kernel, K5) and ::_pallas_masked_qkv_bwd
-// (_qkv_masked_bwd_kernel, K7).
+// (_qkv_masked_bwd_kernel, K7); K5 with 8 warps per block is the backward
+// half of T6, tools/bench_full_kernel.py:72 (_qkv_masked_full_bwd_kernel at
+// other group sizes).
 //
 // Contract (same as the plain versions masked_attention_qkv_bwd_plain and
 // masked_attention_tiled_bwd_plain, editor_tpu_torch/ops/masked_attention.py):
@@ -105,12 +107,20 @@ inline int launch_masked_attention_tiled_bwd(const void* qkv, const void* mask,
 }  // namespace
 }  // namespace editor_kernels
 
+// warps: 4 (the model paths) or 8
 extern "C" int editor_masked_attention_bwd(const void* qkv, const void* mask,
                                            const void* g, void* dqkv, void* pst,
                                            void* dlst, int B, int N, int H, int D,
-                                           float scale, float fill, void* stream) {
-  return editor_kernels::launch_attention_bwd<true>(qkv, mask, g, dqkv, pst, dlst, B,
-                                                    N, H, D, scale, fill, stream);
+                                           float scale, float fill, int warps,
+                                           void* stream) {
+  using editor_kernels::launch_attention_bwd;
+  if (warps == 4)
+    return launch_attention_bwd<true, 4>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale,
+                                         fill, stream);
+  if (warps == 8)
+    return launch_attention_bwd<true, 8>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale,
+                                         fill, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K7: `tile` tokens per tile (129 on the model path), N % tile == 0.

@@ -20,7 +20,11 @@ launches in its ``launches`` attribute. :func:`attention_qkv_fn` (K1 + K4),
 (K6 + K7) and :func:`ln_matmul_fn` (K8, plain backward) are the autograd
 forms; :func:`masked_attention_from_qkv` picks the fusion block's pair (K6/K7
 for 1 + 128-token tiles, else K3/K5). K8 is on no model path, as in the JAX
-package.
+package. The raw K3, K5 and K6 wrappers (:data:`WARP_WRAPPERS`) take
+``warps=`` per block (4 on the model paths; the others serve the block-shape
+sweeps of the design-variant tools in ``editor_tpu_torch/tools/``, whose
+kernels T1-T6 sit beside their plain versions there) and count a launch at
+another warp count in ``variant_launches``, not ``launches``.
 """
 
 from editor_tpu_torch.ops.fused_attention import (attention_qkv, attention_qkv_bwd,
@@ -44,15 +48,18 @@ from editor_tpu_torch.ops.rollout import rollout_chain, rollout_from_probs_plain
 KERNEL_WRAPPERS = (attention_qkv, rollout_chain, masked_attention_qkv,
                    attention_qkv_bwd, masked_attention_qkv_bwd, masked_attention_tiled,
                    masked_attention_tiled_bwd, ln_matmul)
+WARP_WRAPPERS = (masked_attention_qkv, masked_attention_qkv_bwd, masked_attention_tiled)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for fn in WARP_WRAPPERS:
+        fn.variant_launches = 0
 
 
-__all__ = ["MASK_FILL", "KERNEL_WRAPPERS", "attention_qkv", "attention_qkv_bwd",
-           "attention_qkv_bwd_plain", "attention_qkv_fn", "attention_qkv_plain",
+__all__ = ["MASK_FILL", "KERNEL_WRAPPERS", "WARP_WRAPPERS", "attention_qkv",
+           "attention_qkv_bwd", "attention_qkv_bwd_plain", "attention_qkv_fn", "attention_qkv_plain",
            "ln_matmul", "ln_matmul_fn", "ln_matmul_plain", "masked_attention_from_qkv",
            "masked_attention_qkv", "masked_attention_qkv_bwd",
            "masked_attention_qkv_bwd_plain", "masked_attention_qkv_fn",

@@ -38,16 +38,28 @@ _F = ctypes.c_float
 SIGNATURES = {
     # qkv, out, probs, B, N, H, D, scale, stream
     "editor_attention_qkv": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # T1/T2: q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale, heads per
+    # block, sequences per block, nomax, stream
+    "editor_attention_variant": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                                 _I, _P],
+    # T3: x, ln weight, ln bias, wqkv, bqkv, wp, bp, out, probs, qkv workspace,
+    # attention workspace, B, N, H, D, scale, eps, sequences per block, stream
+    "editor_attn_layer": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                          _I, _P],
     # probs, out, L, Z, N, stream
     "editor_rollout_chain": [_P, _P, _I, _I, _I, _P],
-    # qkv, mask, out, B, N, H, D, scale, fill, stream
-    "editor_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # T4: probs, out, L, Z, N, how (0 f32, 1 bf16, 2 rows), pairs per block, stream
+    "editor_rollout_variant": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # T5: probs, out, L, Z, N, maps in flight, pairs per block, stream
+    "editor_rollout_multi": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # qkv, mask, out, B, N, H, D, scale, fill, warps per block, stream
+    "editor_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     # qkv, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, stream
     "editor_attention_qkv_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, stream
-    "editor_masked_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    # qkv, mask, out, B, N, H, D, scale, fill, tile, stream
-    "editor_masked_attention_tiled": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, warps, stream
+    "editor_masked_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    # qkv, mask, out, B, N, H, D, scale, fill, tile, warps per block, stream
+    "editor_masked_attention_tiled": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, tile, stream
     "editor_masked_attention_tiled_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                           _I, _P],

@@ -19,6 +19,44 @@ def check_kernel_tensor(name: str, t: torch.Tensor, ndim: int,
     tensor on the current CUDA device whose data is ``align``-byte aligned
     (4 where the kernel moves bf16 pairs), a head dim that is a multiple of 4
     and at most MAX_TOKENS tokens."""
+    _check_cuda_bf16(name, t)
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    _check_layout(name, t, head_dim, tokens, align)
+
+
+def check_rows_tensor(name: str, t: torch.Tensor, head_dim: int) -> int:
+    """Raise unless ``t`` [B, N, C] is a bf16 CUDA tensor whose rows a kernel
+    reads with one row stride: unit element stride, sequences N rows apart,
+    rows 4-byte aligned (a column view of the packed qkv qualifies). Returns
+    the row stride in elements."""
+    _check_cuda_bf16(name, t)
+    if t.dim() != 3:
+        raise ValueError(f"{name}: expected 3 dims, got {tuple(t.shape)}")
+    B, N, _ = t.shape
+    ld = t.stride(1)
+    if t.stride(2) != 1 or (B > 1 and t.stride(0) != N * ld) or ld % 2:
+        raise ValueError(f"{name}: strides {t.stride()} are not rows of one even stride")
+    _check_layout(name, t, head_dim, N, 4)
+    return ld
+
+
+def check_probs_out(name: str, probs_out, like: torch.Tensor, B: int, H: int,
+                    N: int) -> None:
+    """Raise unless ``probs_out`` is None or a [B, H, N, N] tensor of
+    ``like``'s dtype and device (where an attention writes its maps)."""
+    if probs_out is not None and (probs_out.shape != (B, H, N, N)
+                                  or probs_out.dtype != like.dtype
+                                  or probs_out.device != like.device):
+        raise ValueError(
+            f"{name} probs_out {tuple(probs_out.shape)} {probs_out.dtype} "
+            f"{probs_out.device} does not fit {B} x {H} heads x {N} tokens of "
+            f"{like.dtype} {like.device}")
+
+
+def _check_cuda_bf16(name: str, t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.device.index != torch.cuda.current_device():
@@ -26,10 +64,10 @@ def check_kernel_tensor(name: str, t: torch.Tensor, ndim: int,
                          f"device is cuda:{torch.cuda.current_device()}")
     if t.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _check_layout(name: str, t: torch.Tensor, head_dim: int, tokens: int,
+                  align: int) -> None:
     if t.data_ptr() % align:
         raise ValueError(f"{name}: data pointer is not {align}-byte aligned")
     if head_dim and head_dim % 4:

@@ -20,7 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from editor_tpu_torch.ops._checks import check_kernel_tensor, compute_dtype
+from editor_tpu_torch.ops._checks import (check_kernel_tensor, check_probs_out,
+                                          compute_dtype)
 
 
 def attention_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -85,13 +86,7 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     if C3 % (3 * num_heads):
         raise ValueError(f"qkv width {C3} is not 3 x heads ({num_heads}) x D")
     D = C3 // 3 // num_heads
-    if probs_out is not None and (probs_out.shape != (B, num_heads, N, N)
-                                  or probs_out.dtype != qkv.dtype
-                                  or probs_out.device != qkv.device):
-        raise ValueError(
-            f"probs_out {tuple(probs_out.shape)} {probs_out.dtype} "
-            f"{probs_out.device} does not fit qkv {tuple(qkv.shape)} "
-            f"{qkv.dtype} {qkv.device}")
+    check_probs_out("attention_qkv", probs_out, qkv, B, num_heads, N)
     if qkv.device.type == "cpu":
         if probs_out is None:
             return attention_qkv_plain(qkv, num_heads, scale, False), None

@@ -23,7 +23,10 @@ dispatch rule (:func:`masked_attention_route`):
 On a CUDA tensor each wrapper launches its kernel (bf16 qkv, N <= 512) or
 raises; on a CPU tensor it runs its plain version. :func:`masked_attention_qkv_fn`
 and :func:`masked_attention_tiled_fn` join each pair under autograd for the
-train step; the mask gets no gradient.
+train step; the mask gets no gradient. K3, K5 and K6 take ``warps`` per block:
+a launch with the model paths' :data:`SHIPPED_WARPS` counts in the wrapper's
+``launches``, any other (the block-shape sweeps, T6 for K3/K5) in its
+``variant_launches``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,22 @@ import torch
 from editor_tpu_torch.ops._checks import MAX_TOKENS, check_kernel_tensor, compute_dtype
 
 MASK_FILL = -65504.0  # reference: vit_pytorch.py:252
+# warps per block the kernels take (csrc/masked_attention{,_bwd}.cu): the
+# model paths launch 4; the block-shape sweeps of the design-variant tools
+# (T6, editor_tpu_torch/tools/bench_full_kernel.py) take the others
+FWD_WARPS = (4, 8, 16)
+BWD_WARPS = (4, 8)
+SHIPPED_WARPS = 4
+
+
+def count_launch(fn, warps: int) -> None:
+    """Count one launch of ``fn``'s kernel where it launches, by its block
+    shape: :data:`SHIPPED_WARPS` in ``fn.launches``, other warp counts in
+    ``fn.variant_launches``."""
+    if warps == SHIPPED_WARPS:
+        fn.launches += 1
+    else:
+        fn.variant_launches += 1
 
 
 def _heads(qkv: torch.Tensor, num_heads: int):
@@ -159,8 +178,11 @@ def masked_attention_tiled_bwd_plain(qkv: torch.Tensor, mask: torch.Tensor,
 
 
 def _check_args(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
-                g: torch.Tensor = None, tile: int = 0) -> int:
+                g: torch.Tensor = None, tile: int = 0, warps: int = 4,
+                allowed=FWD_WARPS) -> int:
     """Shape checks shared by the wrappers; returns the head dim."""
+    if warps not in allowed:
+        raise ValueError(f"warps per block {warps} not in {allowed}")
     B, N, C3 = qkv.shape
     if C3 % (3 * num_heads):
         raise ValueError(f"qkv width {C3} is not 3 x heads ({num_heads}) x D")
@@ -191,9 +213,10 @@ def _stream(t: torch.Tensor):
 
 def masked_attention_qkv(qkv: torch.Tensor, mask: torch.Tensor,
                          num_heads: int, scale: float,
-                         mask_fill: float = MASK_FILL) -> torch.Tensor:
-    """K3: masked attention from the raw qkv; ``mask`` [B, N] in any dtype."""
-    D = _check_args(qkv, mask, num_heads)
+                         mask_fill: float = MASK_FILL, warps: int = 4) -> torch.Tensor:
+    """K3: masked attention from the raw qkv; ``mask`` [B, N] in any dtype.
+    ``warps`` per block (:data:`FWD_WARPS`) shapes the launch, not the result."""
+    D = _check_args(qkv, mask, num_heads, warps=warps)
     if qkv.device.type == "cpu":
         return masked_attention_qkv_plain(qkv, mask, num_heads, scale, mask_fill)
     mask32 = _kernel_inputs("masked_attention_qkv", qkv, mask, D)
@@ -203,23 +226,24 @@ def masked_attention_qkv(qkv: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     code = _build.library().editor_masked_attention(
         qkv.data_ptr(), mask32.data_ptr(), out.data_ptr(), B, N, num_heads, D,
-        float(scale), float(mask_fill), _stream(qkv))
+        float(scale), float(mask_fill), warps, _stream(qkv))
     _build.check(code, "masked_attention_qkv")
-    masked_attention_qkv.launches += 1
+    count_launch(masked_attention_qkv, warps)
     return out
 
 
 masked_attention_qkv.launches = 0
+masked_attention_qkv.variant_launches = 0
 
 
 def masked_attention_tiled(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
                            scale: float, mask_fill: float = MASK_FILL,
-                           tile: int = 129) -> torch.Tensor:
+                           tile: int = 129, warps: int = 4) -> torch.Tensor:
     """K6: masked attention from the raw qkv over ``tile``-token tiles (N a
     multiple of ``tile``); ``mask`` [B, N] in any dtype. CUDA:
-    ``csrc/masked_attention.cu`` (bf16, contiguous); CPU:
-    :func:`masked_attention_tiled_plain`."""
-    D = _check_args(qkv, mask, num_heads, tile=tile)
+    ``csrc/masked_attention.cu`` (bf16, contiguous; ``warps`` per block from
+    :data:`FWD_WARPS`); CPU: :func:`masked_attention_tiled_plain`."""
+    D = _check_args(qkv, mask, num_heads, tile=tile, warps=warps)
     if qkv.device.type == "cpu":
         return masked_attention_tiled_plain(qkv, mask, num_heads, scale, mask_fill, tile)
     mask32 = _kernel_inputs("masked_attention_tiled", qkv, mask, D)
@@ -229,22 +253,24 @@ def masked_attention_tiled(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     code = _build.library().editor_masked_attention_tiled(
         qkv.data_ptr(), mask32.data_ptr(), out.data_ptr(), B, N, num_heads, D,
-        float(scale), float(mask_fill), tile, _stream(qkv))
+        float(scale), float(mask_fill), tile, warps, _stream(qkv))
     _build.check(code, "masked_attention_tiled")
-    masked_attention_tiled.launches += 1
+    count_launch(masked_attention_tiled, warps)
     return out
 
 
 masked_attention_tiled.launches = 0
+masked_attention_tiled.variant_launches = 0
 
 
 def masked_attention_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                              num_heads: int, scale: float,
-                             mask_fill: float = MASK_FILL) -> torch.Tensor:
+                             mask_fill: float = MASK_FILL, warps: int = 4) -> torch.Tensor:
     """K5: dqkv [B, N, 3C] from qkv, the mask [B, N] and the output's
     cotangent g [B, N, C]. CUDA: ``csrc/masked_attention_bwd.cu`` (bf16,
-    contiguous); CPU: :func:`masked_attention_qkv_bwd_plain`."""
-    D = _check_args(qkv, mask, num_heads, g)
+    contiguous; ``warps`` per block from :data:`BWD_WARPS`); CPU:
+    :func:`masked_attention_qkv_bwd_plain`."""
+    D = _check_args(qkv, mask, num_heads, g, warps=warps, allowed=BWD_WARPS)
     if qkv.device.type == "cpu":
         return masked_attention_qkv_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill)
     mask32 = _kernel_inputs("masked_attention_qkv_bwd", qkv, mask, D, g)
@@ -258,13 +284,14 @@ def masked_attention_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Ten
     code = _build.library().editor_masked_attention_bwd(
         qkv.data_ptr(), mask32.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         pst.data_ptr(), dlst.data_ptr(), B, N, num_heads, D, float(scale),
-        float(mask_fill), _stream(qkv))
+        float(mask_fill), warps, _stream(qkv))
     _build.check(code, "masked_attention_qkv_bwd")
-    masked_attention_qkv_bwd.launches += 1
+    count_launch(masked_attention_qkv_bwd, warps)
     return dqkv
 
 
 masked_attention_qkv_bwd.launches = 0
+masked_attention_qkv_bwd.variant_launches = 0
 
 
 def masked_attention_tiled_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,

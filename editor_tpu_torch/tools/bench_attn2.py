@@ -1,0 +1,108 @@
+"""T2: K1 without the row max, and K6's block shape, on one CUDA device.
+
+    python3 -m editor_tpu_torch.tools.bench_attn2 [--iters 20]
+
+Counterpart of ``tools/bench_attn2.py``. Its TPU kernel ``nomax_attn``
+(``_kernel_nomax``) is K1's attention with the exps of the raw logits: no row
+max, so it is valid only while |logit| < ~80 (random-normal inputs, as in the
+JAX script; the ×30 stress of chip_smoke's K1 check would overflow it).
+:func:`nomax_attn` launches the variant entry of ``csrc/attention_qkv.cu``
+with ``kNoMax`` on the packed qkv, ``g`` sequences per block. The tool prints
+at [384, 129, 2304] (seed 0) the shipped K1, T2 at g in (1, 2, 4) with its
+relative error against K1 and its plain version, and SDPA; then the JAX
+script's second half: the uncompacted tail's masked attention K6 at
+[128, 387] (three tiles) and [384, 129] (one tile) over its warps per block
+(the TPU script sweeps its group), against the shipped 4 warps. The card's
+name and power limit come first. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+import torch.nn.functional as F
+
+from editor_tpu_torch.ops._checks import check_kernel_tensor
+from editor_tpu_torch.tools import _bench
+from editor_tpu_torch.tools.bench_attn import (SCALE, B, C, D, H, N, attention_bytes,
+                                               launch_variant, split_softmax_av_plain)
+
+
+def nomax_attn_plain(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """T2's function, the math of ``_kernel_nomax``: qkv [B, N, 3C] -> out
+    [B, N, C] in qkv.dtype, softmax without the row max."""
+    Bq, Nq, C3 = qkv.shape
+    Dq = C3 // 3 // num_heads
+    q, k, v = qkv.reshape(Bq, Nq, 3, num_heads, Dq).permute(2, 0, 3, 1, 4)
+    out, _ = split_softmax_av_plain(q, k, v, scale, nomax=True)
+    return out.to(qkv.dtype).transpose(1, 2).reshape(Bq, Nq, C3 // 3)
+
+
+def nomax_attn(qkv: torch.Tensor, num_heads: int, scale: float, g: int = 1) -> torch.Tensor:
+    """T2: attention from the packed qkv [B, N, 3C] without the row max, ``g``
+    sequences per block -> [B, N, C]. CUDA: ``csrc/attention_qkv.cu`` (bf16,
+    contiguous); CPU: :func:`nomax_attn_plain`."""
+    Bq, Nq, C3 = qkv.shape
+    if C3 % (3 * num_heads) or g < 1:
+        raise ValueError(f"qkv width {C3}, {num_heads} heads, {g} sequences per block")
+    if qkv.device.type == "cpu":
+        return nomax_attn_plain(qkv, num_heads, scale)
+    check_kernel_tensor("nomax_attn qkv", qkv, 3, C3 // 3 // num_heads, Nq, align=4)
+    q, k, v = qkv.split(C3 // 3, -1)
+    out = launch_variant("nomax_attn", q, k, v, num_heads, scale, g, 1, True)
+    nomax_attn.launches += 1
+    return out
+
+
+nomax_attn.launches = 0
+
+
+def main(argv=None) -> None:
+    from editor_tpu_torch import ops
+    from editor_tpu_torch.ops.masked_attention import FWD_WARPS, MASK_FILL
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    _bench.start("bench_attn2")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(B, N, 3 * C, generator=gen, device="cuda").to(torch.bfloat16)
+    want, _ = ops.attention_qkv(qkv, H, SCALE)
+    bnd = _bench.bound(4.0 * B * H * N * N * D, attention_bytes(False))
+    ms = _bench.cuda_ms(lambda: ops.attention_qkv(qkv, H, SCALE), args.iters)
+    _bench.report("K1 attention_qkv probs=0 (shipped)", ms, 0.0, bnd)
+    ref = nomax_attn_plain(qkv, H, SCALE)
+    for g in (1, 2, 4):
+        out = nomax_attn(qkv, H, SCALE, g)
+        ms = _bench.cuda_ms(lambda: nomax_attn(qkv, H, SCALE, g), args.iters)
+        _bench.report(f"nomax g={g}", ms, _bench.rel_err(out, want), bnd,
+                      relerr_vs_plain=f"{_bench.rel_err(out, ref):.2e}")
+    ms = _bench.cuda_ms(lambda: nomax_attn_plain(qkv, H, SCALE), args.iters)
+    _bench.report("plain nomax_attn_plain", ms, _bench.rel_err(ref, want))
+    heads = [t.view(B, N, H, D).transpose(1, 2) for t in qkv.split(C, -1)]
+    ms = _bench.cuda_ms(lambda: F.scaled_dot_product_attention(*heads, scale=SCALE), args.iters)
+    _bench.report("library SDPA", ms)
+
+    # the tail: K6 over its warps per block, masks as the JAX script's
+    tile, B2 = 129, 128
+    mask = torch.rand(B2, tile, generator=gen, device="cuda") > 0.5
+    mask[:, 0] = True
+    for name, Bm, m in (("joint N=387", B2, mask.repeat(1, 3)), ("modal N=129", 3 * B2,
+                                                                 mask.repeat(3, 1))):
+        m = m.float()
+        Nm = m.shape[1]
+        x = torch.randn(Bm, Nm, 3 * C, generator=gen, device="cuda").to(torch.bfloat16)
+        base = ops.masked_attention_tiled(x, m, H, SCALE, MASK_FILL, tile)
+        pairs = float((m.sum(1) ** 2).sum())
+        b6 = _bench.bound(4.0 * H * D * pairs, 2.0 * Bm * Nm * 4 * C + 4.0 * Bm * Nm)
+        for w in FWD_WARPS:
+            out = ops.masked_attention_tiled(x, m, H, SCALE, MASK_FILL, tile, warps=w)
+            ms = _bench.cuda_ms(lambda: ops.masked_attention_tiled(x, m, H, SCALE, MASK_FILL,
+                                                                   tile, warps=w), args.iters)
+            _bench.report(f"K6 {name} warps={w}", ms, _bench.rel_err(out, base), b6,
+                          equal_to_4_warps=bool(torch.equal(out, base)))
+
+
+if __name__ == "__main__":
+    main()

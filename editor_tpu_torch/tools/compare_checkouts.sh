@@ -1,0 +1,34 @@
+#!/usr/bin/env bash
+# Hold this checkout's shipped kernels (K1-K8) against another checkout's on
+# one card: the output digests and ms of kernel_digest.py in the order other,
+# this, this, other (so a drift of the card's clock shows as a difference
+# between the two runs of one side), then the registers, spills and SASS
+# instruction mix of each named source in both checkouts (kernel_sass.py).
+#
+#   bash editor_tpu_torch/tools/compare_checkouts.sh <other checkout> <out dir> [source.cu ...]
+#
+# Run from the root of this checkout. Writes digest_<i>_<other|this>.txt and
+# sass_<other|this>_<source>.jsonl into <out dir>. Both checkouts build their
+# kernels into their own editor_tpu_torch/_build/.
+set -euo pipefail
+other=$(cd "$1" && pwd)
+out=$2
+shift 2
+here=$(pwd)
+mkdir -p "$out"
+i=0
+for who in other this this other; do
+  i=$((i + 1))
+  dir=$here
+  [ "$who" = other ] && dir=$other
+  PYTHONPATH="$dir" python3 "$here/editor_tpu_torch/tools/kernel_digest.py" \
+    > "$out/digest_${i}_${who}.txt"
+done
+for src in "$@"; do
+  for who in other this; do
+    dir=$here
+    [ "$who" = other ] && dir=$other
+    python3 -m editor_tpu_torch.tools.kernel_sass "$dir/editor_tpu_torch/csrc/$src" \
+      > "$out/sass_${who}_${src%.cu}.jsonl"
+  done
+done

@@ -1,0 +1,119 @@
+"""Digest and time of each shipped kernel (K1-K8) at the main paths' shapes
+on one CUDA device, to hold two checkouts against each other on one card.
+
+    PYTHONPATH=<checkout> python3 <this file> [--iters 20]
+
+It imports ``editor_tpu_torch`` from the path it is given, so the same file
+runs another checkout's kernels (it calls only K1-K8's wrappers with the
+arguments they have taken since K8 was added). The inputs come from a CUDA
+generator seeded with 0, in one fixed order: K1 with its probs and K4 at
+[384, 129, 2304]; K2 on peaked maps
+(L = 12, Z = 4608, N = 129); K3 and K5 at [384, 88] and [128, 264]; K6 and
+K7 at [384, 129], [128, 387] and [128, 258] (masks rand < 0.5 with the cls
+keys kept); K8 at [49536, 768] -> 2304 and -> 3072 + GELU. For each call it
+prints one JSON line: the kernel, the shape, the sha256 of its output bytes
+(the first 16 hex digits) and its ms from CUDA events. The card's name and
+power limit come first. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+
+import torch
+
+H, C = 12, 768
+D = C // H
+SCALE = D ** -0.5
+FILL = -65504.0
+
+
+def digest(*ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def event_ms(fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("kernel_digest: no CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip(), flush=True)
+    from editor_tpu_torch import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+
+    def randn(*shape, mul=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * mul).to(bf)
+
+    def mask(B, N, tile):
+        m = torch.rand(B, N, generator=gen, device="cuda") < 0.5
+        return (m | (torch.arange(N, device="cuda") % tile == 0)[None, :]).float()
+
+    def line(name, shape, fn):
+        out = fn()
+        outs = out if isinstance(out, tuple) else (out,)
+        torch.cuda.synchronize()
+        print(json.dumps({"kernel": name, "shape": list(shape), "sha256": digest(*outs),
+                          "ms": round(event_ms(fn, args.iters), 5)}), flush=True)
+
+    qkv, g = randn(384, 129, 3 * C), randn(384, 129, C)
+    probs = torch.empty(384, H, 129, 129, dtype=bf, device="cuda")
+    line("K1 attention_qkv", qkv.shape,
+         lambda: (ops.attention_qkv(qkv, H, SCALE, probs_out=probs)[0], probs))
+    line("K4 attention_qkv_bwd", qkv.shape, lambda: ops.attention_qkv_bwd(qkv, g, H, SCALE))
+    del qkv, g, probs
+    maps = torch.empty(12, 384, H, 129, 129, dtype=bf, device="cuda")
+    for l in range(12):
+        maps[l] = torch.softmax(4.0 * torch.randn(384, H, 129, 129, generator=gen,
+                                                  device="cuda"), dim=-1).to(bf)
+    line("K2 rollout_chain", maps.shape, lambda: ops.rollout_chain(maps))
+    del maps
+    for B, N in ((384, 88), (128, 264)):
+        qkv, m, g = randn(B, N, 3 * C), mask(B, N, 88), randn(B, N, C)
+        line("K3 masked_attention_qkv", qkv.shape,
+             lambda: ops.masked_attention_qkv(qkv, m, H, SCALE, FILL))
+        line("K5 masked_attention_qkv_bwd", qkv.shape,
+             lambda: ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL))
+    for B, N in ((384, 129), (128, 387), (128, 258)):
+        qkv, m, g = randn(B, N, 3 * C), mask(B, N, 129), randn(B, N, C)
+        line("K6 masked_attention_tiled", qkv.shape,
+             lambda: ops.masked_attention_tiled(qkv, m, H, SCALE, FILL, 129))
+        line("K7 masked_attention_tiled_bwd", qkv.shape,
+             lambda: ops.masked_attention_tiled_bwd(qkv, m, g, H, SCALE, FILL, 129))
+    del qkv, m, g
+    torch.cuda.empty_cache()
+    x = randn(384 * 129, C, mul=2.0)
+    for O, act in ((3 * C, ""), (4 * C, "gelu")):
+        w = torch.randn(O, C, generator=gen, device="cuda") * 0.02
+        b = torch.randn(O, generator=gen, device="cuda") * 0.02
+        gm = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+        bt = 0.1 * torch.randn(C, generator=gen, device="cuda")
+        line("K8 ln_matmul", (x.shape[0], C, O), lambda: ops.ln_matmul(x, w, b, gm, bt, 1e-6, act))
+
+
+if __name__ == "__main__":
+    main()

@@ -11,7 +11,8 @@ CUDA events over ``--iters`` back-to-back calls of ``build_eval_step`` (bf16,
 seeded random weights and images) after two warm-ups, images per second,
 peak device memory, and a ``torch.profiler`` trace of ``--profile-iters``
 more calls. The trace's device time is grouped per forward into the port's
-kernels (K1-K8), GEMMs, LayerNorm, GELU, the patch conv and the remaining
+kernels (K1-K8, and the design variants T1-T5 of the ``bench_*`` tools;
+T6 launches K3/K5), GEMMs, LayerNorm, GELU, the patch conv and the remaining
 elementwise and copy kernels; the device's idle share is 1 - (device busy
 time / event time). The
 card's name and power limit head the output; the full per-kernel tables go to
@@ -37,11 +38,15 @@ CATEGORIES = (
     ("K1 attention_qkv", r"attention_qkv_kernel"),
     ("K2 rollout_chain", r"rollout_chain_kernel"),
     ("K3 masked_attention", r"masked_attention_kernel"),
-    ("K4 attention_qkv_bwd", r"attention_bwd_kernel<false>"),
-    ("K5 masked_attention_bwd", r"attention_bwd_kernel<true>"),
+    ("K4 attention_qkv_bwd", r"attention_bwd_kernel<false"),
+    ("K5 masked_attention_bwd", r"attention_bwd_kernel<true"),
     ("K6 masked_attention_tiled", r"masked_attention_tiled_kernel"),
     ("K7 masked_attention_tiled_bwd", r"masked_attention_tiled_bwd_kernel"),
     ("K8 ln_matmul", r"ln_matmul_kernel"),
+    ("T1/T2 attention variants", r"attention_variant_kernel"),
+    ("T3 attn_layer", r"attn_layer_kernel"),
+    ("T4 rollout variants", r"rollout_variant_kernel|rollout_rows_kernel"),
+    ("T5 rollout_multi", r"rollout_multi_kernel"),
     ("optimizer (foreach)", r"multi_tensor_apply|foreach"),
     ("patch conv (cuDNN)", r"fprop|dgrad|wgrad|cudnn|nchw|nhwc|conv(?!ert)"),
     ("GEMM (cuBLAS)", r"gemm|nvjet|xmma|cutlass|cublas"),

@@ -27,7 +27,9 @@ from editor_tpu_torch.models.editor import (EditorConfig, editor_config_from,
                                             vit_tiny_test_config)
 from editor_tpu_torch.models.init import editor_init
 from editor_tpu_torch.engine.evaluate import build_eval_step
-from editor_tpu_torch.tools import profile_forward, profile_train
+from editor_tpu_torch.tools import (profile_forward, profile_train, bench_attn, bench_attn2,
+                                    bench_attn_layer, bench_full_kernel, bench_rollout,
+                                    bench_rollout2, kernel_digest, kernel_sass)
 from editor_tpu_torch.config import Config, load_config
 from editor_tpu_torch.data.transforms import make_train_augment
 from editor_tpu_torch.engine.train import build_train_step

@@ -26,6 +26,7 @@ import torch
 from editor_tpu_torch import ops
 from editor_tpu_torch.ops import masked_attention as port_ma
 from tests.torch_parity import assert_close, x64  # noqa: F401
+from tests.torch_parity import bf16_pair as _bf16, ulp_of_max as _ulp_of_max
 
 # ``editor_tpu.ops.masked_attention`` is the function the package re-exports;
 # the modules are taken by name
@@ -52,15 +53,6 @@ def _mask(B, N, seed, tile=TILE):
     if N > tile:
         m[0, tile + 1:2 * tile] = False
     return m.astype(np.float64)
-
-
-def _ulp_of_max(ref) -> float:
-    return float(2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7))
-
-
-def _bf16(a):
-    """The same bf16 values on both sides (each side rounds to nearest even)."""
-    return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
 
 
 def _interpret_masked(kernel, B, N, tile, *arrays):

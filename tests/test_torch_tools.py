@@ -1,9 +1,13 @@
-"""The forward and train profilers' kernel grouping, and their refusal to run
-without a CUDA device."""
+"""The forward and train profilers' kernel grouping, the refusal of the
+profilers and the design-variant tools to run without a CUDA device, and
+kernel_sass's reading of ptxas and cuobjdump output."""
 
 import pytest
 import torch
 
+from editor_tpu_torch.tools import (bench_attn, bench_attn2, bench_attn_layer,
+                                    bench_full_kernel, bench_rollout, bench_rollout2,
+                                    kernel_digest)
 from editor_tpu_torch.tools import profile_forward as pf
 from editor_tpu_torch.tools import profile_train as pt
 
@@ -35,6 +39,33 @@ from editor_tpu_torch.tools import profile_train as pt
     ("void editor_kernels::(anonymous namespace)::masked_attention_kernel(...)",
      "K3 masked_attention"),
     ("void editor_kernels::(anonymous namespace)::ln_matmul_kernel(...)", "K8 ln_matmul"),
+    # the warp count is a template argument of K3, K5, K6 (the T6 sweep)
+    ("void editor_kernels::attention_bwd_kernel<false, 4>(__nv_bfloat16 const*, ...)",
+     "K4 attention_qkv_bwd"),
+    ("void editor_kernels::attention_bwd_kernel<true, 4>(__nv_bfloat16 const*, ...)",
+     "K5 masked_attention_bwd"),
+    ("void editor_kernels::attention_bwd_kernel<true, 8>(__nv_bfloat16 const*, ...)",
+     "K5 masked_attention_bwd"),
+    ("void editor_kernels::(anonymous namespace)::masked_attention_kernel<8>(...)",
+     "K3 masked_attention"),
+    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_kernel<16>(...)",
+     "K6 masked_attention_tiled"),
+    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel<8>(...)",
+     "K7 masked_attention_tiled_bwd"),
+    # the design variants T1-T5
+    ("void editor_kernels::(anonymous namespace)::attention_variant_kernel<2, false>(...)",
+     "T1/T2 attention variants"),
+    ("void editor_kernels::(anonymous namespace)::attention_variant_kernel<1, true>(...)",
+     "T1/T2 attention variants"),
+    ("void editor_kernels::(anonymous namespace)::attn_layer_kernel(...)", "T3 attn_layer"),
+    ("void editor_kernels::(anonymous namespace)::rollout_variant_kernel<true, 2>(...)",
+     "T4 rollout variants"),
+    ("void editor_kernels::(anonymous namespace)::rollout_rows_kernel<1>(...)",
+     "T4 rollout variants"),
+    ("void editor_kernels::(anonymous namespace)::rollout_multi_kernel<4>(...)",
+     "T5 rollout_multi"),
+    ("void editor_kernels::(anonymous namespace)::rollout_chain_kernel(...)",
+     "K2 rollout_chain"),
     # a dtype conversion is not a convolution
     ("void at::native::unrolled_elementwise_kernel<direct_copy_kernel_cuda, convert>",
      pf.OTHER),
@@ -43,9 +74,52 @@ def test_kernel_categories(name, label):
     assert pf.category(name) == label
 
 
-@pytest.mark.parametrize("main", [pf.main, pt.main], ids=["forward", "train"])
+@pytest.mark.parametrize("main", [pf.main, pt.main, bench_attn.main, bench_attn2.main,
+                                  bench_attn_layer.main, bench_rollout.main,
+                                  bench_rollout2.main, bench_full_kernel.main,
+                                  kernel_digest.main],
+                         ids=["forward", "train", "bench_attn", "bench_attn2",
+                              "bench_attn_layer", "bench_rollout", "bench_rollout2",
+                              "bench_full_kernel", "kernel_digest"])
 def test_exits_without_cuda(monkeypatch, main):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         main([])
     assert exc.value.code != 0
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z20attention_qkv_kernelPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _Z20attention_qkv_kernelPK13__nv_bfloat16
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z20rollout_chain_kernelv' for 'sm_90a'
+ptxas info    : Function properties for _Z20rollout_chain_kernelv
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 26 registers, used 1 barriers, 4128 bytes smem
+"""
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _Z20rollout_chain_kernelv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/              @!P0 BRA `(.L_x_1) ;                 /* 0x0000000000088947 */
+        /*0020*/                   FFMA R0, R2, R3, R0 ;           /* 0x0000000302007223 */
+        /*0030*/               @P1 LDG.E.U16 R4, desc[UR4][R2.64] ; /* 0x0000000402041981 */
+        /*0040*/                   FFMA.FTZ R5, R2, R3, R5 ;       /* 0x0000000302057223 */
+\t\tFunction : _Z20attention_qkv_kernelPK13__nv_bfloat16
+        /*0000*/                   EXIT ;                          /* 0x000000000000794d */
+"""
+
+
+def test_kernel_sass_reads_ptxas_and_sass():
+    from editor_tpu_torch.tools import kernel_sass
+
+    info = kernel_sass.ptxas_info(PTXAS_LOG)
+    assert info["_Z20attention_qkv_kernelPK13__nv_bfloat16"] == dict(
+        spill_stores=0, spill_loads=0, registers=32, smem=0)
+    assert info["_Z20rollout_chain_kernelv"] == dict(
+        spill_stores=8, spill_loads=4, registers=26, smem=4128)
+    ops = kernel_sass.sass_opcodes(SASS)
+    assert ops["_Z20rollout_chain_kernelv"] == {"LDC": 1, "BRA": 1, "FFMA": 2, "LDG": 1}
+    assert ops["_Z20attention_qkv_kernelPK13__nv_bfloat16"] == {"EXIT": 1}

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from editor_tpu_torch.tools._bench import ulp_of_max  # noqa: F401  (re-exported)
+
 # Where top-k decides the result the comparison runs at float64: at f32 the
 # rollout's per-head top-k has near-ties that 1e-7 noise can flip.
 RTOL_F64, ATOL_F64 = 1e-9, 1e-12
@@ -70,6 +72,14 @@ def port_editor(jcfg, params_np, state_np, dtype=torch.float64, **overrides):
     model = Editor(torch_editor_config(jcfg, **overrides), device="cpu").to(dtype)
     model.load_state_dict(state_dict_from_jax(params_np, state_np, jcfg), strict=True)
     return model
+
+
+def bf16_pair(a):
+    """The same bf16 values for both sides (each side rounds to nearest even):
+    a JAX array and a torch tensor."""
+    import jax.numpy as jnp
+
+    return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
 
 
 def assert_close(got, ref, dtype=np.float64, **tol):
