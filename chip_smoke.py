@@ -11,13 +11,19 @@ Phases, each printing its lines and its seconds:
      backward, K8 LayerNorm -> matmul -> GELU) against its plain PyTorch
      version at the main paths' shapes in bf16, with kernel, plain and
      library-call times from CUDA events and the bound (the least time the
-     card could take) worked out from this run's inputs;
+     card could take) worked out from this run's inputs. K1 is held against
+     its plain version in the TPU kernel's form: every probs element within
+     one bf16 ulp of the plain value and every row summing to 1, also at
+     x30 and at shapes the model does not reach (N = 17, 200, 512; D = 96);
+     it must take at most half the time of its former CUDA-core body (T1's
+     kernel with 1 head and 1 sequence per block, timed in the same run);
   3. forward: the flagship tri-modal eval forward (ViT-B/16, 256x128,
      seeded random weights, B=128, bf16, compact tail) through
      build_eval_step; one forward launches K1 12, K2 1 and K3 2 times, and
      the features match the same model run with the plain ops in fp32
      (per-row cosine >= 0.99, rel-L2 <= 0.08);
-  4. serving: FeatureExtractor + GalleryIndex over 64 synthetic identities;
+  4. serving: FeatureExtractor (with the config's INPUT section) +
+     GalleryIndex over 64 synthetic identities;
      queries of 1, 3 and 32 repeated gallery items must each retrieve
      themselves at rank 1; batch-1 p50 latency;
   5. train: the flagship train step (B=128 as 8 ids x 16, uint8 images
@@ -179,6 +185,47 @@ def _sdpa_bwd_ms(qkv, g, key_mask=None) -> float:
     return both - cuda_ms(fwd)
 
 
+def _bf16_ulps(got, ref) -> float:
+    """The largest |got - ref| in units of (one bf16 ulp of |ref| at that
+    element + 1e-6); at most 1 where every element is the plain value or
+    one bf16 step from it."""
+    from editor_tpu_torch.tools import _bench
+
+    return float(((got.float() - ref.float()).abs() / (_bench.bf16_ulp(ref) + 1e-6)).max())
+
+
+def _k1_errors(name: str, out, probs, ref, scaled: bool = False) -> dict:
+    """K1's output and probs against its plain version ``ref`` = (out,
+    probs): out within 2e-2 (scaled by its largest magnitude: 1e-2); every
+    probs element within one bf16 ulp of the plain value at that element
+    (the two round the same fp32 p and differ only in summation order); every
+    probs row sums to 1 within 1e-2. A wrong or missing store of many small
+    probabilities, or of a row, fails the last two."""
+    ref_out, ref_probs = ref
+    e_out = _scaled(out, ref_out) if scaled else _max_err(out, ref_out)
+    _require(f"{name} out" + (" (scaled)" if scaled else ""), e_out, 1e-2 if scaled else 2e-2)
+    ulps = _bf16_ulps(probs, ref_probs)
+    _require(f"{name} probs in bf16 ulps", ulps, 1.0)
+    row_sum = float((probs.float().sum(-1) - 1.0).abs().max())
+    _require(f"{name} probs row sums", row_sum, 1e-2)
+    return dict(out_err=e_out, probs_err=_max_err(probs, ref_probs), probs_ulps=ulps,
+                row_sum_err=row_sum)
+
+
+def _k1_old_body_ms(qkv, probs) -> float:
+    """The CUDA-core body K1 ran until the tensor-core redesign, timed on the
+    same input: T1 (``bench_attn.headgrid_attn``) with 1 head and 1 sequence
+    per block on the q/k/v column views of the packed qkv, which is that
+    body's K1 instantiation. Its launches are zeroed afterwards, so that the
+    main paths still count 0 T1 launches."""
+    from editor_tpu_torch.tools import bench_attn
+
+    q, k, v = qkv.split(C, -1)
+    ms = cuda_ms(lambda: bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 1, probs))
+    reset_counts()
+    return ms
+
+
 def kernel_phase(gen: torch.Generator) -> dict:
     """Each kernel against its plain version at the main path's shapes, with
     its time, its plain version's, one library call's where one computes the
@@ -192,42 +239,63 @@ def kernel_phase(gen: torch.Generator) -> dict:
     def randn(*shape, mul=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * mul).to(torch.bfloat16)
 
-    # K1 at the backbone shape [3 x 128, 129, 3C]
+    # K1 at the backbone shape [3 x 128, 129, 3C], with and without probs,
+    # and x30 (|logit| ~ 1e3), against its plain version in the TPU kernel's
+    # rounding form; then the shapes the wrapper takes beyond the model's
     Bk, N = 3 * B_EVAL, 129
     qkv = randn(Bk, N, 3 * C)
     probs = torch.empty(Bk, H, N, N, dtype=torch.bfloat16, device=dev)
     out, _ = ops.attention_qkv(qkv, H, SCALE, probs_out=probs)
-    ref_out, ref_probs = ops.attention_qkv_plain(qkv, H, SCALE, True)
+    out_np, _ = ops.attention_qkv(qkv, H, SCALE)
     torch.cuda.synchronize()
-    e_out, e_probs = _max_err(out, ref_out), _max_err(probs, ref_probs)
-    _require("attention_qkv out", e_out, 2e-2)
-    _require("attention_qkv probs", e_probs, 1e-2)
+    k1 = _k1_errors("attention_qkv", out, probs, ops.attention_qkv_tpu_plain(qkv, H, SCALE, True))
+    e_out, e_probs = max(k1["out_err"], _max_err(out_np, out)), k1["probs_err"]
+    _require("attention_qkv out without probs", e_out, 2e-2)
     qkv30 = randn(Bk, N, 3 * C, mul=30.0)
-    out30, _ = ops.attention_qkv(qkv30, H, SCALE)
-    ref30 = ops.attention_qkv_plain(qkv30, H, SCALE, False)
+    out30, _ = ops.attention_qkv(qkv30, H, SCALE, probs_out=probs)
     torch.cuda.synchronize()
     if not torch.isfinite(out30.float()).all():
         raise AssertionError("attention_qkv: non-finite output at |logit| ~ 1e3")
-    e30 = _scaled(out30, ref30)
-    _require("attention_qkv x30 (scaled)", e30, 1e-2)
-    # the batch-1 serving shape [3, 129, 3C]
-    q1 = randn(3, N, 3 * C)
-    p1 = torch.empty(3, H, N, N, dtype=torch.bfloat16, device=dev)
-    o1, _ = ops.attention_qkv(q1, H, SCALE, probs_out=p1)
-    r1, rp1 = ops.attention_qkv_plain(q1, H, SCALE, True)
-    torch.cuda.synchronize()
-    e_b1 = max(_max_err(o1, r1), _max_err(p1, rp1))
-    _require("attention_qkv batch-1", e_b1, 2e-2)
+    k1_30 = _k1_errors("attention_qkv x30", out30, probs,
+                       ops.attention_qkv_tpu_plain(qkv30, H, SCALE, True), scaled=True)
+    del out30
+    # B = 3 (the batch-1 serving shape at N = 129) at the token counts and
+    # head dims the wrapper takes: below, at and past one key chunk, the most
+    # tokens, and D = 96 (vit_small_config). At N = 129 the probs start 2
+    # bytes past a 16-byte boundary, as a layer slice of the serving path's
+    # [L, 3, H, N, N] buffer does
+    extra = {}
+    for Bx, Nx, Hx, Dx in ((3, 17, H, D), (3, N, H, D), (3, 200, H, D), (3, 512, H, D),
+                           (3, N, 8, 96)):
+        qx = randn(Bx, Nx, 3 * Hx * Dx)
+        shift = int(Nx == N and Dx == D)
+        px = torch.empty(shift + Bx * Hx * Nx * Nx, dtype=torch.bfloat16,
+                         device=dev)[shift:].view(Bx, Hx, Nx, Nx)
+        ox, _ = ops.attention_qkv(qx, Hx, Dx ** -0.5, probs_out=px)
+        torch.cuda.synchronize()
+        e = _k1_errors(f"attention_qkv B={Bx} N={Nx} H={Hx} D={Dx}", ox, px,
+                       ops.attention_qkv_tpu_plain(qx, Hx, Dx ** -0.5, True))
+        extra[f"N{Nx}_H{Hx}_D{Dx}"] = e
+    e_extra = max(max(e["out_err"], e["probs_err"]) for e in extra.values())
     ms = cuda_ms(lambda: ops.attention_qkv(qkv, H, SCALE, probs_out=probs))
-    plain_ms = cuda_ms(lambda: ops.attention_qkv_plain(qkv, H, SCALE, True))
+    ms_np = cuda_ms(lambda: ops.attention_qkv(qkv, H, SCALE))
+    plain_ms = cuda_ms(lambda: ops.attention_qkv_tpu_plain(qkv, H, SCALE, True))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*_heads(qkv), scale=SCALE))
+    old_ms = _k1_old_body_ms(qkv, probs)
     # reads qkv, writes out and probs; q.k and p.v products
     b = bound(4.0 * Bk * H * N * N * D, 2.0 * (Bk * N * 3 * C + Bk * N * C + Bk * H * N * N))
-    results["attention_qkv"] = dict(max_abs_err=max(e_out, e_probs), ms=ms, plain_ms=plain_ms,
-                                    library_ms=lib_ms, **b)
-    say("2 kernel attention_qkv", shape=list(qkv.shape), out_err=e_out,
-        probs_err=e_probs, x30_scaled_err=e30, batch1_err=e_b1, ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}")
+    if not ms <= 0.5 * old_ms:
+        raise AssertionError(f"attention_qkv: {ms} ms, not at most half the CUDA-core "
+                             f"body's {old_ms} ms")
+    results["attention_qkv"] = dict(max_abs_err=max(e_out, e_probs, e_extra), ms=ms,
+                                    plain_ms=plain_ms, library_ms=lib_ms, ms_no_probs=ms_np,
+                                    old_body_ms=old_ms, **b)
+    say("2 kernel attention_qkv", shape=list(qkv.shape), out_err=e_out, probs_err=e_probs,
+        probs_ulps=k1["probs_ulps"], row_sum_err=k1["row_sum_err"],
+        x30_scaled_err=k1_30["out_err"], x30_probs_ulps=k1_30["probs_ulps"],
+        extra=json.dumps(extra), ms=f"{ms:.4f}", ms_no_probs=f"{ms_np:.4f}",
+        old_body_ms=f"{old_ms:.4f}", plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
+        bound_ms=f"{b['bound_ms']:.4f}")
 
     # K4, the VJP of K1, at the same shape; |logit| ~ 1e3 with the x30 input
     g = randn(Bk, N, C)
@@ -241,7 +309,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
     if not torch.isfinite(dq30.float()).all():
         raise AssertionError("attention_qkv_bwd: non-finite at |logit| ~ 1e3")
     _require("attention_qkv_bwd x30 (scaled)", e4_30, 1e-2)
-    g1 = randn(3, N, C)
+    q1, g1 = randn(3, N, 3 * C), randn(3, N, C)
     e4_b1 = _scaled(ops.attention_qkv_bwd(q1, g1, H, SCALE),
                    ops.attention_qkv_bwd_plain(q1, g1, H, SCALE))
     _require("attention_qkv_bwd batch-1 (scaled)", e4_b1, 1e-2)
@@ -256,7 +324,7 @@ def kernel_phase(gen: torch.Generator) -> dict:
         x30_scaled_err=e4_30, batch1_scaled_err=e4_b1, ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", sdpa_bwd_ms=f"{lib_ms:.4f}",
         bound_ms=f"{b['bound_ms']:.4f}")
-    del qkv, probs, out, ref_out, ref_probs, qkv30, out30, ref30, g, dq, ref_dq, dq30, ref_dq30
+    del qkv, probs, out, out_np, qkv30, g, dq, ref_dq, dq30, ref_dq30
 
     # K2 at L = 12, Z = 3 x 128 x 12 = 4608, N = 129. Peaked maps (softmax of
     # 4 x randn), so the chain keeps the layer order visible in its output.
@@ -872,7 +940,11 @@ def serving_phase(model, gen: torch.Generator, card: str) -> None:
     gallery = {m: rng.randint(0, 256, (n_ids, 256, 128, 3), dtype=np.uint8)
                for m in ("RGB", "NI", "TI")}
     cams = (np.arange(n_ids) % 6).astype(np.int32)
-    ex = FeatureExtractor(model, batch_size=32, compute_dtype=torch.bfloat16)
+    cfg, _ = flagship()
+    ex = FeatureExtractor(model, batch_size=32, compute_dtype=torch.bfloat16,
+                          input_cfg=cfg.INPUT)
+    if ex.size_hw != tuple(cfg.INPUT.SIZE_TEST):
+        raise AssertionError(f"FeatureExtractor size_hw {ex.size_hw} != SIZE_TEST")
     gf = ex(gallery, cams)
     index = GalleryIndex(ex.feat_dim, feat_norm=True)
     index.add(gf, pids=list(range(n_ids)), camids=cams.tolist())

@@ -3,7 +3,7 @@ hand-written CUDA kernel for Hopper beside its plain PyTorch version.
 
 | wrapper | kernel source | plain version |
 | --- | --- | --- |
-| :func:`attention_qkv` (K1) | ``csrc/attention_qkv.cu`` | :func:`attention_qkv_plain` |
+| :func:`attention_qkv` (K1) | ``csrc/attention_qkv.cu`` | :func:`attention_qkv_plain` (the kernel's form: :func:`attention_qkv_tpu_plain`) |
 | :func:`rollout_chain` (K2) | ``csrc/rollout_chain.cu`` | :func:`rollout_from_probs_plain` |
 | :func:`masked_attention_qkv` (K3) | ``csrc/masked_attention.cu`` | :func:`masked_attention_qkv_plain` |
 | :func:`attention_qkv_bwd` (K4) | ``csrc/attention_qkv_bwd.cu`` | :func:`attention_qkv_bwd_plain` |
@@ -29,7 +29,8 @@ another warp count in ``variant_launches``, not ``launches``.
 
 from editor_tpu_torch.ops.fused_attention import (attention_qkv, attention_qkv_bwd,
                                                   attention_qkv_bwd_plain,
-                                                  attention_qkv_fn, attention_qkv_plain)
+                                                  attention_qkv_fn, attention_qkv_plain,
+                                                  attention_qkv_tpu_plain)
 from editor_tpu_torch.ops.fused_linear import ln_matmul, ln_matmul_fn, ln_matmul_plain
 from editor_tpu_torch.ops.masked_attention import (MASK_FILL, masked_attention_from_qkv,
                                                    masked_attention_qkv,
@@ -60,6 +61,7 @@ def reset_launch_counts() -> None:
 
 __all__ = ["MASK_FILL", "KERNEL_WRAPPERS", "WARP_WRAPPERS", "attention_qkv",
            "attention_qkv_bwd", "attention_qkv_bwd_plain", "attention_qkv_fn", "attention_qkv_plain",
+           "attention_qkv_tpu_plain",
            "ln_matmul", "ln_matmul_fn", "ln_matmul_plain", "masked_attention_from_qkv",
            "masked_attention_qkv", "masked_attention_qkv_bwd",
            "masked_attention_qkv_bwd_plain", "masked_attention_qkv_fn",

@@ -44,6 +44,31 @@ def attention_qkv_plain(qkv: torch.Tensor, num_heads: int, scale: float,
     return (out, probs) if with_probs else out
 
 
+def attention_qkv_tpu_plain(qkv: torch.Tensor, num_heads: int, scale: float,
+                            with_probs: bool):
+    """K1's function in the TPU kernel's form (``_head_split_softmax_av``),
+    which the CUDA kernel follows: qkv [B, N, 3C] -> out [B, N, C] (+ probs
+    [B, H, N, N]) in qkv.dtype.
+
+    Logits in at least fp32 times ``scale``; row max, exp and sum in fp32;
+    ``p = e * (1 / sum)``; probs are ``p`` rounded to qkv.dtype. Before the
+    p.v product the patch keys' (m >= 1) ``p`` is rounded to qkv.dtype, the
+    cls key's (m = 0) is not: it differs from :func:`attention_qkv_plain`
+    only there (and at f64 not at all)."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    H, D = num_heads, C // num_heads
+    cd = compute_dtype(qkv.dtype)
+    q, k, v = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4).to(cd)  # [B, H, N, D]
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = e * (1.0 / e.sum(-1, keepdim=True))
+    cls_key = torch.arange(N, device=qkv.device) == 0
+    pr = torch.where(cls_key, p, p.to(qkv.dtype).to(cd))
+    out = torch.matmul(pr, v).to(qkv.dtype).transpose(1, 2).reshape(B, N, C)
+    return (out, p.to(qkv.dtype)) if with_probs else out
+
+
 def attention_qkv_bwd_plain(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                             scale: float) -> torch.Tensor:
     """The VJP of :func:`attention_qkv_plain`'s output: qkv [B, N, 3C], g
@@ -74,6 +99,17 @@ def attention_qkv_bwd_plain(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
         B, N, C3).to(qkv.dtype)
 
 
+K1_MAX_HEAD_DIM = 128  # the widest head editor_attention_qkv dispatches
+
+
+def check_k1_head_dim(D: int) -> None:
+    """Raise unless K1's CUDA kernel takes head dim ``D``: its tensor-core
+    tiles are 16 deep, so a multiple of 16 up to 128."""
+    if D % 16 or not 0 < D <= K1_MAX_HEAD_DIM:
+        raise ValueError(f"attention_qkv: head dim {D} is not a multiple of 16 "
+                         f"up to {K1_MAX_HEAD_DIM}")
+
+
 def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
                   probs_out: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -93,7 +129,9 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
         out, probs = attention_qkv_plain(qkv, num_heads, scale, True)
         probs_out.copy_(probs)
         return out, probs_out
-    check_kernel_tensor("attention_qkv", qkv, 3, D, N, align=4)
+    check_k1_head_dim(D)
+    # 16-byte cp.async copies of the head's rows (3C * 2 bytes apart)
+    check_kernel_tensor("attention_qkv", qkv, 3, D, N, align=16)
     if probs_out is not None:
         check_kernel_tensor("attention_qkv probs_out", probs_out, 4)
     from editor_tpu_torch.ops import _build

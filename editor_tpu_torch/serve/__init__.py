@@ -32,15 +32,26 @@ __all__ = ["FeatureExtractor", "GalleryIndex"]
 
 
 class FeatureExtractor:
-    """Pad-and-trim wrapper around the eval step for uint8 request images."""
+    """Pad-and-trim wrapper around the eval step for uint8 request images.
+
+    ``input_cfg``: the INPUT section of a :class:`~editor_tpu_torch.config.Config`
+    (as the JAX extractor takes ``cfg.INPUT``): the images are normalised with
+    its ``PIXEL_MEAN``/``PIXEL_STD`` and ``size_hw`` is its ``SIZE_TEST``.
+    Without it: mean and std 0.5 and the model's input size."""
 
     def __init__(self, model: Editor, batch_size: int = 32,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, input_cfg=None):
         self.model = model
         self.batch_size = int(batch_size)
         self.device = next(model.parameters()).device
         self._step = build_eval_step(model, compute_dtype)
-        self._transform = make_eval_transform()
+        if input_cfg is None:
+            self._transform = make_eval_transform()
+            self.size_hw = tuple(model.cfg.vit.img_size)
+        else:
+            self._transform = make_eval_transform(tuple(input_cfg.PIXEL_MEAN),
+                                                  tuple(input_cfg.PIXEL_STD))
+            self.size_hw = tuple(input_cfg.SIZE_TEST)
 
     @property
     def feat_dim(self) -> int:
@@ -153,8 +164,17 @@ class GalleryIndex:
 
     @classmethod
     def load(cls, path: str) -> "GalleryIndex":
+        """Reads the port's files (``paths`` as ``np.str_``) and the JAX
+        package's (``paths`` as ``dtype=object``, which only a pickle-enabled
+        load can read). Pickle is enabled for ``paths`` of the second kind
+        alone; every other key is read without it."""
         with np.load(path) as z:
             idx = cls(int(z["feats"].shape[1]), bool(z["feat_norm"]))
+            try:
+                paths = z["paths"]
+            except ValueError:  # an object array: the JAX package's layout
+                with np.load(path, allow_pickle=True) as zp:
+                    paths = zp["paths"]
             idx.add(z["feats"], z["pids"].tolist(), z["camids"].tolist(),
-                    [str(p) for p in z["paths"].tolist()])
+                    [str(p) for p in paths.tolist()])
         return idx

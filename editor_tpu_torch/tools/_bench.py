@@ -58,6 +58,14 @@ def ulp_of_max(ref) -> float:
     return 2.0 ** (math.floor(math.log2(float(mx))) - 7)
 
 
+def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element of ``ref`` (0 where it is 0): an element
+    m 2^e with 0.5 <= |m| < 1 has 8 significant bits, so its ulp is 2^(e - 8)."""
+    ref = ref.float()
+    _, e = torch.frexp(ref)
+    return torch.where(ref != 0, torch.ldexp(torch.ones_like(ref), e - 8), torch.zeros_like(ref))
+
+
 def mismatch_share(got: torch.Tensor, ref: torch.Tensor, ulps: float = 8.0) -> float:
     """The share of elements of ``got`` farther from ``ref`` than ``ulps``
     fp32 ulps of ``ref``'s element: near 0 where the two round at the same

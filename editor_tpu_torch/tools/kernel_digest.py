@@ -1,7 +1,8 @@
 """Digest and time of each shipped kernel (K1-K8) at the main paths' shapes
 on one CUDA device, to hold two checkouts against each other on one card.
 
-    PYTHONPATH=<checkout> python3 <this file> [--iters 20]
+    PYTHONPATH=<checkout> python3 <this file> [--iters 20] [--save K1.pt]
+    PYTHONPATH=<this checkout> python3 <this file> --diff A.pt B.pt
 
 It imports ``editor_tpu_torch`` from the path it is given, so the same file
 runs another checkout's kernels (it calls only K1-K8's wrappers with the
@@ -14,6 +15,11 @@ keys kept); K8 at [49536, 768] -> 2304 and -> 3072 + GELU. For each call it
 prints one JSON line: the kernel, the shape, the sha256 of its output bytes
 (the first 16 hex digits) and its ms from CUDA events. The card's name and
 power limit come first. Exits non-zero without a CUDA device.
+
+``--save`` also writes K1's output and probs to a file, and ``--diff``
+prints, for two such files (two checkouts' K1 on the same input), the
+largest difference of each tensor, the share of elements that differ and the
+largest difference in bf16 ulps of the first file's element.
 """
 
 from __future__ import annotations
@@ -52,10 +58,31 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def diff(path_a: str, path_b: str) -> dict:
+    """{tensor: {max_abs, share_differing, max_bf16_ulps}} of two --save files
+    (ulps of the first file's element; where that is 0, the difference)."""
+    from editor_tpu_torch.tools import _bench  # this checkout's: --diff reads files only
+
+    a, b = (torch.load(p, map_location="cpu") for p in (path_a, path_b))
+    res = {}
+    for name in a:
+        x, y = a[name].float(), b[name].float()
+        d = (x - y).abs()
+        ulp = _bench.bf16_ulp(x)
+        res[name] = dict(max_abs=float(d.max()), share_differing=float((d > 0).float().mean()),
+                         max_bf16_ulps=float((d / torch.where(ulp > 0, ulp, 1.0)).max()))
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--save", help="write K1's output and probs to this file")
+    ap.add_argument("--diff", nargs=2, metavar=("A", "B"), help="compare two --save files")
     args = ap.parse_args(argv)
+    if args.diff:
+        print(json.dumps(diff(*args.diff)), flush=True)
+        return
     if not torch.cuda.is_available():
         sys.exit("kernel_digest: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -84,6 +111,9 @@ def main(argv=None) -> None:
     probs = torch.empty(384, H, 129, 129, dtype=bf, device="cuda")
     line("K1 attention_qkv", qkv.shape,
          lambda: (ops.attention_qkv(qkv, H, SCALE, probs_out=probs)[0], probs))
+    if args.save:
+        out, _ = ops.attention_qkv(qkv, H, SCALE, probs_out=probs)
+        torch.save({"out": out.cpu(), "probs": probs.cpu()}, args.save)
     line("K4 attention_qkv_bwd", qkv.shape, lambda: ops.attention_qkv_bwd(qkv, g, H, SCALE))
     del qkv, g, probs
     maps = torch.empty(12, 384, H, 129, 129, dtype=bf, device="cuda")

@@ -1,6 +1,7 @@
 """The forward and train profilers' kernel grouping, the refusal of the
-profilers and the design-variant tools to run without a CUDA device, and
-kernel_sass's reading of ptxas and cuobjdump output."""
+profilers and the design-variant tools to run without a CUDA device,
+kernel_sass's reading of ptxas and cuobjdump output, and the bf16 ulp and
+K1 comparison helpers of _bench and kernel_digest."""
 
 import pytest
 import torch
@@ -52,6 +53,13 @@ from editor_tpu_torch.tools import profile_train as pt
      "K6 masked_attention_tiled"),
     ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel<8>(...)",
      "K7 masked_attention_tiled_bwd"),
+    # K1 on the tensor cores: head-dim tiles, key tiles and the resident
+    # form are template arguments
+    ("void editor_kernels::(anonymous namespace)::attention_qkv_kernel<4, 9, true>"
+     "(__nv_bfloat16 const*, __nv_bfloat16*, __nv_bfloat16*, int, int, float, int, int)",
+     "K1 attention_qkv"),
+    ("void editor_kernels::(anonymous namespace)::attention_qkv_kernel<8, 5, false>(...)",
+     "K1 attention_qkv"),
     # the design variants T1-T5
     ("void editor_kernels::(anonymous namespace)::attention_variant_kernel<2, false>(...)",
      "T1/T2 attention variants"),
@@ -123,3 +131,24 @@ def test_kernel_sass_reads_ptxas_and_sass():
     ops = kernel_sass.sass_opcodes(SASS)
     assert ops["_Z20rollout_chain_kernelv"] == {"LDC": 1, "BRA": 1, "FFMA": 2, "LDG": 1}
     assert ops["_Z20attention_qkv_kernelPK13__nv_bfloat16"] == {"EXIT": 1}
+
+
+def test_bf16_ulp():
+    from editor_tpu_torch.tools import _bench
+
+    t = torch.tensor([1.0, 1.5, 0.75, -3.0, 0.0, 2.0 ** -20])
+    assert _bench.bf16_ulp(t).tolist() == [2.0 ** -7, 2.0 ** -7, 2.0 ** -8, 2.0 ** -6, 0.0,
+                                           2.0 ** -27]
+
+
+def test_kernel_digest_diff(tmp_path):
+    """--diff of two checkouts' saved K1 tensors: the largest difference, the
+    share of elements that differ and the largest difference in bf16 ulps."""
+    a = torch.tensor([[1.0, 0.5], [0.25, 0.0]]).bfloat16()
+    b = a.clone()
+    b[0, 0] = 1.0078125  # one bf16 step above 1
+    torch.save({"out": a, "probs": a}, tmp_path / "a.pt")
+    torch.save({"out": b, "probs": a}, tmp_path / "b.pt")
+    res = kernel_digest.diff(str(tmp_path / "a.pt"), str(tmp_path / "b.pt"))
+    assert res["out"] == dict(max_abs=0.0078125, share_differing=0.25, max_bf16_ulps=1.0)
+    assert res["probs"] == dict(max_abs=0.0, share_differing=0.0, max_bf16_ulps=0.0)
