@@ -16,7 +16,13 @@ Phases, each printing its lines and its seconds:
      one bf16 ulp of the plain value and every row summing to 1, also at
      x30 and at shapes the model does not reach (N = 17, 200, 512; D = 96);
      it must take at most half the time of its former CUDA-core body (T1's
-     kernel with 1 head and 1 sequence per block, timed in the same run);
+     kernel with 1 head and 1 sequence per block, timed in the same run).
+     K7 is also held by the share of its elements more than one bf16 ulp
+     off its plain version (at most 0.5% over all of dqkv and over the cls
+     rows' dk and dv), a check that must fail the unrounded form and the
+     cls-rounded (K5's) form in the same run, at D = 32, an odd batch and a
+     sequence masked but for its cls tokens too; its time on the two model
+     shapes must be at most 3x the SDPA backward's;
   3. forward: the flagship tri-modal eval forward (ViT-B/16, 256x128,
      seeded random weights, B=128, bf16, compact tail) through
      build_eval_step; one forward launches K1 12, K2 1 and K3 2 times, and
@@ -461,12 +467,82 @@ def _scaled(got, ref) -> float:
     return _max_err(got, ref, max(float(ref.float().abs().max()), 1e-6))
 
 
+K7_SHARE_TOL = 0.005  # share of elements more than one bf16 ulp off the plain version
+
+
+def _k7_shares(name: str, dq, ref, T: int, Cx: int) -> dict:
+    """K7's rounding checks (``_bench.bf16_off_share``, one bf16 ulp of the
+    plain element + 1e-6 of the max): over all of dqkv, and over the cls
+    rows' dk and dv (rows m % T == 0, columns Cx: onward), each at most
+    K7_SHARE_TOL of the elements off the plain version in the TPU form."""
+    from editor_tpu_torch.tools import _bench
+
+    share = _bench.bf16_off_share(dq, ref)
+    cls = _bench.bf16_off_share(dq[:, ::T, Cx:], ref[:, ::T, Cx:])
+    _require(f"{name} share off the plain version", share, K7_SHARE_TOL)
+    _require(f"{name} cls rows' dk, dv share off the plain version", cls, K7_SHARE_TOL)
+    return dict(share=share, cls_share=cls)
+
+
+def _k7_wrong_forms(qkv, m, g, ref, T: int) -> dict:
+    """The share tests must fail the wrong forms they exist to catch: the
+    unrounded form (the plain version on fp32 inputs, rounded once) over all
+    elements, and the cls-rounded form (K5's, masked_attention_qkv_bwd_plain)
+    over the cls rows' dk and dv."""
+    from editor_tpu_torch import ops
+    from editor_tpu_torch.tools import _bench
+
+    unrounded = ops.masked_attention_tiled_bwd_plain(qkv.float(), m, g.float(), H, SCALE, FILL,
+                                                     T).to(torch.bfloat16)
+    cls_rounded = ops.masked_attention_qkv_bwd_plain(qkv, m, g, H, SCALE, FILL)
+    caught = dict(unrounded_share=_bench.bf16_off_share(unrounded, ref),
+                  cls_rounded_cls_share=_bench.bf16_off_share(cls_rounded[:, ::T, C:],
+                                                              ref[:, ::T, C:]))
+    for form, share in caught.items():
+        if not share > K7_SHARE_TOL:
+            raise AssertionError(f"masked_attention_tiled_bwd share test too loose: the "
+                                 f"{form} is off in only {share} of the elements")
+    return caught
+
+
+def _k7_extra_shapes(randn, gen: torch.Generator) -> dict:
+    """K7 beyond the model's shapes, held to the same limits as phase 2's:
+    D = 32 (H = 12, C = 384, deit_small's head) at [4, 387]; an odd B (3) at
+    N = 387; a sequence whose mask is all zero but for its cls tokens."""
+    from editor_tpu_torch import ops
+
+    dev, T, out = "cuda", 129, {}
+    for label, Bx, Dx, cls_only in (("D32", 4, 32, False), ("B3", 3, D, False),
+                                    ("cls_only", 2, D, True)):
+        Nx, Cx = 3 * T, H * Dx
+        qkv, g = randn(Bx, Nx, 3 * Cx), randn(Bx, Nx, Cx)
+        keep = torch.arange(Nx, device=dev) % T == 0
+        m = ((torch.rand(Bx, Nx, generator=gen, device=dev) < 0.5) | keep[None, :]).float()
+        if cls_only:
+            m[1] = keep.float()
+        name = f"masked_attention_tiled_bwd {label} [{Bx}, {Nx}] D={Dx}"
+        dq = ops.masked_attention_tiled_bwd(qkv, m, g, H, Dx ** -0.5, FILL, T)
+        ref = ops.masked_attention_tiled_bwd_plain(qkv, m, g, H, Dx ** -0.5, FILL, T)
+        torch.cuda.synchronize()
+        e = _scaled(dq, ref)
+        _require(f"{name} (scaled)", e, 1e-2)
+        if dq[..., :Cx][m == 0].abs().max() != 0 or dq[..., Cx:][m == 0].abs().max() != 0:
+            raise AssertionError(f"{name}: masked rows get a gradient")
+        out[label] = dict(scaled_err=e, **_k7_shares(name, dq, ref, T, Cx))
+    return out
+
+
 def tiled_kernels(randn, gen: torch.Generator, results: dict) -> None:
     """K6 and K7 at the uncompacted tail's shapes: per modality [384, 129]
     (one tile) and joint [128, 387] (three tiles), both on the flagship path,
     and the two-modality joint [128, 258] (two tiles), checked and timed on
-    its own. Tolerances of tests/test_pallas_tpu.py:92-111."""
+    its own. Tolerances of tests/test_pallas_tpu.py:92-111; K7 is also held
+    to the share of its elements off the plain version (_k7_shares), which
+    must fail the wrong rounding forms (_k7_wrong_forms), at shapes beyond
+    the model's too (_k7_extra_shapes), and its time on the two model shapes
+    to at most 3x the SDPA backward's."""
     from editor_tpu_torch import ops
+    from editor_tpu_torch.ops.masked_attention import k7_scratch_stride
 
     F = torch.nn.functional
     dev, T = "cuda", 129
@@ -528,6 +604,8 @@ def tiled_kernels(randn, gen: torch.Generator, results: dict) -> None:
         cls_kv = dq[:, ::T, C:].reshape(Bm, N // T, 2, H, D).abs().amax(-1)
         if not ((cls_kv[:, :, 1] > 0).all() and (cls_kv[1:, :, 0] > 0).all()):
             raise AssertionError("masked_attention_tiled_bwd: a cls key's dk or dv is zero")
+        shares = _k7_shares(f"masked_attention_tiled_bwd N={N}", dq, ref_dq, T, C)
+        caught = _k7_wrong_forms(qkv, m, g, ref_dq, T)
         del qkv30, dq30, ref_dq30, ref_dq
         row = dict(err=e7, flops=10.0 * H * D * pairs,
                    bytes=2.0 * Bm * N * (3 * C + C + 3 * C) + 4.0 * Bm * N,
@@ -537,16 +615,27 @@ def tiled_kernels(randn, gen: torch.Generator, results: dict) -> None:
                        qkv, m, g, H, SCALE, FILL, T)),
                    library_ms=_sdpa_bwd_ms(qkv, g, m.bool()))
         say("2 kernel masked_attention_tiled_bwd", shape=list(qkv.shape), tiles=N // T,
-            scaled_err=e7, x30_scaled_err=e7_30, ms=f"{row['ms']:.4f}",
+            scaled_err=e7, x30_scaled_err=e7_30, share=shares["share"],
+            cls_share=shares["cls_share"], share_tol=K7_SHARE_TOL,
+            wrong_forms=json.dumps(caught), ms=f"{row['ms']:.4f}",
             plain_ms=f"{row['plain_ms']:.4f}", sdpa_bwd_ms=f"{row['library_ms']:.4f}",
             bound_ms=f"{bound(row['flops'], row['bytes'])['bound_ms']:.4f}",
-            scratch_gb=f"{2 * 2.0 * Bm * H * N * N / 1e9:.3f}")
+            scratch_gb=f"{2 * 2.0 * Bm * H * k7_scratch_stride(N) ** 2 / 1e9:.3f}")
         if N != 2 * T:
             bwd.append(row)
         del qkv, got, ref, g, dq
         torch.cuda.empty_cache()
+    extra = _k7_extra_shapes(randn, gen)
+    say("2 kernel masked_attention_tiled_bwd extra shapes", checks=json.dumps(extra))
     _sum_rows(results, "masked_attention_tiled", fwd)
     _sum_rows(results, "masked_attention_tiled_bwd", bwd)
+    k7_ms, sdpa_ms = sum(r["ms"] for r in bwd), sum(r["library_ms"] for r in bwd)
+    if not k7_ms <= 3.0 * sdpa_ms:
+        raise AssertionError(f"masked_attention_tiled_bwd: {k7_ms} ms on the model shapes, "
+                             f"more than 3x the SDPA backward's {sdpa_ms} ms")
+    results["masked_attention_tiled_bwd"].update(extra_shapes=extra)
+    say("2 sum masked_attention_tiled_bwd vs sdpa_bwd", ms=f"{k7_ms:.4f}",
+        sdpa_bwd_ms=f"{sdpa_ms:.4f}", factor=f"{k7_ms / sdpa_ms:.3f}", limit="3")
 
 
 def ln_matmul_kernel(randn, gen: torch.Generator, results: dict) -> None:

@@ -1,29 +1,26 @@
 // The attention backward shared by K4 (csrc/attention_qkv_bwd.cu, the VJP of
-// K1), K5 and K7 (csrc/masked_attention_bwd.cu, the VJPs of K3 and K6): for
-// one (head, sequence) pair, d(softmax(q k^T * scale) v)/d(qkv) in the raw qkv
-// layout.
+// K1) and K5 (csrc/masked_attention_bwd.cu, the VJP of K3): for one (head,
+// sequence) pair, d(softmax(q k^T * scale) v)/d(qkv) in the raw qkv layout.
+// K7 has its own tensor-core body in csrc/masked_attention_bwd.cu.
 //
-// Contract (the plain versions are attention_qkv_bwd_plain,
-// masked_attention_qkv_bwd_plain and masked_attention_tiled_bwd_plain in
-// editor_tpu_torch/ops/):
+// Contract (the plain versions are attention_qkv_bwd_plain and
+// masked_attention_qkv_bwd_plain in editor_tpu_torch/ops/):
 //   qkv  [B, N, 3C] bf16, g [B, N, C] bf16 (cotangent of the [B, N, C] output)
 //   dqkv [B, N, 3C] bf16, written in place into the q, k and v column slices
 //   pst, dlst [B * H, N, N] bf16 global scratch: the rounded probabilities and
 //   logit cotangents of every row, written by the row pass and read back by
 //   the column pass of the same block (the caller allocates them).
 // Math per query row n (fp32 sums):
-//   p = softmax(l), l = q_n . k_m * scale  (masked: where mask_m == 0 the
-//   logit is fill (K5) or l + fill (K7), as in their forward kernels)
+//   p = softmax(l), l = q_n . k_m * scale  (masked, K5: where mask_m == 0
+//   the logit is fill, as in its forward kernel)
 //   dp_m = g_n . v_m, r = sum_m dp_m p_m, dl_m = p_m (dp_m - r) scale
 //   dq_n = sum_m dl_m k_m;  dk_m = sum_n dl_{n,m} q_n;  dv_m = sum_n p_{n,m} g_n
 // Rounding points of the TPU kernels: p and dl are rounded to bf16 before the
-// three products, except the cls keys, whose p and dl stay fp32, as in the
-// split cls/patch form of _qkv_bwd_kernel and _qkv_masked_bwd_kernel. The cls
-// keys: K4's is m = 0, K7's are m % tile == 0 (tile = 129: m = 0, 129, 258),
-// K5 has none. Masked (K5, K7): a
+// three products, except K4's cls key m = 0, whose p and dl stay fp32, as in
+// the split cls/patch form of _qkv_bwd_kernel; K5 has none. Masked (K5): a
 // query row with mask 0 gets exactly zero gradient and contributes nothing;
 // a masked key of a valid row gets p = 0 exactly (exp underflow), hence zero
-// dk and dv, as in _qkv_masked_full_bwd_kernel and _qkv_masked_bwd_kernel.
+// dk and dv, as in _qkv_masked_full_bwd_kernel.
 //
 // What bounds it on the H100: 10 B H N^2 D FLOP (the recomputed logits, dp,
 // dq, dk, dv) against qkv + g + dqkv = 8 B N C bytes; 49 GFLOP and 0.53 GB
@@ -47,18 +44,17 @@
 // is written and read back by that block while it is still in the 50 MB L2.
 // K5 at N = 264 needs this: q, k, v, g plus fp32 dk/dv of one head would take
 // 270 KB of shared memory, over the 227 KB a block may have. Shared memory
-// here is 2 N (D + 4) bf16 + (1 + 2 n_tiles) N fp32 (the key mask and each
-// tile's fp32 cls p and dl columns) + max(row scratch, column tile): with 4
-// warps 53 KB at N = 129 (K4), 105 KB at N = 264 (K5), 162 KB at N = 387; K7
-// with 8 warps 70 KB at N = 129 and 210 KB at N = 387. The cls columns are
-// reduced at the end, one tile per warp.
+// here is 2 N (D + 4) bf16 + (1 + 2 n_cls) N fp32 (the key mask and K4's
+// fp32 cls p and dl columns) + max(row scratch, column tile): with 4 warps
+// 53 KB at N = 129 (K4), 105 KB at N = 264 (K5). K4's cls column is reduced
+// at the end by one warp.
 #pragma once
 
 #include "common.cuh"
 
 namespace editor_kernels {
 
-constexpr int kBwdWarps = 4;      // K4 and K5 (8 in T6's sweep); K7 picks 4 or 8
+constexpr int kBwdWarps = 4;      // K4 and K5 (8 in T6's sweep)
 constexpr int kBwdColsPerWarp = 8;  // column-pass tile: 8 columns per warp
 
 __host__ __device__ inline size_t bwd_align16(size_t bytes) {
@@ -69,9 +65,9 @@ struct BwdSmem {
   size_t buf, vec, scratch, tile, total;
 };
 
-// n_tiles: the number of fp32 cls columns (N / tile, or 0 without tiles);
-// warps: the block's warps (each has a row of scratch and 8 tile columns)
-__host__ __device__ inline BwdSmem bwd_smem_layout(int N, int D, int n_tiles, int warps) {
+// n_cls: the number of fp32 cls columns (1 for K4, 0 for K5); warps: the
+// block's warps (each has a row of scratch and 8 tile columns)
+__host__ __device__ inline BwdSmem bwd_smem_layout(int N, int D, int n_cls, int warps) {
   const int Np = (N + 3) & ~3;
   BwdSmem s;
   s.buf = bwd_align16((size_t)N * (D + kRowPad) * sizeof(bf16));
@@ -79,7 +75,7 @@ __host__ __device__ inline BwdSmem bwd_smem_layout(int N, int D, int n_tiles, in
   s.scratch = (size_t)warps * (2 * D + 2 * Np) * sizeof(float);
   s.tile = 2 * (size_t)N * warps * kBwdColsPerWarp * sizeof(bf16);
   const size_t un = s.scratch > s.tile ? s.scratch : s.tile;
-  s.total = 2 * s.buf + (1 + 2 * (size_t)n_tiles) * s.vec + bwd_align16(un);
+  s.total = 2 * s.buf + (1 + 2 * (size_t)n_cls) * s.vec + bwd_align16(un);
   return s;
 }
 
@@ -96,34 +92,31 @@ __device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, bf16* d
   }
 }
 
-// K4 <false, false>: unmasked, the cls key m = 0 keeps fp32 p and dl.
-// K5 <true, false>: masked (fill replaces a masked logit), no cls key.
-// K7 <true, true>: masked (fill added to a masked logit), the keys
-// m % tile == 0 are cls keys with fp32 p and dl. Both flags are compile-time,
-// so K4 and K5 pay nothing for K7's runtime tile. kWarps warps per block.
-template <bool kMasked, bool kTiled, int kWarps>
+// K4 <false>: unmasked, the cls key m = 0 keeps fp32 p and dl.
+// K5 <true>: masked (fill replaces a masked logit), no cls key.
+// kWarps warps per block.
+template <bool kMasked, int kWarps>
 __device__ __forceinline__ void attention_bwd_body(
     const bf16* __restrict__ qkv, const float* __restrict__ mask,
     const bf16* __restrict__ g, bf16* __restrict__ dqkv, bf16* __restrict__ pst,
-    bf16* __restrict__ dlst, int N, int H, int D, float scale, float fill, int tile) {
+    bf16* __restrict__ dlst, int N, int H, int D, float scale, float fill) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int C = H * D, C3 = 3 * C;
   const int ld = D + kRowPad;
   const int Np = (N + 3) & ~3;
   const int D2 = D / 2;
-  const int n_tiles = kTiled ? N / tile : (kMasked ? 0 : 1);
+  constexpr int n_cls = kMasked ? 0 : 1;
   constexpr int kCols = kWarps * kBwdColsPerWarp;  // columns per column-pass tile
-  const BwdSmem lay = bwd_smem_layout(N, D, n_tiles, kWarps);
+  const BwdSmem lay = bwd_smem_layout(N, D, n_cls, kWarps);
   bf16* buf0 = reinterpret_cast<bf16*>(smem);              // k, then q
   bf16* buf1 = reinterpret_cast<bf16*>(smem + lay.buf);    // v, then g
   float* mk = reinterpret_cast<float*>(smem + 2 * lay.buf);
-  // fp32 p and dl of tile t's cls key for every row n: pc[t * Np + n]
+  // fp32 p and dl of the cls key (K4) for every row n: pc[n]
   float* pc = reinterpret_cast<float*>(smem + 2 * lay.buf + lay.vec);
-  float* dlc = pc + (size_t)n_tiles * Np;
-  unsigned char* un = smem + 2 * lay.buf + (1 + 2 * (size_t)n_tiles) * lay.vec;
+  float* dlc = pc + (size_t)n_cls * Np;
+  unsigned char* un = smem + 2 * lay.buf + (1 + 2 * (size_t)n_cls) * lay.vec;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  auto is_cls = [tile](int m) { return kTiled ? m % tile == 0 : !kMasked && m == 0; };
 
   const bf16* seq = qkv + (size_t)b * N * C3;
   const bf16* gseq = g + (size_t)b * N * C;
@@ -147,8 +140,6 @@ __device__ __forceinline__ void attention_bwd_body(
     bf16* dq_row = dseq + (size_t)n * C3 + h * D;
     if (kMasked && mk[n] == 0.f) {  // re-masked row: exactly zero gradient
       for (int d = lane; d < D; d += 32) dq_row[d] = __float2bfloat16(0.f);
-      if (kTiled)
-        for (int t = lane; t < n_tiles; t += 32) pc[t * Np + n] = dlc[t * Np + n] = 0.f;
       continue;
     }
     load_q(seq, qr, n, C, h, D, lane);
@@ -159,7 +150,7 @@ __device__ __forceinline__ void attention_bwd_body(
     for (int m = lane; m < N; m += 32) {
       float s;
       if (kMasked && mk[m] == 0.f)
-        s = kTiled ? dot_q_k(qr, buf0 + m * ld, D) * scale + fill : fill;
+        s = fill;
       else
         s = dot_q_k(qr, buf0 + m * ld, D) * scale;
       pr[m] = s;
@@ -187,10 +178,9 @@ __device__ __forceinline__ void attention_bwd_body(
     for (int m = lane; m < N; m += 32) {
       const float p = pr[m];
       const float dl = p * (wr[m] - r) * scale;
-      if (is_cls(m)) {  // a cls key's p and dl stay fp32
-        const int t = kTiled ? m / tile : 0;
-        pc[t * Np + n] = p;
-        dlc[t * Np + n] = dl;
+      if (!kMasked && m == 0) {  // the cls key's p and dl stay fp32
+        pc[n] = p;
+        dlc[n] = dl;
         wr[m] = dl;
       } else {
         const bf16 db = __float2bfloat16(dl);
@@ -250,19 +240,19 @@ __device__ __forceinline__ void attention_bwd_body(
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int m = m0 + c0 + j;
-        if (m >= N || is_cls(m)) continue;
+        if (m >= N || (!kMasked && m == 0)) continue;
         bf16* row = dseq + (size_t)m * C3 + h * D;
         reinterpret_cast<bf16x2*>(row + C)[d2] = __floats2bfloat162_rn(ak[j][0], ak[j][1]);
         reinterpret_cast<bf16x2*>(row + 2 * C)[d2] = __floats2bfloat162_rn(av[j][0], av[j][1]);
       }
     }
   }
-  // the cls keys from their fp32 p and dl, one tile per warp (masked rows
-  // hold zeros there); q and g stay staged, nothing else writes these rows
-  for (int t = warp; t < n_tiles; t += kWarps) {
-    const float* pt = pc + t * Np;
-    const float* lt = dlc + t * Np;
-    bf16* row = dseq + (size_t)t * tile * C3 + h * D;
+  // K4's cls key from its fp32 p and dl, by warp 0; q and g stay staged,
+  // nothing else writes this row
+  if (n_cls && warp == 0) {
+    const float* pt = pc;
+    const float* lt = dlc;
+    bf16* row = dseq + h * D;
     for (int d2 = lane; d2 < D2; d2 += 32) {
       float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
       for (int n = 0; n < N; ++n) {
@@ -279,7 +269,7 @@ __device__ __forceinline__ void attention_bwd_body(
   }
 }
 
-// K4 (unmasked, one tile: the cls key m = 0) and K5 (masked, no tile), with
+// K4 (unmasked, the cls key m = 0) and K5 (masked, no cls key), with
 // kWarps warps per block: 4 on the model paths, 8 in T6's block-shape sweep
 // (tools/bench_full_kernel.py:72)
 template <bool kMasked, int kWarps>
@@ -288,8 +278,7 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
                      const bf16* __restrict__ g, bf16* __restrict__ dqkv,
                      bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
                      int D, float scale, float fill) {
-  attention_bwd_body<kMasked, false, kWarps>(qkv, mask, g, dqkv, pst, dlst, N, H, D, scale,
-                                             fill, 0);
+  attention_bwd_body<kMasked, kWarps>(qkv, mask, g, dqkv, pst, dlst, N, H, D, scale, fill);
 }
 
 template <bool kMasked, int kWarps = kBwdWarps>

@@ -12,9 +12,10 @@ hand-written CUDA kernel for Hopper beside its plain PyTorch version.
 | :func:`masked_attention_tiled_bwd` (K7) | ``csrc/masked_attention_bwd.cu`` | :func:`masked_attention_tiled_bwd_plain` |
 | :func:`ln_matmul` (K8) | ``csrc/ln_matmul.cu`` | :func:`ln_matmul_plain` |
 
-K4, K5 and K7 share ``csrc/attention_bwd.cuh``. A wrapper runs its plain
-version for a CPU tensor; for a CUDA tensor it launches its kernel (built on
-first use by :mod:`._build`) or raises. Each wrapper counts its kernel
+K4 and K5 share ``csrc/attention_bwd.cuh``; K1 and K7 the tensor-core
+helpers of ``csrc/mma.cuh``. A wrapper runs its plain version for a CPU
+tensor; for a CUDA tensor it launches its kernel (built on first use by
+:mod:`._build`) or raises. Each wrapper counts its kernel
 launches in its ``launches`` attribute. :func:`attention_qkv_fn` (K1 + K4),
 :func:`masked_attention_qkv_fn` (K3 + K5), :func:`masked_attention_tiled_fn`
 (K6 + K7) and :func:`ln_matmul_fn` (K8, plain backward) are the autograd

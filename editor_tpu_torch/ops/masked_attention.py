@@ -196,12 +196,13 @@ def _check_args(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
 
 
 def _kernel_inputs(name: str, qkv: torch.Tensor, mask: torch.Tensor, D: int,
-                   g: torch.Tensor = None) -> torch.Tensor:
-    """Check the CUDA tensors; returns the mask as contiguous fp32."""
+                   g: torch.Tensor = None, align: int = 4) -> torch.Tensor:
+    """Check the CUDA tensors (``align``: the bytes qkv and g must be aligned
+    to); returns the mask as contiguous fp32."""
     N = qkv.shape[1]
-    check_kernel_tensor(f"{name} qkv", qkv, 3, D, N, align=4)
+    check_kernel_tensor(f"{name} qkv", qkv, 3, D, N, align=align)
     if g is not None:
-        check_kernel_tensor(f"{name} g", g, 3, D, N, align=4)
+        check_kernel_tensor(f"{name} g", g, 3, D, N, align=align)
     if mask.device != qkv.device:
         raise ValueError(f"mask on {mask.device}, qkv on {qkv.device}")
     return mask.to(torch.float32).contiguous()
@@ -294,23 +295,48 @@ masked_attention_qkv_bwd.launches = 0
 masked_attention_qkv_bwd.variant_launches = 0
 
 
+K7_MAX_HEAD_DIM = 128
+K7_MIN_TILE = 16
+
+
+def check_k7_shape(D: int, tile: int) -> None:
+    """Raise unless K7's CUDA kernel takes head dim ``D`` and ``tile``-token
+    tiles: its tensor-core tiles are 16 deep, so D is a multiple of 16 up to
+    128, and a 16-key tile holds at most one cls key, so tile >= 16."""
+    if D % 16 or not 0 < D <= K7_MAX_HEAD_DIM:
+        raise ValueError(f"masked_attention_tiled_bwd: head dim {D} is not a multiple "
+                         f"of 16 up to {K7_MAX_HEAD_DIM}")
+    if tile < K7_MIN_TILE:
+        raise ValueError(f"masked_attention_tiled_bwd: tile {tile} < {K7_MIN_TILE} tokens")
+
+
+def k7_scratch_stride(N: int) -> int:
+    """Row stride (and rows) of K7's scratch maps: N rounded up to 16, so that
+    every row starts 32-byte aligned and the padded rows and keys are there."""
+    return (N + 15) // 16 * 16
+
+
 def masked_attention_tiled_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                                num_heads: int, scale: float, mask_fill: float = MASK_FILL,
                                tile: int = 129) -> torch.Tensor:
     """K7: dqkv [B, N, 3C] of K6 from qkv, the mask [B, N] and the output's
     cotangent g [B, N, C]. CUDA: ``csrc/masked_attention_bwd.cu`` (bf16,
-    contiguous; a [B H, N, N] bf16 scratch pair, 0.92 GB at [128, 387]);
-    CPU: :func:`masked_attention_tiled_bwd_plain`."""
+    contiguous, qkv and g 16-byte aligned, :func:`check_k7_shape`; a
+    [B H, Np, Np] bf16 scratch pair, Np = :func:`k7_scratch_stride`, 0.98 GB
+    at [128, 387]); CPU: :func:`masked_attention_tiled_bwd_plain`."""
     D = _check_args(qkv, mask, num_heads, g, tile=tile)
     if qkv.device.type == "cpu":
         return masked_attention_tiled_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill,
                                                 tile)
-    mask32 = _kernel_inputs("masked_attention_tiled_bwd", qkv, mask, D, g)
+    check_k7_shape(D, tile)
+    mask32 = _kernel_inputs("masked_attention_tiled_bwd", qkv, mask, D, g, align=16)
     from editor_tpu_torch.ops import _build
 
     B, N, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
-    pst = torch.empty((B * num_heads, N, N), dtype=qkv.dtype, device=qkv.device)
+    # per-(b, h) scratch of the rounded attn and dl (masked_attention_bwd.cu)
+    Np = k7_scratch_stride(N)
+    pst = torch.empty((B * num_heads, Np, Np), dtype=qkv.dtype, device=qkv.device)
     dlst = torch.empty_like(pst)
     code = _build.library().editor_masked_attention_tiled_bwd(
         qkv.data_ptr(), mask32.data_ptr(), g.data_ptr(), dqkv.data_ptr(),

@@ -66,6 +66,16 @@ def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
     return torch.where(ref != 0, torch.ldexp(torch.ones_like(ref), e - 8), torch.zeros_like(ref))
 
 
+def bf16_off_share(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The share of elements of ``got`` more than one bf16 ulp of ``ref``'s
+    element plus 1e-6 of max |ref| away from ``ref``: near 0 where the two
+    round at the same points and differ only in fp32 summation order, a few
+    % where one of them skips or adds a bf16 rounding before a product."""
+    got, ref = got.float(), ref.float()
+    tol = bf16_ulp(ref) + 1e-6 * float(ref.abs().max())
+    return float(((got - ref).abs() > tol).float().mean())
+
+
 def mismatch_share(got: torch.Tensor, ref: torch.Tensor, ulps: float = 8.0) -> float:
     """The share of elements of ``got`` farther from ``ref`` than ``ulps``
     fp32 ulps of ``ref``'s element: near 0 where the two round at the same

@@ -4,13 +4,14 @@
 # this, this, other (so a drift of the card's clock shows as a difference
 # between the two runs of one side), then the registers, spills and SASS
 # instruction mix of each named source in both checkouts (kernel_sass.py).
-# K1's output and probs of the two sides are compared element by element
-# (kernel_digest.py --diff; the tensors go to a temporary directory).
+# K1's output and probs and K7's dqkv at its three shapes of the two sides
+# are compared element by element (kernel_digest.py --diff into diff.json;
+# the tensors go to a temporary directory).
 #
 #   bash editor_tpu_torch/tools/compare_checkouts.sh <other checkout> <out dir> [source.cu ...]
 #
 # Run from the root of this checkout. Writes digest_<i>_<other|this>.txt,
-# k1_diff.json and sass_<other|this>_<source>.jsonl into <out dir>. Both
+# diff.json and sass_<other|this>_<source>.jsonl into <out dir>. Both
 # checkouts build their kernels into their own editor_tpu_torch/_build/.
 set -euo pipefail
 other=$(cd "$1" && pwd)
@@ -26,10 +27,10 @@ for who in other this this other; do
   dir=$here
   [ "$who" = other ] && dir=$other
   PYTHONPATH="$dir" python3 "$here/editor_tpu_torch/tools/kernel_digest.py" \
-    --save "$tmp/k1_${who}.pt" > "$out/digest_${i}_${who}.txt"
+    --save "$tmp/saved_${who}.pt" > "$out/digest_${i}_${who}.txt"
 done
 PYTHONPATH="$here" python3 "$here/editor_tpu_torch/tools/kernel_digest.py" \
-  --diff "$tmp/k1_other.pt" "$tmp/k1_this.pt" > "$out/k1_diff.json"
+  --diff "$tmp/saved_other.pt" "$tmp/saved_this.pt" > "$out/diff.json"
 for src in "$@"; do
   for who in other this; do
     dir=$here

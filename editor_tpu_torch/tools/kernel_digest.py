@@ -16,10 +16,11 @@ prints one JSON line: the kernel, the shape, the sha256 of its output bytes
 (the first 16 hex digits) and its ms from CUDA events. The card's name and
 power limit come first. Exits non-zero without a CUDA device.
 
-``--save`` also writes K1's output and probs to a file, and ``--diff``
-prints, for two such files (two checkouts' K1 on the same input), the
-largest difference of each tensor, the share of elements that differ and the
-largest difference in bf16 ulps of the first file's element.
+``--save`` also writes K1's output and probs and K7's dqkv at its three
+shapes to a file, and ``--diff`` prints, for two such files (two checkouts'
+kernels on the same input), the largest difference of each tensor, the share
+of elements that differ and the largest difference in bf16 ulps of the first
+file's element.
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ def diff(path_a: str, path_b: str) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--save", help="write K1's output and probs to this file")
+    ap.add_argument("--save", help="write K1's output and probs and K7's dqkv to this file")
     ap.add_argument("--diff", nargs=2, metavar=("A", "B"), help="compare two --save files")
     args = ap.parse_args(argv)
     if args.diff:
@@ -111,9 +112,10 @@ def main(argv=None) -> None:
     probs = torch.empty(384, H, 129, 129, dtype=bf, device="cuda")
     line("K1 attention_qkv", qkv.shape,
          lambda: (ops.attention_qkv(qkv, H, SCALE, probs_out=probs)[0], probs))
+    saved = {}
     if args.save:
         out, _ = ops.attention_qkv(qkv, H, SCALE, probs_out=probs)
-        torch.save({"out": out.cpu(), "probs": probs.cpu()}, args.save)
+        saved.update(out=out.cpu(), probs=probs.cpu())
     line("K4 attention_qkv_bwd", qkv.shape, lambda: ops.attention_qkv_bwd(qkv, g, H, SCALE))
     del qkv, g, probs
     maps = torch.empty(12, 384, H, 129, 129, dtype=bf, device="cuda")
@@ -134,6 +136,11 @@ def main(argv=None) -> None:
              lambda: ops.masked_attention_tiled(qkv, m, H, SCALE, FILL, 129))
         line("K7 masked_attention_tiled_bwd", qkv.shape,
              lambda: ops.masked_attention_tiled_bwd(qkv, m, g, H, SCALE, FILL, 129))
+        if args.save:
+            saved[f"K7 dqkv [{B}, {N}]"] = ops.masked_attention_tiled_bwd(
+                qkv, m, g, H, SCALE, FILL, 129).cpu()
+    if args.save:
+        torch.save(saved, args.save)
     del qkv, m, g
     torch.cuda.empty_cache()
     x = randn(384 * 129, C, mul=2.0)

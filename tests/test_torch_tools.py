@@ -53,6 +53,14 @@ from editor_tpu_torch.tools import profile_train as pt
      "K6 masked_attention_tiled"),
     ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel<8>(...)",
      "K7 masked_attention_tiled_bwd"),
+    # K7 on the tensor cores: head-dim tiles, key tiles and the resident form
+    # are template arguments; not K4's or K5's category
+    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel<4, 9, true>"
+     "(__nv_bfloat16 const*, float const*, __nv_bfloat16 const*, __nv_bfloat16*, "
+     "__nv_bfloat16*, __nv_bfloat16*, int, int, float, float, int)",
+     "K7 masked_attention_tiled_bwd"),
+    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel<4, 2, false>"
+     "(...)", "K7 masked_attention_tiled_bwd"),
     # K1 on the tensor cores: head-dim tiles, key tiles and the resident
     # form are template arguments
     ("void editor_kernels::(anonymous namespace)::attention_qkv_kernel<4, 9, true>"
