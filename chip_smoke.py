@@ -17,12 +17,15 @@ Phases, each printing its lines and its seconds:
      x30 and at shapes the model does not reach (N = 17, 200, 512; D = 96);
      it must take at most half the time of its former CUDA-core body (T1's
      kernel with 1 head and 1 sequence per block, timed in the same run).
-     K7 is also held by the share of its elements more than one bf16 ulp
-     off its plain version (at most 0.5% over all of dqkv and over the cls
-     rows' dk and dv), a check that must fail the unrounded form and the
-     cls-rounded (K5's) form in the same run, at D = 32, an odd batch and a
-     sequence masked but for its cls tokens too; its time on the two model
-     shapes must be at most 3x the SDPA backward's;
+     K4 and K7 are also held by the share of their elements more than one
+     bf16 ulp off the plain version (at most 0.5% over all of dqkv and over
+     the cls rows' dk and dv), a check that must fail the unrounded form and
+     the cls-rounded (K5's) form in the same run. K4 also at N = 1, 8, 17,
+     129, 200 and 512 (the chunked instance past 144), at D = 96 and D = 32,
+     and at N = 512 with D = 96 and 128; its time must be at most 2x the
+     SDPA backward's. K7 also at D = 32, an odd batch and a sequence masked but
+     for its cls tokens; its time on the two model shapes must be at most 3x
+     the SDPA backward's;
   3. forward: the flagship tri-modal eval forward (ViT-B/16, 256x128,
      seeded random weights, B=128, bf16, compact tail) through
      build_eval_step; one forward launches K1 12, K2 1 and K3 2 times, and
@@ -303,7 +306,10 @@ def kernel_phase(gen: torch.Generator) -> dict:
         old_body_ms=f"{old_ms:.4f}", plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
         bound_ms=f"{b['bound_ms']:.4f}")
 
-    # K4, the VJP of K1, at the same shape; |logit| ~ 1e3 with the x30 input
+    # K4, the VJP of K1, at the same shape: the scaled error, the share of
+    # elements off the plain version (a check that must fail the two wrong
+    # forms), |logit| ~ 1e3 with the x30 input, and the shapes the wrapper
+    # takes beyond the model's
     g = randn(Bk, N, C)
     dq = ops.attention_qkv_bwd(qkv, g, H, SCALE)
     ref_dq = ops.attention_qkv_bwd_plain(qkv, g, H, SCALE)
@@ -315,22 +321,33 @@ def kernel_phase(gen: torch.Generator) -> dict:
     if not torch.isfinite(dq30.float()).all():
         raise AssertionError("attention_qkv_bwd: non-finite at |logit| ~ 1e3")
     _require("attention_qkv_bwd x30 (scaled)", e4_30, 1e-2)
-    q1, g1 = randn(3, N, 3 * C), randn(3, N, C)
-    e4_b1 = _scaled(ops.attention_qkv_bwd(q1, g1, H, SCALE),
-                   ops.attention_qkv_bwd_plain(q1, g1, H, SCALE))
-    _require("attention_qkv_bwd batch-1 (scaled)", e4_b1, 1e-2)
+    del dq30, ref_dq30
+    shares = _bwd_shares("attention_qkv_bwd", dq, ref_dq, N, C)
+    caught = _wrong_forms(
+        "attention_qkv_bwd",
+        ops.attention_qkv_bwd_plain(qkv.float(), g.float(), H, SCALE).to(torch.bfloat16),
+        ops.masked_attention_qkv_bwd_plain(qkv, torch.ones(Bk, N, device=dev), g, H, SCALE),
+        ref_dq, N, C)
+    del ref_dq
+    extra4 = _k4_extra_shapes(randn)
     ms = cuda_ms(lambda: ops.attention_qkv_bwd(qkv, g, H, SCALE))
     plain_ms = cuda_ms(lambda: ops.attention_qkv_bwd_plain(qkv, g, H, SCALE))
     lib_ms = _sdpa_bwd_ms(qkv, g)
     # reads qkv and g, writes dqkv; logits recompute, dp, dq, dk, dv
     b = bound(10.0 * Bk * H * N * N * D, 2.0 * Bk * N * (3 * C + C + 3 * C))
+    if not ms <= 2.0 * lib_ms:
+        raise AssertionError(f"attention_qkv_bwd: {ms} ms, more than 2x the SDPA "
+                             f"backward's {lib_ms} ms")
     results["attention_qkv_bwd"] = dict(max_abs_err=e4, ms=ms, plain_ms=plain_ms,
-                                        library_ms=lib_ms, **b)
+                                        library_ms=lib_ms, **shares, wrong_forms=caught,
+                                        extra_shapes=extra4, **b)
     say("2 kernel attention_qkv_bwd", shape=list(qkv.shape), scaled_err=e4,
-        x30_scaled_err=e4_30, batch1_scaled_err=e4_b1, ms=f"{ms:.4f}",
+        x30_scaled_err=e4_30, share=shares["share"], cls_share=shares["cls_share"],
+        share_tol=SHARE_TOL, wrong_forms=json.dumps(caught), ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", sdpa_bwd_ms=f"{lib_ms:.4f}",
-        bound_ms=f"{b['bound_ms']:.4f}")
-    del qkv, probs, out, out_np, qkv30, g, dq, ref_dq, dq30, ref_dq30
+        factor=f"{ms / lib_ms:.3f}", bound_ms=f"{b['bound_ms']:.4f}")
+    say("2 kernel attention_qkv_bwd extra shapes", checks=json.dumps(extra4))
+    del qkv, probs, out, out_np, qkv30, g, dq
 
     # K2 at L = 12, Z = 3 x 128 x 12 = 4608, N = 129. Peaked maps (softmax of
     # 4 x randn), so the chain keeps the layer order visible in its output.
@@ -467,42 +484,64 @@ def _scaled(got, ref) -> float:
     return _max_err(got, ref, max(float(ref.float().abs().max()), 1e-6))
 
 
-K7_SHARE_TOL = 0.005  # share of elements more than one bf16 ulp off the plain version
+SHARE_TOL = 0.005  # share of elements more than one bf16 ulp off the plain version
 
 
-def _k7_shares(name: str, dq, ref, T: int, Cx: int) -> dict:
-    """K7's rounding checks (``_bench.bf16_off_share``, one bf16 ulp of the
-    plain element + 1e-6 of the max): over all of dqkv, and over the cls
-    rows' dk and dv (rows m % T == 0, columns Cx: onward), each at most
-    K7_SHARE_TOL of the elements off the plain version in the TPU form."""
+def _bwd_shares(name: str, dq, ref, T: int, Cx: int) -> dict:
+    """The rounding checks of K4 and K7 (``_bench.bf16_off_share``, one bf16
+    ulp of the plain element + 1e-6 of the max): over all of dqkv, and over
+    the cls rows' dk and dv (rows m % T == 0, columns Cx: onward; K4's only
+    cls row is row 0: T = N), each at most SHARE_TOL of the elements off the
+    plain version in the TPU form."""
     from editor_tpu_torch.tools import _bench
 
     share = _bench.bf16_off_share(dq, ref)
     cls = _bench.bf16_off_share(dq[:, ::T, Cx:], ref[:, ::T, Cx:])
-    _require(f"{name} share off the plain version", share, K7_SHARE_TOL)
-    _require(f"{name} cls rows' dk, dv share off the plain version", cls, K7_SHARE_TOL)
+    _require(f"{name} share off the plain version", share, SHARE_TOL)
+    _require(f"{name} cls rows' dk, dv share off the plain version", cls, SHARE_TOL)
     return dict(share=share, cls_share=cls)
 
 
-def _k7_wrong_forms(qkv, m, g, ref, T: int) -> dict:
+def _wrong_forms(name: str, unrounded, cls_rounded, ref, T: int, Cx: int) -> dict:
     """The share tests must fail the wrong forms they exist to catch: the
     unrounded form (the plain version on fp32 inputs, rounded once) over all
     elements, and the cls-rounded form (K5's, masked_attention_qkv_bwd_plain)
-    over the cls rows' dk and dv."""
-    from editor_tpu_torch import ops
+    over the cls rows' dk and dv (as in _bwd_shares)."""
     from editor_tpu_torch.tools import _bench
 
-    unrounded = ops.masked_attention_tiled_bwd_plain(qkv.float(), m, g.float(), H, SCALE, FILL,
-                                                     T).to(torch.bfloat16)
-    cls_rounded = ops.masked_attention_qkv_bwd_plain(qkv, m, g, H, SCALE, FILL)
     caught = dict(unrounded_share=_bench.bf16_off_share(unrounded, ref),
-                  cls_rounded_cls_share=_bench.bf16_off_share(cls_rounded[:, ::T, C:],
-                                                              ref[:, ::T, C:]))
+                  cls_rounded_cls_share=_bench.bf16_off_share(cls_rounded[:, ::T, Cx:],
+                                                              ref[:, ::T, Cx:]))
     for form, share in caught.items():
-        if not share > K7_SHARE_TOL:
-            raise AssertionError(f"masked_attention_tiled_bwd share test too loose: the "
-                                 f"{form} is off in only {share} of the elements")
+        if not share > SHARE_TOL:
+            raise AssertionError(f"{name} share test too loose: the {form} is off in only "
+                                 f"{share} of the elements")
     return caught
+
+
+def _k4_extra_shapes(randn) -> dict:
+    """K4 beyond the model's shape, held to the same limits as at it (scaled
+    error, shares with the cls row 0): B = 3 at N = 1 and 8 (less than one
+    16-key tile), 17, 129, 200 and 512 (the chunked instance past 144
+    tokens; D = 64), N = 129 at D = 96 (H = 8) and at D = 32 (H = 12), and
+    N = 512 at D = 96 (H = 8) and D = 128 (H = 6), where only k and q of the
+    chunked instance fit in shared memory."""
+    from editor_tpu_torch import ops
+
+    out = {}
+    for Bx, Nx, Hx, Dx in ((3, 1, H, D), (3, 8, H, D), (3, 17, H, D), (3, 129, H, D),
+                           (3, 200, H, D), (3, 512, H, D), (3, 129, 8, 96), (3, 129, H, 32),
+                           (3, 512, 8, 96), (3, 512, 6, 128)):
+        Cx = Hx * Dx
+        qkv, g = randn(Bx, Nx, 3 * Cx), randn(Bx, Nx, Cx)
+        name = f"attention_qkv_bwd B={Bx} N={Nx} H={Hx} D={Dx}"
+        dq = ops.attention_qkv_bwd(qkv, g, Hx, Dx ** -0.5)
+        ref = ops.attention_qkv_bwd_plain(qkv, g, Hx, Dx ** -0.5)
+        torch.cuda.synchronize()
+        e = _scaled(dq, ref)
+        _require(f"{name} (scaled)", e, 1e-2)
+        out[f"N{Nx}_H{Hx}_D{Dx}"] = dict(scaled_err=e, **_bwd_shares(name, dq, ref, Nx, Cx))
+    return out
 
 
 def _k7_extra_shapes(randn, gen: torch.Generator) -> dict:
@@ -528,7 +567,7 @@ def _k7_extra_shapes(randn, gen: torch.Generator) -> dict:
         _require(f"{name} (scaled)", e, 1e-2)
         if dq[..., :Cx][m == 0].abs().max() != 0 or dq[..., Cx:][m == 0].abs().max() != 0:
             raise AssertionError(f"{name}: masked rows get a gradient")
-        out[label] = dict(scaled_err=e, **_k7_shares(name, dq, ref, T, Cx))
+        out[label] = dict(scaled_err=e, **_bwd_shares(name, dq, ref, T, Cx))
     return out
 
 
@@ -537,8 +576,8 @@ def tiled_kernels(randn, gen: torch.Generator, results: dict) -> None:
     (one tile) and joint [128, 387] (three tiles), both on the flagship path,
     and the two-modality joint [128, 258] (two tiles), checked and timed on
     its own. Tolerances of tests/test_pallas_tpu.py:92-111; K7 is also held
-    to the share of its elements off the plain version (_k7_shares), which
-    must fail the wrong rounding forms (_k7_wrong_forms), at shapes beyond
+    to the share of its elements off the plain version (_bwd_shares), which
+    must fail the wrong rounding forms (_wrong_forms), at shapes beyond
     the model's too (_k7_extra_shapes), and its time on the two model shapes
     to at most 3x the SDPA backward's."""
     from editor_tpu_torch import ops
@@ -604,8 +643,12 @@ def tiled_kernels(randn, gen: torch.Generator, results: dict) -> None:
         cls_kv = dq[:, ::T, C:].reshape(Bm, N // T, 2, H, D).abs().amax(-1)
         if not ((cls_kv[:, :, 1] > 0).all() and (cls_kv[1:, :, 0] > 0).all()):
             raise AssertionError("masked_attention_tiled_bwd: a cls key's dk or dv is zero")
-        shares = _k7_shares(f"masked_attention_tiled_bwd N={N}", dq, ref_dq, T, C)
-        caught = _k7_wrong_forms(qkv, m, g, ref_dq, T)
+        shares = _bwd_shares(f"masked_attention_tiled_bwd N={N}", dq, ref_dq, T, C)
+        caught = _wrong_forms(
+            "masked_attention_tiled_bwd",
+            ops.masked_attention_tiled_bwd_plain(qkv.float(), m, g.float(), H, SCALE, FILL,
+                                                 T).to(torch.bfloat16),
+            ops.masked_attention_qkv_bwd_plain(qkv, m, g, H, SCALE, FILL), ref_dq, T, C)
         del qkv30, dq30, ref_dq30, ref_dq
         row = dict(err=e7, flops=10.0 * H * D * pairs,
                    bytes=2.0 * Bm * N * (3 * C + C + 3 * C) + 4.0 * Bm * N,
@@ -616,7 +659,7 @@ def tiled_kernels(randn, gen: torch.Generator, results: dict) -> None:
                    library_ms=_sdpa_bwd_ms(qkv, g, m.bool()))
         say("2 kernel masked_attention_tiled_bwd", shape=list(qkv.shape), tiles=N // T,
             scaled_err=e7, x30_scaled_err=e7_30, share=shares["share"],
-            cls_share=shares["cls_share"], share_tol=K7_SHARE_TOL,
+            cls_share=shares["cls_share"], share_tol=SHARE_TOL,
             wrong_forms=json.dumps(caught), ms=f"{row['ms']:.4f}",
             plain_ms=f"{row['plain_ms']:.4f}", sdpa_bwd_ms=f"{row['library_ms']:.4f}",
             bound_ms=f"{bound(row['flops'], row['bytes'])['bound_ms']:.4f}",

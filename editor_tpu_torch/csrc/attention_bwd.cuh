@@ -1,34 +1,34 @@
-// The attention backward shared by K4 (csrc/attention_qkv_bwd.cu, the VJP of
-// K1) and K5 (csrc/masked_attention_bwd.cu, the VJP of K3): for one (head,
-// sequence) pair, d(softmax(q k^T * scale) v)/d(qkv) in the raw qkv layout.
-// K7 has its own tensor-core body in csrc/masked_attention_bwd.cu.
+// The CUDA-core attention backward of K5 (csrc/masked_attention_bwd.cu, the
+// VJP of K3) and of T6's backward half (K5 at 8 warps): for one (head,
+// sequence) pair, d(softmax(l) v)/d(qkv) in the raw qkv layout, l the masked
+// logits. K4 and K7 run the tensor-core body of csrc/attention_bwd_mma.cuh.
 //
-// Contract (the plain versions are attention_qkv_bwd_plain and
-// masked_attention_qkv_bwd_plain in editor_tpu_torch/ops/):
-//   qkv  [B, N, 3C] bf16, g [B, N, C] bf16 (cotangent of the [B, N, C] output)
+// Contract (the plain version is masked_attention_qkv_bwd_plain in
+// editor_tpu_torch/ops/masked_attention.py):
+//   qkv  [B, N, 3C] bf16, mask [B, N] fp32, g [B, N, C] bf16 (cotangent of
+//   the [B, N, C] output)
 //   dqkv [B, N, 3C] bf16, written in place into the q, k and v column slices
 //   pst, dlst [B * H, N, N] bf16 global scratch: the rounded probabilities and
 //   logit cotangents of every row, written by the row pass and read back by
 //   the column pass of the same block (the caller allocates them).
 // Math per query row n (fp32 sums):
-//   p = softmax(l), l = q_n . k_m * scale  (masked, K5: where mask_m == 0
-//   the logit is fill, as in its forward kernel)
+//   p = softmax(l), l = q_n . k_m * scale, or the fill where mask_m == 0 (as
+//   in K3)
 //   dp_m = g_n . v_m, r = sum_m dp_m p_m, dl_m = p_m (dp_m - r) scale
 //   dq_n = sum_m dl_m k_m;  dk_m = sum_n dl_{n,m} q_n;  dv_m = sum_n p_{n,m} g_n
-// Rounding points of the TPU kernels: p and dl are rounded to bf16 before the
-// three products, except K4's cls key m = 0, whose p and dl stay fp32, as in
-// the split cls/patch form of _qkv_bwd_kernel; K5 has none. Masked (K5): a
-// query row with mask 0 gets exactly zero gradient and contributes nothing;
-// a masked key of a valid row gets p = 0 exactly (exp underflow), hence zero
-// dk and dv, as in _qkv_masked_full_bwd_kernel.
+// Rounding points of the TPU kernel _qkv_masked_full_bwd_kernel: p and dl are
+// rounded to bf16 before the three products (no cls key keeps fp32). A query
+// row with mask 0 gets exactly zero gradient and contributes nothing; a
+// masked key of a valid row gets p = 0 exactly (exp underflow), hence zero
+// dk and dv.
 //
 // What bounds it on the H100: 10 B H N^2 D FLOP (the recomputed logits, dp,
-// dq, dk, dv) against qkv + g + dqkv = 8 B N C bytes; 49 GFLOP and 0.53 GB
-// for K4 at [384, 129]. This first version runs every product on the CUDA
+// dq, dk, dv) against qkv + g + dqkv = 14 B N C bytes; 23 GFLOP and 0.73 GB
+// for K5 at [384, 88] + [128, 264]. This body runs every product on the CUDA
 // cores in fp32 (no mma/wgmma), so FMA issue and shared-memory reads bound
 // it, not the bytes.
 //
-// Design: one block per (head, sequence) pair, 4 warps, two passes.
+// Design: one block per (head, sequence) pair, 4 warps (8 for T6), two passes.
 //  * Row pass: the head's k and v slices are staged in padded shared memory
 //    (as in K1/K3). Each warp owns one query row at a time: lanes over keys
 //    for the logits, the softmax and dp (fp32 q and g rows broadcast from the
@@ -40,21 +40,19 @@
 //    into a shared tile; each warp owns 8 of those columns and, with lanes
 //    over head-dim pairs, accumulates dk and dv for all 8 at once, so each q
 //    and g pair read from shared memory feeds 32 FMAs.
-// The scratch of one block (2 N^2 bf16: 66 KB at N = 129, 279 KB at N = 264)
-// is written and read back by that block while it is still in the 50 MB L2.
-// K5 at N = 264 needs this: q, k, v, g plus fp32 dk/dv of one head would take
-// 270 KB of shared memory, over the 227 KB a block may have. Shared memory
-// here is 2 N (D + 4) bf16 + (1 + 2 n_cls) N fp32 (the key mask and K4's
-// fp32 cls p and dl columns) + max(row scratch, column tile): with 4 warps
-// 53 KB at N = 129 (K4), 105 KB at N = 264 (K5). K4's cls column is reduced
-// at the end by one warp.
+// The scratch of one block (2 N^2 bf16: 279 KB at N = 264) is written and
+// read back by that block while it is still in the 50 MB L2. K5 at N = 264
+// needs this: q, k, v, g plus fp32 dk/dv of one head would take 270 KB of
+// shared memory, over the 227 KB a block may have. Shared memory here is
+// 2 N (D + 4) bf16 + N fp32 (the key mask) + max(row scratch, column tile):
+// with 4 warps 105 KB at N = 264.
 #pragma once
 
 #include "common.cuh"
 
 namespace editor_kernels {
 
-constexpr int kBwdWarps = 4;      // K4 and K5 (8 in T6's sweep)
+constexpr int kBwdWarps = 4;      // K5 (8 in T6's sweep)
 constexpr int kBwdColsPerWarp = 8;  // column-pass tile: 8 columns per warp
 
 __host__ __device__ inline size_t bwd_align16(size_t bytes) {
@@ -65,9 +63,8 @@ struct BwdSmem {
   size_t buf, vec, scratch, tile, total;
 };
 
-// n_cls: the number of fp32 cls columns (1 for K4, 0 for K5); warps: the
-// block's warps (each has a row of scratch and 8 tile columns)
-__host__ __device__ inline BwdSmem bwd_smem_layout(int N, int D, int n_cls, int warps) {
+// warps: the block's warps (each has a row of scratch and 8 tile columns)
+__host__ __device__ inline BwdSmem bwd_smem_layout(int N, int D, int warps) {
   const int Np = (N + 3) & ~3;
   BwdSmem s;
   s.buf = bwd_align16((size_t)N * (D + kRowPad) * sizeof(bf16));
@@ -75,7 +72,7 @@ __host__ __device__ inline BwdSmem bwd_smem_layout(int N, int D, int n_cls, int 
   s.scratch = (size_t)warps * (2 * D + 2 * Np) * sizeof(float);
   s.tile = 2 * (size_t)N * warps * kBwdColsPerWarp * sizeof(bf16);
   const size_t un = s.scratch > s.tile ? s.scratch : s.tile;
-  s.total = 2 * s.buf + (1 + 2 * (size_t)n_cls) * s.vec + bwd_align16(un);
+  s.total = 2 * s.buf + s.vec + bwd_align16(un);
   return s;
 }
 
@@ -92,10 +89,8 @@ __device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, bf16* d
   }
 }
 
-// K4 <false>: unmasked, the cls key m = 0 keeps fp32 p and dl.
-// K5 <true>: masked (fill replaces a masked logit), no cls key.
-// kWarps warps per block.
-template <bool kMasked, int kWarps>
+// K5: masked (fill replaces a masked logit), kWarps warps per block.
+template <int kWarps>
 __device__ __forceinline__ void attention_bwd_body(
     const bf16* __restrict__ qkv, const float* __restrict__ mask,
     const bf16* __restrict__ g, bf16* __restrict__ dqkv, bf16* __restrict__ pst,
@@ -106,16 +101,12 @@ __device__ __forceinline__ void attention_bwd_body(
   const int ld = D + kRowPad;
   const int Np = (N + 3) & ~3;
   const int D2 = D / 2;
-  constexpr int n_cls = kMasked ? 0 : 1;
   constexpr int kCols = kWarps * kBwdColsPerWarp;  // columns per column-pass tile
-  const BwdSmem lay = bwd_smem_layout(N, D, n_cls, kWarps);
+  const BwdSmem lay = bwd_smem_layout(N, D, kWarps);
   bf16* buf0 = reinterpret_cast<bf16*>(smem);              // k, then q
   bf16* buf1 = reinterpret_cast<bf16*>(smem + lay.buf);    // v, then g
   float* mk = reinterpret_cast<float*>(smem + 2 * lay.buf);
-  // fp32 p and dl of the cls key (K4) for every row n: pc[n]
-  float* pc = reinterpret_cast<float*>(smem + 2 * lay.buf + lay.vec);
-  float* dlc = pc + (size_t)n_cls * Np;
-  unsigned char* un = smem + 2 * lay.buf + (1 + 2 * (size_t)n_cls) * lay.vec;
+  unsigned char* un = smem + 2 * lay.buf + lay.vec;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   const bf16* seq = qkv + (size_t)b * N * C3;
@@ -129,7 +120,7 @@ __device__ __forceinline__ void attention_bwd_body(
   stage_rows(seq, buf0, N, C3, C + h * D, D);
   stage_rows(seq, buf1, N, C3, 2 * C + h * D, D);
   for (int m = threadIdx.x; m < N; m += blockDim.x)
-    mk[m] = kMasked ? mask[(size_t)b * N + m] : 1.f;
+    mk[m] = mask[(size_t)b * N + m];
   __syncthreads();
 
   float* qr = reinterpret_cast<float*>(un) + warp * (2 * D + 2 * Np);
@@ -138,7 +129,7 @@ __device__ __forceinline__ void attention_bwd_body(
   float* wr = pr + Np;
   for (int n = warp; n < N; n += kWarps) {
     bf16* dq_row = dseq + (size_t)n * C3 + h * D;
-    if (kMasked && mk[n] == 0.f) {  // re-masked row: exactly zero gradient
+    if (mk[n] == 0.f) {  // re-masked row: exactly zero gradient
       for (int d = lane; d < D; d += 32) dq_row[d] = __float2bfloat16(0.f);
       continue;
     }
@@ -149,7 +140,7 @@ __device__ __forceinline__ void attention_bwd_body(
     float mx = -INFINITY;
     for (int m = lane; m < N; m += 32) {
       float s;
-      if (kMasked && mk[m] == 0.f)
+      if (mk[m] == 0.f)
         s = fill;
       else
         s = dot_q_k(qr, buf0 + m * ld, D) * scale;
@@ -177,17 +168,10 @@ __device__ __forceinline__ void attention_bwd_body(
     bf16* dlrow = DL + (size_t)n * N;
     for (int m = lane; m < N; m += 32) {
       const float p = pr[m];
-      const float dl = p * (wr[m] - r) * scale;
-      if (!kMasked && m == 0) {  // the cls key's p and dl stay fp32
-        pc[n] = p;
-        dlc[n] = dl;
-        wr[m] = dl;
-      } else {
-        const bf16 db = __float2bfloat16(dl);
-        prow[m] = __float2bfloat16(p);
-        dlrow[m] = db;
-        wr[m] = __bfloat162float(db);
-      }
+      const bf16 db = __float2bfloat16(p * (wr[m] - r) * scale);
+      prow[m] = __float2bfloat16(p);
+      dlrow[m] = db;
+      wr[m] = __bfloat162float(db);
     }
     __syncwarp();
     weighted_v_row(wr, buf0, N, D, 1.f, dq_row, lane);  // dq = dl . k
@@ -240,56 +224,35 @@ __device__ __forceinline__ void attention_bwd_body(
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int m = m0 + c0 + j;
-        if (m >= N || (!kMasked && m == 0)) continue;
+        if (m >= N) continue;
         bf16* row = dseq + (size_t)m * C3 + h * D;
         reinterpret_cast<bf16x2*>(row + C)[d2] = __floats2bfloat162_rn(ak[j][0], ak[j][1]);
         reinterpret_cast<bf16x2*>(row + 2 * C)[d2] = __floats2bfloat162_rn(av[j][0], av[j][1]);
       }
     }
   }
-  // K4's cls key from its fp32 p and dl, by warp 0; q and g stay staged,
-  // nothing else writes this row
-  if (n_cls && warp == 0) {
-    const float* pt = pc;
-    const float* lt = dlc;
-    bf16* row = dseq + h * D;
-    for (int d2 = lane; d2 < D2; d2 += 32) {
-      float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float2 qf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf0 + n * ld)[d2]);
-        const float2 gf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf1 + n * ld)[d2]);
-        v0 = fmaf(pt[n], gf.x, v0);
-        v1 = fmaf(pt[n], gf.y, v1);
-        k0 = fmaf(lt[n], qf.x, k0);
-        k1 = fmaf(lt[n], qf.y, k1);
-      }
-      reinterpret_cast<bf16x2*>(row + C)[d2] = __floats2bfloat162_rn(k0, k1);
-      reinterpret_cast<bf16x2*>(row + 2 * C)[d2] = __floats2bfloat162_rn(v0, v1);
-    }
-  }
 }
 
-// K4 (unmasked, the cls key m = 0) and K5 (masked, no cls key), with
-// kWarps warps per block: 4 on the model paths, 8 in T6's block-shape sweep
-// (tools/bench_full_kernel.py:72)
-template <bool kMasked, int kWarps>
+// K5 with kWarps warps per block: 4 on the model paths, 8 in T6's
+// block-shape sweep (tools/bench_full_kernel.py:72)
+template <int kWarps>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                      const bf16* __restrict__ g, bf16* __restrict__ dqkv,
                      bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
                      int D, float scale, float fill) {
-  attention_bwd_body<kMasked, kWarps>(qkv, mask, g, dqkv, pst, dlst, N, H, D, scale, fill);
+  attention_bwd_body<kWarps>(qkv, mask, g, dqkv, pst, dlst, N, H, D, scale, fill);
 }
 
-template <bool kMasked, int kWarps = kBwdWarps>
+template <int kWarps = kBwdWarps>
 inline int launch_attention_bwd(const void* qkv, const void* mask, const void* g,
                                 void* dqkv, void* pst, void* dlst, int B, int N, int H,
                                 int D, float scale, float fill, void* stream) {
-  const size_t smem = bwd_smem_layout(N, D, kMasked ? 0 : 1, kWarps).total;
-  cudaError_t err = allow_dynamic_smem(attention_bwd_kernel<kMasked, kWarps>, smem);
+  const size_t smem = bwd_smem_layout(N, D, kWarps).total;
+  cudaError_t err = allow_dynamic_smem(attention_bwd_kernel<kWarps>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_kernel<kMasked, kWarps><<<dim3(H, B), kWarps * 32, smem,
-                                          static_cast<cudaStream_t>(stream)>>>(
+  attention_bwd_kernel<kWarps><<<dim3(H, B), kWarps * 32, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
       static_cast<const bf16*>(g), static_cast<bf16*>(dqkv), static_cast<bf16*>(pst),
       static_cast<bf16*>(dlst), N, H, D, scale, fill);

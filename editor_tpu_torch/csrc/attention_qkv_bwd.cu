@@ -11,22 +11,48 @@
 //   straight into the q, k and v column slices (no head transposes).
 //   As on the TPU: patch-key probabilities (m >= 1) are rounded to bf16 before
 //   p^T g, the logit cotangents to bf16 before dq and dk; the cls key's
-//   (m = 0) stay fp32; every sum is fp32.
+//   (m = 0) stay fp32; every sum is fp32. The TPU body forms r = sum dp p
+//   from the normalised p, this one r = (sum dp e) / sum e: only the order of
+//   the fp32 operations differs.
 //
 // What bounds it on the H100: at the flagship shape (B = 384, N = 129,
 // H = 12, D = 64) it does 10 B H N^2 D = 49 GFLOP and must move 0.53 GB (qkv,
 // g, dqkv): 0.16 ms of HBM traffic at 3.35 TB/s, 0.05 ms at the 989 TFLOP/s
-// bf16 tensor-core peak. This first version runs the products on the CUDA
-// cores in fp32, so FMA issue and shared-memory reads bound it.
+// bf16 tensor-core peak: bytes. There the rounded attn and dl stay in shared
+// memory; the chunked instance's global scratch of them is traffic the bound
+// does not count.
 //
-// Design: csrc/attention_bwd.cuh (row pass for dq, column pass for dk and dv,
-// the rounded p and dl of each row kept in a per-(b, h) global scratch that
-// stays in L2 between the passes).
-#include "attention_bwd.cuh"
+// Design: the unmasked instance of the tensor-core body in
+// csrc/attention_bwd_mma.cuh (K7's, masked): mma.sync m16n8k16 for all five
+// products; one cls key, key 0, in column 0 of key tile 0, so any N >= 1.
+// N <= 144 (D <= 96) or N <= 80 (wider heads): the resident instance, a
+// row's logits in registers and the rounded attn and dl in shared memory (one
+// block of up to 9 warps an SM at N = 129, with no scratch traffic; 10%
+// faster than K7's global scratch there). Past that up to kMaxTokens: the
+// chunked instance, with the global scratch, k and q alone in shared memory
+// and v and g read from global memory, so that every N fits at every head
+// dim.
+#include "attention_bwd_mma.cuh"
 
+// pst and dlst: [B H, Np, Np] bf16 where editor_attention_qkv_bwd_scratch
+// gives Np > 0, else unused (may be null); head dims 16, 32, ..., 128
 extern "C" int editor_attention_qkv_bwd(const void* qkv, const void* g, void* dqkv,
                                         void* pst, void* dlst, int B, int N, int H,
                                         int D, float scale, void* stream) {
-  return editor_kernels::launch_attention_bwd<false>(qkv, nullptr, g, dqkv, pst, dlst,
-                                                     B, N, H, D, scale, 0.f, stream);
+  using namespace editor_kernels;
+  if (N < 1 || N > kMaxTokens) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_attention_bwd_mma_d<false>(qkv, nullptr, g, dqkv, pst, dlst, B, N, H, D,
+                                           scale, 0.f, N, stream);
+}
+
+// The side Np of the two [B H, Np, Np] scratch maps that K4's launch for N
+// tokens at head dim D needs, into *np: N rounded up to 16 for the chunked
+// instance, 0 for the resident one (its scratch is in shared memory)
+extern "C" int editor_attention_qkv_bwd_scratch(int N, int D, int* np) {
+  using namespace editor_kernels;
+  if (N < 1 || N > kMaxTokens || D < 16 || D > 128 || D % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int side = (N + 15) & ~15;
+  *np = side <= 16 * bwd_key_tiles(D / 16) ? 0 : side;
+  return 0;
 }

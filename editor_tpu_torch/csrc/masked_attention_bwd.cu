@@ -6,527 +6,26 @@
 // (_qkv_masked_bwd_kernel, K7); K5 with 8 warps per block is the backward
 // half of T6, tools/bench_full_kernel.py:72 (_qkv_masked_full_bwd_kernel at
 // other group sizes). K5 runs the CUDA-core body of csrc/attention_bwd.cuh;
-// K7 runs on the tensor cores, below.
+// K7 the tensor-core body of csrc/attention_bwd_mma.cuh, masked.
 //
 // Contract (same as the plain versions masked_attention_qkv_bwd_plain and
 // masked_attention_tiled_bwd_plain, editor_tpu_torch/ops/masked_attention.py):
 //   qkv [B, N, 3C] bf16, mask [B, N] fp32 (1 = keep), g [B, N, C] bf16
 //   -> dqkv [B, N, 3C] bf16. The mask gets no gradient.
-// K7's rounding points are _qkv_masked_bwd_kernel's (only the order of the
-// fp32 sums differs): logits l = (q . k) scale, plus the fill where
-// mask_q * mask_k == 0; the fp32 row max, e = exp(l - max), inv = 1 / sum e,
-// attn = e (mask_q inv); dat = g . v, r0 = (sum dat e) inv; dl = attn (dat -
-// r0) scale. The patch keys' attn and dl are rounded to bf16 before dq = dl k,
-// dk = dl^T q and dv = attn^T g; each tile's cls key (m % tile == 0) keeps an
-// fp32 attn and dl, and its products are fp32 sums. A query row with mask 0
-// gets exactly zero gradient; a masked key of a valid row gets attn = 0
-// exactly (exp underflow), hence zero dk and dv.
+// The rounding points: K5's in csrc/attention_bwd.cuh (every weight rounded
+// to bf16), K7's in csrc/attention_bwd_mma.cuh (each tile's cls key in fp32).
 //
 // What bounds K7 on the H100: 10 H N^2 D FLOP a sequence over the valid
-// pairs (the logits, dat, dq, dk, dv) against qkv + g + dqkv = 14 N C bytes:
-// 0.53 GB at [384, 129] and at [128, 387], 0.16 ms each at 3.35 TB/s, against
-// 50 GFLOP of valid pairs for the two (0.05 ms on the bf16 tensor cores):
-// bytes. This design also writes and reads back a [B H, Np, Np] bf16 scratch
-// of the rounded attn and dl (Np = N rounded up to 16: 0.98 GB at [128, 387]
-// each way), which the bound does not count.
+// pairs against qkv + g + dqkv = 14 N C bytes: 0.53 GB at [384, 129] and at
+// [128, 387], 0.16 ms each at 3.35 TB/s, against 50 GFLOP of valid pairs for
+// the two (0.05 ms on the bf16 tensor cores): bytes. Its scratch of the
+// rounded attn and dl (0.98 GB each way at [128, 387]) is not counted.
 //
-// Design (masked_attention_tiled_bwd_kernel): one block per (head, sequence),
-// two passes, every product on mma.sync m16n8k16 (bf16 in, fp32 sums).
-//  * Row pass: the head's k and v, all Np rows, go to shared memory ([Np, D +
-//    8] each, 16-byte cp.async, rows >= N zero). Each warp owns 16-row query
-//    tiles; q and g come from global memory as A operands. S = q k^T and
-//    dat = g v^T take k and v through ldmatrix. Up to 16 KT keys (144 at D
-//    <= 96: N = 129) a row's logits stay in registers and are made once;
-//    past that the three passes over the keys (row max; exp sum and sum of
-//    dat e; attn, dl and dq) make each chunk's logits anew. dat is made twice.
-//    The rounded attn and dl go to the global scratch (bf16 pairs) and dl,
-//    re-packed as the A operand, times k through ldmatrix.trans gives dq.
-//  * The cls keys fall anywhere in a 16-key tile (key 129 is column 1 of
-//    tile 8): their entries are zeroed in the scratch and in the packed A
-//    operand, their fp32 attn and dl go to shared columns pc/dlc, dl_c k_c is
-//    added to dq with FMAs, and their dk and dv are reduced at the end from
-//    the fp32 columns. No mma result for a cls key is stored.
-//  * Column pass: q and g replace k and v in shared memory. Each warp owns
-//    16-key tiles and walks the query rows in 16-row steps through a 2-stage
-//    cp.async ring of its own: the scratch tiles of attn and dl [16 rows, 16
-//    keys] go through ldmatrix.trans as the A operands of dv = attn^T g and
-//    dk = dl^T q, g and q through ldmatrix.trans as B; dk and dv stay in
-//    registers. Query rows >= N and masked rows hold zeros in the scratch
-//    (attn = 0 there), so the sums need no masks.
-// No atomics: every element of dqkv is written by one thread after sums in a
-// fixed order, so two runs give the same bytes.
+// Design: K7 is the masked instance of the tensor-core body in
+// csrc/attention_bwd_mma.cuh, which K4 shares unmasked; K5 keeps the
+// CUDA-core body of csrc/attention_bwd.cuh.
 #include "attention_bwd.cuh"
-#include "mma.cuh"
-
-namespace editor_kernels {
-namespace {
-
-// ---------------------------------------------------------------------------
-// K7 on the tensor cores
-// ---------------------------------------------------------------------------
-
-// 16-key tiles whose logits stay in registers: the whole row up to 16 KT
-// keys (9 at D <= 96, as K1), and chunks of 2 tiles past that
-__host__ __device__ constexpr int k7_key_tiles(int DK) { return DK <= 6 ? 9 : 5; }
-constexpr int kK7ChunkTiles = 2;
-// warps per block at most: 3 with the logits of a whole row in registers (9
-// tiles at N = 129, 3 rounds; 4 blocks an SM at D <= 64, 168 registers a
-// thread), else 12 at D <= 64 (9 warps at N = 258 and 387; 168 registers:
-// 16 warps capped them at 128, and the D = 64 instance spilled), 8 for the
-// wide heads
-__host__ __device__ constexpr int k7_max_warps(int DK, bool resident) {
-  return resident ? 3 : (DK <= 4 ? 12 : 8);
-}
-__host__ __device__ constexpr int k7_min_blocks(int DK, bool resident) {
-  return resident && DK <= 4 ? 4 : 1;
-}
-
-// a column-pass stage: the attn and dl scratch tiles [16 rows, 16 keys], rows
-// padded to 24 bf16 (48 bytes) so that ldmatrix reads 8 rows in distinct banks
-constexpr int kStLd = 24;
-constexpr int kStageElems = 2 * 16 * kStLd;
-
-struct K7Smem {
-  size_t buf, mk, cls, stage, total;
-};
-
-// k then q [Np, D + 8]; v then g [Np, D + 8]; the mask [Np] fp32; the fp32
-// attn and dl of each tile's cls key for every row [2, n_tiles, Np]; two
-// stages a warp
-__host__ __device__ inline K7Smem k7_smem_layout(int N, int D, int n_tiles, int warps) {
-  const size_t np = (N + 15) & ~15;
-  K7Smem s;
-  s.buf = np * (D + 8) * sizeof(bf16);
-  s.mk = np * sizeof(float);
-  s.cls = 2 * (size_t)n_tiles * np * sizeof(float);
-  s.stage = (size_t)warps * 2 * kStageElems * sizeof(bf16);
-  s.total = 2 * s.buf + s.mk + s.cls + s.stage;
-  return s;
-}
-
-// Rows [0, np) of one head's [N, D] slice (row stride ld, column offset off)
-// into shared memory [np, D + 8] with 16-byte cp.async; rows >= N are zero
-// (0 x NaN would not be 0). The caller waits for the copies.
-template <int D>
-__device__ __forceinline__ void k7_stage_head(const bf16* __restrict__ src, int ld, int off,
-                                              bf16* dst, int np, int N) {
-  constexpr int LD = D + 8, SEG = D / 8;
-  for (int i = threadIdx.x; i < np * SEG; i += blockDim.x) {
-    const int m = i / SEG, sg = i - m * SEG;
-    bf16* d = dst + m * LD + sg * 8;
-    if (m < N)
-      cp_async16(d, src + (size_t)m * ld + off + sg * 8);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// The logits of one warp's 16 query rows against keys [key0, key0 + 16 KT):
-// s[j] is the accumulator tile of keys key0 + 8j..+7 (rows g, g + 8; keys 2t,
-// 2t + 1): (q . k) scale, plus the fill where mask_q * mask_k == 0. Keys >= N
-// are -inf; tiles at or past np are not read.
-template <int DK, int KT>
-__device__ __forceinline__ void k7_logits(const uint32_t (&qa)[DK][4], const bf16* ks,
-                                          const float* mk, int key0, int N, int np,
-                                          float scale, float fill, float mq0, float mq8,
-                                          float (&s)[2 * KT][4], int lane) {
-  constexpr int LD = 16 * DK + 8;
-  const int t = lane & 3;
-  // ldmatrix rows: lanes 0-7 keys 0-7 at d 0, 8-15 keys 0-7 at d 8,
-  // 16-23 keys 8-15 at d 0, 24-31 keys 8-15 at d 8 -> b0, b1 of two key tiles
-  const unsigned kl = smem_addr(ks + ((lane & 7) + ((lane >> 4) << 3)) * LD +
-                                (((lane >> 3) & 1) << 3));
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-    const bool live = key0 + 16 * kk < np;
-    if (live) {
-#pragma unroll
-      for (int d = 0; d < DK; ++d) {
-        uint32_t b[4];
-        ldmatrix_x4(b, kl + ((key0 + 16 * kk) * LD + 16 * d) * 2);
-        mma_bf16(c0, qa[d], b[0], b[1]);
-        mma_bf16(c1, qa[d], b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = key0 + 16 * kk + 2 * t + (i & 1);
-      const float mq = i < 2 ? mq0 : mq8;
-      s[2 * kk][i] = live && key < N
-                         ? c0[i] * scale + (mq * mk[key] == 0.f ? fill : 0.f) : -INFINITY;
-      s[2 * kk + 1][i] = live && key + 8 < N
-                             ? c1[i] * scale + (mq * mk[key + 8] == 0.f ? fill : 0.f)
-                             : -INFINITY;
-    }
-  }
-}
-
-// dat = g . v^T of the 16 keys from `key`: c0 keys +0..7, c1 keys +8..15
-template <int DK>
-__device__ __forceinline__ void k7_dat(const uint32_t (&ga)[DK][4], unsigned vl, int key,
-                                       float (&c0)[4], float (&c1)[4]) {
-  constexpr int LD = 16 * DK + 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c0[i] = c1[i] = 0.f;
-#pragma unroll
-  for (int d = 0; d < DK; ++d) {
-    uint32_t b[4];
-    ldmatrix_x4(b, vl + (key * LD + 16 * d) * 2);
-    mma_bf16(c0, ga[d], b[0], b[1]);
-    mma_bf16(c1, ga[d], b[2], b[3]);
-  }
-}
-
-// K7: one block per (head, sequence), `blockDim.x / 32` warps. kResident
-// (Np <= 16 KT): a row's logits are made once and kept; else in chunks of
-// KT key tiles, made anew in each pass. pst and dlst are [B H, Np, Np].
-template <int DK, int KT, bool kResident>
-__global__ void __launch_bounds__(k7_max_warps(DK, kResident) * 32,
-                                  k7_min_blocks(DK, kResident))
-masked_attention_tiled_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
-                                  const bf16* __restrict__ g, bf16* __restrict__ dqkv,
-                                  bf16* __restrict__ pst, bf16* __restrict__ dlst, int N,
-                                  int H, float scale, float fill, int tile) {
-  constexpr int D = 16 * DK, LD = D + 8, KC = 16 * KT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int C = H * D, ldq = 3 * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int gr = lane >> 2, t = lane & 3;
-  const int np = (N + 15) & ~15, ntiles = np >> 4;
-  const int n_tiles = N / tile;
-  const int nch = kResident ? 1 : (np + KC - 1) / KC;
-  const K7Smem lay = k7_smem_layout(N, D, n_tiles, nwarps);
-  bf16* buf0 = reinterpret_cast<bf16*>(smem);            // k, then q
-  bf16* buf1 = reinterpret_cast<bf16*>(smem + lay.buf);  // v, then g
-  float* mk = reinterpret_cast<float*>(smem + 2 * lay.buf);
-  // fp32 attn and dl of tile tt's cls key for every row n: pc[tt * np + n]
-  float* pc = reinterpret_cast<float*>(smem + 2 * lay.buf + lay.mk);
-  float* dlc = pc + (size_t)n_tiles * np;
-  bf16* stage = reinterpret_cast<bf16*>(smem + 2 * lay.buf + lay.mk + lay.cls) +
-                warp * 2 * kStageElems;
-
-  const bf16* seq = qkv + (size_t)b * N * ldq;
-  const bf16* gseq = g + (size_t)b * N * C;
-  bf16* dseq = dqkv + (size_t)b * N * ldq;
-  const size_t bh = (size_t)b * H + h;
-  bf16* P = pst + bh * np * np;
-  bf16* DL = dlst + bh * np * np;
-
-  // ---- row pass: attn, dl and dq of every query tile ---------------------
-  k7_stage_head<D>(seq, ldq, C + h * D, buf0, np, N);
-  k7_stage_head<D>(seq, ldq, 2 * C + h * D, buf1, np, N);
-  for (int m = threadIdx.x; m < np; m += blockDim.x)
-    mk[m] = m < N ? mask[(size_t)b * N + m] : 0.f;
-  cp_async_wait_all();
-  __syncthreads();
-
-  for (int qt = warp; qt < ntiles; qt += nwarps) {
-    const int rg = qt * 16 + gr, rg8 = rg + 8;  // both < np
-    const float mq0 = mk[rg], mq8 = mk[rg8];    // 0 past N
-    // q and g as A operands, straight from global memory (rows >= N are 0)
-    uint32_t qa[DK][4], ga[DK][4];
-    {
-      const bool in0 = rg < N, in8 = rg8 < N;
-      const bf16* q0 = seq + (size_t)rg * ldq + h * D + 2 * t;
-      const bf16* q8 = q0 + 8 * (size_t)ldq;
-      const bf16* g0 = gseq + (size_t)rg * C + h * D + 2 * t;
-      const bf16* g8 = g0 + 8 * (size_t)C;
-#pragma unroll
-      for (int d = 0; d < DK; ++d) {
-        qa[d][0] = in0 ? *reinterpret_cast<const uint32_t*>(q0 + 16 * d) : 0u;
-        qa[d][1] = in8 ? *reinterpret_cast<const uint32_t*>(q8 + 16 * d) : 0u;
-        qa[d][2] = in0 ? *reinterpret_cast<const uint32_t*>(q0 + 16 * d + 8) : 0u;
-        qa[d][3] = in8 ? *reinterpret_cast<const uint32_t*>(q8 + 16 * d + 8) : 0u;
-        ga[d][0] = in0 ? *reinterpret_cast<const uint32_t*>(g0 + 16 * d) : 0u;
-        ga[d][1] = in8 ? *reinterpret_cast<const uint32_t*>(g8 + 16 * d) : 0u;
-        ga[d][2] = in0 ? *reinterpret_cast<const uint32_t*>(g0 + 16 * d + 8) : 0u;
-        ga[d][3] = in8 ? *reinterpret_cast<const uint32_t*>(g8 + 16 * d + 8) : 0u;
-      }
-    }
-    // v as the B operand of dat (as k of the logits); k as the B operand of
-    // dq through ldmatrix.trans: lanes 0-7 keys 0-7 at d 0, 8-15 keys 8-15
-    // at d 0, 16-23 keys 0-7 at d 8, 24-31 keys 8-15 at d 8
-    const unsigned vl = smem_addr(buf1 + ((lane & 7) + ((lane >> 4) << 3)) * LD +
-                                  (((lane >> 3) & 1) << 3));
-    float s[2 * KT][4];
-    // pass 1: the row max (rows g, g + 8)
-    float mx0 = -INFINITY, mx8 = -INFINITY;
-    for (int c = 0; c < nch; ++c) {
-      k7_logits<DK, KT>(qa, buf0, mk, c * KC, N, np, scale, fill, mq0, mq8, s, lane);
-#pragma unroll
-      for (int j = 0; j < 2 * KT; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx8 = fmaxf(mx8, fmaxf(s[j][2], s[j][3]));
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx8 = quad_max(mx8);
-    // pass 2: the exp sum and sum dat e (the max element gives exp(0) = 1,
-    // so sum >= 1; a padded key's exp(-inf) is 0)
-    float sum0 = 0.f, sum8 = 0.f, ra0 = 0.f, ra8 = 0.f;
-    for (int c = 0; c < nch; ++c) {
-      const int key0 = c * KC;
-      if (!kResident)
-        k7_logits<DK, KT>(qa, buf0, mk, key0, N, np, scale, fill, mq0, mq8, s, lane);
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        if (key0 + 16 * kk >= np) continue;
-        float c0[4], c1[4];
-        k7_dat<DK>(ga, vl, key0 + 16 * kk, c0, c1);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float mx = i < 2 ? mx0 : mx8;
-          const float e0 = expf(s[2 * kk][i] - mx), e1 = expf(s[2 * kk + 1][i] - mx);
-          s[2 * kk][i] = e0;
-          s[2 * kk + 1][i] = e1;
-          if (i < 2) {
-            sum0 += e0 + e1;
-            ra0 = fmaf(c0[i], e0, fmaf(c1[i], e1, ra0));
-          } else {
-            sum8 += e0 + e1;
-            ra8 = fmaf(c0[i], e0, fmaf(c1[i], e1, ra8));
-          }
-        }
-      }
-    }
-    const float inv0 = 1.f / quad_sum(sum0), inv8 = 1.f / quad_sum(sum8);
-    const float r00 = quad_sum(ra0) * inv0, r08 = quad_sum(ra8) * inv8;
-    const float rw0 = mq0 * inv0, rw8 = mq8 * inv8;  // attn = e rw
-    // pass 3: attn and dl; the scratch; dq = dl . k
-    float dq[2 * DK][4];
-#pragma unroll
-    for (int j = 0; j < 2 * DK; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-    const unsigned kt = smem_addr(buf0 + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
-                                  ((lane >> 4) << 3));
-    for (int c = 0; c < nch; ++c) {
-      const int key0 = c * KC;
-      if (!kResident) {
-        k7_logits<DK, KT>(qa, buf0, mk, key0, N, np, scale, fill, mq0, mq8, s, lane);
-#pragma unroll
-        for (int j = 0; j < 2 * KT; ++j) {
-          s[j][0] = expf(s[j][0] - mx0);
-          s[j][1] = expf(s[j][1] - mx0);
-          s[j][2] = expf(s[j][2] - mx8);
-          s[j][3] = expf(s[j][3] - mx8);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        const int kb = key0 + 16 * kk;
-        if (kb >= np) continue;
-        float dat[2][4];
-        k7_dat<DK>(ga, vl, kb, dat[0], dat[1]);
-        // this key tile's cls key, as a column 0-15 (-1 without one; one at
-        // most, as tile >= 16)
-        const int first = (kb + tile - 1) / tile * tile;
-        const int cc = first < N && first - kb < 16 ? first - kb : -1;
-        float a[2][4], l[2][4];
-        float ac0 = 0.f, lc0 = 0.f, ac8 = 0.f, lc8 = 0.f;  // the cls key's, fp32
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float at = s[2 * kk + hh][i] * (i < 2 ? rw0 : rw8);
-            const float dl = at * (dat[hh][i] - (i < 2 ? r00 : r08)) * scale;
-            if (8 * hh + 2 * t + (i & 1) == cc) {  // out of the bf16 products
-              if (i < 2) {
-                ac0 = at;
-                lc0 = dl;
-              } else {
-                ac8 = at;
-                lc8 = dl;
-              }
-              a[hh][i] = l[hh][i] = 0.f;
-            } else {
-              a[hh][i] = at;
-              l[hh][i] = dl;
-            }
-          }
-        }
-        // the accumulator tiles of keys kb..+7 and +8..+15 as the A operand's
-        // two column halves; the same pairs go to the scratch rows rg, rg8
-        const uint32_t pa[4] = {pack_bf16(a[0][0], a[0][1]), pack_bf16(a[0][2], a[0][3]),
-                                pack_bf16(a[1][0], a[1][1]), pack_bf16(a[1][2], a[1][3])};
-        const uint32_t la[4] = {pack_bf16(l[0][0], l[0][1]), pack_bf16(l[0][2], l[0][3]),
-                                pack_bf16(l[1][0], l[1][1]), pack_bf16(l[1][2], l[1][3])};
-        uint32_t* p0 = reinterpret_cast<uint32_t*>(P + (size_t)rg * np + kb + 2 * t);
-        uint32_t* p8 = reinterpret_cast<uint32_t*>(P + (size_t)rg8 * np + kb + 2 * t);
-        uint32_t* l0 = reinterpret_cast<uint32_t*>(DL + (size_t)rg * np + kb + 2 * t);
-        uint32_t* l8 = reinterpret_cast<uint32_t*>(DL + (size_t)rg8 * np + kb + 2 * t);
-        p0[0] = pa[0];
-        p0[4] = pa[2];
-        p8[0] = pa[1];
-        p8[4] = pa[3];
-        l0[0] = la[0];
-        l0[4] = la[2];
-        l8[0] = la[1];
-        l8[4] = la[3];
-#pragma unroll
-        for (int d = 0; d < DK; ++d) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, kt + (kb * LD + 16 * d) * 2);
-          mma_bf16(dq[2 * d], la, bk[0], bk[1]);
-          mma_bf16(dq[2 * d + 1], la, bk[2], bk[3]);
-        }
-        if (cc >= 0) {  // warp-uniform: the fp32 columns and dl_c k_c
-          const int tc = (cc & 7) >> 1;  // the quad lane that holds the key
-          const int tt = (kb + cc) / tile;
-          if (t == tc) {
-            pc[tt * np + rg] = ac0;
-            dlc[tt * np + rg] = lc0;
-            pc[tt * np + rg8] = ac8;
-            dlc[tt * np + rg8] = lc8;
-          }
-          const float d0 = __shfl_sync(kFull, lc0, (lane & ~3) | tc);
-          const float d8 = __shfl_sync(kFull, lc8, (lane & ~3) | tc);
-          const bf16* kc = buf0 + (kb + cc) * LD + 2 * t;
-#pragma unroll
-          for (int j = 0; j < 2 * DK; ++j) {
-            const float2 kf = __bfloat1622float2(*reinterpret_cast<const bf16x2*>(kc + 8 * j));
-            dq[j][0] = fmaf(d0, kf.x, dq[j][0]);
-            dq[j][1] = fmaf(d0, kf.y, dq[j][1]);
-            dq[j][2] = fmaf(d8, kf.x, dq[j][2]);
-            dq[j][3] = fmaf(d8, kf.y, dq[j][3]);
-          }
-        }
-      }
-    }
-    bf16* o0 = dseq + (size_t)rg * ldq + h * D + 2 * t;
-    bf16* o8 = o0 + 8 * (size_t)ldq;
-#pragma unroll
-    for (int j = 0; j < 2 * DK; ++j) {
-      if (rg < N)
-        *reinterpret_cast<bf16x2*>(o0 + 8 * j) = __floats2bfloat162_rn(dq[j][0], dq[j][1]);
-      if (rg8 < N)
-        *reinterpret_cast<bf16x2*>(o8 + 8 * j) = __floats2bfloat162_rn(dq[j][2], dq[j][3]);
-    }
-  }
-  __syncthreads();  // the scratch and the cls columns written; k, v done
-
-  // ---- column pass: dk = dl^T q, dv = attn^T g -----------------------------
-  k7_stage_head<D>(seq, ldq, h * D, buf0, np, N);
-  k7_stage_head<D>(gseq, C, h * D, buf1, np, N);
-  cp_async_wait_all();
-  __syncthreads();
-
-  // the cls keys from their fp32 attn and dl (rows >= N and masked rows hold
-  // 0 there); nothing else writes these rows' k and v columns
-  for (int i = threadIdx.x; i < n_tiles * (D / 2); i += blockDim.x) {
-    const int tt = i / (D / 2), d2 = i - tt * (D / 2);
-    const float* pt = pc + tt * np;
-    const float* lt = dlc + tt * np;
-    float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
-    for (int n = 0; n < np; ++n) {
-      const float2 qf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf0 + n * LD)[d2]);
-      const float2 gf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf1 + n * LD)[d2]);
-      v0 = fmaf(pt[n], gf.x, v0);
-      v1 = fmaf(pt[n], gf.y, v1);
-      k0 = fmaf(lt[n], qf.x, k0);
-      k1 = fmaf(lt[n], qf.y, k1);
-    }
-    bf16* row = dseq + (size_t)tt * tile * ldq + h * D;
-    reinterpret_cast<bf16x2*>(row + C)[d2] = __floats2bfloat162_rn(k0, k1);
-    reinterpret_cast<bf16x2*>(row + 2 * C)[d2] = __floats2bfloat162_rn(v0, v1);
-  }
-
-  for (int mt = warp; mt < ntiles; mt += nwarps) {
-    const int m0 = mt * 16;
-    // one stage: rows [16 ks, +16) of the attn and dl scratch at keys
-    // [m0, m0 + 16), two 16-byte pieces a row, one piece a lane and tensor
-    auto fetch = [&](int ks) {
-      bf16* sp = stage + (ks & 1) * kStageElems;
-      const int r = lane >> 1, seg = lane & 1;
-      const size_t src = (size_t)(16 * ks + r) * np + m0 + seg * 8;
-      cp_async16(sp + r * kStLd + seg * 8, P + src);
-      cp_async16(sp + (16 + r) * kStLd + seg * 8, DL + src);
-      cp_async_commit();
-    };
-    float dk[2 * DK][4], dv[2 * DK][4];
-#pragma unroll
-    for (int j = 0; j < 2 * DK; ++j) {
-      dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-      dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
-    }
-    fetch(0);
-    for (int ks = 0; ks < ntiles; ++ks) {
-      if (ks + 1 < ntiles) {
-        fetch(ks + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncwarp();  // every lane's pieces of stage ks have landed
-      const bf16* sp = stage + (ks & 1) * kStageElems;
-      // ldmatrix.trans rows (the A operand attn^T from attn [rows][keys]):
-      // lanes 0-7 rows 0-7 at key 0, 8-15 rows 0-7 at key 8, 16-23 rows 8-15
-      // at key 0, 24-31 rows 8-15 at key 8
-      const unsigned al = smem_addr(sp + ((lane & 7) + ((lane >> 4) << 3)) * kStLd +
-                                    (((lane >> 3) & 1) << 3));
-      uint32_t pa[4], la[4];
-      ldmatrix_x4_trans(pa, al);
-      ldmatrix_x4_trans(la, al + 16 * kStLd * 2);
-      // g and q [rows][d] through ldmatrix.trans as B, as k in the row pass
-      const int rrow = 16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3);
-      const unsigned ql = smem_addr(buf0 + rrow * LD + ((lane >> 4) << 3));
-      const unsigned gl = smem_addr(buf1 + rrow * LD + ((lane >> 4) << 3));
-#pragma unroll
-      for (int d = 0; d < DK; ++d) {
-        uint32_t bg[4], bq[4];
-        ldmatrix_x4_trans(bg, gl + 16 * d * 2);
-        mma_bf16(dv[2 * d], pa, bg[0], bg[1]);
-        mma_bf16(dv[2 * d + 1], pa, bg[2], bg[3]);
-        ldmatrix_x4_trans(bq, ql + 16 * d * 2);
-        mma_bf16(dk[2 * d], la, bq[0], bq[1]);
-        mma_bf16(dk[2 * d + 1], la, bq[2], bq[3]);
-      }
-      __syncwarp();  // the stage is refilled two steps on
-    }
-    // keys m0 + g (c0, c1) and m0 + g + 8 (c2, c3); not past N, not a cls key
-    const int ma = m0 + gr, mb = ma + 8;
-    bf16* ra = dseq + (size_t)ma * ldq + h * D + 2 * t;
-    bf16* rb = ra + 8 * (size_t)ldq;
-    const bool oka = ma < N && ma % tile != 0, okb = mb < N && mb % tile != 0;
-#pragma unroll
-    for (int j = 0; j < 2 * DK; ++j) {
-      if (oka) {
-        *reinterpret_cast<bf16x2*>(ra + C + 8 * j) = __floats2bfloat162_rn(dk[j][0], dk[j][1]);
-        *reinterpret_cast<bf16x2*>(ra + 2 * C + 8 * j) =
-            __floats2bfloat162_rn(dv[j][0], dv[j][1]);
-      }
-      if (okb) {
-        *reinterpret_cast<bf16x2*>(rb + C + 8 * j) = __floats2bfloat162_rn(dk[j][2], dk[j][3]);
-        *reinterpret_cast<bf16x2*>(rb + 2 * C + 8 * j) =
-            __floats2bfloat162_rn(dv[j][2], dv[j][3]);
-      }
-    }
-  }
-}
-
-template <int DK>
-int launch_k7(const bf16* qkv, const float* mask, const bf16* g, bf16* dqkv, bf16* pst,
-              bf16* dlst, int B, int N, int H, float scale, float fill, int tile,
-              cudaStream_t stream) {
-  constexpr int KT = k7_key_tiles(DK), D = 16 * DK;
-  const int np = (N + 15) & ~15, ntiles = np / 16;
-  const bool resident = np <= 16 * KT;
-  const int max_warps = k7_max_warps(DK, resident);
-  const int rounds = (ntiles + max_warps - 1) / max_warps;
-  const int warps = (ntiles + rounds - 1) / rounds;  // the fewest warps for those rounds
-  const size_t smem = k7_smem_layout(N, D, N / tile, warps).total;
-  auto kernel = resident ? masked_attention_tiled_bwd_kernel<DK, KT, true>
-                         : masked_attention_tiled_bwd_kernel<DK, kK7ChunkTiles, false>;
-  cudaError_t err = allow_dynamic_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(H, B), warps * 32, smem, stream>>>(qkv, mask, g, dqkv, pst, dlst, N, H, scale,
-                                                   fill, tile);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-}  // namespace editor_kernels
+#include "attention_bwd_mma.cuh"
 
 // K5; warps: 4 (the model paths) or 8
 extern "C" int editor_masked_attention_bwd(const void* qkv, const void* mask,
@@ -536,11 +35,11 @@ extern "C" int editor_masked_attention_bwd(const void* qkv, const void* mask,
                                            void* stream) {
   using editor_kernels::launch_attention_bwd;
   if (warps == 4)
-    return launch_attention_bwd<true, 4>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale,
-                                         fill, stream);
+    return launch_attention_bwd<4>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale, fill,
+                                   stream);
   if (warps == 8)
-    return launch_attention_bwd<true, 8>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale,
-                                         fill, stream);
+    return launch_attention_bwd<8>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale, fill,
+                                   stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -555,22 +54,6 @@ extern "C" int editor_masked_attention_tiled_bwd(const void* qkv, const void* ma
   using namespace editor_kernels;
   if (N < 1 || N > kMaxTokens || tile < 16 || N % tile)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const float* m = static_cast<const float*>(mask);
-  const bf16* gp = static_cast<const bf16*>(g);
-  bf16* d = static_cast<bf16*>(dqkv);
-  bf16* p = static_cast<bf16*>(pst);
-  bf16* l = static_cast<bf16*>(dlst);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_k7<1>(q, m, gp, d, p, l, B, N, H, scale, fill, tile, st);
-    case 32: return launch_k7<2>(q, m, gp, d, p, l, B, N, H, scale, fill, tile, st);
-    case 48: return launch_k7<3>(q, m, gp, d, p, l, B, N, H, scale, fill, tile, st);
-    case 64: return launch_k7<4>(q, m, gp, d, p, l, B, N, H, scale, fill, tile, st);
-    case 80: return launch_k7<5>(q, m, gp, d, p, l, B, N, H, scale, fill, tile, st);
-    case 96: return launch_k7<6>(q, m, gp, d, p, l, B, N, H, scale, fill, tile, st);
-    case 112: return launch_k7<7>(q, m, gp, d, p, l, B, N, H, scale, fill, tile, st);
-    case 128: return launch_k7<8>(q, m, gp, d, p, l, B, N, H, scale, fill, tile, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_attention_bwd_mma_d<true>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale,
+                                          fill, tile, stream);
 }

@@ -1,7 +1,8 @@
-// Tensor-core helpers shared by K1 (csrc/attention_qkv.cu) and K7
-// (csrc/masked_attention_bwd.cu): 16-byte cp.async, ldmatrix, mma.sync
-// m16n8k16 with bf16 inputs and fp32 sums, and the reductions over the four
-// lanes of a quad that hold one row of an accumulator tile.
+// Tensor-core helpers shared by K1 (csrc/attention_qkv.cu) and the backward
+// body of K4 and K7 (csrc/attention_bwd_mma.cuh): 16-byte cp.async,
+// ldmatrix, mma.sync m16n8k16 with bf16 inputs and fp32 sums, and the
+// reductions over the four lanes of a quad that hold one row of an
+// accumulator tile.
 #pragma once
 
 #include "common.cuh"

@@ -12,8 +12,11 @@ hand-written CUDA kernel for Hopper beside its plain PyTorch version.
 | :func:`masked_attention_tiled_bwd` (K7) | ``csrc/masked_attention_bwd.cu`` | :func:`masked_attention_tiled_bwd_plain` |
 | :func:`ln_matmul` (K8) | ``csrc/ln_matmul.cu`` | :func:`ln_matmul_plain` |
 
-K4 and K5 share ``csrc/attention_bwd.cuh``; K1 and K7 the tensor-core
-helpers of ``csrc/mma.cuh``. A wrapper runs its plain version for a CPU
+K4 and K7 share the tensor-core backward body of
+``csrc/attention_bwd_mma.cuh`` (K4 unmasked with one cls key, K7 masked with
+a cls key a tile); K5 and T6 keep the CUDA-core body of
+``csrc/attention_bwd.cuh``; K1, K4 and K7 use the tensor-core helpers of
+``csrc/mma.cuh``. A wrapper runs its plain version for a CPU
 tensor; for a CUDA tensor it launches its kernel (built on first use by
 :mod:`._build`) or raises. Each wrapper counts its kernel
 launches in its ``launches`` attribute. :func:`attention_qkv_fn` (K1 + K4),

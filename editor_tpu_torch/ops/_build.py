@@ -56,6 +56,8 @@ SIGNATURES = {
     "editor_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     # qkv, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, stream
     "editor_attention_qkv_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # N, D, the side of each scratch map (out; 0: none)
+    "editor_attention_qkv_bwd_scratch": [_I, _I, ctypes.POINTER(_I)],
     # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, warps, stream
     "editor_masked_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     # qkv, mask, out, B, N, H, D, scale, fill, tile, warps per block, stream

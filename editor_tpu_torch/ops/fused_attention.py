@@ -8,14 +8,17 @@ rollout (K2, :mod:`editor_tpu_torch.ops.rollout`) reads.
 On a CUDA tensor :func:`attention_qkv` launches the hand-written kernel
 ``csrc/attention_qkv.cu`` (bf16 only) or raises; on a CPU tensor it runs
 :func:`attention_qkv_plain`. Its VJP (K4) is :func:`attention_qkv_bwd`:
-``csrc/attention_qkv_bwd.cu`` on a CUDA tensor, :func:`attention_qkv_bwd_plain`
-on a CPU tensor. :func:`attention_qkv_fn` joins the two under autograd for
-the train step; the probabilities it writes carry no gradient, as in the JAX
-``custom_vjp`` (they only feed the rollout's top-k).
+``csrc/attention_qkv_bwd.cu`` on a CUDA tensor, the unmasked instance of the
+tensor-core body that K7 runs masked (``csrc/attention_bwd_mma.cuh``), and
+:func:`attention_qkv_bwd_plain` on a CPU tensor. :func:`attention_qkv_fn`
+joins the two under autograd for the train step; the probabilities it writes
+carry no gradient, as in the JAX ``custom_vjp`` (they only feed the
+rollout's top-k).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -102,12 +105,22 @@ def attention_qkv_bwd_plain(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
 K1_MAX_HEAD_DIM = 128  # the widest head editor_attention_qkv dispatches
 
 
+def _check_head_dim(name: str, D: int) -> None:
+    if D % 16 or not 0 < D <= K1_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} is not a multiple of 16 "
+                         f"up to {K1_MAX_HEAD_DIM}")
+
+
 def check_k1_head_dim(D: int) -> None:
     """Raise unless K1's CUDA kernel takes head dim ``D``: its tensor-core
     tiles are 16 deep, so a multiple of 16 up to 128."""
-    if D % 16 or not 0 < D <= K1_MAX_HEAD_DIM:
-        raise ValueError(f"attention_qkv: head dim {D} is not a multiple of 16 "
-                         f"up to {K1_MAX_HEAD_DIM}")
+    _check_head_dim("attention_qkv", D)
+
+
+def check_k4_head_dim(D: int) -> None:
+    """Raise unless K4's CUDA kernel takes head dim ``D``: the head dims K1
+    takes (:func:`check_k1_head_dim`), at every N up to 512."""
+    _check_head_dim("attention_qkv_bwd", D)
 
 
 def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -154,7 +167,10 @@ attention_qkv.launches = 0
 def attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                       scale: float) -> torch.Tensor:
     """K4: dqkv [B, N, 3C] from qkv [B, N, 3C] and the output's cotangent g
-    [B, N, C]. CUDA: ``csrc/attention_qkv_bwd.cu`` (bf16, contiguous); CPU:
+    [B, N, C]. CUDA: ``csrc/attention_qkv_bwd.cu`` (bf16, contiguous, qkv
+    and g 16-byte aligned, :func:`check_k4_head_dim`), with a [B H, Np, Np]
+    bf16 scratch pair where its chunked instance needs one (the kernel's
+    ``editor_attention_qkv_bwd_scratch`` gives Np); CPU:
     :func:`attention_qkv_bwd_plain`."""
     B, N, C3 = qkv.shape
     if C3 % (3 * num_heads):
@@ -164,18 +180,25 @@ def attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, g, num_heads, scale)
     D = C3 // 3 // num_heads
-    check_kernel_tensor("attention_qkv_bwd qkv", qkv, 3, D, N, align=4)
-    check_kernel_tensor("attention_qkv_bwd g", g, 3, D, N, align=4)
+    check_k4_head_dim(D)
+    # 16-byte cp.async copies of the head's rows
+    check_kernel_tensor("attention_qkv_bwd qkv", qkv, 3, D, N, align=16)
+    check_kernel_tensor("attention_qkv_bwd g", g, 3, D, N, align=16)
     from editor_tpu_torch.ops import _build
 
+    lib = _build.library()
+    side = ctypes.c_int()
+    _build.check(lib.editor_attention_qkv_bwd_scratch(N, D, ctypes.byref(side)),
+                 "attention_qkv_bwd")
     dqkv = torch.empty_like(qkv)
-    # per-(b, h) scratch of the rounded p and dl rows (csrc/attention_bwd.cuh)
-    pst = torch.empty((B * num_heads, N, N), dtype=qkv.dtype, device=qkv.device)
-    dlst = torch.empty_like(pst)
-    code = _build.library().editor_attention_qkv_bwd(
-        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), pst.data_ptr(), dlst.data_ptr(),
-        B, N, num_heads, D, float(scale),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+    scratch = [None, None]
+    if side.value:  # per-(b, h) scratch of the rounded attn and dl
+        scratch = [torch.empty((B * num_heads, side.value, side.value), dtype=qkv.dtype,
+                               device=qkv.device) for _ in range(2)]
+    code = lib.editor_attention_qkv_bwd(
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in scratch),
+        B, N, num_heads, D, float(scale), torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(code, "attention_qkv_bwd")
     attention_qkv_bwd.launches += 1
     return dqkv

@@ -4,9 +4,12 @@
 # this, this, other (so a drift of the card's clock shows as a difference
 # between the two runs of one side), then the registers, spills and SASS
 # instruction mix of each named source in both checkouts (kernel_sass.py).
-# K1's output and probs and K7's dqkv at its three shapes of the two sides
-# are compared element by element (kernel_digest.py --diff into diff.json;
-# the tensors go to a temporary directory).
+# K1's output and probs, K4's dqkv at each of its shapes and K7's dqkv at its
+# three shapes of the two sides are compared element by element
+# (kernel_digest.py --diff into diff.json; the tensors go to a temporary
+# directory). For K4 and K7 name attention_qkv_bwd.cu and
+# masked_attention_bwd.cu: their instances, and K5's, are listed one JSON
+# line each.
 #
 #   bash editor_tpu_torch/tools/compare_checkouts.sh <other checkout> <out dir> [source.cu ...]
 #

@@ -11,16 +11,18 @@ generator seeded with 0, in one fixed order: K1 with its probs and K4 at
 [384, 129, 2304]; K2 on peaked maps
 (L = 12, Z = 4608, N = 129); K3 and K5 at [384, 88] and [128, 264]; K6 and
 K7 at [384, 129], [128, 387] and [128, 258] (masks rand < 0.5 with the cls
-keys kept); K8 at [49536, 768] -> 2304 and -> 3072 + GELU. For each call it
+keys kept); K8 at [49536, 768] -> 2304 and -> 3072 + GELU; last K4 at the
+shapes its wrapper takes beyond the model's (B = 3 at N = 17, 200 and 512
+with D = 64, N = 129 at D = 96 and at D = 32). For each call it
 prints one JSON line: the kernel, the shape, the sha256 of its output bytes
 (the first 16 hex digits) and its ms from CUDA events. The card's name and
 power limit come first. Exits non-zero without a CUDA device.
 
-``--save`` also writes K1's output and probs and K7's dqkv at its three
-shapes to a file, and ``--diff`` prints, for two such files (two checkouts'
-kernels on the same input), the largest difference of each tensor, the share
-of elements that differ and the largest difference in bf16 ulps of the first
-file's element.
+``--save`` also writes K1's output and probs, K4's dqkv at each of its
+shapes and K7's dqkv at its three shapes to a file, and ``--diff`` prints,
+for two such files (two checkouts' kernels on the same input), the largest
+difference of each tensor, the share of elements that differ and the largest
+difference in bf16 ulps of the first file's element.
 """
 
 from __future__ import annotations
@@ -60,8 +62,11 @@ def event_ms(fn, iters: int) -> float:
 
 
 def diff(path_a: str, path_b: str) -> dict:
-    """{tensor: {max_abs, share_differing, max_bf16_ulps}} of two --save files
-    (ulps of the first file's element; where that is 0, the difference)."""
+    """{tensor: {max_abs, share_differing, max_bf16_ulps, share_over_one_ulp}}
+    of two --save files (ulps of the first file's element; where that is 0,
+    the difference; near-zero elements of a sum taken in another order give
+    large ulps: share_over_one_ulp is ``_bench.bf16_off_share``, the share
+    more than one ulp + 1e-6 of the first file's largest magnitude away)."""
     from editor_tpu_torch.tools import _bench  # this checkout's: --diff reads files only
 
     a, b = (torch.load(p, map_location="cpu") for p in (path_a, path_b))
@@ -71,14 +76,16 @@ def diff(path_a: str, path_b: str) -> dict:
         d = (x - y).abs()
         ulp = _bench.bf16_ulp(x)
         res[name] = dict(max_abs=float(d.max()), share_differing=float((d > 0).float().mean()),
-                         max_bf16_ulps=float((d / torch.where(ulp > 0, ulp, 1.0)).max()))
+                         max_bf16_ulps=float((d / torch.where(ulp > 0, ulp, 1.0)).max()),
+                         share_over_one_ulp=_bench.bf16_off_share(y, x))
     return res
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--save", help="write K1's output and probs and K7's dqkv to this file")
+    ap.add_argument("--save", help="write K1's output and probs and K4's and K7's dqkv to "
+                    "this file")
     ap.add_argument("--diff", nargs=2, metavar=("A", "B"), help="compare two --save files")
     args = ap.parse_args(argv)
     if args.diff:
@@ -117,6 +124,8 @@ def main(argv=None) -> None:
         out, _ = ops.attention_qkv(qkv, H, SCALE, probs_out=probs)
         saved.update(out=out.cpu(), probs=probs.cpu())
     line("K4 attention_qkv_bwd", qkv.shape, lambda: ops.attention_qkv_bwd(qkv, g, H, SCALE))
+    if args.save:
+        saved[f"K4 dqkv {list(qkv.shape)}"] = ops.attention_qkv_bwd(qkv, g, H, SCALE).cpu()
     del qkv, g, probs
     maps = torch.empty(12, 384, H, 129, 129, dtype=bf, device="cuda")
     for l in range(12):
@@ -139,8 +148,6 @@ def main(argv=None) -> None:
         if args.save:
             saved[f"K7 dqkv [{B}, {N}]"] = ops.masked_attention_tiled_bwd(
                 qkv, m, g, H, SCALE, FILL, 129).cpu()
-    if args.save:
-        torch.save(saved, args.save)
     del qkv, m, g
     torch.cuda.empty_cache()
     x = randn(384 * 129, C, mul=2.0)
@@ -150,6 +157,17 @@ def main(argv=None) -> None:
         gm = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
         bt = 0.1 * torch.randn(C, generator=gen, device="cuda")
         line("K8 ln_matmul", (x.shape[0], C, O), lambda: ops.ln_matmul(x, w, b, gm, bt, 1e-6, act))
+    del x
+    for B, N, Hx, Dx in ((3, 17, H, D), (3, 200, H, D), (3, 512, H, D), (3, 129, 8, 96),
+                         (3, 129, H, 32)):
+        qkv, g = randn(B, N, 3 * Hx * Dx), randn(B, N, Hx * Dx)
+        line("K4 attention_qkv_bwd", qkv.shape,
+             lambda: ops.attention_qkv_bwd(qkv, g, Hx, Dx ** -0.5))
+        if args.save:
+            saved[f"K4 dqkv {list(qkv.shape)}"] = ops.attention_qkv_bwd(qkv, g, Hx,
+                                                                        Dx ** -0.5).cpu()
+    if args.save:
+        torch.save(saved, args.save)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,11 @@ and ``-Xptxas -v`` into a cubin in a temporary directory, disassembles it
 with ``cuobjdump -sass``, and prints one JSON line per kernel whose mangled
 name matches REGEX: its registers, spill bytes, static shared memory, the
 number of SASS instructions and the count of each opcode (without its
-modifiers). The source may lie in another checkout: its includes resolve
-beside it. Needs ``nvcc`` and ``cuobjdump`` of the CUDA toolkit, no card.
+modifiers), with its demangled name (``cu++filt``; the template arguments
+tell the instances apart, e.g. K4's and K7's ``attention_bwd_mma_kernel<
+masked, head-dim tiles, key tiles, resident>``). The
+source may lie in another checkout: its includes resolve beside it. Needs
+``nvcc``, ``cuobjdump`` and ``cu++filt`` of the CUDA toolkit, no card.
 """
 
 from __future__ import annotations
@@ -60,6 +63,18 @@ def sass_opcodes(sass: str) -> dict:
     return out
 
 
+def demangle(names, cufilt: str) -> dict:
+    """{mangled: demangled} through ``cu++filt``, one name an argument; each
+    name maps to itself where ``cu++filt`` is missing or gives no line for
+    each name."""
+    names = list(names)
+    if not names or not Path(cufilt).exists():
+        return {n: n for n in names}
+    out = subprocess.run([cufilt, *names], capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("source", type=Path)
@@ -77,11 +92,12 @@ def main(argv=None) -> None:
         sass = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
                               check=True).stdout
     ops = sass_opcodes(sass)
-    for name in sorted(set(info) | set(ops)):
-        if not re.search(args.match, name):
-            continue
+    names = sorted(n for n in set(info) | set(ops) if re.search(args.match, n))
+    plain = demangle(names, str(Path(nvcc).with_name("cu++filt")))
+    for name in names:
         counts = ops.get(name, collections.Counter())
-        print(json.dumps(dict(source=str(args.source), kernel=name, **info.get(name, {}),
+        print(json.dumps(dict(source=str(args.source), kernel=name, demangled=plain[name],
+                              **info.get(name, {}),
                               instructions=sum(counts.values()),
                               opcodes=dict(counts.most_common()))), flush=True)
 

@@ -38,10 +38,11 @@ CATEGORIES = (
     ("K1 attention_qkv", r"attention_qkv_kernel"),
     ("K2 rollout_chain", r"rollout_chain_kernel"),
     ("K3 masked_attention", r"masked_attention_kernel"),
-    ("K4 attention_qkv_bwd", r"attention_bwd_kernel<false"),
-    ("K5 masked_attention_bwd", r"attention_bwd_kernel<true"),
+    # K4 and K7: the tensor-core backward body, unmasked and masked
+    ("K4 attention_qkv_bwd", r"attention_bwd_mma_kernel<false"),
+    ("K5 masked_attention_bwd", r"attention_bwd_kernel<"),
     ("K6 masked_attention_tiled", r"masked_attention_tiled_kernel"),
-    ("K7 masked_attention_tiled_bwd", r"masked_attention_tiled_bwd_kernel"),
+    ("K7 masked_attention_tiled_bwd", r"attention_bwd_mma_kernel<true"),
     ("K8 ln_matmul", r"ln_matmul_kernel"),
     ("T1/T2 attention variants", r"attention_variant_kernel"),
     ("T3 attn_layer", r"attn_layer_kernel"),

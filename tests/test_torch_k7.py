@@ -40,7 +40,7 @@ jax_ma = importlib.import_module("editor_tpu.ops.masked_attention")
 FILL = -65504.0
 TILE = 129
 B = 4
-SHARE_TOL = 0.005  # chip_smoke.K7_SHARE_TOL
+SHARE_TOL = 0.005  # chip_smoke.SHARE_TOL
 # (N, H, D): 1, 2 and 3 modality tiles at a narrow width, and the flagship's heads
 SHAPES = [(129, 2, 16), (258, 2, 16), (387, 2, 16), (129, 12, 64)]
 

@@ -23,9 +23,9 @@ from editor_tpu_torch.tools import profile_train as pt
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float>",
      "LayerNorm"),
     ("void at::native::vectorized_elementwise_kernel<4, GeluCUDAKernelImpl>", "GELU"),
-    ("void editor_kernels::attention_bwd_kernel<false>(__nv_bfloat16 const*, ...)",
-     "K4 attention_qkv_bwd"),
-    ("void editor_kernels::attention_bwd_kernel<true>(__nv_bfloat16 const*, ...)",
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<false, 4, 9, true>"
+     "(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
+    ("void editor_kernels::attention_bwd_kernel<4>(__nv_bfloat16 const*, ...)",
      "K5 masked_attention_bwd"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<TensorListMetadata<3>>",
      "optimizer (foreach)"),
@@ -35,31 +35,32 @@ from editor_tpu_torch.tools import profile_train as pt
      "LayerNorm"),
     ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_kernel(...)",
      "K6 masked_attention_tiled"),
-    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel(...)",
-     "K7 masked_attention_tiled_bwd"),
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 2, 9, true>"
+     "(...)", "K7 masked_attention_tiled_bwd"),
     ("void editor_kernels::(anonymous namespace)::masked_attention_kernel(...)",
      "K3 masked_attention"),
     ("void editor_kernels::(anonymous namespace)::ln_matmul_kernel(...)", "K8 ln_matmul"),
-    # the warp count is a template argument of K3, K5, K6 (the T6 sweep)
-    ("void editor_kernels::attention_bwd_kernel<false, 4>(__nv_bfloat16 const*, ...)",
-     "K4 attention_qkv_bwd"),
-    ("void editor_kernels::attention_bwd_kernel<true, 4>(__nv_bfloat16 const*, ...)",
-     "K5 masked_attention_bwd"),
-    ("void editor_kernels::attention_bwd_kernel<true, 8>(__nv_bfloat16 const*, ...)",
+    # the warp count is a template argument of K3, K5, K6 (the T6 sweep); K4's
+    # chunked and resident instances
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<false, 8, 2, false>"
+     "(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<false, 4, 9, true>"
+     "(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
+    ("void editor_kernels::attention_bwd_kernel<8>(__nv_bfloat16 const*, ...)",
      "K5 masked_attention_bwd"),
     ("void editor_kernels::(anonymous namespace)::masked_attention_kernel<8>(...)",
      "K3 masked_attention"),
     ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_kernel<16>(...)",
      "K6 masked_attention_tiled"),
-    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel<8>(...)",
-     "K7 masked_attention_tiled_bwd"),
-    # K7 on the tensor cores: head-dim tiles, key tiles and the resident form
-    # are template arguments; not K4's or K5's category
-    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel<4, 9, true>"
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 8, 5, true>"
+     "(...)", "K7 masked_attention_tiled_bwd"),
+    # K7 on the tensor cores: the masked switch, head-dim tiles, key tiles and
+    # the resident form are template arguments; not K4's or K5's category
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 4, 9, true>"
      "(__nv_bfloat16 const*, float const*, __nv_bfloat16 const*, __nv_bfloat16*, "
      "__nv_bfloat16*, __nv_bfloat16*, int, int, float, float, int)",
      "K7 masked_attention_tiled_bwd"),
-    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_bwd_kernel<4, 2, false>"
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 4, 2, false>"
      "(...)", "K7 masked_attention_tiled_bwd"),
     # K1 on the tensor cores: head-dim tiles, key tiles and the resident
     # form are template arguments
@@ -141,6 +142,14 @@ def test_kernel_sass_reads_ptxas_and_sass():
     assert ops["_Z20attention_qkv_kernelPK13__nv_bfloat16"] == {"EXIT": 1}
 
 
+def test_kernel_sass_demangle_without_cufilt(tmp_path):
+    from editor_tpu_torch.tools import kernel_sass
+
+    names = ["_Z20rollout_chain_kernelv"]
+    assert kernel_sass.demangle(names, str(tmp_path / "cu++filt")) == {names[0]: names[0]}
+    assert kernel_sass.demangle([], str(tmp_path / "cu++filt")) == {}
+
+
 def test_bf16_ulp():
     from editor_tpu_torch.tools import _bench
 
@@ -158,5 +167,7 @@ def test_kernel_digest_diff(tmp_path):
     torch.save({"out": a, "probs": a}, tmp_path / "a.pt")
     torch.save({"out": b, "probs": a}, tmp_path / "b.pt")
     res = kernel_digest.diff(str(tmp_path / "a.pt"), str(tmp_path / "b.pt"))
-    assert res["out"] == dict(max_abs=0.0078125, share_differing=0.25, max_bf16_ulps=1.0)
-    assert res["probs"] == dict(max_abs=0.0, share_differing=0.0, max_bf16_ulps=0.0)
+    assert res["out"] == dict(max_abs=0.0078125, share_differing=0.25, max_bf16_ulps=1.0,
+                              share_over_one_ulp=0.0)
+    assert res["probs"] == dict(max_abs=0.0, share_differing=0.0, max_bf16_ulps=0.0,
+                                share_over_one_ulp=0.0)
