@@ -25,7 +25,12 @@ Phases, each printing its lines and its seconds:
      and at N = 512 with D = 96 and 128; its time must be at most 2x the
      SDPA backward's. K7 also at D = 32, an odd batch and a sequence masked but
      for its cls tokens; its time on the two model shapes must be at most 3x
-     the SDPA backward's;
+     the SDPA backward's. K3 is held against its plain version in the TPU
+     kernel's form (masked_attention_qkv_tpu_plain) by the same share test (at
+     most 0.5% of its elements more than one bf16 ulp off), which must fail
+     the unrounded form and the XLA form (masked_attention_qkv_plain) in the
+     same run, at the two model shapes, x30, the batch-1 shapes and 12 more
+     (N = 1-512, D = 32-128); masked query rows must be exact zeros;
   3. forward: the flagship tri-modal eval forward (ViT-B/16, 256x128,
      seeded random weights, B=128, bf16, compact tail) through
      build_eval_step; one forward launches K1 12, K2 1 and K3 2 times, and
@@ -388,18 +393,22 @@ def kernel_phase(gen: torch.Generator) -> dict:
     del maps, roll, ref_roll
 
     # K3 and K5 at the per-modality [384, 88, 3C] and joint [128, 264, 3C]
-    # shapes; the batch-1 serving shapes first
+    # shapes; the batch-1 serving shapes first. K3 is held to its plain
+    # version in the TPU kernel's form by the share test (_k3_check), which
+    # must fail the unrounded and the XLA form in the same run
+    k3_batch1 = {}
     for Bm, N in ((3, 88), (1, 264)):
         qkv = randn(Bm, N, 3 * C)
         m = (torch.rand(Bm, N, generator=gen, device=dev) < 0.5).float()
         m[:, 0] = 1.0
-        e = _max_err(ops.masked_attention_qkv(qkv, m, H, SCALE, FILL),
-                     ops.masked_attention_qkv_plain(qkv, m, H, SCALE, FILL))
-        _require(f"masked_attention_qkv batch-1 N={N}", e, 2e-2)
+        k3_batch1[f"B{Bm}_N{N}"] = _k3_check(
+            f"masked_attention_qkv batch-1 N={N}", ops.masked_attention_qkv(qkv, m, H, SCALE, FILL),
+            ops.masked_attention_qkv_tpu_plain(qkv, m, H, SCALE, FILL), m)
         g = randn(Bm, N, C)
         e = _scaled(ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL),
                    ops.masked_attention_qkv_bwd_plain(qkv, m, g, H, SCALE, FILL))
         _require(f"masked_attention_qkv_bwd batch-1 N={N} (scaled)", e, 1e-2)
+    say("2 kernel masked_attention_qkv batch-1", checks=json.dumps(k3_batch1))
     fwd, bwd = [], []
     for Bm, N in ((3 * B_EVAL, 88), (B_EVAL, 264)):
         qkv = randn(Bm, N, 3 * C)
@@ -407,22 +416,16 @@ def kernel_phase(gen: torch.Generator) -> dict:
         m = (m | (torch.arange(N, device=dev) % 88 == 0)[None, :]).float()
         m[0, 1:] = 0.0  # one sequence with only its cls token
         got = ops.masked_attention_qkv(qkv, m, H, SCALE, FILL)
-        ref = ops.masked_attention_qkv_plain(qkv, m, H, SCALE, FILL)
-        torch.cuda.synchronize()
-        e = _max_err(got, ref)
-        _require(f"masked_attention_qkv N={N}", e, 2e-2)
-        if got[m == 0].abs().max() != 0:
-            raise AssertionError("masked_attention_qkv: masked query rows not 0")
+        ref = ops.masked_attention_qkv_tpu_plain(qkv, m, H, SCALE, FILL)
+        k3 = _k3_check(f"masked_attention_qkv N={N}", got, ref, m)
+        caught = _k3_wrong_forms(qkv, m, ref, H, D)
+        del got, ref
         qkv30 = randn(Bm, N, 3 * C, mul=30.0)
-        got30 = ops.masked_attention_qkv(qkv30, m, H, SCALE, FILL)
-        ref30 = ops.masked_attention_qkv_plain(qkv30, m, H, SCALE, FILL)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got30.float()).all():
-            raise AssertionError("masked_attention_qkv: non-finite at |logit| ~ 1e3")
-        e30 = _scaled(got30, ref30)
-        _require(f"masked_attention_qkv N={N} x30 (scaled)", e30, 1e-2)
+        k3_30 = _k3_check(f"masked_attention_qkv N={N} x30", ops.masked_attention_qkv(
+            qkv30, m, H, SCALE, FILL), ops.masked_attention_qkv_tpu_plain(qkv30, m, H, SCALE, FILL),
+            m, scaled=True)
         ms = cuda_ms(lambda: ops.masked_attention_qkv(qkv, m, H, SCALE, FILL))
-        plain_ms = cuda_ms(lambda: ops.masked_attention_qkv_plain(qkv, m, H, SCALE, FILL))
+        plain_ms = cuda_ms(lambda: ops.masked_attention_qkv_tpu_plain(qkv, m, H, SCALE, FILL))
         # timed only: a key mask, as a fully masked query row differs there
         keys = m.bool()[:, None, None, :]
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*_heads(qkv), attn_mask=keys,
@@ -430,11 +433,14 @@ def kernel_phase(gen: torch.Generator) -> dict:
         # the work this mask needs: valid query rows x valid keys
         pairs = float((m.sum(1) ** 2).sum())
         nbytes = 2.0 * Bm * N * (3 * C + C) + 4.0 * Bm * N
-        fwd.append(dict(err=e, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        flops=4.0 * H * D * pairs, bytes=nbytes))
-        say("2 kernel masked_attention_qkv", shape=list(qkv.shape), err=e,
-            x30_scaled_err=e30, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            sdpa_ms=f"{lib_ms:.4f}")
+        fwd.append(dict(err=k3["err"], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        flops=4.0 * H * D * pairs, bytes=nbytes, share=k3["share"],
+                        wrong_forms=caught))
+        say("2 kernel masked_attention_qkv", shape=list(qkv.shape), err=k3["err"],
+            share=k3["share"], share_tol=SHARE_TOL, wrong_forms=json.dumps(caught),
+            x30_scaled_err=k3_30["err"], x30_share=k3_30["share"], ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
+            bound_ms=f"{bound(4.0 * H * D * pairs, nbytes)['bound_ms']:.4f}")
 
         g = randn(Bm, N, C)
         dq = ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL)
@@ -459,9 +465,14 @@ def kernel_phase(gen: torch.Generator) -> dict:
         say("2 kernel masked_attention_qkv_bwd", shape=list(qkv.shape), scaled_err=e5,
             x30_scaled_err=e5_30, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
             sdpa_bwd_ms=f"{lib_ms:.4f}")
-        del qkv, qkv30, got, ref, got30, ref30, g, dq, ref_dq, dq30, ref_dq30
+        del qkv, qkv30, g, dq, ref_dq, dq30, ref_dq30
     # one forward (one train step) runs each shape once: report the sums
     _sum_rows(results, "masked_attention_qkv", fwd)
+    results["masked_attention_qkv"].update(
+        shares=[c["share"] for c in fwd], wrong_forms=[c["wrong_forms"] for c in fwd],
+        batch1=k3_batch1, extra_shapes=_k3_extra_shapes(randn, gen))
+    say("2 kernel masked_attention_qkv extra shapes",
+        checks=json.dumps(results["masked_attention_qkv"]["extra_shapes"]))
     _sum_rows(results, "masked_attention_qkv_bwd", bwd)
     tiled_kernels(randn, gen, results)
     ln_matmul_kernel(randn, gen, results)
@@ -517,6 +528,71 @@ def _wrong_forms(name: str, unrounded, cls_rounded, ref, T: int, Cx: int) -> dic
             raise AssertionError(f"{name} share test too loose: the {form} is off in only "
                                  f"{share} of the elements")
     return caught
+
+
+def _k3_check(name: str, got, ref, m, scaled: bool = False) -> dict:
+    """K3 against its plain version in the TPU kernel's form: finite; within
+    2e-2 (scaled by the largest magnitude: 1e-2); at most SHARE_TOL of the
+    elements more than one bf16 ulp (+1e-6 of the max) off
+    (``_bench.bf16_off_share``: the two round at the same points and differ
+    only in the order of the fp32 sums); query rows with mask 0 exact zeros."""
+    from editor_tpu_torch.tools import _bench
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = _scaled(got, ref) if scaled else _max_err(got, ref)
+    _require(name + (" (scaled)" if scaled else ""), err, 1e-2 if scaled else 2e-2)
+    share = _bench.bf16_off_share(got, ref)
+    _require(f"{name} share off the plain version", share, SHARE_TOL)
+    if torch.count_nonzero(got[m == 0]):
+        raise AssertionError(f"{name}: masked query rows not 0")
+    return dict(err=err, share=share)
+
+
+def _k3_wrong_forms(qkv, m, ref, Hx: int, Dx: int) -> dict:
+    """K3's share test must fail the wrong forms it exists to catch: the
+    unrounded form (the TPU-form plain version on fp32 inputs, rounded once)
+    and the XLA form (masked_attention_qkv_plain: normalised, re-masked
+    weights rounded), each more than SHARE_TOL of the elements off."""
+    from editor_tpu_torch import ops
+    from editor_tpu_torch.tools import _bench
+
+    caught = dict(
+        unrounded_share=_bench.bf16_off_share(ops.masked_attention_qkv_tpu_plain(
+            qkv.float(), m, Hx, Dx ** -0.5, FILL).to(torch.bfloat16), ref),
+        xla_share=_bench.bf16_off_share(ops.masked_attention_qkv_plain(
+            qkv, m, Hx, Dx ** -0.5, FILL), ref))
+    for form, share in caught.items():
+        if not share > SHARE_TOL:
+            raise AssertionError(f"masked_attention_qkv share test too loose: the {form} is "
+                                 f"off in only {share} of the elements")
+    return caught
+
+
+def _k3_extra_shapes(randn, gen: torch.Generator) -> dict:
+    """K3 beyond the model's shapes, held as at them (_k3_check), each with a
+    sequence masked but for its cls token: B = 3 at N = 1, 15, 16, 17 (one
+    16-row tile and past it), 144 and 145 (the last resident N and the first
+    chunked one at D <= 96), 200 and 512 (D = 64, H = 12); N = 264 at D = 32
+    (H = 12), 96 (H = 8) and 128 (H = 6, 4 key chunks of 80); N = 512 at
+    D = 128 (H = 6), where k and v no longer fit in shared memory whole and
+    come a chunk at a time."""
+    from editor_tpu_torch import ops
+
+    dev, out = "cuda", {}
+    shapes = [(Nx, H, D) for Nx in (1, 15, 16, 17, 144, 145, 200, 512)]
+    shapes += [(264, H, 32), (264, 8, 96), (264, 6, 128), (512, 6, 128)]
+    for Nx, Hx, Dx in shapes:
+        qkv = randn(3, Nx, 3 * Hx * Dx)
+        m = (torch.rand(3, Nx, generator=gen, device=dev) < 0.5).float()
+        m[:, 0] = 1.0
+        m[1, 1:] = 0.0
+        out[f"N{Nx}_H{Hx}_D{Dx}"] = _k3_check(
+            f"masked_attention_qkv B=3 N={Nx} H={Hx} D={Dx}",
+            ops.masked_attention_qkv(qkv, m, Hx, Dx ** -0.5, FILL),
+            ops.masked_attention_qkv_tpu_plain(qkv, m, Hx, Dx ** -0.5, FILL), m)
+    return out
 
 
 def _k4_extra_shapes(randn) -> dict:
@@ -901,10 +977,10 @@ def variant_phase(gen: torch.Generator) -> dict:
     del maps, ref_bf, ref_f32, got_bf, got_rows, got
     torch.cuda.empty_cache()
 
-    # T6: K3 and K5 with 8 warps per block at the compact tail's shapes, masks
-    # as phase 2's; one forward and one backward of each shape. The counts sit
-    # at the launch: the 8-warp pair counts as T6 alone, the 4-warp pair as K3
-    # and K5 alone
+    # T6: K3 and K5 with 8 warps per block (the CUDA-core bodies) at the
+    # compact tail's shapes, masks as phase 2's; one forward and one backward
+    # of each shape. The counts sit at the launch: the 8-warp pair counts as T6
+    # alone, the 4-warp pair (K3's tensor-core kernel, K5) as K3 and K5 alone
     calls = []
     for Bm, Nm in ((3 * B_EVAL, 88), (B_EVAL, 264)):
         qkv = randn(Bm, Nm, 3 * C)
@@ -917,8 +993,13 @@ def variant_phase(gen: torch.Generator) -> dict:
         counts = [launch_counts()]
         e_f = _max_err(fwd, bench_full_kernel.masked_full_plain(qkv, m, H, SCALE))
         e_b = _scaled(bwd, bench_full_kernel.masked_full_bwd_plain(qkv, m, g, H, SCALE))
-        same = (torch.equal(fwd, bench_full_kernel.masked_full(qkv, m, H, SCALE, 4)),
-                torch.equal(bwd, bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 4)))
+        # against the 4-warp pair: K5 is the same CUDA-core body (equal bytes),
+        # K3 the tensor-core kernel (the same rounding points: the share of
+        # elements more than one bf16 ulp apart)
+        vs4 = dict(fwd_share_off_4_warps=_bench.bf16_off_share(
+                       fwd, bench_full_kernel.masked_full(qkv, m, H, SCALE, 4)),
+                   bwd_equal_to_4_warps=torch.equal(
+                       bwd, bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 4)))
         counts.append(launch_counts())
         torch.cuda.synchronize()
         seen = [(c["masked_full"], c["masked_attention_qkv"], c["masked_attention_qkv_bwd"])
@@ -940,7 +1021,7 @@ def variant_phase(gen: torch.Generator) -> dict:
                      *_heads(qkv), attn_mask=keys, scale=SCALE)) + _sdpa_bwd_ms(qkv, g, m.bool()))
         calls.append(c)
         say("7 variant masked_full (T6)", shape=list(qkv.shape), warps=8, fwd_err=e_f,
-            bwd_scaled_err=e_b, equal_to_4_warps=json.dumps(same), ms=f"{c['ms']:.4f}",
+            bwd_scaled_err=e_b, vs_4_warps=json.dumps(vs4), ms=f"{c['ms']:.4f}",
             plain_ms=f"{c['plain_ms']:.4f}", sdpa_fwd_bwd_ms=f"{c['library_ms']:.4f}",
             bound_ms=f"{bound(c['flops'], c['bytes'])['bound_ms']:.4f}")
         del qkv, g, fwd, bwd

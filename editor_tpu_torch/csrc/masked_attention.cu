@@ -9,42 +9,53 @@
 // T6, tools/bench_full_kernel.py:54 (_qkv_masked_full_kernel at other group
 // sizes).
 //
-// Contract (same as the plain versions masked_attention_qkv_plain and
+// Contract (the plain versions masked_attention_qkv_tpu_plain and
 // masked_attention_tiled_plain, editor_tpu_torch/ops/masked_attention.py):
 //   qkv  [B, N, 3C] bf16, mask [B, N] fp32 (1 = keep), out [B, N, C] bf16.
-//   K3: a logit whose pair mask mask[n] * mask[m] is 0 is REPLACED by `fill`
-//   (-65504), as its plain version does; its TPU kernel adds `fill` instead.
-//   K6: `fill` is ADDED to such a logit (lp + pair_bias), as its TPU kernel
-//   does. Both forms give exactly 0 weight to every masked key of a row that
-//   has a valid key (its own). Output rows are multiplied by the query mask, so
-//   a fully masked query row is written as exact zeros (this kernel skips its
-//   work).
+//   `fill` (-65504) is ADDED to a logit whose pair mask mask[n] * mask[m] is
+//   0, as the TPU kernels do; that gives exactly 0 weight to every masked key
+//   of a row that has a valid key (its own). Output rows are multiplied by
+//   the query mask, so a fully masked query row is written as exact zeros.
 //   As on the TPU: the row-max-stabilised exps are rounded to bf16 before the
 //   e.v product and the 1/sum normalisation (times the query mask) scales the
-//   [N, D] output row ("lazy normalisation"), not the [N, N] weights. K6 keeps
-//   the exp of each tile's cls key (m % tile == 0) in fp32 in the e.v sum, as
-//   the TPU kernel's separate fp32 cls-key column does; every other exp is
-//   rounded.
+//   [N, D] output row ("lazy normalisation"), not the [N, N] weights. K3
+//   rounds every exp; K6 keeps the exp of each tile's cls key (m % tile == 0)
+//   in fp32 in the e.v sum, as the TPU kernel's separate fp32 cls-key column
+//   does.
 //
-// What bounds it on the H100: the bytes are small (qkv read once, out written
-// once: ~0.1 GB per call at [384, 88, 2304] and [128, 264, 2304], 0.3 GB at
-// [384, 129, 2304] and [128, 387, 2304], ~0.1 ms at 3.35 TB/s); the q.k and
-// e.v products run on the CUDA cores in fp32 in this first version, so FMA
-// issue and shared-memory reads bound it, not the bytes. Left on the table:
-// tensor cores (mma/wgmma over 64-row query tiles), and at N = 387 a block per
-// head does 3x the work of N = 129 with the same 4 warps.
+// What bounds K3 on the H100: the bytes (qkv read once, out written once:
+// 0.42 GB for [384, 88, 2304] and [128, 264, 2304] together, 0.12 ms at 3.35
+// TB/s) against 9.3 GFLOP of q.k and e.v products over the valid pairs of
+// phase 2's masks (0.01 ms on the bf16 tensor cores): bytes.
 //
-// Design: one block per (head, sequence) pair, 4 warps on the model paths
-// (a compile-time parameter: 8 and 16 for the block-shape sweeps of T6,
-// tools/bench_full_kernel.py, and of tools/bench_attn2.py), the same layout as K1
-// (csrc/attention_qkv.cu): the head's k and v slices staged in padded dynamic
-// shared memory (72 KB at N = 264, 114 KB at N = 387, 139 KB at N = 512, hence
-// the opt-in attribute), one query row per warp, lanes over keys for the
-// logits and over head-dim pairs for e.v. The key mask sits in shared memory
-// beside k and v. The TPU's split into per-tile patch logits plus cls columns
-// (a 128-lane layout artefact) is gone: one row of N logits per warp, with the
-// cls keys recognised by their index.
-#include "common.cuh"
+// K3 (tile == 0, the model paths' 4 warps): the masked instance of the
+// tensor-core forward attention_fwd_mma_kernel<true, DK, KT, resident> in
+// csrc/attention_fwd_mma.cuh, K1's body: mma.sync m16n8k16 for q.k and e.v,
+// k and v staged with cp.async, the key mask turned into a per-key bias in
+// shared memory. N <= 144 (D <= 96; 80 above): the resident instance, a
+// row's logits in registers, one pass over them. Past that the chunked
+// instance: pass 1 makes each key chunk's logits for the row max, pass 2
+// makes them again for the exps, their sum, the bf16 rounding and e.v, with k
+// and v of the head staged whole once where they fit in shared memory. The
+// grid: one block per (head, sequence) and chunk of query tiles; the chunks
+// are as few as fill the card twice over (launch_k3, from N and B H): one at
+// the model's batch, 5 at the batch-1 joint shape [1, 264] (60 blocks in
+// place of 12). D a multiple of 16 up to 128; qkv 16-byte aligned.
+//
+// K6 and T6 keep this file's CUDA-core body (masked_attention_body): one
+// block per (head, sequence) pair, 4 warps on the model path (a compile-time
+// parameter: 8 and 16 for the block-shape sweeps of T6,
+// tools/bench_full_kernel.py, and of tools/bench_attn2.py), the head's k and
+// v slices staged in padded dynamic shared memory (72 KB at N = 264, 114 KB
+// at N = 387, 139 KB at N = 512, hence the opt-in attribute), one query row
+// per warp, lanes over keys for the logits and over head-dim pairs for e.v,
+// q.k and e.v in fp32 on the CUDA cores. The key mask sits in shared memory
+// beside k and v. The TPU's split into per-tile patch logits plus cls
+// columns (a 128-lane layout artefact) is gone: one row of N logits per
+// warp, with the cls keys recognised by their index. tile == 0 is T6's
+// forward half, K3's CUDA-core body until its tensor-core redesign; there a
+// masked logit is REPLACED by `fill` (the same weights as adding it).
+#include "attention_fwd_mma.cuh"
 
 namespace editor_kernels {
 namespace {
@@ -55,8 +66,8 @@ size_t masked_smem_bytes(int N, int D, int warps) {
          (size_t)warps * (D + Np) * sizeof(float);
 }
 
-// tile == 0: K3 (fill replaces the logit, every exp rounded); tile > 0: K6
-// (fill added, the exps of the keys m % tile == 0 kept in fp32).
+// tile == 0: T6's forward (fill replaces the logit, every exp rounded);
+// tile > 0: K6 (fill added, the exps of the keys m % tile == 0 kept in fp32).
 template <int kW>
 __device__ __forceinline__ void masked_attention_body(
     const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out,
@@ -129,33 +140,83 @@ masked_attention_tiled_kernel(const bf16* __restrict__ qkv, const float* __restr
   masked_attention_body<kW>(qkv, mask, out, N, H, D, scale, fill, tile);
 }
 
-// tile == 0: K3, else K6, with kW warps per block
-template <int kW>
+// kTiled: K6 (tile > 0), else T6's forward; kW warps per block
+template <int kW, bool kTiled>
 int launch_masked(const void* qkv, const void* mask, void* out, int B, int N, int H, int D,
                   float scale, float fill, int tile, void* stream) {
   const size_t smem = masked_smem_bytes(N, D, kW);
-  cudaError_t err = tile ? allow_dynamic_smem(masked_attention_tiled_kernel<kW>, smem)
-                         : allow_dynamic_smem(masked_attention_kernel<kW>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const auto* q = static_cast<const bf16*>(qkv);
   const auto* m = static_cast<const float*>(mask);
   auto* o = static_cast<bf16*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (tile)
+  cudaError_t err;
+  if constexpr (kTiled) {
+    err = allow_dynamic_smem(masked_attention_tiled_kernel<kW>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     masked_attention_tiled_kernel<kW><<<dim3(H, B), kW * 32, smem, st>>>(q, m, o, N, H, D,
                                                                         scale, fill, tile);
-  else
+  } else {
+    err = allow_dynamic_smem(masked_attention_kernel<kW>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     masked_attention_kernel<kW><<<dim3(H, B), kW * 32, smem, st>>>(q, m, o, N, H, D, scale,
                                                                   fill);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_masked_warps(const void* qkv, const void* mask, void* out, int B, int N, int H,
-                        int D, float scale, float fill, int tile, int warps, void* stream) {
-  switch (warps) {
-    case 4: return launch_masked<4>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
-    case 8: return launch_masked<8>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
-    case 16: return launch_masked<16>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
+// K3: kv staged whole once where k, v and the key bias take at most this
+// much shared memory (the most a block may have)
+constexpr size_t kK3WholeKvBytes = 232448;
+// blocks an SM the query chunks aim at where B H blocks alone are fewer
+constexpr int kK3BlocksPerSm = 2;
+
+template <int DK>
+int launch_k3(const bf16* qkv, const float* mask, bf16* out, int B, int N, int H, float scale,
+              float fill, cudaStream_t stream) {
+  constexpr int KT = k1_key_tiles(DK), D = 16 * DK, LD = D + 8, KC = 16 * KT;
+  const int npad = (N + 15) & ~15, ntiles = npad / 16;
+  const int nch = (npad + KC - 1) / KC;
+  const bool resident = nch == 1;
+  const size_t bias = (size_t)npad * sizeof(float);
+  const size_t kv_whole = 2 * (size_t)npad * LD * sizeof(bf16);
+  const bool whole = resident || kv_whole + bias <= kK3WholeKvBytes;
+  const size_t smem = (whole ? kv_whole : 2 * (size_t)KC * LD * sizeof(bf16)) + bias;
+  // query chunks: as few as give kK3BlocksPerSm blocks an SM, at most one
+  // round of warps each
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int max_warps = resident ? kK1ResidentWarps : kK1MaxWarps;
+  const int want = (kK3BlocksPerSm * sms + B * H - 1) / (B * H);
+  const int chunks = max(1, min(want, (ntiles + max_warps - 1) / max_warps));
+  const int tpb = (ntiles + chunks - 1) / chunks;  // query tiles a block
+  const int rounds = (tpb + max_warps - 1) / max_warps;
+  const int warps = (tpb + rounds - 1) / rounds;  // the fewest warps for those rounds
+  auto kernel = resident ? attention_fwd_mma_kernel<true, DK, KT, true>
+                         : attention_fwd_mma_kernel<true, DK, KT, false>;
+  err = allow_dynamic_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(H, B, (ntiles + tpb - 1) / tpb), warps * 32, smem, stream>>>(
+      qkv, mask, out, nullptr, N, H, scale, fill, nch, 0, tpb, whole);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_k3_d(const void* qkv, const void* mask, void* out, int B, int N, int H, int D,
+                float scale, float fill, void* stream) {
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const float* m = static_cast<const float*>(mask);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_k3<1>(q, m, o, B, N, H, scale, fill, st);
+    case 32: return launch_k3<2>(q, m, o, B, N, H, scale, fill, st);
+    case 48: return launch_k3<3>(q, m, o, B, N, H, scale, fill, st);
+    case 64: return launch_k3<4>(q, m, o, B, N, H, scale, fill, st);
+    case 80: return launch_k3<5>(q, m, o, B, N, H, scale, fill, st);
+    case 96: return launch_k3<6>(q, m, o, B, N, H, scale, fill, st);
+    case 112: return launch_k3<7>(q, m, o, B, N, H, scale, fill, st);
+    case 128: return launch_k3<8>(q, m, o, B, N, H, scale, fill, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -163,18 +224,36 @@ int launch_masked_warps(const void* qkv, const void* mask, void* out, int B, int
 }  // namespace
 }  // namespace editor_kernels
 
-// warps: 4 (the model paths), 8 or 16
+// warps: 4 (the model paths: K3 on the tensor cores; head dims 16, 32, ...,
+// 128, the wrapper refuses others), 8 or 16 (T6: the CUDA-core body)
 extern "C" int editor_masked_attention(const void* qkv, const void* mask, void* out,
                                        int B, int N, int H, int D, float scale,
                                        float fill, int warps, void* stream) {
-  return editor_kernels::launch_masked_warps(qkv, mask, out, B, N, H, D, scale, fill, 0,
-                                             warps, stream);
+  using namespace editor_kernels;
+  if (N < 1 || N > kMaxTokens) return static_cast<int>(cudaErrorInvalidValue);
+  switch (warps) {
+    case 4: return launch_k3_d(qkv, mask, out, B, N, H, D, scale, fill, stream);
+    case 8: return launch_masked<8, false>(qkv, mask, out, B, N, H, D, scale, fill, 0, stream);
+    case 16:
+      return launch_masked<16, false>(qkv, mask, out, B, N, H, D, scale, fill, 0, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// K6: `tile` tokens per tile (129 on the model path), N % tile == 0.
+// K6: `tile` tokens per tile (129 on the model path), N % tile == 0; warps
+// 4 (the model path), 8 or 16
 extern "C" int editor_masked_attention_tiled(const void* qkv, const void* mask, void* out,
                                              int B, int N, int H, int D, float scale,
                                              float fill, int tile, int warps, void* stream) {
-  return editor_kernels::launch_masked_warps(qkv, mask, out, B, N, H, D, scale, fill, tile,
-                                             warps, stream);
+  using namespace editor_kernels;
+  if (tile < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (warps) {
+    case 4:
+      return launch_masked<4, true>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
+    case 8:
+      return launch_masked<8, true>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
+    case 16:
+      return launch_masked<16, true>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

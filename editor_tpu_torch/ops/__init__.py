@@ -5,18 +5,21 @@ hand-written CUDA kernel for Hopper beside its plain PyTorch version.
 | --- | --- | --- |
 | :func:`attention_qkv` (K1) | ``csrc/attention_qkv.cu`` | :func:`attention_qkv_plain` (the kernel's form: :func:`attention_qkv_tpu_plain`) |
 | :func:`rollout_chain` (K2) | ``csrc/rollout_chain.cu`` | :func:`rollout_from_probs_plain` |
-| :func:`masked_attention_qkv` (K3) | ``csrc/masked_attention.cu`` | :func:`masked_attention_qkv_plain` |
+| :func:`masked_attention_qkv` (K3) | ``csrc/masked_attention.cu`` | :func:`masked_attention_qkv_plain` (the kernel's form: :func:`masked_attention_qkv_tpu_plain`) |
 | :func:`attention_qkv_bwd` (K4) | ``csrc/attention_qkv_bwd.cu`` | :func:`attention_qkv_bwd_plain` |
 | :func:`masked_attention_qkv_bwd` (K5) | ``csrc/masked_attention_bwd.cu`` | :func:`masked_attention_qkv_bwd_plain` |
 | :func:`masked_attention_tiled` (K6) | ``csrc/masked_attention.cu`` | :func:`masked_attention_tiled_plain` |
 | :func:`masked_attention_tiled_bwd` (K7) | ``csrc/masked_attention_bwd.cu`` | :func:`masked_attention_tiled_bwd_plain` |
 | :func:`ln_matmul` (K8) | ``csrc/ln_matmul.cu`` | :func:`ln_matmul_plain` |
 
-K4 and K7 share the tensor-core backward body of
-``csrc/attention_bwd_mma.cuh`` (K4 unmasked with one cls key, K7 masked with
-a cls key a tile); K5 and T6 keep the CUDA-core body of
-``csrc/attention_bwd.cuh``; K1, K4 and K7 use the tensor-core helpers of
-``csrc/mma.cuh``. A wrapper runs its plain version for a CPU
+K1 and K3 share the tensor-core forward body of ``csrc/attention_fwd_mma.cuh``
+(K1 unmasked with probs and an fp32 cls key, K3 masked with every exp
+rounded and lazy normalisation); K6 and T6's forward half keep the CUDA-core
+body of ``csrc/masked_attention.cu``. K4 and K7 share the tensor-core
+backward body of ``csrc/attention_bwd_mma.cuh`` (K4 unmasked with one cls
+key, K7 masked with a cls key a tile); K5 and T6's backward half keep the
+CUDA-core body of ``csrc/attention_bwd.cuh``; the tensor-core bodies use the
+helpers of ``csrc/mma.cuh``. A wrapper runs its plain version for a CPU
 tensor; for a CUDA tensor it launches its kernel (built on first use by
 :mod:`._build`) or raises. Each wrapper counts its kernel
 launches in its ``launches`` attribute. :func:`attention_qkv_fn` (K1 + K4),
@@ -27,7 +30,8 @@ for 1 + 128-token tiles, else K3/K5). K8 is on no model path, as in the JAX
 package. The raw K3, K5 and K6 wrappers (:data:`WARP_WRAPPERS`) take
 ``warps=`` per block (4 on the model paths; the others serve the block-shape
 sweeps of the design-variant tools in ``editor_tpu_torch/tools/``, whose
-kernels T1-T6 sit beside their plain versions there) and count a launch at
+kernels T1-T6 sit beside their plain versions there; K3 at 8 or 16 warps is
+the CUDA-core body, not the tensor-core kernel) and count a launch at
 another warp count in ``variant_launches``, not ``launches``.
 """
 
@@ -42,6 +46,7 @@ from editor_tpu_torch.ops.masked_attention import (MASK_FILL, masked_attention_f
                                                    masked_attention_qkv_bwd_plain,
                                                    masked_attention_qkv_fn,
                                                    masked_attention_qkv_plain,
+                                                   masked_attention_qkv_tpu_plain,
                                                    masked_attention_route,
                                                    masked_attention_tiled,
                                                    masked_attention_tiled_bwd,
@@ -69,7 +74,8 @@ __all__ = ["MASK_FILL", "KERNEL_WRAPPERS", "WARP_WRAPPERS", "attention_qkv",
            "ln_matmul", "ln_matmul_fn", "ln_matmul_plain", "masked_attention_from_qkv",
            "masked_attention_qkv", "masked_attention_qkv_bwd",
            "masked_attention_qkv_bwd_plain", "masked_attention_qkv_fn",
-           "masked_attention_qkv_plain", "masked_attention_route", "masked_attention_tiled",
+           "masked_attention_qkv_plain", "masked_attention_qkv_tpu_plain",
+           "masked_attention_route", "masked_attention_tiled",
            "masked_attention_tiled_bwd", "masked_attention_tiled_bwd_plain",
            "masked_attention_tiled_fn", "masked_attention_tiled_plain",
            "reset_launch_counts", "rollout_chain", "rollout_from_probs_plain"]

@@ -26,7 +26,12 @@ and :func:`masked_attention_tiled_fn` join each pair under autograd for the
 train step; the mask gets no gradient. K3, K5 and K6 take ``warps`` per block:
 a launch with the model paths' :data:`SHIPPED_WARPS` counts in the wrapper's
 ``launches``, any other (the block-shape sweeps, T6 for K3/K5) in its
-``variant_launches``.
+``variant_launches``. At :data:`SHIPPED_WARPS` K3 is the masked instance of
+K1's tensor-core forward (``csrc/attention_fwd_mma.cuh``); at 8 and 16 warps
+it launches the CUDA-core body that T6 sweeps (``csrc/masked_attention.cu``).
+The plain version in the rounding form of K3's TPU kernel, which the CUDA
+kernel follows, is :func:`masked_attention_qkv_tpu_plain`; the model's CPU
+path keeps :func:`masked_attention_qkv_plain`, the XLA form.
 """
 
 from __future__ import annotations
@@ -90,6 +95,31 @@ def masked_attention_qkv_plain(qkv: torch.Tensor, mask: torch.Tensor,
     attn = torch.softmax(logits, dim=-1) * m[:, None, :, None]
     out = torch.matmul(attn.to(qkv.dtype).to(cd), v).to(qkv.dtype)
     return _merge_heads(out)
+
+
+def masked_attention_qkv_tpu_plain(qkv: torch.Tensor, mask: torch.Tensor,
+                                   num_heads: int, scale: float,
+                                   mask_fill: float = MASK_FILL) -> torch.Tensor:
+    """K3's function in its TPU kernel's form (``_qkv_masked_full_kernel``),
+    which the CUDA kernel follows: qkv [B, N, 3C], mask [B, N] -> [B, N, C]
+    in qkv.dtype.
+
+    At-least-fp32 logits times ``scale`` with ``mask_fill`` ADDED where the
+    pair mask is 0; a row-max-stabilised softmax; every exp rounded to
+    qkv.dtype before e.v; the sum of the unrounded exps and the query mask
+    scale the output rows (lazy normalisation). It differs from
+    :func:`masked_attention_qkv_plain` (normalised weights, re-masked, then
+    rounded) in where it rounds, and at f64 not at all. Used by the tests
+    and chip_smoke; the model's CPU path keeps the XLA form."""
+    q, k, v = _heads(qkv, num_heads)
+    cd = q.dtype
+    m = mask.to(cd)
+    pair = m[:, None, :, None] * m[:, None, None, :]
+    logits = (torch.matmul(q, k.transpose(-1, -2)) * scale
+              + torch.where(pair == 0, mask_fill, 0.0).to(cd))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    rw = m[:, None, :, None] / e.sum(-1, keepdim=True)
+    return _merge_heads((torch.matmul(e.to(qkv.dtype).to(cd), v) * rw).to(qkv.dtype))
 
 
 def masked_attention_tiled_plain(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
@@ -212,15 +242,33 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+K3_MAX_HEAD_DIM = 128
+
+
+def check_k3_head_dim(D: int) -> None:
+    """Raise unless K3's tensor-core kernel takes head dim ``D``: its tiles
+    are 16 deep, so a multiple of 16 up to 128 (one template instance each)."""
+    if D % 16 or not 0 < D <= K3_MAX_HEAD_DIM:
+        raise ValueError(f"masked_attention_qkv: head dim {D} is not a multiple "
+                         f"of 16 up to {K3_MAX_HEAD_DIM}")
+
+
 def masked_attention_qkv(qkv: torch.Tensor, mask: torch.Tensor,
                          num_heads: int, scale: float,
                          mask_fill: float = MASK_FILL, warps: int = 4) -> torch.Tensor:
     """K3: masked attention from the raw qkv; ``mask`` [B, N] in any dtype.
-    ``warps`` per block (:data:`FWD_WARPS`) shapes the launch, not the result."""
+    ``warps`` per block (:data:`FWD_WARPS`): :data:`SHIPPED_WARPS` launches
+    the tensor-core kernel (``csrc/attention_fwd_mma.cuh``; qkv 16-byte
+    aligned, :func:`check_k3_head_dim`), 8 and 16 the CUDA-core body of T6
+    (``csrc/masked_attention.cu``). CPU: :func:`masked_attention_qkv_plain`."""
     D = _check_args(qkv, mask, num_heads, warps=warps)
     if qkv.device.type == "cpu":
         return masked_attention_qkv_plain(qkv, mask, num_heads, scale, mask_fill)
-    mask32 = _kernel_inputs("masked_attention_qkv", qkv, mask, D)
+    if warps == SHIPPED_WARPS:
+        check_k3_head_dim(D)
+    # 16-byte cp.async copies of the head's rows in the tensor-core kernel
+    mask32 = _kernel_inputs("masked_attention_qkv", qkv, mask, D,
+                            align=16 if warps == SHIPPED_WARPS else 4)
     from editor_tpu_torch.ops import _build
 
     B, N, C3 = qkv.shape

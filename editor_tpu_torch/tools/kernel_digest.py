@@ -13,13 +13,19 @@ generator seeded with 0, in one fixed order: K1 with its probs and K4 at
 K7 at [384, 129], [128, 387] and [128, 258] (masks rand < 0.5 with the cls
 keys kept); K8 at [49536, 768] -> 2304 and -> 3072 + GELU; last K4 at the
 shapes its wrapper takes beyond the model's (B = 3 at N = 17, 200 and 512
-with D = 64, N = 129 at D = 96 and at D = 32). For each call it
-prints one JSON line: the kernel, the shape, the sha256 of its output bytes
-(the first 16 hex digits) and its ms from CUDA events. The card's name and
-power limit come first. Exits non-zero without a CUDA device.
+with D = 64, N = 129 at D = 96 and at D = 32); last K3 at the batch-1
+serving shapes [3, 88] and [1, 264] and beyond the model's shapes (B = 3 at
+N = 1, 15, 16, 17, 144, 145, 200 and 512 with D = 64, N = 264 at D = 32, 96
+and 128: every shape chip_smoke holds K3 at but N = 512 with D = 128, where
+the CUDA-core K3 of earlier checkouts needs more shared memory than a block
+has). For each call it prints one JSON line: the kernel, the shape, the
+sha256 of its output bytes (the first 16 hex digits) and its ms from CUDA
+events. The card's name and power limit come first. Exits non-zero without
+a CUDA device.
 
-``--save`` also writes K1's output and probs, K4's dqkv at each of its
-shapes and K7's dqkv at its three shapes to a file, and ``--diff`` prints,
+``--save`` also writes K1's output and probs, K3's output and K4's dqkv at
+each of their shapes and K7's dqkv at its three shapes to a file, and
+``--diff`` prints,
 for two such files (two checkouts' kernels on the same input), the largest
 difference of each tensor, the share of elements that differ and the largest
 difference in bf16 ulps of the first file's element.
@@ -84,8 +90,8 @@ def diff(path_a: str, path_b: str) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--save", help="write K1's output and probs and K4's and K7's dqkv to "
-                    "this file")
+    ap.add_argument("--save", help="write K1's output and probs, K3's output and K4's and "
+                    "K7's dqkv to this file")
     ap.add_argument("--diff", nargs=2, metavar=("A", "B"), help="compare two --save files")
     args = ap.parse_args(argv)
     if args.diff:
@@ -137,6 +143,9 @@ def main(argv=None) -> None:
         qkv, m, g = randn(B, N, 3 * C), mask(B, N, 88), randn(B, N, C)
         line("K3 masked_attention_qkv", qkv.shape,
              lambda: ops.masked_attention_qkv(qkv, m, H, SCALE, FILL))
+        if args.save:
+            saved[f"K3 out {list(qkv.shape)}"] = ops.masked_attention_qkv(qkv, m, H, SCALE,
+                                                                          FILL).cpu()
         line("K5 masked_attention_qkv_bwd", qkv.shape,
              lambda: ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL))
     for B, N in ((384, 129), (128, 387), (128, 258)):
@@ -166,6 +175,16 @@ def main(argv=None) -> None:
         if args.save:
             saved[f"K4 dqkv {list(qkv.shape)}"] = ops.attention_qkv_bwd(qkv, g, Hx,
                                                                         Dx ** -0.5).cpu()
+    k3_shapes = [(3, 88, H, D), (1, 264, H, D)]
+    k3_shapes += [(3, N, H, D) for N in (1, 15, 16, 17, 144, 145, 200, 512)]
+    k3_shapes += [(3, 264, H, 32), (3, 264, 8, 96), (3, 264, 6, 128)]
+    for B, N, Hx, Dx in k3_shapes:
+        qkv, m = randn(B, N, 3 * Hx * Dx), mask(B, N, 88)
+        line("K3 masked_attention_qkv", qkv.shape,
+             lambda: ops.masked_attention_qkv(qkv, m, Hx, Dx ** -0.5, FILL))
+        if args.save:
+            saved[f"K3 out {list(qkv.shape)}"] = ops.masked_attention_qkv(qkv, m, Hx, Dx ** -0.5,
+                                                                          FILL).cpu()
     if args.save:
         torch.save(saved, args.save)
 

@@ -35,9 +35,11 @@ import torch
 # the first pattern that matches the lower-case kernel name wins; the conv
 # comes before the GEMMs because cuDNN's conv kernels are implicit GEMMs
 CATEGORIES = (
-    ("K1 attention_qkv", r"attention_qkv_kernel"),
+    # K1 and K3: the tensor-core forward body, unmasked and masked; K3 at 8
+    # or 16 warps (T6) is the CUDA-core masked_attention_kernel
+    ("K1 attention_qkv", r"attention_fwd_mma_kernel<false"),
     ("K2 rollout_chain", r"rollout_chain_kernel"),
-    ("K3 masked_attention", r"masked_attention_kernel"),
+    ("K3 masked_attention", r"attention_fwd_mma_kernel<true|masked_attention_kernel"),
     # K4 and K7: the tensor-core backward body, unmasked and masked
     ("K4 attention_qkv_bwd", r"attention_bwd_mma_kernel<false"),
     ("K5 masked_attention_bwd", r"attention_bwd_kernel<"),

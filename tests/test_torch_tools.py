@@ -14,9 +14,11 @@ from editor_tpu_torch.tools import profile_train as pt
 
 
 @pytest.mark.parametrize("name, label", [
-    ("attention_qkv_kernel(__nv_bfloat16 const*, ...)", "K1 attention_qkv"),
+    ("attention_fwd_mma_kernel<false, 4, 9, true>(__nv_bfloat16 const*, ...)",
+     "K1 attention_qkv"),
     ("rollout_chain_kernel(__nv_bfloat16 const*, float*, int, int, int)", "K2 rollout_chain"),
-    ("masked_attention_kernel(__nv_bfloat16 const*, float const*, ...)", "K3 masked_attention"),
+    ("attention_fwd_mma_kernel<true, 4, 9, false>(__nv_bfloat16 const*, float const*, ...)",
+     "K3 masked_attention"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "patch conv (cuDNN)"),
     ("nvjet_hsh_128x256_64x4_2x1_v_bz_coopB_TNN", "GEMM (cuBLAS)"),
     ("void cutlass::Kernel2<cutlass_80_wmma_tensorop_bf16_s161616gemm>", "GEMM (cuBLAS)"),
@@ -37,8 +39,8 @@ from editor_tpu_torch.tools import profile_train as pt
      "K6 masked_attention_tiled"),
     ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 2, 9, true>"
      "(...)", "K7 masked_attention_tiled_bwd"),
-    ("void editor_kernels::(anonymous namespace)::masked_attention_kernel(...)",
-     "K3 masked_attention"),
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<true, 4, 9, true>"
+     "(...)", "K3 masked_attention"),
     ("void editor_kernels::(anonymous namespace)::ln_matmul_kernel(...)", "K8 ln_matmul"),
     # the warp count is a template argument of K3, K5, K6 (the T6 sweep); K4's
     # chunked and resident instances
@@ -62,13 +64,13 @@ from editor_tpu_torch.tools import profile_train as pt
      "K7 masked_attention_tiled_bwd"),
     ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 4, 2, false>"
      "(...)", "K7 masked_attention_tiled_bwd"),
-    # K1 on the tensor cores: head-dim tiles, key tiles and the resident
-    # form are template arguments
-    ("void editor_kernels::(anonymous namespace)::attention_qkv_kernel<4, 9, true>"
-     "(__nv_bfloat16 const*, __nv_bfloat16*, __nv_bfloat16*, int, int, float, int, int)",
-     "K1 attention_qkv"),
-    ("void editor_kernels::(anonymous namespace)::attention_qkv_kernel<8, 5, false>(...)",
-     "K1 attention_qkv"),
+    # K1 and K3 on the tensor cores: the masked switch, head-dim tiles, key
+    # tiles and the resident form are template arguments
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<false, 4, 9, true>"
+     "(__nv_bfloat16 const*, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, float, "
+     "float, int, int, int, int)", "K1 attention_qkv"),
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<false, 8, 5, false>"
+     "(...)", "K1 attention_qkv"),
     # the design variants T1-T5
     ("void editor_kernels::(anonymous namespace)::attention_variant_kernel<2, false>(...)",
      "T1/T2 attention variants"),
