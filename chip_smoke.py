@@ -17,10 +17,11 @@ Phases, each printing its lines and its seconds:
      x30 and at shapes the model does not reach (N = 17, 200, 512; D = 96);
      it must take at most half the time of its former CUDA-core body (T1's
      kernel with 1 head and 1 sequence per block, timed in the same run).
-     K4 and K7 are also held by the share of their elements more than one
-     bf16 ulp off the plain version (at most 0.5% over all of dqkv and over
-     the cls rows' dk and dv), a check that must fail the unrounded form and
-     the cls-rounded (K5's) form in the same run. K4 also at N = 1, 8, 17,
+     K4, K7 and K5 are also held by the share of their elements more than
+     one bf16 ulp off the plain version (at most 0.5% over all of dqkv and
+     over the cls rows' dk and dv), a check that must fail the unrounded form
+     and, for K4 and K7, the cls-rounded (K5's) form, for K5 the cls-kept
+     (K7's, tile 88) form in the same run. K4 also at N = 1, 8, 17,
      129, 200 and 512 (the chunked instance past 144), at D = 96 and D = 32,
      and at N = 512 with D = 96 and 128; its time must be at most 2x the
      SDPA backward's. K7 also at D = 32, an odd batch and a sequence masked but
@@ -30,7 +31,10 @@ Phases, each printing its lines and its seconds:
      most 0.5% of its elements more than one bf16 ulp off), which must fail
      the unrounded form and the XLA form (masked_attention_qkv_plain) in the
      same run, at the two model shapes, x30, the batch-1 shapes and 12 more
-     (N = 1-512, D = 32-128); masked query rows must be exact zeros;
+     (N = 1-512, D = 32-128); masked query rows must be exact zeros. K5 at
+     the same shapes (x30: the scaled error and finite values only); masked
+     rows get zero gradient; its time on the two model shapes must be at
+     most 2x the SDPA backward's;
   3. forward: the flagship tri-modal eval forward (ViT-B/16, 256x128,
      seeded random weights, B=128, bf16, compact tail) through
      build_eval_step; one forward launches K1 12, K2 1 and K3 2 times, and
@@ -395,8 +399,10 @@ def kernel_phase(gen: torch.Generator) -> dict:
     # K3 and K5 at the per-modality [384, 88, 3C] and joint [128, 264, 3C]
     # shapes; the batch-1 serving shapes first. K3 is held to its plain
     # version in the TPU kernel's form by the share test (_k3_check), which
-    # must fail the unrounded and the XLA form in the same run
-    k3_batch1 = {}
+    # must fail the unrounded and the XLA form in the same run; K5 by the
+    # shares over all of dqkv and the rows m % 88 == 0 (_k5_check), which must
+    # fail the unrounded and the cls-kept form
+    k3_batch1, k5_batch1 = {}, {}
     for Bm, N in ((3, 88), (1, 264)):
         qkv = randn(Bm, N, 3 * C)
         m = (torch.rand(Bm, N, generator=gen, device=dev) < 0.5).float()
@@ -405,10 +411,12 @@ def kernel_phase(gen: torch.Generator) -> dict:
             f"masked_attention_qkv batch-1 N={N}", ops.masked_attention_qkv(qkv, m, H, SCALE, FILL),
             ops.masked_attention_qkv_tpu_plain(qkv, m, H, SCALE, FILL), m)
         g = randn(Bm, N, C)
-        e = _scaled(ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL),
-                   ops.masked_attention_qkv_bwd_plain(qkv, m, g, H, SCALE, FILL))
-        _require(f"masked_attention_qkv_bwd batch-1 N={N} (scaled)", e, 1e-2)
+        k5_batch1[f"B{Bm}_N{N}"] = _k5_check(
+            f"masked_attention_qkv_bwd batch-1 N={N}",
+            ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL),
+            ops.masked_attention_qkv_bwd_plain(qkv, m, g, H, SCALE, FILL), m, C)
     say("2 kernel masked_attention_qkv batch-1", checks=json.dumps(k3_batch1))
+    say("2 kernel masked_attention_qkv_bwd batch-1", checks=json.dumps(k5_batch1))
     fwd, bwd = [], []
     for Bm, N in ((3 * B_EVAL, 88), (B_EVAL, 264)):
         qkv = randn(Bm, N, 3 * C)
@@ -445,35 +453,52 @@ def kernel_phase(gen: torch.Generator) -> dict:
         g = randn(Bm, N, C)
         dq = ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL)
         ref_dq = ops.masked_attention_qkv_bwd_plain(qkv, m, g, H, SCALE, FILL)
+        k5 = _k5_check(f"masked_attention_qkv_bwd N={N}", dq, ref_dq, m, C)
+        caught = _wrong_forms(
+            "masked_attention_qkv_bwd",
+            ops.masked_attention_qkv_bwd_plain(qkv.float(), m, g.float(), H, SCALE,
+                                               FILL).to(torch.bfloat16),
+            ops.masked_attention_tiled_bwd_plain(qkv, m, g, H, SCALE, FILL, K5_CLS_ROWS),
+            ref_dq, K5_CLS_ROWS, C, "cls_kept")
         dq30 = ops.masked_attention_qkv_bwd(qkv30, m, g, H, SCALE, FILL)
         ref_dq30 = ops.masked_attention_qkv_bwd_plain(qkv30, m, g, H, SCALE, FILL)
         torch.cuda.synchronize()
-        e5, e5_30 = _scaled(dq, ref_dq), _scaled(dq30, ref_dq30)
-        _require(f"masked_attention_qkv_bwd N={N} (scaled)", e5, 1e-2)
+        e5_30 = _scaled(dq30, ref_dq30)
         if not torch.isfinite(dq30.float()).all():
             raise AssertionError("masked_attention_qkv_bwd: non-finite at |logit| ~ 1e3")
         _require(f"masked_attention_qkv_bwd N={N} x30 (scaled)", e5_30, 1e-2)
-        if dq[..., :C][m == 0].abs().max() != 0 or dq[..., C:][m == 0].abs().max() != 0:
-            raise AssertionError("masked_attention_qkv_bwd: masked rows get a gradient")
         ms = cuda_ms(lambda: ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL))
         plain_ms = cuda_ms(lambda: ops.masked_attention_qkv_bwd_plain(qkv, m, g, H, SCALE,
                                                                       FILL))
         lib_ms = _sdpa_bwd_ms(qkv, g, m.bool())
-        bwd.append(dict(err=e5, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        flops=10.0 * H * D * pairs,
-                        bytes=2.0 * Bm * N * (3 * C + C + 3 * C) + 4.0 * Bm * N))
-        say("2 kernel masked_attention_qkv_bwd", shape=list(qkv.shape), scaled_err=e5,
-            x30_scaled_err=e5_30, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-            sdpa_bwd_ms=f"{lib_ms:.4f}")
+        nbytes = 2.0 * Bm * N * (3 * C + C + 3 * C) + 4.0 * Bm * N
+        bwd.append(dict(err=k5["scaled_err"], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        flops=10.0 * H * D * pairs, bytes=nbytes, share=k5["share"],
+                        cls_share=k5["cls_share"], wrong_forms=caught))
+        say("2 kernel masked_attention_qkv_bwd", shape=list(qkv.shape),
+            scaled_err=k5["scaled_err"], share=k5["share"], cls_share=k5["cls_share"],
+            share_tol=SHARE_TOL, wrong_forms=json.dumps(caught), x30_scaled_err=e5_30,
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", sdpa_bwd_ms=f"{lib_ms:.4f}",
+            bound_ms=f"{bound(10.0 * H * D * pairs, nbytes)['bound_ms']:.4f}")
         del qkv, qkv30, g, dq, ref_dq, dq30, ref_dq30
+    k3_extra, k5_extra = _k35_extra_shapes(randn, gen)
     # one forward (one train step) runs each shape once: report the sums
     _sum_rows(results, "masked_attention_qkv", fwd)
     results["masked_attention_qkv"].update(
         shares=[c["share"] for c in fwd], wrong_forms=[c["wrong_forms"] for c in fwd],
-        batch1=k3_batch1, extra_shapes=_k3_extra_shapes(randn, gen))
-    say("2 kernel masked_attention_qkv extra shapes",
-        checks=json.dumps(results["masked_attention_qkv"]["extra_shapes"]))
+        batch1=k3_batch1, extra_shapes=k3_extra)
+    say("2 kernel masked_attention_qkv extra shapes", checks=json.dumps(k3_extra))
     _sum_rows(results, "masked_attention_qkv_bwd", bwd)
+    k5_ms, sdpa_ms = sum(r["ms"] for r in bwd), sum(r["library_ms"] for r in bwd)
+    if not k5_ms <= 2.0 * sdpa_ms:
+        raise AssertionError(f"masked_attention_qkv_bwd: {k5_ms} ms on the model shapes, "
+                             f"more than 2x the SDPA backward's {sdpa_ms} ms")
+    say("2 sum masked_attention_qkv_bwd vs sdpa_bwd", ms=f"{k5_ms:.4f}",
+        sdpa_bwd_ms=f"{sdpa_ms:.4f}", factor=f"{k5_ms / sdpa_ms:.3f}", limit="2")
+    results["masked_attention_qkv_bwd"].update(
+        shares=[c["share"] for c in bwd], cls_shares=[c["cls_share"] for c in bwd],
+        wrong_forms=[c["wrong_forms"] for c in bwd], batch1=k5_batch1, extra_shapes=k5_extra)
+    say("2 kernel masked_attention_qkv_bwd extra shapes", checks=json.dumps(k5_extra))
     tiled_kernels(randn, gen, results)
     ln_matmul_kernel(randn, gen, results)
     return results
@@ -499,11 +524,12 @@ SHARE_TOL = 0.005  # share of elements more than one bf16 ulp off the plain vers
 
 
 def _bwd_shares(name: str, dq, ref, T: int, Cx: int) -> dict:
-    """The rounding checks of K4 and K7 (``_bench.bf16_off_share``, one bf16
-    ulp of the plain element + 1e-6 of the max): over all of dqkv, and over
-    the cls rows' dk and dv (rows m % T == 0, columns Cx: onward; K4's only
-    cls row is row 0: T = N), each at most SHARE_TOL of the elements off the
-    plain version in the TPU form."""
+    """The rounding checks of K4, K7 and K5 (``_bench.bf16_off_share``, one
+    bf16 ulp of the plain element + 1e-6 of the max): over all of dqkv, and
+    over the cls rows' dk and dv (rows m % T == 0, columns Cx: onward; K4's
+    only cls row is row 0: T = N; K5 has no cls key and reads the tail's cls
+    tokens, T = 88, where K7's form would keep fp32), each at most SHARE_TOL
+    of the elements off the plain version in the TPU form."""
     from editor_tpu_torch.tools import _bench
 
     share = _bench.bf16_off_share(dq, ref)
@@ -513,16 +539,20 @@ def _bwd_shares(name: str, dq, ref, T: int, Cx: int) -> dict:
     return dict(share=share, cls_share=cls)
 
 
-def _wrong_forms(name: str, unrounded, cls_rounded, ref, T: int, Cx: int) -> dict:
+def _wrong_forms(name: str, unrounded, cls_form, ref, T: int, Cx: int,
+                 cls_label: str = "cls_rounded") -> dict:
     """The share tests must fail the wrong forms they exist to catch: the
     unrounded form (the plain version on fp32 inputs, rounded once) over all
-    elements, and the cls-rounded form (K5's, masked_attention_qkv_bwd_plain)
-    over the cls rows' dk and dv (as in _bwd_shares)."""
+    elements, and ``cls_form`` over the cls rows' dk and dv (as in
+    _bwd_shares): for K4 and K7 the cls-rounded form (K5's,
+    masked_attention_qkv_bwd_plain: every key's weights rounded), for K5 the
+    cls-kept form (K7's, masked_attention_tiled_bwd_plain with tile T: the
+    keys m % T == 0 in fp32), which K7's launcher would take at K5's N."""
     from editor_tpu_torch.tools import _bench
 
-    caught = dict(unrounded_share=_bench.bf16_off_share(unrounded, ref),
-                  cls_rounded_cls_share=_bench.bf16_off_share(cls_rounded[:, ::T, Cx:],
-                                                              ref[:, ::T, Cx:]))
+    caught = {"unrounded_share": _bench.bf16_off_share(unrounded, ref),
+              f"{cls_label}_cls_share": _bench.bf16_off_share(cls_form[:, ::T, Cx:],
+                                                              ref[:, ::T, Cx:])}
     for form, share in caught.items():
         if not share > SHARE_TOL:
             raise AssertionError(f"{name} share test too loose: the {form} is off in only "
@@ -570,29 +600,54 @@ def _k3_wrong_forms(qkv, m, ref, Hx: int, Dx: int) -> dict:
     return caught
 
 
-def _k3_extra_shapes(randn, gen: torch.Generator) -> dict:
-    """K3 beyond the model's shapes, held as at them (_k3_check), each with a
-    sequence masked but for its cls token: B = 3 at N = 1, 15, 16, 17 (one
-    16-row tile and past it), 144 and 145 (the last resident N and the first
-    chunked one at D <= 96), 200 and 512 (D = 64, H = 12); N = 264 at D = 32
-    (H = 12), 96 (H = 8) and 128 (H = 6, 4 key chunks of 80); N = 512 at
-    D = 128 (H = 6), where k and v no longer fit in shared memory whole and
-    come a chunk at a time."""
+K5_CLS_ROWS = 88  # the rows K5's cls-row share reads: m % 88 == 0, the tail's cls tokens
+
+
+def _k5_check(name: str, dq, ref, m, Cx: int) -> dict:
+    """K5 against its plain version (the TPU kernel's form): finite; within
+    1e-2 scaled by the largest magnitude; masked rows get zero gradient (q,
+    and as keys k and v); at most SHARE_TOL of all elements and of the dk
+    and dv of the rows m % 88 == 0 more than one bf16 ulp off (_bwd_shares)."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(dq.float()).all():
+        raise AssertionError(f"{name}: non-finite dqkv")
+    err = _scaled(dq, ref)
+    _require(f"{name} (scaled)", err, 1e-2)
+    if torch.count_nonzero(dq[m == 0]):
+        raise AssertionError(f"{name}: masked rows get a gradient")
+    return dict(scaled_err=err, **_bwd_shares(name, dq, ref, K5_CLS_ROWS, Cx))
+
+
+def _k35_extra_shapes(randn, gen: torch.Generator) -> tuple:
+    """K3 and K5 beyond the model's shapes, held as at them (_k3_check,
+    _k5_check), each with a sequence masked but for its cls token: B = 3 at
+    N = 1, 15, 16, 17 (one 16-row tile and past it), 144 and 145 (the last
+    resident N and the first chunked one at D <= 96), 200 and 512 (D = 64,
+    H = 12); N = 264 at D = 32 (H = 12), 96 (H = 8) and 128 (H = 6; K3 in 4
+    key chunks of 80; at both K5's half-staged instance); N = 512 at D = 128
+    (H = 6), where K3's k and v no longer fit in shared memory whole and come
+    a chunk at a time. Returns (K3's checks, K5's checks)."""
     from editor_tpu_torch import ops
 
-    dev, out = "cuda", {}
+    dev, k3, k5 = "cuda", {}, {}
     shapes = [(Nx, H, D) for Nx in (1, 15, 16, 17, 144, 145, 200, 512)]
     shapes += [(264, H, 32), (264, 8, 96), (264, 6, 128), (512, 6, 128)]
     for Nx, Hx, Dx in shapes:
-        qkv = randn(3, Nx, 3 * Hx * Dx)
+        Cx = Hx * Dx
+        qkv, g = randn(3, Nx, 3 * Cx), randn(3, Nx, Cx)
         m = (torch.rand(3, Nx, generator=gen, device=dev) < 0.5).float()
         m[:, 0] = 1.0
         m[1, 1:] = 0.0
-        out[f"N{Nx}_H{Hx}_D{Dx}"] = _k3_check(
-            f"masked_attention_qkv B=3 N={Nx} H={Hx} D={Dx}",
+        case = f"B=3 N={Nx} H={Hx} D={Dx}"
+        k3[f"N{Nx}_H{Hx}_D{Dx}"] = _k3_check(
+            f"masked_attention_qkv {case}",
             ops.masked_attention_qkv(qkv, m, Hx, Dx ** -0.5, FILL),
             ops.masked_attention_qkv_tpu_plain(qkv, m, Hx, Dx ** -0.5, FILL), m)
-    return out
+        k5[f"N{Nx}_H{Hx}_D{Dx}"] = _k5_check(
+            f"masked_attention_qkv_bwd {case}",
+            ops.masked_attention_qkv_bwd(qkv, m, g, Hx, Dx ** -0.5, FILL),
+            ops.masked_attention_qkv_bwd_plain(qkv, m, g, Hx, Dx ** -0.5, FILL), m, Cx)
+    return k3, k5
 
 
 def _k4_extra_shapes(randn) -> dict:
@@ -815,8 +870,8 @@ def variant_phase(gen: torch.Generator) -> dict:
     configuration each, against their plain versions with the phase 2
     limits (T4/T5's bf16 chain: one bf16 ulp of the output's largest
     magnitude, and at most 5% of the outputs more than 8 fp32 ulps off the
-    plain bf16 chain), with kernel, plain and library-call times and the
-    bound."""
+    plain bf16 chain; T6's backward: K5's shares), with kernel, plain and
+    library-call times and the bound."""
     from editor_tpu_torch import ops
     from editor_tpu_torch.tools import (_bench, bench_attn, bench_attn2, bench_attn_layer,
                                         bench_full_kernel, bench_rollout, bench_rollout2)
@@ -980,7 +1035,8 @@ def variant_phase(gen: torch.Generator) -> dict:
     # T6: K3 and K5 with 8 warps per block (the CUDA-core bodies) at the
     # compact tail's shapes, masks as phase 2's; one forward and one backward
     # of each shape. The counts sit at the launch: the 8-warp pair counts as T6
-    # alone, the 4-warp pair (K3's tensor-core kernel, K5) as K3 and K5 alone
+    # alone, the 4-warp pair (the tensor-core kernels K3 and K5) as K3 and K5
+    # alone. The backward rounds where K5 does: held by K5's shares
     calls = []
     for Bm, Nm in ((3 * B_EVAL, 88), (B_EVAL, 264)):
         qkv = randn(Bm, Nm, 3 * C)
@@ -992,13 +1048,15 @@ def variant_phase(gen: torch.Generator) -> dict:
         bwd = bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 8)
         counts = [launch_counts()]
         e_f = _max_err(fwd, bench_full_kernel.masked_full_plain(qkv, m, H, SCALE))
-        e_b = _scaled(bwd, bench_full_kernel.masked_full_bwd_plain(qkv, m, g, H, SCALE))
-        # against the 4-warp pair: K5 is the same CUDA-core body (equal bytes),
-        # K3 the tensor-core kernel (the same rounding points: the share of
-        # elements more than one bf16 ulp apart)
+        ref_b = bench_full_kernel.masked_full_bwd_plain(qkv, m, g, H, SCALE)
+        e_b = _scaled(bwd, ref_b)
+        shares_b = _bwd_shares(f"masked_full_bwd N={Nm}", bwd, ref_b, K5_CLS_ROWS, C)
+        del ref_b
+        # against the 4-warp pair, the tensor-core kernels K3 and K5 (the same
+        # rounding points: the share of elements more than one bf16 ulp apart)
         vs4 = dict(fwd_share_off_4_warps=_bench.bf16_off_share(
                        fwd, bench_full_kernel.masked_full(qkv, m, H, SCALE, 4)),
-                   bwd_equal_to_4_warps=torch.equal(
+                   bwd_share_off_4_warps=_bench.bf16_off_share(
                        bwd, bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 4)))
         counts.append(launch_counts())
         torch.cuda.synchronize()
@@ -1021,7 +1079,9 @@ def variant_phase(gen: torch.Generator) -> dict:
                      *_heads(qkv), attn_mask=keys, scale=SCALE)) + _sdpa_bwd_ms(qkv, g, m.bool()))
         calls.append(c)
         say("7 variant masked_full (T6)", shape=list(qkv.shape), warps=8, fwd_err=e_f,
-            bwd_scaled_err=e_b, vs_4_warps=json.dumps(vs4), ms=f"{c['ms']:.4f}",
+            bwd_scaled_err=e_b, bwd_share=shares_b["share"],
+            bwd_cls_share=shares_b["cls_share"], vs_4_warps=json.dumps(vs4),
+            ms=f"{c['ms']:.4f}",
             plain_ms=f"{c['plain_ms']:.4f}", sdpa_fwd_bwd_ms=f"{c['library_ms']:.4f}",
             bound_ms=f"{bound(c['flops'], c['bytes'])['bound_ms']:.4f}")
         del qkv, g, fwd, bwd

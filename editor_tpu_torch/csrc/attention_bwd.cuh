@@ -1,7 +1,8 @@
-// The CUDA-core attention backward of K5 (csrc/masked_attention_bwd.cu, the
-// VJP of K3) and of T6's backward half (K5 at 8 warps): for one (head,
-// sequence) pair, d(softmax(l) v)/d(qkv) in the raw qkv layout, l the masked
-// logits. K4 and K7 run the tensor-core body of csrc/attention_bwd_mma.cuh.
+// The CUDA-core attention backward of T6's backward half (K5 at 8 warps,
+// csrc/masked_attention_bwd.cu; K5's body until its tensor-core redesign):
+// for one (head, sequence) pair, d(softmax(l) v)/d(qkv) in the raw qkv
+// layout, l the masked logits. K4, K5 and K7 run the tensor-core body of
+// csrc/attention_bwd_mma.cuh.
 //
 // Contract (the plain version is masked_attention_qkv_bwd_plain in
 // editor_tpu_torch/ops/masked_attention.py):
@@ -12,8 +13,8 @@
 //   logit cotangents of every row, written by the row pass and read back by
 //   the column pass of the same block (the caller allocates them).
 // Math per query row n (fp32 sums):
-//   p = softmax(l), l = q_n . k_m * scale, or the fill where mask_m == 0 (as
-//   in K3)
+//   p = softmax(l), l = q_n . k_m * scale, or the fill where mask_m == 0 (the
+//   TPU body adds the fill; a masked key of a valid row exps to 0 either way)
 //   dp_m = g_n . v_m, r = sum_m dp_m p_m, dl_m = p_m (dp_m - r) scale
 //   dq_n = sum_m dl_m k_m;  dk_m = sum_n dl_{n,m} q_n;  dv_m = sum_n p_{n,m} g_n
 // Rounding points of the TPU kernel _qkv_masked_full_bwd_kernel: p and dl are
@@ -24,11 +25,11 @@
 //
 // What bounds it on the H100: 10 B H N^2 D FLOP (the recomputed logits, dp,
 // dq, dk, dv) against qkv + g + dqkv = 14 B N C bytes; 23 GFLOP and 0.73 GB
-// for K5 at [384, 88] + [128, 264]. This body runs every product on the CUDA
-// cores in fp32 (no mma/wgmma), so FMA issue and shared-memory reads bound
-// it, not the bytes.
+// at [384, 88] + [128, 264]. This body runs every product on the CUDA cores
+// in fp32 (no mma/wgmma), so FMA issue and shared-memory reads bound it, not
+// the bytes.
 //
-// Design: one block per (head, sequence) pair, 4 warps (8 for T6), two passes.
+// Design: one block per (head, sequence) pair, kWarps warps, two passes.
 //  * Row pass: the head's k and v slices are staged in padded shared memory
 //    (as in K1/K3). Each warp owns one query row at a time: lanes over keys
 //    for the logits, the softmax and dp (fp32 q and g rows broadcast from the
@@ -41,18 +42,16 @@
 //    over head-dim pairs, accumulates dk and dv for all 8 at once, so each q
 //    and g pair read from shared memory feeds 32 FMAs.
 // The scratch of one block (2 N^2 bf16: 279 KB at N = 264) is written and
-// read back by that block while it is still in the 50 MB L2. K5 at N = 264
-// needs this: q, k, v, g plus fp32 dk/dv of one head would take 270 KB of
-// shared memory, over the 227 KB a block may have. Shared memory here is
-// 2 N (D + 4) bf16 + N fp32 (the key mask) + max(row scratch, column tile):
-// with 4 warps 105 KB at N = 264.
+// read back by that block while it is still in the 50 MB L2: q, k, v, g plus
+// fp32 dk/dv of one head would take 270 KB of shared memory at N = 264, over
+// the 227 KB a block may have. Shared memory here is 2 N (D + 4) bf16 + N
+// fp32 (the key mask) + max(row scratch, column tile).
 #pragma once
 
 #include "common.cuh"
 
 namespace editor_kernels {
 
-constexpr int kBwdWarps = 4;      // K5 (8 in T6's sweep)
 constexpr int kBwdColsPerWarp = 8;  // column-pass tile: 8 columns per warp
 
 __host__ __device__ inline size_t bwd_align16(size_t bytes) {
@@ -89,7 +88,7 @@ __device__ __forceinline__ void stage_rows(const bf16* __restrict__ src, bf16* d
   }
 }
 
-// K5: masked (fill replaces a masked logit), kWarps warps per block.
+// T6's backward: masked (fill replaces a masked logit), kWarps warps per block.
 template <int kWarps>
 __device__ __forceinline__ void attention_bwd_body(
     const bf16* __restrict__ qkv, const float* __restrict__ mask,
@@ -233,8 +232,8 @@ __device__ __forceinline__ void attention_bwd_body(
   }
 }
 
-// K5 with kWarps warps per block: 4 on the model paths, 8 in T6's
-// block-shape sweep (tools/bench_full_kernel.py:72)
+// T6's backward with kWarps warps per block: 8 (tools/bench_full_kernel.py:72
+// at another group size)
 template <int kWarps>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
@@ -244,7 +243,7 @@ attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mas
   attention_bwd_body<kWarps>(qkv, mask, g, dqkv, pst, dlst, N, H, D, scale, fill);
 }
 
-template <int kWarps = kBwdWarps>
+template <int kWarps>
 inline int launch_attention_bwd(const void* qkv, const void* mask, const void* g,
                                 void* dqkv, void* pst, void* dlst, int B, int N, int H,
                                 int D, float scale, float fill, void* stream) {

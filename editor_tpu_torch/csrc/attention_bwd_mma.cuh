@@ -1,36 +1,42 @@
 // The tensor-core attention backward shared by K4 (csrc/attention_qkv_bwd.cu,
-// the VJP of K1) and K7 (csrc/masked_attention_bwd.cu, the VJP of K6): for
-// one (head, sequence) pair, d(softmax(q k^T scale) v)/d(qkv) in the raw qkv
+// the VJP of K1), K7 and K5 (csrc/masked_attention_bwd.cu, the VJPs of K6 and
+// K3): for one (head, sequence) pair, d(softmax(l) v)/d(qkv) in the raw qkv
 // layout, every product on mma.sync m16n8k16 (bf16 in, fp32 sums). One
-// compile-time switch, kMasked, makes the two:
-//  * masked (K7): reads the mask, adds the fill where mask_q * mask_k == 0,
+// compile-time form, BwdForm, makes the three:
+//  * kTiled (K7): reads the mask, adds the fill where mask_q * mask_k == 0,
 //    and keeps a cls key every `tile` tokens (tile >= 16, so that a 16-key
 //    tile holds at most one);
-//  * unmasked (K4): reads no mask and adds no fill; one cls key, m = 0, which
+//  * kQkv (K4): reads no mask and adds no fill; one cls key, m = 0, which
 //    sits in column 0 of key tile 0 at any N >= 1. Padded query rows >= N
-//    count as masked (row < N in place of the mask).
+//    count as masked (row < N in place of the mask);
+//  * kFull (K5): the mask and the added fill of K7, and no cls key: every
+//    key's attn and dl is rounded.
 //
-// Contract (the plain versions are masked_attention_tiled_bwd_plain and
-// attention_qkv_bwd_plain, editor_tpu_torch/ops/):
-//   qkv [B, N, 3C] bf16, mask [B, N] fp32 (1 = keep; K7 only), g [B, N, C]
+// Contract (the plain versions are masked_attention_tiled_bwd_plain,
+// attention_qkv_bwd_plain and masked_attention_qkv_bwd_plain,
+// editor_tpu_torch/ops/):
+//   qkv [B, N, 3C] bf16, mask [B, N] fp32 (1 = keep; K7 and K5), g [B, N, C]
 //   bf16 -> dqkv [B, N, 3C] bf16. pst, dlst: [B H, Np, Np] bf16 scratch,
-//   Np = N rounded up to 16 (not used by K4's resident instance).
+//   Np = N rounded up to 16 (not used by the resident instances of K4 and
+//   K5; bwd_scratch_side says which launch needs them).
 // Rounding points of the TPU bodies (_qkv_masked_bwd_kernel for K7,
-// _qkv_bwd_kernel for K4; only the order of the fp32 sums differs): logits
-// l = (q . k) scale (K7: plus the fill); the fp32 row max, e = exp(l - max),
-// inv = 1 / sum e, attn = e (mask_q inv); dat = g . v, r0 = (sum dat e) inv;
-// dl = attn (dat - r0) scale. The patch keys' attn and dl are rounded to
-// bf16 before dq = dl k, dk = dl^T q and dv = attn^T g; the cls keys keep an
-// fp32 attn and dl, and their products are fp32 sums. A query row with mask 0
+// _qkv_bwd_kernel for K4, _qkv_masked_full_bwd_kernel for K5; only the order
+// of the fp32 sums differs): logits l = (q . k) scale (K7, K5: plus the
+// fill); the fp32 row max, e = exp(l - max), inv = 1 / sum e, attn = e
+// (mask_q inv); dat = g . v, r0 = (sum dat e) inv; dl = attn (dat - r0)
+// scale. The patch keys' attn and dl are rounded to bf16 before dq = dl k,
+// dk = dl^T q and dv = attn^T g; the cls keys (K7, K4) keep an fp32 attn and
+// dl, and their products are fp32 sums; K5 has none. A query row with mask 0
 // (or past N) gets exactly zero gradient; a masked key of a valid row gets
 // attn = 0 exactly (exp underflow), hence zero dk and dv.
 //
 // What bounds it on the H100: 10 H N^2 D FLOP a sequence (the logits, dat,
-// dq, dk, dv; K7 over the valid pairs) against qkv + g + dqkv = 14 N C bytes
-// a sequence: at [384, 129, 2304] 0.53 GB, 0.16 ms at 3.35 TB/s, against 49
-// GFLOP (0.05 ms on the bf16 tensor cores): bytes. The global form also
-// writes and reads back the [B H, Np, Np] scratch of the rounded attn and dl
-// (0.76 GB each way at [384, 129]), which the bound does not count.
+// dq, dk, dv; K7 and K5 over the valid pairs) against qkv + g + dqkv = 14 N C
+// bytes a sequence: at [384, 129, 2304] 0.53 GB, 0.16 ms at 3.35 TB/s,
+// against 49 GFLOP (0.05 ms on the bf16 tensor cores): bytes. The global
+// form also writes and reads back the [B H, Np, Np] scratch of the rounded
+// attn and dl (0.76 GB each way at [384, 129]), which the bound does not
+// count.
 //
 // Design (attention_bwd_mma_kernel): one block per (head, sequence), two
 // passes.
@@ -44,12 +50,12 @@
 //    logits anew (the chunked instance). dat is made twice. The rounded attn
 //    and dl go to the scratch (bf16 pairs) and dl, re-packed as the A
 //    operand, times k through ldmatrix.trans gives dq.
-//  * The cls keys fall anywhere in a 16-key tile (K7's key 129 is column 1
-//    of tile 8; K4's key 0 column 0 of tile 0): their entries are zeroed in
-//    the scratch and in the packed A operand, their fp32 attn and dl go to
-//    shared columns pc/dlc, dl_c k_c is added to dq with FMAs, and their dk
-//    and dv are reduced at the end from the fp32 columns. No mma result for
-//    a cls key is stored.
+//  * The cls keys (K7, K4) fall anywhere in a 16-key tile (K7's key 129 is
+//    column 1 of tile 8; K4's key 0 column 0 of tile 0): their entries are
+//    zeroed in the scratch and in the packed A operand, their fp32 attn and
+//    dl go to shared columns pc/dlc, dl_c k_c is added to dq with FMAs, and
+//    their dk and dv are reduced at the end from the fp32 columns. No mma
+//    result for a cls key is stored. K5 compiles none of this.
 //  * Column pass: q and g replace k and v in shared memory. Each warp owns
 //    16-key tiles and walks the query rows in 16-row steps: the scratch
 //    tiles of attn and dl [16 rows, 16 keys] go through ldmatrix.trans as
@@ -58,15 +64,18 @@
 //    masked rows hold zeros in the scratch (attn = 0 there), so the sums
 //    need no masks.
 //  * The scratch: global ([B H, Np, Np], read back through a 2-stage
-//    cp.async ring of each warp's own) for K7 and K4's chunked instance; in
+//    cp.async ring of each warp's own) for K7 and the chunked instances; in
 //    shared memory ([Np, Np + 8] each for attn and dl: 87.6 KB at N = 129,
 //    one block of 9 warps an SM in place of 4 blocks of 3, and no scratch
-//    traffic) for K4's resident instance, 10% faster than the global form at
-//    the model's shape (PERF.md section 6).
-//  * K4's chunked instance stages only k, then q, and reads the B operands
-//    of v, then g, from global memory (pairs of bf16, 0 past N): k and v of
-//    512 rows at D = 128 would take 272 KB of shared memory, k alone 136 KB,
-//    so every N up to kMaxTokens fits at every head dim.
+//    traffic) for the resident instances of K4 and K5, faster than the
+//    global form on the H100 by 10% for K4 at N = 129 and by 20% for K5 at
+//    N = 88 (PERF.md section 6).
+//  * The half-staged chunked instances (K4's, and K5's at D >= 96) stage
+//    only k, then q, and read the B operands of v, then g, from global
+//    memory (pairs of bf16, 0 past N): k and v of 512 rows at D = 128 would
+//    take 272 KB of shared memory, k alone 136 KB, so every N up to
+//    kMaxTokens fits at every head dim. K5's chunked instance at D <= 80
+//    stages all four, as K7's does (184 KB at N = 512, D = 64).
 // No atomics: every element of dqkv is written by one thread after sums in a
 // fixed order, so two runs give the same bytes.
 //
@@ -83,32 +92,39 @@ namespace {
 // keys (9 at D <= 96, as K1), and chunks of 2 tiles past that
 __host__ __device__ constexpr int bwd_key_tiles(int DK) { return DK <= 6 ? 9 : 5; }
 constexpr int kBwdChunkTiles = 2;
-// K4's two forms, which K7 has neither of: the resident instance keeps the
-// scratch of the rounded attn and dl in shared memory (on chip); the chunked
-// one stages k and q alone and reads v and g from global memory
-__host__ __device__ constexpr bool bwd_onchip(bool masked, bool resident) {
-  return !masked && resident;
+
+// The three instances of the body: K4 (no mask, the cls key 0), K7 (mask, a
+// cls key every `tile` tokens), K5 (mask, no cls key)
+enum class BwdForm { kQkv, kTiled, kFull };
+__host__ __device__ constexpr bool bwd_masked(BwdForm f) { return f != BwdForm::kQkv; }
+__host__ __device__ constexpr bool bwd_cls(BwdForm f) { return f != BwdForm::kFull; }
+// The forms K7 has neither of: the resident instances of K4 and K5 keep the
+// scratch of the rounded attn and dl in shared memory (on chip); K4's
+// chunked instance, and K5's past D = 80, stage k and q alone and read v and
+// g from global memory
+__host__ __device__ constexpr bool bwd_onchip(BwdForm f, bool resident) {
+  return f != BwdForm::kTiled && resident;
 }
-__host__ __device__ constexpr bool bwd_half_staged(bool masked, bool resident) {
-  return !masked && !resident;
+__host__ __device__ constexpr bool bwd_half_staged(BwdForm f, int DK, bool resident) {
+  return !resident && (f == BwdForm::kQkv || (f == BwdForm::kFull && DK > 5));
 }
 
 // warps per block at most: 3 with the logits of a whole row in registers (9
 // tiles at N = 129, 3 rounds; 4 blocks an SM at D <= 64, 168 registers a
-// thread), else 12 at D <= 64 (9 warps at N = 258 and 387; 168 registers:
-// 16 warps capped them at 128, and the D = 64 instance spilled), 8 for the
-// wide heads and for K4's chunked instance (255 registers: its global B
-// loads need more); the on-chip form: one warp per query tile, 9 at most up
-// to D = 80 (ptxas budgets 9 warps as 12: 168 registers), 8 above (255: at
-// 168 the D = 96 instance spilled)
-__host__ __device__ constexpr int bwd_max_warps(bool masked, int DK, bool resident) {
-  return bwd_onchip(masked, resident) ? (DK <= 5 ? 9 : 8)
-         : resident                   ? 3
-         : masked && DK <= 4          ? 12
-                                      : 8;
+// thread), else 12 at D <= 64 (9 warps at N = 258, 264 and 387; 168
+// registers: 16 warps capped them at 128, and the D = 64 instance spilled),
+// 8 for the wide heads and for the half-staged instances (255 registers:
+// their global B loads need more); the on-chip form: one warp per query
+// tile, 9 at most up to D = 80 (ptxas budgets 9 warps as 12: 168
+// registers), 8 above (255: at 168 K4's D = 96 instance spilled)
+__host__ __device__ constexpr int bwd_max_warps(BwdForm f, int DK, bool resident) {
+  return bwd_onchip(f, resident) ? (DK <= 5 ? 9 : 8)
+         : resident              ? 3
+         : bwd_masked(f) && DK <= 4 ? 12
+                                    : 8;
 }
-__host__ __device__ constexpr int bwd_min_blocks(bool masked, int DK, bool resident) {
-  return resident && DK <= 4 && !bwd_onchip(masked, resident) ? 4 : 1;
+__host__ __device__ constexpr int bwd_min_blocks(BwdForm f, int DK, bool resident) {
+  return resident && DK <= 4 && !bwd_onchip(f, resident) ? 4 : 1;
 }
 
 // a column-pass stage: the attn and dl scratch tiles [16 rows, 16 keys], rows
@@ -124,21 +140,21 @@ struct BwdMmaSmem {
 // 8 rows in distinct banks ((Np + 8) * 2 bytes is an odd multiple of 16)
 __host__ __device__ inline int onchip_ld(int np) { return np + 8; }
 
-// k then q [Np, D + 8]; v then g [Np, D + 8] (not in K4's chunked
-// instance); the mask [Np] fp32 (K7); the fp32 attn and dl of each tile's cls
-// key for every row [2, n_tiles, Np]; two stages a warp, or the on-chip
-// scratch of attn and dl [2, Np, Np + 8] (K4's resident instance)
-template <bool kMasked, bool kResident>
-__host__ __device__ inline BwdMmaSmem bwd_mma_smem_layout(int N, int D, int n_tiles,
-                                                          int warps) {
+// k then q [Np, D + 8]; v then g [Np, D + 8] (not in the half-staged
+// instances); the mask [Np] fp32 (K7, K5); the fp32 attn and dl of each
+// tile's cls key for every row [2, n_tiles, Np] (K7, K4); two stages a warp,
+// or the on-chip scratch of attn and dl [2, Np, Np + 8] (the resident
+// instances of K4 and K5)
+template <BwdForm kForm, int DK, bool kResident>
+__host__ __device__ inline BwdMmaSmem bwd_mma_smem_layout(int N, int n_tiles, int warps) {
   const size_t np = (N + 15) & ~15;
   BwdMmaSmem s;
-  s.buf = np * (D + 8) * sizeof(bf16);
-  s.mk = kMasked ? np * sizeof(float) : 0;
+  s.buf = np * (16 * DK + 8) * sizeof(bf16);
+  s.mk = bwd_masked(kForm) ? np * sizeof(float) : 0;
   s.cls = 2 * (size_t)n_tiles * np * sizeof(float);
-  s.stage = bwd_onchip(kMasked, kResident) ? 2 * np * onchip_ld(np) * sizeof(bf16)
-                                           : (size_t)warps * 2 * kStageElems * sizeof(bf16);
-  s.total = (bwd_half_staged(kMasked, kResident) ? 1 : 2) * s.buf + s.mk + s.cls + s.stage;
+  s.stage = bwd_onchip(kForm, kResident) ? 2 * np * onchip_ld(np) * sizeof(bf16)
+                                         : (size_t)warps * 2 * kStageElems * sizeof(bf16);
+  s.total = (bwd_half_staged(kForm, DK, kResident) ? 1 : 2) * s.buf + s.mk + s.cls + s.stage;
   return s;
 }
 
@@ -255,20 +271,21 @@ __device__ __forceinline__ uint32_t bwd_column_pair(const bf16* __restrict__ col
 
 // One block per (head, sequence), `blockDim.x / 32` warps. kResident (Np <=
 // 16 KT): a row's logits are made once and kept; else in chunks of KT key
-// tiles, made anew in each pass. kMasked: K7 (mask, fill, cls keys every
-// `tile` tokens), else K4 (one cls key at m = 0; mask, fill and tile unused).
-// K4's resident instance keeps the attn and dl scratch in shared memory (pst
-// and dlst unused), its chunked one reads v and g from global memory; else
-// pst and dlst are [B H, Np, Np].
-template <bool kMasked, int DK, int KT, bool kResident>
-__global__ void __launch_bounds__(bwd_max_warps(kMasked, DK, kResident) * 32,
-                                  bwd_min_blocks(kMasked, DK, kResident))
+// tiles, made anew in each pass. kForm: K7 (mask, fill, cls keys every `tile`
+// tokens), K4 (one cls key at m = 0; mask, fill and tile unused) or K5
+// (mask, fill, no cls key; tile unused). The on-chip instances keep the attn
+// and dl scratch in shared memory (pst and dlst unused), the half-staged ones
+// read v and g from global memory; else pst and dlst are [B H, Np, Np].
+template <BwdForm kForm, int DK, int KT, bool kResident>
+__global__ void __launch_bounds__(bwd_max_warps(kForm, DK, kResident) * 32,
+                                  bwd_min_blocks(kForm, DK, kResident))
 attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                          const bf16* __restrict__ g, bf16* __restrict__ dqkv,
                          bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
                          float scale, float fill, int tile) {
-  constexpr bool kOnChip = bwd_onchip(kMasked, kResident);
-  constexpr bool kHalf = bwd_half_staged(kMasked, kResident);
+  constexpr bool kMasked = bwd_masked(kForm), kCls = bwd_cls(kForm);
+  constexpr bool kOnChip = bwd_onchip(kForm, kResident);
+  constexpr bool kHalf = bwd_half_staged(kForm, DK, kResident);
   constexpr int kStaged = kHalf ? 1 : 2;  // [Np, D + 8] buffers in shared memory
   constexpr int D = 16 * DK, LD = D + 8, KC = 16 * KT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -278,9 +295,9 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
   const int nwarps = blockDim.x >> 5;
   const int gr = lane >> 2, t = lane & 3;
   const int np = (N + 15) & ~15, ntiles = np >> 4;
-  const int n_tiles = kMasked ? N / tile : 1;
+  const int n_tiles = kForm == BwdForm::kTiled ? N / tile : kCls ? 1 : 0;
   const int nch = kResident ? 1 : (np + KC - 1) / KC;
-  const BwdMmaSmem lay = bwd_mma_smem_layout<kMasked, kResident>(N, D, n_tiles, nwarps);
+  const BwdMmaSmem lay = bwd_mma_smem_layout<kForm, DK, kResident>(N, n_tiles, nwarps);
   bf16* buf0 = reinterpret_cast<bf16*>(smem);            // k, then q
   bf16* buf1 = reinterpret_cast<bf16*>(smem + lay.buf);  // v, then g (not kHalf)
   float* mk = reinterpret_cast<float*>(smem + kStaged * lay.buf);
@@ -417,12 +434,12 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
         else
           bwd_dat<DK>(ga, vl, kb, dat[0], dat[1]);
         // this key tile's cls key, as a column 0-15 (-1 without one; one at
-        // most: K7's tile >= 16, K4's only cls key is key 0)
-        int cc;
-        if constexpr (kMasked) {
+        // most: K7's tile >= 16, K4's only cls key is key 0, K5 has none)
+        int cc = -1;
+        if constexpr (kForm == BwdForm::kTiled) {
           const int first = (kb + tile - 1) / tile * tile;
           cc = first < N && first - kb < 16 ? first - kb : -1;
-        } else {
+        } else if constexpr (kForm == BwdForm::kQkv) {
           cc = kb == 0 ? 0 : -1;
         }
         float a[2][4], l[2][4];
@@ -433,7 +450,7 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
           for (int i = 0; i < 4; ++i) {
             const float at = s[2 * kk + hh][i] * (i < 2 ? rw0 : rw8);
             const float dl = at * (dat[hh][i] - (i < 2 ? r00 : r08)) * scale;
-            if (8 * hh + 2 * t + (i & 1) == cc) {  // out of the bf16 products
+            if (kCls && 8 * hh + 2 * t + (i & 1) == cc) {  // out of the bf16 products
               if (i < 2) {
                 ac0 = at;
                 lc0 = dl;
@@ -473,9 +490,9 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
           mma_bf16(dq[2 * d], la, bk[0], bk[1]);
           mma_bf16(dq[2 * d + 1], la, bk[2], bk[3]);
         }
-        if (cc >= 0) {  // warp-uniform: the fp32 columns and dl_c k_c
+        if (kCls && cc >= 0) {  // warp-uniform: the fp32 columns and dl_c k_c
           const int tc = (cc & 7) >> 1;  // the quad lane that holds the key
-          const int tt = kMasked ? (kb + cc) / tile : 0;
+          const int tt = kForm == BwdForm::kTiled ? (kb + cc) / tile : 0;
           if (t == tc) {
             pc[tt * np + rg] = ac0;
             dlc[tt * np + rg] = lc0;
@@ -516,23 +533,26 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
 
   // the cls keys from their fp32 attn and dl (rows >= N and masked rows hold
   // 0 there); nothing else writes these rows' k and v columns
-  for (int i = threadIdx.x; i < n_tiles * (D / 2); i += blockDim.x) {
-    const int tt = i / (D / 2), d2 = i - tt * (D / 2);
-    const float* pt = pc + tt * np;
-    const float* lt = dlc + tt * np;
-    float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
-    for (int n = 0; n < (kHalf ? N : np); ++n) {
-      const float2 qf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf0 + n * LD)[d2]);
-      const bf16* gn = kHalf ? gseq + (size_t)n * C + h * D : buf1 + n * LD;
-      const float2 gf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(gn)[d2]);
-      v0 = fmaf(pt[n], gf.x, v0);
-      v1 = fmaf(pt[n], gf.y, v1);
-      k0 = fmaf(lt[n], qf.x, k0);
-      k1 = fmaf(lt[n], qf.y, k1);
+  if constexpr (kCls) {
+    for (int i = threadIdx.x; i < n_tiles * (D / 2); i += blockDim.x) {
+      const int tt = i / (D / 2), d2 = i - tt * (D / 2);
+      const float* pt = pc + tt * np;
+      const float* lt = dlc + tt * np;
+      float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
+      for (int n = 0; n < (kHalf ? N : np); ++n) {
+        const float2 qf =
+            __bfloat1622float2(reinterpret_cast<const bf16x2*>(buf0 + n * LD)[d2]);
+        const bf16* gn = kHalf ? gseq + (size_t)n * C + h * D : buf1 + n * LD;
+        const float2 gf = __bfloat1622float2(reinterpret_cast<const bf16x2*>(gn)[d2]);
+        v0 = fmaf(pt[n], gf.x, v0);
+        v1 = fmaf(pt[n], gf.y, v1);
+        k0 = fmaf(lt[n], qf.x, k0);
+        k1 = fmaf(lt[n], qf.y, k1);
+      }
+      bf16* row = dseq + (size_t)tt * (kMasked ? tile : 0) * ldq + h * D;
+      reinterpret_cast<bf16x2*>(row + C)[d2] = __floats2bfloat162_rn(k0, k1);
+      reinterpret_cast<bf16x2*>(row + 2 * C)[d2] = __floats2bfloat162_rn(v0, v1);
     }
-    bf16* row = dseq + (size_t)tt * (kMasked ? tile : 0) * ldq + h * D;
-    reinterpret_cast<bf16x2*>(row + C)[d2] = __floats2bfloat162_rn(k0, k1);
-    reinterpret_cast<bf16x2*>(row + 2 * C)[d2] = __floats2bfloat162_rn(v0, v1);
   }
 
   for (int mt = warp; mt < ntiles; mt += nwarps) {
@@ -606,8 +626,12 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
     const int ma = m0 + gr, mb = ma + 8;
     bf16* ra = dseq + (size_t)ma * ldq + h * D + 2 * t;
     bf16* rb = ra + 8 * (size_t)ldq;
-    const bool oka = ma < N && (kMasked ? ma % tile != 0 : ma != 0);
-    const bool okb = mb < N && (kMasked ? mb % tile != 0 : mb != 0);
+    const bool oka = ma < N && (kForm == BwdForm::kTiled ? ma % tile != 0
+                                : kForm == BwdForm::kQkv ? ma != 0
+                                                         : true);
+    const bool okb = mb < N && (kForm == BwdForm::kTiled ? mb % tile != 0
+                                : kForm == BwdForm::kQkv ? mb != 0
+                                                         : true);
 #pragma unroll
     for (int j = 0; j < 2 * DK; ++j) {
       if (oka) {
@@ -624,25 +648,25 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
   }
 }
 
-// Launch K7 (kMasked; `tile` tokens per tile) or K4 (one cls key) with the
-// fewest warps for the rounds the block's query tiles need
-template <bool kMasked, int DK>
+// Launch K7 (`tile` tokens per tile), K4 (one cls key) or K5 (no cls key)
+// with the fewest warps for the rounds the block's query tiles need
+template <BwdForm kForm, int DK>
 int launch_attention_bwd_mma(const bf16* qkv, const float* mask, const bf16* g, bf16* dqkv,
                              bf16* pst, bf16* dlst, int B, int N, int H, float scale,
                              float fill, int tile, cudaStream_t stream) {
-  constexpr int KT = bwd_key_tiles(DK), D = 16 * DK;
+  constexpr int KT = bwd_key_tiles(DK);
   const int np = (N + 15) & ~15, ntiles = np / 16;
   const bool resident = np <= 16 * KT;
-  if (!bwd_onchip(kMasked, resident) && (!pst || !dlst))
+  if (!bwd_onchip(kForm, resident) && (!pst || !dlst))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int max_warps = bwd_max_warps(kMasked, DK, resident);
+  const int max_warps = bwd_max_warps(kForm, DK, resident);
   const int rounds = (ntiles + max_warps - 1) / max_warps;
   const int warps = (ntiles + rounds - 1) / rounds;  // the fewest warps for those rounds
-  const int n_tiles = kMasked ? N / tile : 1;
-  const size_t smem = resident ? bwd_mma_smem_layout<kMasked, true>(N, D, n_tiles, warps).total
-                               : bwd_mma_smem_layout<kMasked, false>(N, D, n_tiles, warps).total;
-  auto kernel = resident ? attention_bwd_mma_kernel<kMasked, DK, KT, true>
-                         : attention_bwd_mma_kernel<kMasked, DK, kBwdChunkTiles, false>;
+  const int n_tiles = kForm == BwdForm::kTiled ? N / tile : bwd_cls(kForm) ? 1 : 0;
+  const size_t smem = resident ? bwd_mma_smem_layout<kForm, DK, true>(N, n_tiles, warps).total
+                               : bwd_mma_smem_layout<kForm, DK, false>(N, n_tiles, warps).total;
+  auto kernel = resident ? attention_bwd_mma_kernel<kForm, DK, KT, true>
+                         : attention_bwd_mma_kernel<kForm, DK, kBwdChunkTiles, false>;
   cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(H, B), warps * 32, smem, stream>>>(qkv, mask, g, dqkv, pst, dlst, N, H, scale,
@@ -651,7 +675,7 @@ int launch_attention_bwd_mma(const bf16* qkv, const float* mask, const bf16* g, 
 }
 
 // The head-dim switch of the C entry points: D = 16, 32, ..., 128
-template <bool kMasked>
+template <BwdForm kForm>
 int launch_attention_bwd_mma_d(const void* qkv, const void* mask, const void* g, void* dqkv,
                                void* pst, void* dlst, int B, int N, int H, int D, float scale,
                                float fill, int tile, void* stream) {
@@ -664,31 +688,41 @@ int launch_attention_bwd_mma_d(const void* qkv, const void* mask, const void* g,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_attention_bwd_mma<kMasked, 1>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                  st);
+      return launch_attention_bwd_mma<kForm, 1>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
+                                                st);
     case 32:
-      return launch_attention_bwd_mma<kMasked, 2>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                  st);
+      return launch_attention_bwd_mma<kForm, 2>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
+                                                st);
     case 48:
-      return launch_attention_bwd_mma<kMasked, 3>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                  st);
+      return launch_attention_bwd_mma<kForm, 3>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
+                                                st);
     case 64:
-      return launch_attention_bwd_mma<kMasked, 4>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                  st);
+      return launch_attention_bwd_mma<kForm, 4>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
+                                                st);
     case 80:
-      return launch_attention_bwd_mma<kMasked, 5>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                  st);
+      return launch_attention_bwd_mma<kForm, 5>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
+                                                st);
     case 96:
-      return launch_attention_bwd_mma<kMasked, 6>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                  st);
+      return launch_attention_bwd_mma<kForm, 6>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
+                                                st);
     case 112:
-      return launch_attention_bwd_mma<kMasked, 7>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                  st);
+      return launch_attention_bwd_mma<kForm, 7>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
+                                                st);
     case 128:
-      return launch_attention_bwd_mma<kMasked, 8>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                  st);
+      return launch_attention_bwd_mma<kForm, 8>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
+                                                st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The side Np of the two [B H, Np, Np] scratch maps that a launch of form
+// kForm for N tokens at head dim D needs: N rounded up to 16, 0 where the
+// instance keeps its scratch on chip; -1 for a shape no instance takes
+template <BwdForm kForm>
+int bwd_scratch_side(int N, int D) {
+  if (N < 1 || N > kMaxTokens || D < 16 || D > 128 || D % 16) return -1;
+  const int side = (N + 15) & ~15;
+  return bwd_onchip(kForm, side <= 16 * bwd_key_tiles(D / 16)) ? 0 : side;
 }
 
 }  // namespace

@@ -23,8 +23,9 @@
 // does not count.
 //
 // Design: the unmasked instance of the tensor-core body in
-// csrc/attention_bwd_mma.cuh (K7's, masked): mma.sync m16n8k16 for all five
-// products; one cls key, key 0, in column 0 of key tile 0, so any N >= 1.
+// csrc/attention_bwd_mma.cuh (K7's and K5's, masked): mma.sync m16n8k16 for
+// all five products; one cls key, key 0, in column 0 of key tile 0, so any
+// N >= 1.
 // N <= 144 (D <= 96) or N <= 80 (wider heads): the resident instance, a
 // row's logits in registers and the rounded attn and dl in shared memory (one
 // block of up to 9 warps an SM at N = 129, with no scratch traffic; 10%
@@ -41,8 +42,8 @@ extern "C" int editor_attention_qkv_bwd(const void* qkv, const void* g, void* dq
                                         int D, float scale, void* stream) {
   using namespace editor_kernels;
   if (N < 1 || N > kMaxTokens) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attention_bwd_mma_d<false>(qkv, nullptr, g, dqkv, pst, dlst, B, N, H, D,
-                                           scale, 0.f, N, stream);
+  return launch_attention_bwd_mma_d<BwdForm::kQkv>(qkv, nullptr, g, dqkv, pst, dlst, B, N, H,
+                                                   D, scale, 0.f, N, stream);
 }
 
 // The side Np of the two [B H, Np, Np] scratch maps that K4's launch for N
@@ -50,9 +51,8 @@ extern "C" int editor_attention_qkv_bwd(const void* qkv, const void* g, void* dq
 // instance, 0 for the resident one (its scratch is in shared memory)
 extern "C" int editor_attention_qkv_bwd_scratch(int N, int D, int* np) {
   using namespace editor_kernels;
-  if (N < 1 || N > kMaxTokens || D < 16 || D > 128 || D % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int side = (N + 15) & ~15;
-  *np = side <= 16 * bwd_key_tiles(D / 16) ? 0 : side;
+  const int side = bwd_scratch_side<BwdForm::kQkv>(N, D);
+  if (side < 0) return static_cast<int>(cudaErrorInvalidValue);
+  *np = side;
   return 0;
 }

@@ -1,46 +1,74 @@
 // K5 and K7: the VJPs of K3 and K6, masked attention from the raw qkv
-// projection (fill -65504 where mask_q * mask_k == 0, query rows re-masked).
+// projection (fill -65504 added where mask_q * mask_k == 0, query rows
+// re-masked).
 //
 // Replaces the TPU kernels editor_tpu/ops/masked_attention.py::_pallas_masked_full_bwd
 // (_qkv_masked_full_bwd_kernel, K5) and ::_pallas_masked_qkv_bwd
 // (_qkv_masked_bwd_kernel, K7); K5 with 8 warps per block is the backward
 // half of T6, tools/bench_full_kernel.py:72 (_qkv_masked_full_bwd_kernel at
-// other group sizes). K5 runs the CUDA-core body of csrc/attention_bwd.cuh;
-// K7 the tensor-core body of csrc/attention_bwd_mma.cuh, masked.
+// other group sizes). K5 (4 warps) and K7 run the tensor-core body of
+// csrc/attention_bwd_mma.cuh; T6 the CUDA-core body of csrc/attention_bwd.cuh.
 //
 // Contract (same as the plain versions masked_attention_qkv_bwd_plain and
 // masked_attention_tiled_bwd_plain, editor_tpu_torch/ops/masked_attention.py):
 //   qkv [B, N, 3C] bf16, mask [B, N] fp32 (1 = keep), g [B, N, C] bf16
 //   -> dqkv [B, N, 3C] bf16. The mask gets no gradient.
-// The rounding points: K5's in csrc/attention_bwd.cuh (every weight rounded
-// to bf16), K7's in csrc/attention_bwd_mma.cuh (each tile's cls key in fp32).
+// The rounding points (those of the TPU bodies; csrc/attention_bwd_mma.cuh):
+// logits (q . k) scale plus the fill, the fp32 row max and exp sum, attn = e
+// mask_q / sum e, dl = attn (dat - r0) scale; K5 rounds every key's attn and
+// dl to bf16 before dq = dl k, dk = dl^T q and dv = attn^T g, K7 keeps each
+// tile's cls key (m % tile == 0) in fp32. T6's body replaces a masked logit
+// with the fill in place of adding it, which gives the same attn: a masked
+// key of a valid row exps to 0 either way, and a masked row is zeroed.
 //
-// What bounds K7 on the H100: 10 H N^2 D FLOP a sequence over the valid
-// pairs against qkv + g + dqkv = 14 N C bytes: 0.53 GB at [384, 129] and at
-// [128, 387], 0.16 ms each at 3.35 TB/s, against 50 GFLOP of valid pairs for
-// the two (0.05 ms on the bf16 tensor cores): bytes. Its scratch of the
-// rounded attn and dl (0.98 GB each way at [128, 387]) is not counted.
+// What bounds them on the H100: 10 H N^2 D FLOP a sequence over the valid
+// pairs against qkv + g + dqkv = 14 N C bytes a sequence. K5 at [384, 88] +
+// [128, 264] (the compact tail): 0.73 GB, 0.22 ms at 3.35 TB/s, against
+// 23 GFLOP of valid pairs (0.02 ms on the bf16 tensor cores); K7 at
+// [384, 129] + [128, 387]: 1.07 GB, 0.32 ms, against 50 GFLOP: bytes. The
+// global scratch of the rounded attn and dl (K7; K5 past 144 keys: 0.23 GB
+// each way at [128, 264]) is not counted.
 //
-// Design: K7 is the masked instance of the tensor-core body in
-// csrc/attention_bwd_mma.cuh, which K4 shares unmasked; K5 keeps the
-// CUDA-core body of csrc/attention_bwd.cuh.
+// Design: K7 and K5 are the masked instances of the tensor-core body, K7 with
+// a cls key a tile and its scratch in global memory, K5 without one; K5's
+// form follows from N as K4's does: the resident instance (N <= 144 at D <=
+// 96, <= 80 above; the per-modality N = 88) keeps the scratch on chip (on an
+// H100 0.274 ms at [384, 88] against 0.344 with K7's global scratch, PERF.md
+// section 6), the chunked one (the joint N = 264) stages k, v, then q, g and
+// keeps the scratch in global memory, reading v and g from global memory
+// past D = 80.
 #include "attention_bwd.cuh"
 #include "attention_bwd_mma.cuh"
 
-// K5; warps: 4 (the model paths) or 8
+// K5; warps: 4 (the model paths: the tensor-core kernel; head dims 16, 32,
+// ..., 128; pst and dlst [B H, Np, Np] bf16 where
+// editor_masked_attention_bwd_scratch gives Np > 0, else unused) or 8 (T6:
+// the CUDA-core body; pst and dlst [B H, N, N] bf16)
 extern "C" int editor_masked_attention_bwd(const void* qkv, const void* mask,
                                            const void* g, void* dqkv, void* pst,
                                            void* dlst, int B, int N, int H, int D,
                                            float scale, float fill, int warps,
                                            void* stream) {
-  using editor_kernels::launch_attention_bwd;
+  using namespace editor_kernels;
+  if (N < 1 || N > kMaxTokens) return static_cast<int>(cudaErrorInvalidValue);
   if (warps == 4)
-    return launch_attention_bwd<4>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale, fill,
-                                   stream);
+    return launch_attention_bwd_mma_d<BwdForm::kFull>(qkv, mask, g, dqkv, pst, dlst, B, N, H,
+                                                      D, scale, fill, 0, stream);
   if (warps == 8)
     return launch_attention_bwd<8>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale, fill,
                                    stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The side Np of the two [B H, Np, Np] scratch maps that K5's 4-warp launch
+// for N tokens at head dim D needs, into *np: N rounded up to 16 for the
+// chunked instance, 0 for the resident one (its scratch is in shared memory)
+extern "C" int editor_masked_attention_bwd_scratch(int N, int D, int* np) {
+  using namespace editor_kernels;
+  const int side = bwd_scratch_side<BwdForm::kFull>(N, D);
+  if (side < 0) return static_cast<int>(cudaErrorInvalidValue);
+  *np = side;
+  return 0;
 }
 
 // K7: `tile` tokens per tile (129 on the model path; at least 16), N % tile
@@ -54,6 +82,6 @@ extern "C" int editor_masked_attention_tiled_bwd(const void* qkv, const void* ma
   using namespace editor_kernels;
   if (N < 1 || N > kMaxTokens || tile < 16 || N % tile)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_attention_bwd_mma_d<true>(qkv, mask, g, dqkv, pst, dlst, B, N, H, D, scale,
-                                          fill, tile, stream);
+  return launch_attention_bwd_mma_d<BwdForm::kTiled>(qkv, mask, g, dqkv, pst, dlst, B, N, H,
+                                                     D, scale, fill, tile, stream);
 }

@@ -15,13 +15,13 @@ hand-written CUDA kernel for Hopper beside its plain PyTorch version.
 K1 and K3 share the tensor-core forward body of ``csrc/attention_fwd_mma.cuh``
 (K1 unmasked with probs and an fp32 cls key, K3 masked with every exp
 rounded and lazy normalisation); K6 and T6's forward half keep the CUDA-core
-body of ``csrc/masked_attention.cu``. K4 and K7 share the tensor-core
+body of ``csrc/masked_attention.cu``. K4, K7 and K5 share the tensor-core
 backward body of ``csrc/attention_bwd_mma.cuh`` (K4 unmasked with one cls
-key, K7 masked with a cls key a tile); K5 and T6's backward half keep the
-CUDA-core body of ``csrc/attention_bwd.cuh``; the tensor-core bodies use the
-helpers of ``csrc/mma.cuh``. A wrapper runs its plain version for a CPU
-tensor; for a CUDA tensor it launches its kernel (built on first use by
-:mod:`._build`) or raises. Each wrapper counts its kernel
+key, K7 masked with a cls key a tile, K5 masked with none); T6's backward
+half keeps the CUDA-core body of ``csrc/attention_bwd.cuh``; the
+tensor-core bodies use the helpers of ``csrc/mma.cuh``. A wrapper runs its
+plain version for a CPU tensor; for a CUDA tensor it launches its kernel
+(built on first use by :mod:`._build`) or raises. Each wrapper counts its kernel
 launches in its ``launches`` attribute. :func:`attention_qkv_fn` (K1 + K4),
 :func:`masked_attention_qkv_fn` (K3 + K5), :func:`masked_attention_tiled_fn`
 (K6 + K7) and :func:`ln_matmul_fn` (K8, plain backward) are the autograd
@@ -30,9 +30,9 @@ for 1 + 128-token tiles, else K3/K5). K8 is on no model path, as in the JAX
 package. The raw K3, K5 and K6 wrappers (:data:`WARP_WRAPPERS`) take
 ``warps=`` per block (4 on the model paths; the others serve the block-shape
 sweeps of the design-variant tools in ``editor_tpu_torch/tools/``, whose
-kernels T1-T6 sit beside their plain versions there; K3 at 8 or 16 warps is
-the CUDA-core body, not the tensor-core kernel) and count a launch at
-another warp count in ``variant_launches``, not ``launches``.
+kernels T1-T6 sit beside their plain versions there; K3 at 8 or 16 warps and
+K5 at 8 are the CUDA-core bodies, not the tensor-core kernels) and count a
+launch at another warp count in ``variant_launches``, not ``launches``.
 """
 
 from editor_tpu_torch.ops.fused_attention import (attention_qkv, attention_qkv_bwd,

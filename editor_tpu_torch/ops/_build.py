@@ -60,6 +60,8 @@ SIGNATURES = {
     "editor_attention_qkv_bwd_scratch": [_I, _I, ctypes.POINTER(_I)],
     # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, warps, stream
     "editor_masked_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    # N, D, the side of each scratch map of K5's 4-warp launch (out; 0: none)
+    "editor_masked_attention_bwd_scratch": [_I, _I, ctypes.POINTER(_I)],
     # qkv, mask, out, B, N, H, D, scale, fill, tile, warps per block, stream
     "editor_masked_attention_tiled": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, tile, stream

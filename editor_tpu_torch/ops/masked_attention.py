@@ -27,14 +27,20 @@ train step; the mask gets no gradient. K3, K5 and K6 take ``warps`` per block:
 a launch with the model paths' :data:`SHIPPED_WARPS` counts in the wrapper's
 ``launches``, any other (the block-shape sweeps, T6 for K3/K5) in its
 ``variant_launches``. At :data:`SHIPPED_WARPS` K3 is the masked instance of
-K1's tensor-core forward (``csrc/attention_fwd_mma.cuh``); at 8 and 16 warps
-it launches the CUDA-core body that T6 sweeps (``csrc/masked_attention.cu``).
-The plain version in the rounding form of K3's TPU kernel, which the CUDA
-kernel follows, is :func:`masked_attention_qkv_tpu_plain`; the model's CPU
-path keeps :func:`masked_attention_qkv_plain`, the XLA form.
+K1's tensor-core forward (``csrc/attention_fwd_mma.cuh``) and K5 the
+instance without cls keys of the tensor-core backward that K4 and K7 share
+(``csrc/attention_bwd_mma.cuh``); at 8 and 16 warps they launch the
+CUDA-core bodies that T6 sweeps (``csrc/masked_attention.cu``,
+``csrc/attention_bwd.cuh``). The plain version in the rounding form of K3's
+TPU kernel, which the CUDA kernel follows, is
+:func:`masked_attention_qkv_tpu_plain`; the model's CPU path keeps
+:func:`masked_attention_qkv_plain`, the XLA form. K5's plain version,
+:func:`masked_attention_qkv_bwd_plain`, is in its TPU kernel's form.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -147,20 +153,18 @@ def masked_attention_tiled_plain(qkv: torch.Tensor, mask: torch.Tensor, num_head
 
 
 def _masked_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill, tile):
-    """The masked attention VJP in its TPU kernels' form: tile 0 is K5
-    (``_qkv_masked_full_bwd_kernel``), tile > 0 is K7
-    (``_qkv_masked_bwd_kernel``: fill added, cls keys unrounded)."""
+    """The masked attention VJP in its TPU kernels' form, the fill added as a
+    bias: tile 0 is K5 (``_qkv_masked_full_bwd_kernel``: every key's attn and
+    dl rounded), tile > 0 is K7 (``_qkv_masked_bwd_kernel``: each tile's cls
+    key unrounded)."""
     q, k, v = _heads(qkv, num_heads)
     cd = q.dtype
     B, N, C = g.shape
     gh = g.reshape(B, N, num_heads, C // num_heads).transpose(1, 2).to(cd)
     m = mask.to(cd)
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     pair = m[:, None, :, None] * m[:, None, None, :]
-    if tile:
-        logits = logits + torch.where(pair == 0, mask_fill, 0.0).to(cd)
-    else:
-        logits = torch.where(pair == 0, torch.full_like(logits, mask_fill), logits)
+    logits = (torch.matmul(q, k.transpose(-1, -2)) * scale
+              + torch.where(pair == 0, mask_fill, 0.0).to(cd))
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     inv = 1.0 / e.sum(-1, keepdim=True)
     attn = e * inv * m[:, None, :, None]
@@ -183,14 +187,19 @@ def _masked_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill, tile):
 def masked_attention_qkv_bwd_plain(qkv: torch.Tensor, mask: torch.Tensor,
                                    g: torch.Tensor, num_heads: int, scale: float,
                                    mask_fill: float = MASK_FILL) -> torch.Tensor:
-    """The VJP of :func:`masked_attention_qkv_plain` in qkv: qkv [B, N, 3C],
-    mask [B, N], g [B, N, C] -> dqkv [B, N, 3C] in qkv.dtype.
+    """K5's function, the VJP of :func:`masked_attention_qkv_plain` in qkv:
+    qkv [B, N, 3C], mask [B, N], g [B, N, C] -> dqkv [B, N, 3C] in qkv.dtype.
 
     Explicit VJP in at least fp32 (the math of ``jax.vjp`` of
     ``_xla_masked_from_qkv``) in the TPU kernel's form
-    (``_qkv_masked_full_bwd_kernel``): r0 = sum(dat * e) / sum(e) over the
-    row, dl = attn * (dat - r0) * scale with attn already re-masked, attn
-    and dl rounded to qkv.dtype before the products."""
+    (``_qkv_masked_full_bwd_kernel``), which the CUDA kernel follows:
+    ``mask_fill`` ADDED to the logits where the pair mask is 0 (a masked key
+    of a valid row exps to 0 as if replaced, and masked rows are zeroed, so
+    at f64 it equals the XLA oracle's VJP); r0 = sum(dat * e) / sum(e) over
+    the row, dl = attn * (dat - r0) * scale with attn already re-masked;
+    every key's attn and dl rounded to qkv.dtype before the products (K7's
+    form, :func:`masked_attention_tiled_bwd_plain`, keeps each tile's cls key
+    in fp32)."""
     return _masked_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill, 0)
 
 
@@ -200,10 +209,9 @@ def masked_attention_tiled_bwd_plain(qkv: torch.Tensor, mask: torch.Tensor,
                                      tile: int = 129) -> torch.Tensor:
     """K7's function, the VJP of :func:`masked_attention_tiled_plain` in
     qkv, in its TPU kernel's form (``_qkv_masked_bwd_kernel``): as
-    :func:`masked_attention_qkv_bwd_plain` with the fill added as a bias and
-    each tile's cls-key attn and dl kept in fp32 (only the patch keys' are
-    rounded to qkv.dtype). At f64 it equals ``jax.vjp`` of
-    ``_xla_masked_from_qkv``."""
+    :func:`masked_attention_qkv_bwd_plain` with each tile's cls-key attn and
+    dl kept in fp32 (only the patch keys' are rounded to qkv.dtype). At f64
+    it equals ``jax.vjp`` of ``_xla_masked_from_qkv``."""
     return _masked_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill, tile)
 
 
@@ -242,15 +250,26 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-K3_MAX_HEAD_DIM = 128
+MMA_MAX_HEAD_DIM = 128  # the widest head the tensor-core kernels dispatch
+
+
+def _check_mma_head_dim(name: str, D: int) -> None:
+    """Raise unless a tensor-core kernel takes head dim ``D``: its tiles are
+    16 deep, so a multiple of 16 up to 128 (one template instance each)."""
+    if D % 16 or not 0 < D <= MMA_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} is not a multiple of 16 up to "
+                         f"{MMA_MAX_HEAD_DIM}")
 
 
 def check_k3_head_dim(D: int) -> None:
-    """Raise unless K3's tensor-core kernel takes head dim ``D``: its tiles
-    are 16 deep, so a multiple of 16 up to 128 (one template instance each)."""
-    if D % 16 or not 0 < D <= K3_MAX_HEAD_DIM:
-        raise ValueError(f"masked_attention_qkv: head dim {D} is not a multiple "
-                         f"of 16 up to {K3_MAX_HEAD_DIM}")
+    """Raise unless K3's tensor-core kernel takes head dim ``D``."""
+    _check_mma_head_dim("masked_attention_qkv", D)
+
+
+def check_k5_head_dim(D: int) -> None:
+    """Raise unless K5's tensor-core kernel takes head dim ``D`` (at every N
+    up to 512)."""
+    _check_mma_head_dim("masked_attention_qkv_bwd", D)
 
 
 def masked_attention_qkv(qkv: torch.Tensor, mask: torch.Tensor,
@@ -316,24 +335,41 @@ def masked_attention_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Ten
                              num_heads: int, scale: float,
                              mask_fill: float = MASK_FILL, warps: int = 4) -> torch.Tensor:
     """K5: dqkv [B, N, 3C] from qkv, the mask [B, N] and the output's
-    cotangent g [B, N, C]. CUDA: ``csrc/masked_attention_bwd.cu`` (bf16,
-    contiguous; ``warps`` per block from :data:`BWD_WARPS`); CPU:
-    :func:`masked_attention_qkv_bwd_plain`."""
+    cotangent g [B, N, C]. ``warps`` per block (:data:`BWD_WARPS`):
+    :data:`SHIPPED_WARPS` launches the tensor-core kernel
+    (``csrc/attention_bwd_mma.cuh``; qkv and g 16-byte aligned,
+    :func:`check_k5_head_dim`, a [B H, Np, Np] bf16 scratch pair where its
+    chunked instance needs one: ``editor_masked_attention_bwd_scratch``
+    gives Np), 8 the CUDA-core body of T6 (``csrc/attention_bwd.cuh``, a
+    [B H, N, N] scratch pair). CPU: :func:`masked_attention_qkv_bwd_plain`."""
     D = _check_args(qkv, mask, num_heads, g, warps=warps, allowed=BWD_WARPS)
     if qkv.device.type == "cpu":
         return masked_attention_qkv_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill)
-    mask32 = _kernel_inputs("masked_attention_qkv_bwd", qkv, mask, D, g)
+    shipped = warps == SHIPPED_WARPS
+    if shipped:
+        check_k5_head_dim(D)
+    # 16-byte cp.async copies of the head's rows in the tensor-core kernel
+    mask32 = _kernel_inputs("masked_attention_qkv_bwd", qkv, mask, D, g,
+                            align=16 if shipped else 4)
     from editor_tpu_torch.ops import _build
 
+    lib = _build.library()
     B, N, _ = qkv.shape
+    side = N  # the CUDA-core body's scratch rows
+    if shipped:
+        side_out = ctypes.c_int()
+        _build.check(lib.editor_masked_attention_bwd_scratch(N, D, ctypes.byref(side_out)),
+                     "masked_attention_qkv_bwd")
+        side = side_out.value
     dqkv = torch.empty_like(qkv)
-    # per-(b, h) scratch of the rounded attn and dl rows (csrc/attention_bwd.cuh)
-    pst = torch.empty((B * num_heads, N, N), dtype=qkv.dtype, device=qkv.device)
-    dlst = torch.empty_like(pst)
-    code = _build.library().editor_masked_attention_bwd(
+    scratch = [None, None]
+    if side:  # per-(b, h) scratch of the rounded attn and dl
+        scratch = [torch.empty((B * num_heads, side, side), dtype=qkv.dtype,
+                               device=qkv.device) for _ in range(2)]
+    code = lib.editor_masked_attention_bwd(
         qkv.data_ptr(), mask32.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-        pst.data_ptr(), dlst.data_ptr(), B, N, num_heads, D, float(scale),
-        float(mask_fill), warps, _stream(qkv))
+        *(t.data_ptr() if t is not None else None for t in scratch),
+        B, N, num_heads, D, float(scale), float(mask_fill), warps, _stream(qkv))
     _build.check(code, "masked_attention_qkv_bwd")
     count_launch(masked_attention_qkv_bwd, warps)
     return dqkv
@@ -343,7 +379,6 @@ masked_attention_qkv_bwd.launches = 0
 masked_attention_qkv_bwd.variant_launches = 0
 
 
-K7_MAX_HEAD_DIM = 128
 K7_MIN_TILE = 16
 
 
@@ -351,9 +386,7 @@ def check_k7_shape(D: int, tile: int) -> None:
     """Raise unless K7's CUDA kernel takes head dim ``D`` and ``tile``-token
     tiles: its tensor-core tiles are 16 deep, so D is a multiple of 16 up to
     128, and a 16-key tile holds at most one cls key, so tile >= 16."""
-    if D % 16 or not 0 < D <= K7_MAX_HEAD_DIM:
-        raise ValueError(f"masked_attention_tiled_bwd: head dim {D} is not a multiple "
-                         f"of 16 up to {K7_MAX_HEAD_DIM}")
+    _check_mma_head_dim("masked_attention_tiled_bwd", D)
     if tile < K7_MIN_TILE:
         raise ValueError(f"masked_attention_tiled_bwd: tile {tile} < {K7_MIN_TILE} tokens")
 

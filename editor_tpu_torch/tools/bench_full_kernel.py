@@ -9,21 +9,26 @@ bodies of K3 and K5 (``_qkv_masked_full_kernel``,
 step). On the H100 the block-shape knob of the CUDA-core bodies of K3 and
 K5 is the warps per block (``FWD_WARPS`` and ``BWD_WARPS`` of
 ``ops.masked_attention``; the model paths launch 4): :func:`masked_full` and
-:func:`masked_full_bwd` launch K3 and K5 with it. At 4 warps K5 is that body
-and K3 is its tensor-core kernel (the masked instance of K1's forward,
-``csrc/attention_fwd_mma.cuh``); at 8 and 16 warps K3 is the CUDA-core body
-(``csrc/masked_attention.cu``) that T6 sweeps. Their launches are counted
+:func:`masked_full_bwd` launch K3 and K5 with it. At 4 warps both are their
+tensor-core kernels (K3 the masked instance of K1's forward,
+``csrc/attention_fwd_mma.cuh``; K5 the instance without cls keys of the
+backward K4 and K7 share, ``csrc/attention_bwd_mma.cuh``); at 8 and 16 warps
+K3, and at 8 warps K5, are the CUDA-core bodies (``csrc/masked_attention.cu``,
+``csrc/attention_bwd.cuh``) that T6 sweeps. Their launches are counted
 where K3 and K5 launch: at 4 warps in ``launches``, at any other in
 ``variant_launches`` of ``ops.masked_attention_qkv`` and
 ``ops.masked_attention_qkv_bwd``. At the flagship eval batch (B = 128: 384
 sequences of N = 88 per modality, 128 of N = 264 joint; random-normal bf16
 qkv and cotangent, mask rand < 0.8, seed 0) the tool prints for each warp
 count the ms from CUDA events, the relative error against the shipped 4-warp
-launch and the plain version, and the bound (forward: the share of elements
-more than one bf16 ulp off the 4-warp kernel; backward: whether the bytes
-equal the 4-warp launch's); then the plain versions and SDPA (forward with a
-key mask; backward as (forward + backward) - forward). The card's name and
-power limit come first. Exits non-zero without a CUDA device.
+launch and the plain version, the share of elements more than one bf16 ulp
+off the 4-warp kernel (the two round at the same points, so it is near 0),
+and the bound (the least time the card could take: forward 4 H D flops a
+valid pair against qkv + out, backward 10 H D against qkv + g + dqkv, both
+read once and written once, over the valid pairs of this mask); then the
+plain versions and SDPA (forward with a key mask; backward as (forward +
+backward) - forward). The card's name and power limit come first. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -93,13 +98,14 @@ def main(argv=None) -> None:
 
         ref = masked_full_bwd_plain(qkv, m, g, H, SCALE)
         base = masked_full_bwd(qkv, m, g, H, SCALE, 4)
+        # reads qkv, g and the mask, writes dqkv; logits, dat, dq, dk, dv
         bnd = _bench.bound(10.0 * H * D * pairs, 2.0 * B * N * 7 * C + 4.0 * B * N)
         for w in BWD_WARPS:
             out = masked_full_bwd(qkv, m, g, H, SCALE, w)
             ms = _bench.cuda_ms(lambda: masked_full_bwd(qkv, m, g, H, SCALE, w), args.iters)
             _bench.report(f"bwd B={B} N={N} warps={w}", ms, _bench.rel_err(out, base), bnd,
                           relerr_vs_plain=f"{_bench.rel_err(out, ref):.2e}",
-                          equal_to_4_warps=bool(torch.equal(out, base)))
+                          share_off_4_warps=f"{_bench.bf16_off_share(out, base):.2e}")
         ms = _bench.cuda_ms(lambda: masked_full_bwd_plain(qkv, m, g, H, SCALE), args.iters)
         _bench.report(f"bwd B={B} N={N} plain", ms, _bench.rel_err(ref, base))
         ms = sdpa_bwd_ms(heads, g, keys, args.iters)

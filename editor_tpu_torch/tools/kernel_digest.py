@@ -24,11 +24,11 @@ events. The card's name and power limit come first. Exits non-zero without
 a CUDA device.
 
 ``--save`` also writes K1's output and probs, K3's output and K4's dqkv at
-each of their shapes and K7's dqkv at its three shapes to a file, and
-``--diff`` prints,
-for two such files (two checkouts' kernels on the same input), the largest
-difference of each tensor, the share of elements that differ and the largest
-difference in bf16 ulps of the first file's element.
+each of their shapes, K5's dqkv at its two and K7's at its three shapes to
+a file, and ``--diff`` prints, for two such files (two checkouts' kernels
+on the same input), the largest difference of each tensor, the share of
+elements that differ and the largest difference in bf16 ulps of the first
+file's element.
 """
 
 from __future__ import annotations
@@ -90,8 +90,8 @@ def diff(path_a: str, path_b: str) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--save", help="write K1's output and probs, K3's output and K4's and "
-                    "K7's dqkv to this file")
+    ap.add_argument("--save", help="write K1's output and probs, K3's output and K4's, K5's "
+                    "and K7's dqkv to this file")
     ap.add_argument("--diff", nargs=2, metavar=("A", "B"), help="compare two --save files")
     args = ap.parse_args(argv)
     if args.diff:
@@ -148,6 +148,9 @@ def main(argv=None) -> None:
                                                                           FILL).cpu()
         line("K5 masked_attention_qkv_bwd", qkv.shape,
              lambda: ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL))
+        if args.save:
+            saved[f"K5 dqkv {list(qkv.shape)}"] = ops.masked_attention_qkv_bwd(
+                qkv, m, g, H, SCALE, FILL).cpu()
     for B, N in ((384, 129), (128, 387), (128, 258)):
         qkv, m, g = randn(B, N, 3 * C), mask(B, N, 129), randn(B, N, C)
         line("K6 masked_attention_tiled", qkv.shape,

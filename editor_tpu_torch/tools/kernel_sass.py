@@ -9,8 +9,8 @@ with ``cuobjdump -sass``, and prints one JSON line per kernel whose mangled
 name matches REGEX: its registers, spill bytes, static shared memory, the
 number of SASS instructions and the count of each opcode (without its
 modifiers), with its demangled name (``cu++filt``; the template arguments
-tell the instances apart, e.g. K4's and K7's ``attention_bwd_mma_kernel<
-masked, head-dim tiles, key tiles, resident>``). The
+tell the instances apart, e.g. K4's, K7's and K5's
+``attention_bwd_mma_kernel<form, head-dim tiles, key tiles, resident>``). The
 source may lie in another checkout: its includes resolve beside it. Needs
 ``nvcc``, ``cuobjdump`` and ``cu++filt`` of the CUDA toolkit, no card.
 """

@@ -40,11 +40,14 @@ CATEGORIES = (
     ("K1 attention_qkv", r"attention_fwd_mma_kernel<false"),
     ("K2 rollout_chain", r"rollout_chain_kernel"),
     ("K3 masked_attention", r"attention_fwd_mma_kernel<true|masked_attention_kernel"),
-    # K4 and K7: the tensor-core backward body, unmasked and masked
-    ("K4 attention_qkv_bwd", r"attention_bwd_mma_kernel<false"),
-    ("K5 masked_attention_bwd", r"attention_bwd_kernel<"),
+    # K4, K7 and K5: the tensor-core backward body's forms kQkv, kTiled and
+    # kFull (an enum argument, demangled as "(...BwdForm)0" or by name); K5
+    # at 8 warps (T6) is the CUDA-core attention_bwd_kernel
+    ("K4 attention_qkv_bwd", r"attention_bwd_mma_kernel<[^,]*bwdform(\)0|::kqkv)"),
+    ("K5 masked_attention_bwd",
+     r"attention_bwd_mma_kernel<[^,]*bwdform(\)2|::kfull)|attention_bwd_kernel<"),
     ("K6 masked_attention_tiled", r"masked_attention_tiled_kernel"),
-    ("K7 masked_attention_tiled_bwd", r"attention_bwd_mma_kernel<true"),
+    ("K7 masked_attention_tiled_bwd", r"attention_bwd_mma_kernel<[^,]*bwdform(\)1|::ktiled)"),
     ("K8 ln_matmul", r"ln_matmul_kernel"),
     ("T1/T2 attention variants", r"attention_variant_kernel"),
     ("T3 attn_layer", r"attn_layer_kernel"),

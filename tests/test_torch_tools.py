@@ -25,9 +25,11 @@ from editor_tpu_torch.tools import profile_train as pt
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float>",
      "LayerNorm"),
     ("void at::native::vectorized_elementwise_kernel<4, GeluCUDAKernelImpl>", "GELU"),
-    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<false, 4, 9, true>"
-     "(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
-    ("void editor_kernels::attention_bwd_kernel<4>(__nv_bfloat16 const*, ...)",
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
+     "(editor_kernels::(anonymous namespace)::BwdForm)0, 4, 9, true>(__nv_bfloat16 const*, ...)",
+     "K4 attention_qkv_bwd"),
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
+     "(editor_kernels::(anonymous namespace)::BwdForm)2, 4, 9, true>(__nv_bfloat16 const*, ...)",
      "K5 masked_attention_bwd"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<TensorListMetadata<3>>",
      "optimizer (foreach)"),
@@ -37,33 +39,36 @@ from editor_tpu_torch.tools import profile_train as pt
      "LayerNorm"),
     ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_kernel(...)",
      "K6 masked_attention_tiled"),
-    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 2, 9, true>"
-     "(...)", "K7 masked_attention_tiled_bwd"),
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
+     "(editor_kernels::(anonymous namespace)::BwdForm)1, 2, 9, true>(...)",
+     "K7 masked_attention_tiled_bwd"),
     ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<true, 4, 9, true>"
      "(...)", "K3 masked_attention"),
     ("void editor_kernels::(anonymous namespace)::ln_matmul_kernel(...)", "K8 ln_matmul"),
     # the warp count is a template argument of K3, K5, K6 (the T6 sweep); K4's
-    # chunked and resident instances
-    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<false, 8, 2, false>"
-     "(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
-    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<false, 4, 9, true>"
-     "(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
+    # chunked and resident instances, the enum argument by name
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
+     "BwdForm::kQkv, 8, 2, false>(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
+     "(BwdForm)0, 4, 9, true>(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
     ("void editor_kernels::attention_bwd_kernel<8>(__nv_bfloat16 const*, ...)",
      "K5 masked_attention_bwd"),
     ("void editor_kernels::(anonymous namespace)::masked_attention_kernel<8>(...)",
      "K3 masked_attention"),
     ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_kernel<16>(...)",
      "K6 masked_attention_tiled"),
-    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 8, 5, true>"
-     "(...)", "K7 masked_attention_tiled_bwd"),
-    # K7 on the tensor cores: the masked switch, head-dim tiles, key tiles and
-    # the resident form are template arguments; not K4's or K5's category
-    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 4, 9, true>"
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
+     "BwdForm::kTiled, 8, 5, true>(...)", "K7 masked_attention_tiled_bwd"),
+    # K7 and K5 on the tensor cores: the form, head-dim tiles, key tiles and
+    # the resident form are template arguments; not each other's category
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
+     "(editor_kernels::(anonymous namespace)::BwdForm)1, 4, 9, true>"
      "(__nv_bfloat16 const*, float const*, __nv_bfloat16 const*, __nv_bfloat16*, "
      "__nv_bfloat16*, __nv_bfloat16*, int, int, float, float, int)",
      "K7 masked_attention_tiled_bwd"),
-    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<true, 4, 2, false>"
-     "(...)", "K7 masked_attention_tiled_bwd"),
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
+     "(editor_kernels::(anonymous namespace)::BwdForm)2, 4, 2, false>(...)",
+     "K5 masked_attention_bwd"),
     # K1 and K3 on the tensor cores: the masked switch, head-dim tiles, key
     # tiles and the resident form are template arguments
     ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<false, 4, 9, true>"
