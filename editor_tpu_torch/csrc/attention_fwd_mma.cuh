@@ -1,13 +1,13 @@
-// The tensor-core attention forward shared by K1 (csrc/attention_qkv.cu) and
-// K3 (csrc/masked_attention.cu): softmax(q k^T scale) v of one (head,
+// The tensor-core attention forward shared by K1 (csrc/attention_qkv.cu), K3
+// and K6 (csrc/masked_attention.cu): softmax(q k^T scale) v of one (head,
 // sequence) pair from the raw qkv projection, every product on mma.sync
-// m16n8k16 (bf16 in, fp32 sums). One compile-time switch, kMasked, makes the
-// two:
-//  * unmasked (K1): p = e (1 / sum e) normalised before it is rounded; the
-//    probs written when asked for; the cls key's p_0 kept in fp32 (p_0 v_0
-//    added with FMAs), every other p rounded to bf16 before p.v. Three passes
-//    over the keys past one chunk (row max; exp sum; normalise, store, p.v).
-//  * masked (K3): the mask's fill added to a logit where mask_q * mask_k == 0
+// m16n8k16 (bf16 in, fp32 sums). One compile-time switch, FwdForm, makes the
+// three:
+//  * kQkv (K1): p = e (1 / sum e) normalised before it is rounded; the probs
+//    written when asked for; the cls key's p_0 kept in fp32 (p_0 v_0 added
+//    with FMAs), every other p rounded to bf16 before p.v. Three passes over
+//    the keys past one chunk (row max; exp sum; normalise, store, p.v).
+//  * kFull (K3): the mask's fill added to a logit where mask_q * mask_k == 0
 //    (as a per-key bias in shared memory: 0 for a valid key, `fill` for a
 //    masked one, -inf past N); every exp rounded to bf16 before e.v, the
 //    unrounded exps summed beside it, and the [16, D] accumulator scaled once
@@ -16,16 +16,20 @@
 //    final max must be known before any exp is rounded. A query row with mask
 //    0 is written as exact zeros, and a warp whose 16 rows all have mask 0
 //    does no products. The block takes `tpb` query tiles from blockIdx.z.
+//  * kTiled (K6): kFull with the exp of every cls key (m % tile == 0, 0, 129
+//    and 258 at the model's tile) kept in fp32: e_c v_c added with FMAs, as
+//    K1 does for key 0, and the key's entry of the bf16 A operand cleared.
 //
-// Contract (the plain versions: attention_qkv_tpu_plain and
-// masked_attention_qkv_tpu_plain, editor_tpu_torch/ops/): qkv [B, N, 3C] bf16,
-// laid out [q_h0..q_hH | k_h0.. | v_h0..], C = H * D, 16-byte aligned; out
-// [B, N, C] bf16, heads at columns h * D; K1: probs [B, H, N, N] bf16 (may be
-// null); K3: mask [B, N] fp32 (1 = keep). N <= kMaxTokens, D a multiple of 16
-// up to 128, one template instance per D.
+// Contract (the plain versions: attention_qkv_tpu_plain,
+// masked_attention_qkv_tpu_plain and masked_attention_tiled_plain,
+// editor_tpu_torch/ops/): qkv [B, N, 3C] bf16, laid out [q_h0..q_hH | k_h0.. |
+// v_h0..], C = H * D, 16-byte aligned; out [B, N, C] bf16, heads at columns
+// h * D; K1: probs [B, H, N, N] bf16 (may be null); K3 and K6: mask [B, N]
+// fp32 (1 = keep); K6: N a multiple of `cls_tile`. N <= kMaxTokens, D a multiple
+// of 16 up to 128, one template instance per D.
 //
-// Layout (attention_fwd_mma_kernel): one block per (head, sequence) (K3: per
-// query chunk of one too), each warp one 16-row query tile at a time. The
+// Layout (attention_fwd_mma_kernel): one block per (head, sequence) (K3, K6:
+// per query chunk of one too), each warp one 16-row query tile at a time. The
 // head's k and v rows (128 contiguous bytes each at D = 64 in a 4608-byte qkv
 // row) go to shared memory with 16-byte cp.async, rows padded by 16 bytes so
 // that ldmatrix reads 8 rows in 8 distinct bank groups; keys past N are zero.
@@ -35,13 +39,13 @@
 // are made once (the resident instance, k and v staged once); past that the
 // keys come in chunks of 16 KT and each pass makes a chunk's logits anew
 // (the chunked instance). K1's chunked instance loads each chunk of k (and v)
-// anew in each pass; K3's stages the head's k and v whole once when they fit
-// in shared memory (`kvw`; 78 KB at N = 264, D = 64) and chunk by chunk
-// otherwise (N = 512 at D >= 112). Row max and sum reduce over the 4 lanes of
-// a quad. The accumulator tiles of p (or e) are re-packed in registers as
-// the A operand of p.v, with v through ldmatrix.trans. Padded keys are -inf
-// before the max (exp gives 0, not NaN, at |logit| ~ 1e3); query rows past N
-// are never stored.
+// anew in each pass; K3's and K6's stage the head's k and v whole once when
+// they fit in shared memory (`kvw`; 78 KB at N = 264, 115 KB at N = 387, D =
+// 64) and chunk by chunk otherwise (N = 512 at D >= 112). Row max and sum
+// reduce over the 4 lanes of a quad. The accumulator tiles of p (or e) are
+// re-packed in registers as the A operand of p.v, with v through
+// ldmatrix.trans. Padded keys are -inf before the max (exp gives 0, not NaN,
+// at |logit| ~ 1e3); query rows past N are never stored.
 //
 // Included by the two sources that instantiate it; the kernels have internal
 // linkage, each source its own.
@@ -52,9 +56,19 @@
 namespace editor_kernels {
 namespace {
 
-// warps a block, K1's and K3's: 8 in the chunked instance were slower for
-// K3 at N = 264 (PERF.md, findings)
+// The three instances of the body: K1 (no mask, probs, the cls key 0 in
+// fp32), K3 (mask, every exp rounded), K6 (mask, a cls key every `cls_tile`
+// tokens in fp32)
+enum class FwdForm { kQkv, kFull, kTiled };
+
+// warps a block, K1's, K3's and K6's: 8 in the chunked instance were slower
+// for K3 at N = 264 (PERF.md, findings)
 constexpr int kK1MaxWarps = 4;
+// K6's chunked instance where its k and v, staged whole, leave room for one
+// block an SM (N = 387 at D = 64: 115 KB): 8 warps, so that the SM still has
+// 8 (7 at N = 387: 0.68 ms against 0.97 with 4 at [128, 387]; where two
+// blocks fit, as at N = 258, 4 stay faster: PERF.md, findings)
+constexpr int kK6OneBlockWarps = 8;
 constexpr int kK1ResidentWarps = 3;   // 9 query tiles at N = 129: 3 rounds
 // resident blocks an SM that the register budget must allow: 4 x 54 KB of
 // shared memory at D <= 64 (ptxas budgets a 3-warp block as 4 warps: 168
@@ -163,20 +177,25 @@ __device__ __forceinline__ void k1_store_span(bf16* dst, const bf16* src, int n,
   for (int i = head + nv * 8 + lane; i < n; i += 32) dst[i] = src[i];
 }
 
-// One block per (head, sequence) (K3: and per chunk of `tpb` query tiles,
+// One block per (head, sequence) (K3, K6: and per chunk of `tpb` query tiles,
 // blockIdx.z), `blockDim.x / 32` warps, each warp one 16-row query tile at a
 // time. The keys come in chunks of 16 KT. kResident (N <= 16 KT): the head's
 // k and v are loaded once and the logits are made once; at most 3 warps and
 // a register budget that lets 4 blocks share an SM at D <= 64. Else (`nch`
-// chunks, at most 4 warps) each pass makes each chunk's logits anew; K1
-// loads each chunk of k (and v) for it, K3 too unless `kvw` (k and v staged
-// whole once). `se`: bf16 elements of each warp's probs staging buffer (K1).
-template <bool kMasked, int DK, int KT, bool kResident>
-__global__ void __launch_bounds__(kResident ? kK1ResidentWarps * 32 : kK1MaxWarps * 32,
+// chunks, at most 4 warps; K6 8) each pass makes each chunk's logits anew; K1
+// loads each chunk of k (and v) for it, K3 and K6 too unless `kvw` (k and v
+// staged whole once). `se`: bf16 elements of each warp's probs staging buffer
+// (K1); `cls_tile`: tokens a tile, whose first is a cls key (K6).
+template <FwdForm kForm, int DK, int KT, bool kResident>
+__global__ void __launch_bounds__(kResident                   ? kK1ResidentWarps * 32
+                                  : kForm == FwdForm::kTiled ? kK6OneBlockWarps * 32
+                                                              : kK1MaxWarps * 32,
                                   kResident ? k1_resident_blocks(DK) : 1)
 attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                          bf16* __restrict__ out, bf16* __restrict__ probs, int N, int H,
-                         float scale, float fill, int nch, int se, int tpb, int kvw) {
+                         float scale, float fill, int nch, int se, int tpb, int kvw,
+                         int cls_tile) {
+  constexpr bool kMasked = kForm != FwdForm::kQkv;
   constexpr int D = 16 * DK, LD = D + 8, KC = 16 * KT;
   if (kResident) nch = 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -193,7 +212,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + rows_kv * LD;
   bf16* stage = vs + rows_kv * LD + warp * se;
-  // K3: the key bias, npad floats after k and v
+  // K3, K6: the key bias, npad floats after k and v
   float* kb = reinterpret_cast<float*>(vs + rows_kv * LD);
   const bf16* seq = qkv + (size_t)b * N * ldq;
   bf16* pmap = probs ? probs + ((size_t)b * H + h) * N * N : nullptr;
@@ -213,7 +232,7 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
     const bool in_range = tile < tend;  // warp-uniform
     const int r0 = tile * 16;
     const bool row_g = r0 + g < N, row_g8 = r0 + g + 8 < N;
-    // K3: the query mask of rows g and g + 8 (0 past N); a warp with no
+    // K3, K6: the query mask of rows g and g + 8 (0 past N); a warp with no
     // valid row does no products and writes zeros
     float mq0 = 0.f, mq8 = 0.f;
     bool active = in_range;
@@ -254,7 +273,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
     mx0 = quad_max(mx0);
     mx8 = quad_max(mx8);
     // K1, pass 2: the exp sum (the max element gives exp(0) = 1, so sum >= 1;
-    // a padded key's exp(-inf) is 0). K3 sums the exps in its last pass.
+    // a padded key's exp(-inf) is 0). K3 and K6 sum the exps in their last
+    // pass.
     float sum0 = 0.f, sum8 = 0.f, inv0 = 0.f, inv8 = 0.f;
     if constexpr (!kMasked) {
       for (int c = 0; c < nch; ++c) {
@@ -280,7 +300,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
     }
     // last pass. K1: p = e * inv; probs = bf16(p); out = sum_m bf16(p_m) v_m
     // over the patch keys (m >= 1) on the tensor cores + p_0 v_0 in fp32.
-    // K3: e = exp(l - max), sum += e, out = sum_m bf16(e_m) v_m.
+    // K3: e = exp(l - max), sum += e, out = sum_m bf16(e_m) v_m. K6: as K3
+    // over the patch keys + e_c v_c in fp32 over the cls keys.
     float o[2 * DK][4];
 #pragma unroll
     for (int j = 0; j < 2 * DK; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -371,6 +392,37 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
             o[j][1] = fmaf(p0, v0.y, o[j][1]);
             o[j][2] = fmaf(p8, v0.x, o[j][2]);
             o[j][3] = fmaf(p8, v0.y, o[j][3]);
+          }
+        }
+      }
+      if constexpr (kForm == FwdForm::kTiled) {
+        // the chunk's cls keys m (a warp-uniform loop): e_m (fp32, held by
+        // lane t = tc of the quad) times v_m with FMAs, and e_m's entry of
+        // the accumulator tiles cleared so that the bf16 e.v below skips it
+        const int kend = min(key0 + KC, N);
+        for (int m = (key0 + cls_tile - 1) / cls_tile * cls_tile; m < kend; m += cls_tile) {
+          const int kl = m - key0, jc = kl >> 3, tc = (kl & 7) >> 1, hi = kl & 1;
+          float e0 = 0.f, e8 = 0.f;
+#pragma unroll
+          for (int j = 0; j < 2 * KT; ++j) {
+            if (j == jc) {
+              e0 = hi ? s[j][1] : s[j][0];
+              e8 = hi ? s[j][3] : s[j][2];
+              if (t == tc && hi) s[j][1] = s[j][3] = 0.f;
+              if (t == tc && !hi) s[j][0] = s[j][2] = 0.f;
+            }
+          }
+          e0 = __shfl_sync(kFull, e0, (lane & ~3) | tc);
+          e8 = __shfl_sync(kFull, e8, (lane & ~3) | tc);
+          // v's row m: in the head's whole v, or in the chunk's
+          const bf16* vc = vs + (size_t)(whole ? m : kl) * LD + 2 * t;
+#pragma unroll
+          for (int j = 0; j < 2 * DK; ++j) {
+            const float2 v0 = __bfloat1622float2(*reinterpret_cast<const bf16x2*>(vc + 8 * j));
+            o[j][0] = fmaf(e0, v0.x, o[j][0]);
+            o[j][1] = fmaf(e0, v0.y, o[j][1]);
+            o[j][2] = fmaf(e8, v0.x, o[j][2]);
+            o[j][3] = fmaf(e8, v0.y, o[j][3]);
           }
         }
       }

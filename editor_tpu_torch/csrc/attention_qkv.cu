@@ -27,8 +27,8 @@
 // products (0.02 ms on the bf16 tensor cores): bytes.
 //
 // K1's design: the unmasked instance of the tensor-core forward
-// attention_fwd_mma_kernel<false, DK, KT, resident> in
-// csrc/attention_fwd_mma.cuh, whose masked instance is K3's
+// attention_fwd_mma_kernel<FwdForm::kQkv, DK, KT, resident> in
+// csrc/attention_fwd_mma.cuh, whose masked instances are K3's and K6's
 // (csrc/masked_attention.cu). One block per (head, sequence), 3 warps at
 // N = 129 (9 query tiles of 16 rows, 3 rounds; at most 4 warps), 54 KB of
 // shared memory and at most 168 registers a thread, so that 4 blocks (12
@@ -73,12 +73,12 @@ int launch_k1(const bf16* qkv, bf16* out, bf16* probs, int B, int N, int H, floa
   const int rows_kv = resident ? npad : KC;
   const int se = resident ? (16 * N + 8 + 7) & ~7 : 16 * (KC + 8);
   const size_t smem = (2 * (size_t)rows_kv * (D + 8) + (size_t)warps * se) * sizeof(bf16);
-  auto kernel = resident ? attention_fwd_mma_kernel<false, DK, KT, true>
-                         : attention_fwd_mma_kernel<false, DK, KT, false>;
+  auto kernel = resident ? attention_fwd_mma_kernel<FwdForm::kQkv, DK, KT, true>
+                         : attention_fwd_mma_kernel<FwdForm::kQkv, DK, KT, false>;
   cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(H, B), warps * 32, smem, stream>>>(qkv, nullptr, out, probs, N, H, scale, 0.f,
-                                                    nch, se, ntiles, 0);
+                                                    nch, se, ntiles, 0, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,38 +23,41 @@
 //   in fp32 in the e.v sum, as the TPU kernel's separate fp32 cls-key column
 //   does.
 //
-// What bounds K3 on the H100: the bytes (qkv read once, out written once:
-// 0.42 GB for [384, 88, 2304] and [128, 264, 2304] together, 0.12 ms at 3.35
-// TB/s) against 9.3 GFLOP of q.k and e.v products over the valid pairs of
-// phase 2's masks (0.01 ms on the bf16 tensor cores): bytes.
+// What bounds K3 and K6 on the H100: the bytes (qkv read once, out written
+// once: 0.42 GB for K3's [384, 88, 2304] and [128, 264, 2304] together, 0.12
+// ms at 3.35 TB/s; 0.61 GB, 0.18 ms for K6's [384, 129] and [128, 387])
+// against the q.k and e.v products over the valid pairs of phase 2's masks
+// (9.3 and 20 GFLOP, 0.01 and 0.02 ms on the bf16 tensor cores): bytes.
 //
-// K3 (tile == 0, the model paths' 4 warps): the masked instance of the
-// tensor-core forward attention_fwd_mma_kernel<true, DK, KT, resident> in
-// csrc/attention_fwd_mma.cuh, K1's body: mma.sync m16n8k16 for q.k and e.v,
-// k and v staged with cp.async, the key mask turned into a per-key bias in
-// shared memory. N <= 144 (D <= 96; 80 above): the resident instance, a
-// row's logits in registers, one pass over them. Past that the chunked
-// instance: pass 1 makes each key chunk's logits for the row max, pass 2
-// makes them again for the exps, their sum, the bf16 rounding and e.v, with k
-// and v of the head staged whole once where they fit in shared memory. The
-// grid: one block per (head, sequence) and chunk of query tiles; the chunks
-// are as few as fill the card twice over (launch_k3, from N and B H): one at
-// the model's batch, 5 at the batch-1 joint shape [1, 264] (60 blocks in
-// place of 12). D a multiple of 16 up to 128; qkv 16-byte aligned.
+// K3 and K6 (the model paths' 4 warps): the masked instances kFull and
+// kTiled of the tensor-core forward attention_fwd_mma_kernel<form, DK, KT,
+// resident> in csrc/attention_fwd_mma.cuh, K1's body: mma.sync m16n8k16 for
+// q.k and e.v, k and v staged with cp.async, the key mask turned into a
+// per-key bias in shared memory; K6 also keeps the exps of the cls keys in
+// fp32 (e_c v_c with FMAs, their bf16 entries cleared). N <= 144 (D <= 96;
+// 80 above): the resident instance, a row's logits in registers, one pass
+// over them. Past that the chunked instance: pass 1 makes each key chunk's
+// logits for the row max, pass 2 makes them again for the exps, their sum,
+// the bf16 rounding and e.v, with k and v of the head staged whole once
+// where they fit in shared memory (115 KB at K6's N = 387, D = 64: one block
+// an SM, so K6 takes 8 warps a block there in place of 4). The grid: one
+// block per (head, sequence) and chunk of query tiles; the chunks are as few
+// as fill the card twice over (launch_k36, from N and B H): one at the
+// model's batch, 5 at the batch-1 joint shape [1, 264] (60 blocks in place of
+// 12). D a multiple of 16 up to 128; qkv 16-byte aligned; K6's tile at least
+// 16 tokens (the wrapper refuses what K7, the backward, refuses).
 //
-// K6 and T6 keep this file's CUDA-core body (masked_attention_body): one
-// block per (head, sequence) pair, 4 warps on the model path (a compile-time
-// parameter: 8 and 16 for the block-shape sweeps of T6,
-// tools/bench_full_kernel.py, and of tools/bench_attn2.py), the head's k and
-// v slices staged in padded dynamic shared memory (72 KB at N = 264, 114 KB
-// at N = 387, 139 KB at N = 512, hence the opt-in attribute), one query row
-// per warp, lanes over keys for the logits and over head-dim pairs for e.v,
-// q.k and e.v in fp32 on the CUDA cores. The key mask sits in shared memory
-// beside k and v. The TPU's split into per-tile patch logits plus cls
+// T6's forward half and K6 at 8 and 16 warps (the block-shape sweep of
+// tools/bench_attn2.py) keep this file's CUDA-core body
+// (masked_attention_body): one block per (head, sequence) pair, the head's k
+// and v slices staged in padded dynamic shared memory (72 KB at N = 264, 114
+// KB at N = 387, 139 KB at N = 512, hence the opt-in attribute), one query
+// row per warp, lanes over keys for the logits and over head-dim pairs for
+// e.v, q.k and e.v in fp32 on the CUDA cores. The key mask sits in shared
+// memory beside k and v. The TPU's split into per-tile patch logits plus cls
 // columns (a 128-lane layout artefact) is gone: one row of N logits per
 // warp, with the cls keys recognised by their index. tile == 0 is T6's
-// forward half, K3's CUDA-core body until its tensor-core redesign; there a
-// masked logit is REPLACED by `fill` (the same weights as adding it).
+// forward half, K3's CUDA-core body until its tensor-core redesign.
 #include "attention_fwd_mma.cuh"
 
 namespace editor_kernels {
@@ -67,7 +70,8 @@ size_t masked_smem_bytes(int N, int D, int warps) {
 }
 
 // tile == 0: T6's forward (fill replaces the logit, every exp rounded);
-// tile > 0: K6 (fill added, the exps of the keys m % tile == 0 kept in fp32).
+// tile > 0: K6's sweep (fill added, the exps of the keys m % tile == 0 kept
+// in fp32).
 template <int kW>
 __device__ __forceinline__ void masked_attention_body(
     const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out,
@@ -104,7 +108,9 @@ __device__ __forceinline__ void masked_attention_body(
       float s;
       if (tile > 0)
         s = dot_q_k(q, ks + m * ld, D) * scale + (mq * mk[m] == 0.f ? fill : 0.f);
-      else
+      else  // replaced, where the TPU body adds it: the same weights, since a
+            // valid query's own key is valid, so its row max is a real logit
+            // and exp(fill - max) and exp(l + fill - max) are both 0 in fp32
         s = mq * mk[m] == 0.f ? fill : dot_q_k(q, ks + m * ld, D) * scale;
       e[m] = s;
       mx = fmaxf(mx, s);
@@ -140,7 +146,7 @@ masked_attention_tiled_kernel(const bf16* __restrict__ qkv, const float* __restr
   masked_attention_body<kW>(qkv, mask, out, N, H, D, scale, fill, tile);
 }
 
-// kTiled: K6 (tile > 0), else T6's forward; kW warps per block
+// kTiled: K6's sweep (tile > 0), else T6's forward; kW warps per block
 template <int kW, bool kTiled>
 int launch_masked(const void* qkv, const void* mask, void* out, int B, int N, int H, int D,
                   float scale, float fill, int tile, void* stream) {
@@ -164,15 +170,16 @@ int launch_masked(const void* qkv, const void* mask, void* out, int B, int N, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: kv staged whole once where k, v and the key bias take at most this
-// much shared memory (the most a block may have)
+// K3 and K6: kv staged whole once where k, v and the key bias take at most
+// this much shared memory (the most a block may have)
 constexpr size_t kK3WholeKvBytes = 232448;
 // blocks an SM the query chunks aim at where B H blocks alone are fewer
 constexpr int kK3BlocksPerSm = 2;
 
-template <int DK>
-int launch_k3(const bf16* qkv, const float* mask, bf16* out, int B, int N, int H, float scale,
-              float fill, cudaStream_t stream) {
+// K3 (kFull) and K6 (kTiled, `tile` tokens a tile)
+template <FwdForm kForm, int DK>
+int launch_k36(const bf16* qkv, const float* mask, bf16* out, int B, int N, int H, float scale,
+               float fill, int tile, cudaStream_t stream) {
   constexpr int KT = k1_key_tiles(DK), D = 16 * DK, LD = D + 8, KC = 16 * KT;
   const int npad = (N + 15) & ~15, ntiles = npad / 16;
   const int nch = (npad + KC - 1) / KC;
@@ -183,40 +190,49 @@ int launch_k3(const bf16* qkv, const float* mask, bf16* out, int B, int N, int H
   const size_t smem = (whole ? kv_whole : 2 * (size_t)KC * LD * sizeof(bf16)) + bias;
   // query chunks: as few as give kK3BlocksPerSm blocks an SM, at most one
   // round of warps each
-  int dev = 0, sms = 0;
+  int dev = 0, sms = 0, smem_sm = 0, smem_reserved = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int max_warps = resident ? kK1ResidentWarps : kK1MaxWarps;
+  // K6: more warps where the shared memory leaves room for one block an SM
+  const bool one_block = 2 * (smem + smem_reserved) > (size_t)smem_sm;
+  const int max_warps = resident                                 ? kK1ResidentWarps
+                        : kForm == FwdForm::kTiled && one_block ? kK6OneBlockWarps
+                                                                 : kK1MaxWarps;
   const int want = (kK3BlocksPerSm * sms + B * H - 1) / (B * H);
   const int chunks = max(1, min(want, (ntiles + max_warps - 1) / max_warps));
   const int tpb = (ntiles + chunks - 1) / chunks;  // query tiles a block
   const int rounds = (tpb + max_warps - 1) / max_warps;
   const int warps = (tpb + rounds - 1) / rounds;  // the fewest warps for those rounds
-  auto kernel = resident ? attention_fwd_mma_kernel<true, DK, KT, true>
-                         : attention_fwd_mma_kernel<true, DK, KT, false>;
+  auto kernel = resident ? attention_fwd_mma_kernel<kForm, DK, KT, true>
+                         : attention_fwd_mma_kernel<kForm, DK, KT, false>;
   err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(H, B, (ntiles + tpb - 1) / tpb), warps * 32, smem, stream>>>(
-      qkv, mask, out, nullptr, N, H, scale, fill, nch, 0, tpb, whole);
+      qkv, mask, out, nullptr, N, H, scale, fill, nch, 0, tpb, whole, tile);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_k3_d(const void* qkv, const void* mask, void* out, int B, int N, int H, int D,
-                float scale, float fill, void* stream) {
+template <FwdForm kForm>
+int launch_k36_d(const void* qkv, const void* mask, void* out, int B, int N, int H, int D,
+                 float scale, float fill, int tile, void* stream) {
   const bf16* q = static_cast<const bf16*>(qkv);
   const float* m = static_cast<const float*>(mask);
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_k3<1>(q, m, o, B, N, H, scale, fill, st);
-    case 32: return launch_k3<2>(q, m, o, B, N, H, scale, fill, st);
-    case 48: return launch_k3<3>(q, m, o, B, N, H, scale, fill, st);
-    case 64: return launch_k3<4>(q, m, o, B, N, H, scale, fill, st);
-    case 80: return launch_k3<5>(q, m, o, B, N, H, scale, fill, st);
-    case 96: return launch_k3<6>(q, m, o, B, N, H, scale, fill, st);
-    case 112: return launch_k3<7>(q, m, o, B, N, H, scale, fill, st);
-    case 128: return launch_k3<8>(q, m, o, B, N, H, scale, fill, st);
+    case 16: return launch_k36<kForm, 1>(q, m, o, B, N, H, scale, fill, tile, st);
+    case 32: return launch_k36<kForm, 2>(q, m, o, B, N, H, scale, fill, tile, st);
+    case 48: return launch_k36<kForm, 3>(q, m, o, B, N, H, scale, fill, tile, st);
+    case 64: return launch_k36<kForm, 4>(q, m, o, B, N, H, scale, fill, tile, st);
+    case 80: return launch_k36<kForm, 5>(q, m, o, B, N, H, scale, fill, tile, st);
+    case 96: return launch_k36<kForm, 6>(q, m, o, B, N, H, scale, fill, tile, st);
+    case 112: return launch_k36<kForm, 7>(q, m, o, B, N, H, scale, fill, tile, st);
+    case 128: return launch_k36<kForm, 8>(q, m, o, B, N, H, scale, fill, tile, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -232,7 +248,8 @@ extern "C" int editor_masked_attention(const void* qkv, const void* mask, void* 
   using namespace editor_kernels;
   if (N < 1 || N > kMaxTokens) return static_cast<int>(cudaErrorInvalidValue);
   switch (warps) {
-    case 4: return launch_k3_d(qkv, mask, out, B, N, H, D, scale, fill, stream);
+    case 4:
+      return launch_k36_d<FwdForm::kFull>(qkv, mask, out, B, N, H, D, scale, fill, 0, stream);
     case 8: return launch_masked<8, false>(qkv, mask, out, B, N, H, D, scale, fill, 0, stream);
     case 16:
       return launch_masked<16, false>(qkv, mask, out, B, N, H, D, scale, fill, 0, stream);
@@ -241,15 +258,19 @@ extern "C" int editor_masked_attention(const void* qkv, const void* mask, void* 
 }
 
 // K6: `tile` tokens per tile (129 on the model path), N % tile == 0; warps
-// 4 (the model path), 8 or 16
+// 4 (the model path: K6 on the tensor cores; head dims 16, 32, ..., 128 and
+// tiles of at least 16 tokens, the wrapper refuses others), 8 or 16 (the
+// CUDA-core body)
 extern "C" int editor_masked_attention_tiled(const void* qkv, const void* mask, void* out,
                                              int B, int N, int H, int D, float scale,
                                              float fill, int tile, int warps, void* stream) {
   using namespace editor_kernels;
-  if (tile < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile < 1 || N < 1 || N > kMaxTokens || N % tile)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (warps) {
     case 4:
-      return launch_masked<4, true>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
+      return launch_k36_d<FwdForm::kTiled>(qkv, mask, out, B, N, H, D, scale, fill, tile,
+                                           stream);
     case 8:
       return launch_masked<8, true>(qkv, mask, out, B, N, H, D, scale, fill, tile, stream);
     case 16:

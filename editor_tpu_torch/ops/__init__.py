@@ -12,11 +12,12 @@ hand-written CUDA kernel for Hopper beside its plain PyTorch version.
 | :func:`masked_attention_tiled_bwd` (K7) | ``csrc/masked_attention_bwd.cu`` | :func:`masked_attention_tiled_bwd_plain` |
 | :func:`ln_matmul` (K8) | ``csrc/ln_matmul.cu`` | :func:`ln_matmul_plain` |
 
-K1 and K3 share the tensor-core forward body of ``csrc/attention_fwd_mma.cuh``
-(K1 unmasked with probs and an fp32 cls key, K3 masked with every exp
-rounded and lazy normalisation); K6 and T6's forward half keep the CUDA-core
-body of ``csrc/masked_attention.cu``. K4, K7 and K5 share the tensor-core
-backward body of ``csrc/attention_bwd_mma.cuh`` (K4 unmasked with one cls
+K1, K3 and K6 share the tensor-core forward body of
+``csrc/attention_fwd_mma.cuh`` (K1 unmasked with probs and an fp32 cls key,
+K3 masked with every exp rounded and lazy normalisation, K6 as K3 with each
+tile's cls key in fp32); T6's forward half and K6's sweep keep the
+CUDA-core body of ``csrc/masked_attention.cu``. K4, K7 and K5 share the
+tensor-core backward body of ``csrc/attention_bwd_mma.cuh`` (K4 unmasked with one cls
 key, K7 masked with a cls key a tile, K5 masked with none); T6's backward
 half keeps the CUDA-core body of ``csrc/attention_bwd.cuh``; the
 tensor-core bodies use the helpers of ``csrc/mma.cuh``. A wrapper runs its
@@ -30,9 +31,9 @@ for 1 + 128-token tiles, else K3/K5). K8 is on no model path, as in the JAX
 package. The raw K3, K5 and K6 wrappers (:data:`WARP_WRAPPERS`) take
 ``warps=`` per block (4 on the model paths; the others serve the block-shape
 sweeps of the design-variant tools in ``editor_tpu_torch/tools/``, whose
-kernels T1-T6 sit beside their plain versions there; K3 at 8 or 16 warps and
-K5 at 8 are the CUDA-core bodies, not the tensor-core kernels) and count a
-launch at another warp count in ``variant_launches``, not ``launches``.
+kernels T1-T6 sit beside their plain versions there; K3 and K6 at 8 or 16
+warps and K5 at 8 are the CUDA-core bodies, not the tensor-core kernels) and
+count a launch at another warp count in ``variant_launches``, not ``launches``.
 """
 
 from editor_tpu_torch.ops.fused_attention import (attention_qkv, attention_qkv_bwd,

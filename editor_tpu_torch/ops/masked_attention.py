@@ -26,16 +26,17 @@ and :func:`masked_attention_tiled_fn` join each pair under autograd for the
 train step; the mask gets no gradient. K3, K5 and K6 take ``warps`` per block:
 a launch with the model paths' :data:`SHIPPED_WARPS` counts in the wrapper's
 ``launches``, any other (the block-shape sweeps, T6 for K3/K5) in its
-``variant_launches``. At :data:`SHIPPED_WARPS` K3 is the masked instance of
-K1's tensor-core forward (``csrc/attention_fwd_mma.cuh``) and K5 the
-instance without cls keys of the tensor-core backward that K4 and K7 share
-(``csrc/attention_bwd_mma.cuh``); at 8 and 16 warps they launch the
-CUDA-core bodies that T6 sweeps (``csrc/masked_attention.cu``,
+``variant_launches``. At :data:`SHIPPED_WARPS` K3 and K6 are the masked
+instances of K1's tensor-core forward (``csrc/attention_fwd_mma.cuh``; K6
+with each tile's cls key in fp32) and K5 the instance without cls keys of
+the tensor-core backward that K4 and K7 share (``csrc/attention_bwd_mma.cuh``);
+at 8 and 16 warps they launch the CUDA-core bodies that T6 and the K6 sweep
+of ``tools/bench_attn2.py`` take (``csrc/masked_attention.cu``,
 ``csrc/attention_bwd.cuh``). The plain version in the rounding form of K3's
 TPU kernel, which the CUDA kernel follows, is
 :func:`masked_attention_qkv_tpu_plain`; the model's CPU path keeps
-:func:`masked_attention_qkv_plain`, the XLA form. K5's plain version,
-:func:`masked_attention_qkv_bwd_plain`, is in its TPU kernel's form.
+:func:`masked_attention_qkv_plain`, the XLA form. K5's, K6's and K7's plain
+versions are in their TPU kernels' forms.
 """
 
 from __future__ import annotations
@@ -266,6 +267,23 @@ def check_k3_head_dim(D: int) -> None:
     _check_mma_head_dim("masked_attention_qkv", D)
 
 
+TILED_MIN_TILE = 16  # K6's and K7's smallest tile: a 16-key tile holds at most one cls key
+
+
+def _check_tiled_shape(name: str, D: int, tile: int) -> None:
+    _check_mma_head_dim(name, D)
+    if tile < TILED_MIN_TILE:
+        raise ValueError(f"{name}: tile {tile} < {TILED_MIN_TILE} tokens")
+
+
+def check_k6_shape(D: int, tile: int) -> None:
+    """Raise unless K6's tensor-core kernel takes head dim ``D`` and
+    ``tile``-token tiles: D a multiple of 16 up to 128, and tile >= 16, the
+    shapes its backward K7 takes (:func:`check_k7_shape`), so that the
+    autograd pair never runs a forward whose backward is refused."""
+    _check_tiled_shape("masked_attention_tiled", D, tile)
+
+
 def check_k5_head_dim(D: int) -> None:
     """Raise unless K5's tensor-core kernel takes head dim ``D`` (at every N
     up to 512)."""
@@ -308,13 +326,20 @@ def masked_attention_tiled(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int
                            scale: float, mask_fill: float = MASK_FILL,
                            tile: int = 129, warps: int = 4) -> torch.Tensor:
     """K6: masked attention from the raw qkv over ``tile``-token tiles (N a
-    multiple of ``tile``); ``mask`` [B, N] in any dtype. CUDA:
-    ``csrc/masked_attention.cu`` (bf16, contiguous; ``warps`` per block from
-    :data:`FWD_WARPS`); CPU: :func:`masked_attention_tiled_plain`."""
+    multiple of ``tile``); ``mask`` [B, N] in any dtype. ``warps`` per block
+    (:data:`FWD_WARPS`): :data:`SHIPPED_WARPS` launches the tensor-core
+    kernel (``csrc/attention_fwd_mma.cuh``; qkv 16-byte aligned,
+    :func:`check_k6_shape`), 8 and 16 the CUDA-core body of
+    ``csrc/masked_attention.cu``. CPU: :func:`masked_attention_tiled_plain`
+    at any tile."""
     D = _check_args(qkv, mask, num_heads, tile=tile, warps=warps)
     if qkv.device.type == "cpu":
         return masked_attention_tiled_plain(qkv, mask, num_heads, scale, mask_fill, tile)
-    mask32 = _kernel_inputs("masked_attention_tiled", qkv, mask, D)
+    if warps == SHIPPED_WARPS:
+        check_k6_shape(D, tile)
+    # 16-byte cp.async copies of the head's rows in the tensor-core kernel
+    mask32 = _kernel_inputs("masked_attention_tiled", qkv, mask, D,
+                            align=16 if warps == SHIPPED_WARPS else 4)
     from editor_tpu_torch.ops import _build
 
     B, N, C3 = qkv.shape
@@ -379,16 +404,11 @@ masked_attention_qkv_bwd.launches = 0
 masked_attention_qkv_bwd.variant_launches = 0
 
 
-K7_MIN_TILE = 16
-
-
 def check_k7_shape(D: int, tile: int) -> None:
     """Raise unless K7's CUDA kernel takes head dim ``D`` and ``tile``-token
     tiles: its tensor-core tiles are 16 deep, so D is a multiple of 16 up to
     128, and a 16-key tile holds at most one cls key, so tile >= 16."""
-    _check_mma_head_dim("masked_attention_tiled_bwd", D)
-    if tile < K7_MIN_TILE:
-        raise ValueError(f"masked_attention_tiled_bwd: tile {tile} < {K7_MIN_TILE} tokens")
+    _check_tiled_shape("masked_attention_tiled_bwd", D, tile)
 
 
 def k7_scratch_stride(N: int) -> int:

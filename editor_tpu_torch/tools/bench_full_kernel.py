@@ -47,14 +47,21 @@ D = C // H
 SCALE = D ** -0.5
 SHAPES = ((384, 88), (128, 264))
 
-masked_full_plain = ops.masked_attention_qkv_plain
+# the plain versions in the TPU bodies' forms, which the JAX script runs
+# (the fill added, every exp rounded, lazy normalisation)
+masked_full_plain = ops.masked_attention_qkv_tpu_plain
 masked_full_bwd_plain = ops.masked_attention_qkv_bwd_plain
 
 
 def masked_full(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int, scale: float,
                 warps: int = 8, mask_fill: float = MASK_FILL) -> torch.Tensor:
     """T6 forward: K3 (``ops.masked_attention_qkv``) with ``warps`` warps per
-    block. CUDA: ``csrc/masked_attention.cu``; CPU: :data:`masked_full_plain`."""
+    block. CUDA: ``csrc/masked_attention.cu``; CPU: :data:`masked_full_plain`
+    (K3's own CPU path is the model's XLA form)."""
+    if warps not in FWD_WARPS:
+        raise ValueError(f"warps per block {warps} not in {FWD_WARPS}")
+    if qkv.device.type == "cpu":
+        return masked_full_plain(qkv, mask, num_heads, scale, mask_fill)
     return ops.masked_attention_qkv(qkv, mask, num_heads, scale, mask_fill, warps=warps)
 
 

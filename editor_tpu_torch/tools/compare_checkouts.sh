@@ -5,13 +5,15 @@
 # between the two runs of one side), then the registers, spills and SASS
 # instruction mix of each named source in both checkouts (kernel_sass.py).
 # K1's output and probs, K3's output and K4's dqkv at each of their shapes,
-# K5's dqkv at its two and K7's at its three shapes of the two sides are
-# compared element by element (kernel_digest.py --diff into diff.json; the
-# tensors go to a temporary directory). Name attention_qkv.cu and
-# masked_attention.cu for K1's and K3's instances (and T1/T2's, K6's and
-# T6's), attention_qkv_bwd.cu and masked_attention_bwd.cu for K4's, K7's and
-# K5's (and T6's): one JSON line each, with its registers, spills and HMMA
-# count.
+# K5's dqkv at its two, K6's output at its two model shapes and K7's dqkv at
+# its three shapes of the two sides are compared element by element
+# (kernel_digest.py --diff into diff.json; the tensors go to a temporary
+# directory). Name attention_qkv.cu for K1's instances
+# (attention_fwd_mma_kernel<FwdForm::kQkv, ...>; and T1/T2's),
+# masked_attention.cu for K3's and K6's (<kFull, ...> and <kTiled, ...>; and
+# the CUDA-core bodies of T6 and K6's sweep), attention_qkv_bwd.cu and
+# masked_attention_bwd.cu for K4's, K7's and K5's (and T6's): one JSON line
+# each, with its registers, spills and HMMA count.
 #
 #   bash editor_tpu_torch/tools/compare_checkouts.sh <other checkout> <out dir> [source.cu ...]
 #

@@ -24,8 +24,9 @@ events. The card's name and power limit come first. Exits non-zero without
 a CUDA device.
 
 ``--save`` also writes K1's output and probs, K3's output and K4's dqkv at
-each of their shapes, K5's dqkv at its two and K7's at its three shapes to
-a file, and ``--diff`` prints, for two such files (two checkouts' kernels
+each of their shapes, K5's dqkv at its two, K6's output at its two model
+shapes ([384, 129] and [128, 387]) and K7's dqkv at its three shapes to a
+file, and ``--diff`` prints, for two such files (two checkouts' kernels
 on the same input), the largest difference of each tensor, the share of
 elements that differ and the largest difference in bf16 ulps of the first
 file's element.
@@ -90,8 +91,8 @@ def diff(path_a: str, path_b: str) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--save", help="write K1's output and probs, K3's output and K4's, K5's "
-                    "and K7's dqkv to this file")
+    ap.add_argument("--save", help="write K1's output and probs, K3's and K6's output and "
+                    "K4's, K5's and K7's dqkv to this file")
     ap.add_argument("--diff", nargs=2, metavar=("A", "B"), help="compare two --save files")
     args = ap.parse_args(argv)
     if args.diff:
@@ -155,6 +156,9 @@ def main(argv=None) -> None:
         qkv, m, g = randn(B, N, 3 * C), mask(B, N, 129), randn(B, N, C)
         line("K6 masked_attention_tiled", qkv.shape,
              lambda: ops.masked_attention_tiled(qkv, m, H, SCALE, FILL, 129))
+        if args.save and N != 258:
+            saved[f"K6 out [{B}, {N}]"] = ops.masked_attention_tiled(qkv, m, H, SCALE, FILL,
+                                                                     129).cpu()
         line("K7 masked_attention_tiled_bwd", qkv.shape,
              lambda: ops.masked_attention_tiled_bwd(qkv, m, g, H, SCALE, FILL, 129))
         if args.save:

@@ -35,18 +35,22 @@ import torch
 # the first pattern that matches the lower-case kernel name wins; the conv
 # comes before the GEMMs because cuDNN's conv kernels are implicit GEMMs
 CATEGORIES = (
-    # K1 and K3: the tensor-core forward body, unmasked and masked; K3 at 8
-    # or 16 warps (T6) is the CUDA-core masked_attention_kernel
-    ("K1 attention_qkv", r"attention_fwd_mma_kernel<false"),
+    # K1, K3 and K6: the tensor-core forward body's forms kQkv, kFull and
+    # kTiled (an enum argument, demangled as "(...FwdForm)0" or by name); K3
+    # at 8 or 16 warps (T6) is the CUDA-core masked_attention_kernel, K6 at 8
+    # or 16 (its sweep) the CUDA-core masked_attention_tiled_kernel
+    ("K1 attention_qkv", r"attention_fwd_mma_kernel<[^,]*fwdform(\)0|::kqkv)"),
     ("K2 rollout_chain", r"rollout_chain_kernel"),
-    ("K3 masked_attention", r"attention_fwd_mma_kernel<true|masked_attention_kernel"),
+    ("K3 masked_attention",
+     r"attention_fwd_mma_kernel<[^,]*fwdform(\)1|::kfull)|masked_attention_kernel"),
     # K4, K7 and K5: the tensor-core backward body's forms kQkv, kTiled and
     # kFull (an enum argument, demangled as "(...BwdForm)0" or by name); K5
     # at 8 warps (T6) is the CUDA-core attention_bwd_kernel
     ("K4 attention_qkv_bwd", r"attention_bwd_mma_kernel<[^,]*bwdform(\)0|::kqkv)"),
     ("K5 masked_attention_bwd",
      r"attention_bwd_mma_kernel<[^,]*bwdform(\)2|::kfull)|attention_bwd_kernel<"),
-    ("K6 masked_attention_tiled", r"masked_attention_tiled_kernel"),
+    ("K6 masked_attention_tiled",
+     r"attention_fwd_mma_kernel<[^,]*fwdform(\)2|::ktiled)|masked_attention_tiled_kernel"),
     ("K7 masked_attention_tiled_bwd", r"attention_bwd_mma_kernel<[^,]*bwdform(\)1|::ktiled)"),
     ("K8 ln_matmul", r"ln_matmul_kernel"),
     ("T1/T2 attention variants", r"attention_variant_kernel"),

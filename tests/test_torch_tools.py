@@ -14,10 +14,10 @@ from editor_tpu_torch.tools import profile_train as pt
 
 
 @pytest.mark.parametrize("name, label", [
-    ("attention_fwd_mma_kernel<false, 4, 9, true>(__nv_bfloat16 const*, ...)",
+    ("attention_fwd_mma_kernel<FwdForm::kQkv, 4, 9, true>(__nv_bfloat16 const*, ...)",
      "K1 attention_qkv"),
     ("rollout_chain_kernel(__nv_bfloat16 const*, float*, int, int, int)", "K2 rollout_chain"),
-    ("attention_fwd_mma_kernel<true, 4, 9, false>(__nv_bfloat16 const*, float const*, ...)",
+    ("attention_fwd_mma_kernel<(FwdForm)1, 4, 9, false>(__nv_bfloat16 const*, float const*, ...)",
      "K3 masked_attention"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "patch conv (cuDNN)"),
     ("nvjet_hsh_128x256_64x4_2x1_v_bz_coopB_TNN", "GEMM (cuBLAS)"),
@@ -37,13 +37,15 @@ from editor_tpu_torch.tools import profile_train as pt
      "patch conv (cuDNN)"),
     ("void at::native::(anonymous namespace)::GammaBetaBackwardCUDAKernel<float, float>",
      "LayerNorm"),
-    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_kernel(...)",
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<"
+     "(editor_kernels::(anonymous namespace)::FwdForm)2, 4, 9, false>(...)",
      "K6 masked_attention_tiled"),
     ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
      "(editor_kernels::(anonymous namespace)::BwdForm)1, 2, 9, true>(...)",
      "K7 masked_attention_tiled_bwd"),
-    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<true, 4, 9, true>"
-     "(...)", "K3 masked_attention"),
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<"
+     "editor_kernels::(anonymous namespace)::FwdForm::kFull, 4, 9, true>(...)",
+     "K3 masked_attention"),
     ("void editor_kernels::(anonymous namespace)::ln_matmul_kernel(...)", "K8 ln_matmul"),
     # the warp count is a template argument of K3, K5, K6 (the T6 sweep); K4's
     # chunked and resident instances, the enum argument by name
@@ -69,13 +71,15 @@ from editor_tpu_torch.tools import profile_train as pt
     ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
      "(editor_kernels::(anonymous namespace)::BwdForm)2, 4, 2, false>(...)",
      "K5 masked_attention_bwd"),
-    # K1 and K3 on the tensor cores: the masked switch, head-dim tiles, key
-    # tiles and the resident form are template arguments
-    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<false, 4, 9, true>"
+    # K1, K3 and K6 on the tensor cores: the form (an enum argument,
+    # demangled as "(...FwdForm)0" or by name), head-dim tiles, key tiles and
+    # the resident form are template arguments; not each other's category
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<"
+     "(editor_kernels::(anonymous namespace)::FwdForm)0, 4, 9, true>"
      "(__nv_bfloat16 const*, float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, float, "
-     "float, int, int, int, int)", "K1 attention_qkv"),
-    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<false, 8, 5, false>"
-     "(...)", "K1 attention_qkv"),
+     "float, int, int, int, int, int)", "K1 attention_qkv"),
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<"
+     "FwdForm::kTiled, 8, 5, false>(...)", "K6 masked_attention_tiled"),
     # the design variants T1-T5
     ("void editor_kernels::(anonymous namespace)::attention_variant_kernel<2, false>(...)",
      "T1/T2 attention variants"),
