@@ -15,8 +15,7 @@ Phases, each printing its lines and its seconds:
      its plain version in the TPU kernel's form: every probs element within
      one bf16 ulp of the plain value and every row summing to 1, also at
      x30 and at shapes the model does not reach (N = 17, 200, 512; D = 96);
-     it must take at most half the time of its former CUDA-core body (T1's
-     kernel with 1 head and 1 sequence per block, timed in the same run).
+     its time with probs must be at most 2x SDPA's (no probs) in the same run.
      K4, K7 and K5 are also held by the share of their elements more than
      one bf16 ulp off the plain version (at most 0.5% over all of dqkv and
      over the cls rows' dk and dv), a check that must fail the unrounded form
@@ -73,12 +72,19 @@ Phases, each printing its lines and its seconds:
      bench_rollout2, bench_full_kernel), each at the flagship shape in one
      configuration, against its plain version, with kernel, plain and
      library-call times and the bound. They are on no model path: phases 3-6
-     count 0 launches of each (the full sweeps are the tools' own). T1's
-     probs are held as K1's (every element within one bf16 ulp, rows summing
-     to 1), T3's, whose qkv the kernel makes itself, by the share test and
-     the row sums, T6's forward by K3's share test against the TPU body's
-     form (which must fail the unrounded and the XLA form in the same run)
-     and its backward by K5's shares.
+     count 0 launches of each (the full sweeps are the tools' own). T1 and
+     T2, the kSplit and kNoMax forms of K1's tensor-core body, are held by
+     K3's share test on random-normal inputs and on inputs whose cls key
+     carries most of each row's weight, which must fail the unrounded form
+     (on the first) and the cls-rounded form (on the second) in the same
+     run; T1 on separate q, k, v and on the column views of the packed qkv,
+     1 and 2 heads and 1 and 2 sequences a block, x30 and B = 3 at N = 200;
+     T2 at 1 and 2 sequences a block and B = 3 at N = 512; T1's probs as
+     K1's (every element within one bf16 ulp, rows summing to 1); T1 (with
+     probs) and T2 at most 2x SDPA's time. T3's probs, whose qkv the kernel
+     makes itself, by the share test and the row sums, T6's forward by K3's
+     share test against the TPU body's form (which must fail the unrounded
+     and the XLA form in the same run) and its backward by K5's shares.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
 (K1-K8, T1-T6), and last the result line {"ok": true, "device": {...}}. Any failed check
@@ -124,9 +130,10 @@ KERNELS = {
 # T1-T5 by the wrapper of the same name in their tool module, T6 by K3's and
 # K5's launches at another warp count than the model paths' (launch_counts)
 VARIANTS = {
-    "headgrid_attn": dict(tool="bench_attn", source="editor_tpu_torch/csrc/attention_qkv.cu",
+    "headgrid_attn": dict(tool="bench_attn",
+                          source="editor_tpu_torch/csrc/attention_variants.cu",
                           replaces="tools/bench_attn.py:68"),
-    "nomax_attn": dict(tool="bench_attn2", source="editor_tpu_torch/csrc/attention_qkv.cu",
+    "nomax_attn": dict(tool="bench_attn2", source="editor_tpu_torch/csrc/attention_variants.cu",
                        replaces="tools/bench_attn2.py:56"),
     "attn_layer": dict(tool="bench_attn_layer", source="editor_tpu_torch/csrc/attn_layer.cu",
                        replaces="tools/bench_attn_layer.py:77"),
@@ -249,6 +256,13 @@ def _probs_errors(name: str, probs, ref_probs, own_qkv: bool = False) -> dict:
     return out
 
 
+def _at_most_2x_sdpa(name: str, ms: float, sdpa_ms: float) -> None:
+    """An unmasked forward (K1, T1, T2) must take at most twice the time of
+    one SDPA call on the same inputs, timed in the same run."""
+    if not ms <= 2.0 * sdpa_ms:
+        raise AssertionError(f"{name}: {ms} ms, more than 2x SDPA's {sdpa_ms} ms")
+
+
 def _k1_errors(name: str, out, probs, ref, scaled: bool = False) -> dict:
     """K1's output and probs against its plain version ``ref`` = (out,
     probs): out within 2e-2 (scaled by its largest magnitude: 1e-2); the
@@ -257,20 +271,6 @@ def _k1_errors(name: str, out, probs, ref, scaled: bool = False) -> dict:
     e_out = _scaled(out, ref_out) if scaled else _max_err(out, ref_out)
     _require(f"{name} out" + (" (scaled)" if scaled else ""), e_out, 1e-2 if scaled else 2e-2)
     return dict(out_err=e_out, **_probs_errors(name, probs, ref_probs))
-
-
-def _k1_old_body_ms(qkv, probs) -> float:
-    """The CUDA-core body K1 ran until the tensor-core redesign, timed on the
-    same input: T1 (``bench_attn.headgrid_attn``) with 1 head and 1 sequence
-    per block on the q/k/v column views of the packed qkv, which is that
-    body's K1 instantiation. Its launches are zeroed afterwards, so that the
-    main paths still count 0 T1 launches."""
-    from editor_tpu_torch.tools import bench_attn
-
-    q, k, v = qkv.split(C, -1)
-    ms = cuda_ms(lambda: bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 1, probs))
-    reset_counts()
-    return ms
 
 
 def kernel_phase(gen: torch.Generator) -> dict:
@@ -328,21 +328,17 @@ def kernel_phase(gen: torch.Generator) -> dict:
     ms_np = cuda_ms(lambda: ops.attention_qkv(qkv, H, SCALE))
     plain_ms = cuda_ms(lambda: ops.attention_qkv_tpu_plain(qkv, H, SCALE, True))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*_heads(qkv), scale=SCALE))
-    old_ms = _k1_old_body_ms(qkv, probs)
     # reads qkv, writes out and probs; q.k and p.v products
     b = bound(4.0 * Bk * H * N * N * D, 2.0 * (Bk * N * 3 * C + Bk * N * C + Bk * H * N * N))
-    if not ms <= 0.5 * old_ms:
-        raise AssertionError(f"attention_qkv: {ms} ms, not at most half the CUDA-core "
-                             f"body's {old_ms} ms")
+    _at_most_2x_sdpa("attention_qkv", ms, lib_ms)
     results["attention_qkv"] = dict(max_abs_err=max(e_out, e_probs, e_extra), ms=ms,
                                     plain_ms=plain_ms, library_ms=lib_ms, ms_no_probs=ms_np,
-                                    old_body_ms=old_ms, **b)
+                                    **b)
     say("2 kernel attention_qkv", shape=list(qkv.shape), out_err=e_out, probs_err=e_probs,
         probs_ulps=k1["probs_ulps"], row_sum_err=k1["row_sum_err"],
         x30_scaled_err=k1_30["out_err"], x30_probs_ulps=k1_30["probs_ulps"],
         extra=json.dumps(extra), ms=f"{ms:.4f}", ms_no_probs=f"{ms_np:.4f}",
-        old_body_ms=f"{old_ms:.4f}", plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}",
-        bound_ms=f"{b['bound_ms']:.4f}")
+        plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{lib_ms:.4f}", bound_ms=f"{b['bound_ms']:.4f}")
 
     # K4, the VJP of K1, at the same shape: the scaled error, the share of
     # elements off the plain version (a check that must fail the two wrong
@@ -590,14 +586,14 @@ def _wrong_forms(name: str, unrounded, cls_form, ref, T: int, Cx: int,
 
 
 def _fwd_check(name: str, got, ref, m, scaled: bool = False, rows: bool = False) -> dict:
-    """A masked forward (K3, K6, T6's) against its plain version in the TPU
-    kernel's form: finite; within 2e-2 (scaled by the largest magnitude:
-    1e-2); query rows with mask 0 exact zeros; at most SHARE_TOL of the
-    elements more than one bf16 ulp (+1e-6 of the max) off
-    (``_bench.bf16_off_share``: the two round at the same points and differ
-    only in the order of the fp32 sums), read over all elements, or with
-    ``rows`` over the valid query rows only (K6's sparse batch, where the cls
-    keys carry weight)."""
+    """A masked forward (K3, K6, T6's; T1's and T2's with every key kept)
+    against its plain version in the TPU kernel's form: finite; within 2e-2
+    (scaled by the largest magnitude: 1e-2); query rows with mask 0 exact
+    zeros; at most SHARE_TOL of the elements more than one bf16 ulp (+1e-6 of
+    the max) off (``_bench.bf16_off_share``: the two round at the same points
+    and differ only in the order of the fp32 sums), read over all elements,
+    or with ``rows`` over the valid query rows only (K6's sparse batch, where
+    the cls keys carry weight)."""
     from editor_tpu_torch.tools import _bench
 
     torch.cuda.synchronize()
@@ -632,6 +628,25 @@ def _k3_wrong_forms(qkv, m, ref, Hx: int, Dx: int) -> dict:
         if not share > SHARE_TOL:
             raise AssertionError(f"masked_attention_qkv share test too loose: the {form} is "
                                  f"off in only {share} of the elements")
+    return caught
+
+
+def _t12_wrong_forms(name: str, unrounded, ref, cls_rounded, ref_cls) -> dict:
+    """T1's and T2's share test must fail the wrong forms it exists to catch:
+    the unrounded form (the plain version on fp32 inputs, rounded once) on
+    random-normal inputs (``ref``), and the cls-rounded form
+    (attention_qkv_plain, the model path's XLA form: p_0 rounded to bf16
+    too) on the cls-heavy inputs (``ref_cls``, bench_attn.cls_heavy), where
+    p_0 v_0 weighs enough for its rounding to show; on random-normal inputs
+    that form is only ~0.5% off."""
+    from editor_tpu_torch.tools import _bench
+
+    caught = dict(unrounded_share=_bench.bf16_off_share(unrounded, ref),
+                  cls_rounded_share=_bench.bf16_off_share(cls_rounded, ref_cls))
+    for form, share in caught.items():
+        if not share > SHARE_TOL:
+            raise AssertionError(f"{name} share test too loose: the {form} is off in only "
+                                 f"{share} of the elements")
     return caught
 
 
@@ -1004,59 +1019,120 @@ def variant_phase(gen: torch.Generator) -> dict:
     def randn(*shape, mul=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * mul).to(bf)
 
-    def head_views(*ts):
-        return [t.view(t.shape[0], t.shape[1], H, D).transpose(1, 2) for t in ts]
-
-    # T1: separate q, k, v, 2 heads and 1 sequence per block, with and without probs
-    q, k, v = (randn(Bk, N, C) for _ in range(3))
-    probs = torch.empty(Bk, H, N, N, dtype=bf, device=dev)
-    out, _ = bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2, probs)
-    out_np, _ = bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2)
-    ref, ref_probs = bench_attn.headgrid_attn_plain(q, k, v, H, SCALE, True)
-    torch.cuda.synchronize()
-    e_out = max(_max_err(out, ref), _max_err(out_np, ref))
-    _require("headgrid_attn out", e_out, 2e-2)
-    t1 = _probs_errors("headgrid_attn", probs, ref_probs)
-    e_probs = t1["probs_err"]
+    # T1 and T2 on K1's tensor-core body, held as K3 is: at most SHARE_TOL of
+    # the elements more than one bf16 ulp off the plain version (_fwd_check,
+    # every key kept), on random-normal inputs and on cls-heavy ones
+    # (bench_attn.cls_heavy), a test that must fail the unrounded form (on
+    # the first) and the cls-rounded form (on the second) in the same run;
+    # T1's probs as K1's (each within one bf16 ulp, rows summing to 1)
+    qkv = randn(Bk, N, 3 * C)
+    qkv_cls = bench_attn.cls_heavy(torch.randn(Bk, N, 3 * C, generator=gen, device=dev),
+                                   H).to(bf)
+    every = torch.ones(Bk, N, device=dev)
     flops = 4.0 * Bk * H * N * N * D
     b = bound(flops, 2.0 * (Bk * N * 3 * C + Bk * N * C + Bk * H * N * N))
     b_np = bound(flops, 2.0 * (Bk * N * 3 * C + Bk * N * C))
-    row = dict(max_abs_err=max(e_out, e_probs),
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(*_heads(qkv), scale=SCALE))
+
+    # T1 on separate q, k, v and on the column views of the packed qkv, at
+    # 1 and 2 heads and 1 and 2 sequences a block, with probs
+    probs = torch.empty(Bk, H, N, N, dtype=bf, device=dev)
+    views = qkv.split(C, -1)
+    q, k, v = (t.contiguous() for t in views)
+    ref, ref_probs = bench_attn.headgrid_attn_plain(q, k, v, H, SCALE, True)
+    configs = {}
+    for layout, qkv3 in (("separate", (q, k, v)), ("views", views)):
+        for hps, g in ((2, 1), (1, 1), (1, 2), (2, 2)):
+            case = f"headgrid_attn {layout} hps={hps} g={g}"
+            out, _ = bench_attn.headgrid_attn(*qkv3, H, SCALE, g, hps, probs)
+            configs[f"{layout} hps={hps} g={g}"] = dict(
+                **_fwd_check(case, out, ref, every), **_probs_errors(case, probs, ref_probs))
+    out_np, _ = bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2)
+    t1 = _fwd_check("headgrid_attn without probs", out_np, ref, every)
+    k1_out, _ = ops.attention_qkv(qkv, H, SCALE)
+    torch.cuda.synchronize()
+    vs_k1 = _bench.bf16_off_share(out_np, k1_out)
+    del ref_probs, k1_out
+    unrounded = bench_attn.headgrid_attn_plain(q.float(), k.float(), v.float(), H, SCALE,
+                                               False).to(bf)
+    q_c, k_c, v_c = (t.contiguous() for t in qkv_cls.split(C, -1))
+    ref_c = bench_attn.headgrid_attn_plain(q_c, k_c, v_c, H, SCALE, False)
+    t1_cls = _fwd_check("headgrid_attn cls-heavy", bench_attn.headgrid_attn(
+        q_c, k_c, v_c, H, SCALE, 1, 2)[0], ref_c, every)
+    caught = _t12_wrong_forms("headgrid_attn", unrounded, ref,
+                              ops.attention_qkv_plain(qkv_cls, H, SCALE, False), ref_c)
+    del unrounded, q_c, k_c, v_c, ref_c
+    # x30 (|logit| ~ 1e3) and B = 3 past one key chunk (N = 200: the chunked
+    # instance), as K1's
+    q30, k30, v30 = (randn(Bk, N, C, mul=30.0) for _ in range(3))
+    out30, _ = bench_attn.headgrid_attn(q30, k30, v30, H, SCALE, 1, 2, probs)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out30.float()).all():
+        raise AssertionError("headgrid_attn: non-finite output at |logit| ~ 1e3")
+    t1_30 = _k1_errors("headgrid_attn x30", out30, probs, bench_attn.headgrid_attn_plain(
+        q30, k30, v30, H, SCALE, True), scaled=True)
+    del q30, k30, v30, out30
+    qx, kx, vx = (randn(3, 200, C) for _ in range(3))
+    px = torch.empty(3, H, 200, 200, dtype=bf, device=dev)
+    ox, _ = bench_attn.headgrid_attn(qx, kx, vx, H, SCALE, 2, 2, px)
+    ref_x = bench_attn.headgrid_attn_plain(qx, kx, vx, H, SCALE, True)
+    t1_x = dict(**_fwd_check("headgrid_attn B=3 N=200", ox, ref_x[0], torch.ones(3, 200,
+                                                                                 device=dev)),
+                **_probs_errors("headgrid_attn B=3 N=200", px, ref_x[1]))
+    del qx, kx, vx, px, ox, ref_x
+    row = dict(max_abs_err=max(max(c["err"], c["probs_err"]) for c in configs.values()),
                ms=cuda_ms(lambda: bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2, probs)),
                plain_ms=cuda_ms(lambda: bench_attn.headgrid_attn_plain(q, k, v, H, SCALE, True)),
-               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*head_views(q, k, v),
-                                                                         scale=SCALE)),
+               library_ms=sdpa_ms,
                ms_no_probs=cuda_ms(lambda: bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2)),
                bound_ms_no_probs=b_np["bound_ms"], config="hps=2 g=1, separate q, k, v",
-               probs_ulps=t1["probs_ulps"], row_sum_err=t1["row_sum_err"], **b)
+               share=configs["separate hps=2 g=1"]["share"],
+               probs_ulps=max(c["probs_ulps"] for c in configs.values()),
+               row_sum_err=max(c["row_sum_err"] for c in configs.values()),
+               cls_heavy_share=t1_cls["share"], wrong_forms=caught, share_off_k1=vs_k1,
+               configs=configs, x30=t1_30, chunked_N200=t1_x, **b)
+    _at_most_2x_sdpa("headgrid_attn", row["ms"], sdpa_ms)
     results["headgrid_attn"] = row
     say("7 variant headgrid_attn (T1)", shape=list(q.shape), config=repr(row["config"]),
-        out_err=e_out, probs_err=e_probs, probs_ulps=t1["probs_ulps"],
-        row_sum_err=t1["row_sum_err"], ms=f"{row['ms']:.4f}",
-        ms_no_probs=f"{row['ms_no_probs']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
-        sdpa_ms=f"{row['library_ms']:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
-        bound_ms_no_probs=f"{b_np['bound_ms']:.4f}")
-    del q, k, v, out, out_np, ref, ref_probs
+        share=row["share"], share_tol=SHARE_TOL, no_probs_share=t1["share"],
+        cls_heavy_share=t1_cls["share"], wrong_forms=json.dumps(caught),
+        probs_ulps=row["probs_ulps"], row_sum_err=row["row_sum_err"], share_off_k1=vs_k1,
+        configs=json.dumps(configs), x30=json.dumps(t1_30), chunked_N200=json.dumps(t1_x),
+        ms=f"{row['ms']:.4f}", ms_no_probs=f"{row['ms_no_probs']:.4f}",
+        plain_ms=f"{row['plain_ms']:.4f}", sdpa_ms=f"{sdpa_ms:.4f}",
+        bound_ms=f"{b['bound_ms']:.4f}", bound_ms_no_probs=f"{b_np['bound_ms']:.4f}")
+    del q, k, v, views, out, out_np, ref
 
-    # T2 on random-normal inputs: without the row max, |logit| must stay < ~80,
-    # so the x30 stress of phase 2 is not for it
-    qkv = randn(Bk, N, 3 * C)
-    out = bench_attn2.nomax_attn(qkv, H, SCALE, 1)
+    # T2 on the packed qkv at 1 and 2 sequences a block. Without the row max
+    # |logit| must stay < ~80: no x30 stress
     ref = bench_attn2.nomax_attn_plain(qkv, H, SCALE)
-    k1, _ = ops.attention_qkv(qkv, H, SCALE)
-    torch.cuda.synchronize()
-    e = _max_err(out, ref)
-    _require("nomax_attn", e, 2e-2)
-    row = dict(max_abs_err=e, ms=cuda_ms(lambda: bench_attn2.nomax_attn(qkv, H, SCALE, 1)),
+    t2 = {f"g={g}": _fwd_check(f"nomax_attn g={g}", bench_attn2.nomax_attn(qkv, H, SCALE, g),
+                               ref, every) for g in (1, 2)}
+    ref_c = bench_attn2.nomax_attn_plain(qkv_cls, H, SCALE)
+    t2_cls = _fwd_check("nomax_attn cls-heavy", bench_attn2.nomax_attn(qkv_cls, H, SCALE, 1),
+                        ref_c, every)
+    caught = _t12_wrong_forms(
+        "nomax_attn", bench_attn2.nomax_attn_plain(qkv.float(), H, SCALE).to(bf), ref,
+        ops.attention_qkv_plain(qkv_cls, H, SCALE, False), ref_c)
+    del ref_c, qkv_cls
+    qx = randn(3, 512, 3 * C)  # B = 3 past one key chunk: the chunked instance
+    t2_x = _fwd_check("nomax_attn B=3 N=512", bench_attn2.nomax_attn(qx, H, SCALE, 2),
+                      bench_attn2.nomax_attn_plain(qx, H, SCALE), torch.ones(3, 512, device=dev))
+    del qx
+    row = dict(max_abs_err=max(c["err"] for c in t2.values()),
+               ms=cuda_ms(lambda: bench_attn2.nomax_attn(qkv, H, SCALE, 1)),
                plain_ms=cuda_ms(lambda: bench_attn2.nomax_attn_plain(qkv, H, SCALE)),
-               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                   *head_views(*qkv.split(C, -1)), scale=SCALE)),
-               config="g=1", **b_np)
+               library_ms=sdpa_ms, config="g=1", share=t2["g=1"]["share"],
+               cls_heavy_share=t2_cls["share"], wrong_forms=caught, configs=t2,
+               chunked_N512=t2_x, **b_np)
+    _at_most_2x_sdpa("nomax_attn", row["ms"], sdpa_ms)
     results["nomax_attn"] = row
-    say("7 variant nomax_attn (T2)", shape=list(qkv.shape), config="'g=1'", err=e,
-        vs_k1_err=_max_err(out, k1), ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
-        sdpa_ms=f"{row['library_ms']:.4f}", bound_ms=f"{b_np['bound_ms']:.4f}")
-    del qkv, out, ref, k1
+    say("7 variant nomax_attn (T2)", shape=list(qkv.shape), config="'g=1'",
+        share=row["share"], share_tol=SHARE_TOL, cls_heavy_share=t2_cls["share"],
+        wrong_forms=json.dumps(caught), configs=json.dumps(t2), chunked_N512=json.dumps(t2_x),
+        ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}", sdpa_ms=f"{sdpa_ms:.4f}",
+        bound_ms=f"{b_np['bound_ms']:.4f}")
+    del qkv, ref, every
 
     # T3: the half-layer, 1 sequence per block, with and without probs
     ins = bench_attn_layer.layer_inputs(gen)

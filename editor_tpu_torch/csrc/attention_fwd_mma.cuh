@@ -1,8 +1,9 @@
 // The tensor-core attention forward shared by K1 (csrc/attention_qkv.cu), K3
-// and K6 (csrc/masked_attention.cu): softmax(q k^T scale) v of one (head,
+// and K6 (csrc/masked_attention.cu) and the design variants T1 and T2
+// (csrc/attention_variants.cu): softmax(q k^T scale) v of one (head,
 // sequence) pair from the raw qkv projection, every product on mma.sync
 // m16n8k16 (bf16 in, fp32 sums). One compile-time switch, FwdForm, makes the
-// three:
+// five:
 //  * kQkv (K1): p = e (1 / sum e) normalised before it is rounded; the probs
 //    written when asked for; the cls key's p_0 kept in fp32 (p_0 v_0 added
 //    with FMAs), every other p rounded to bf16 before p.v. Three passes over
@@ -19,6 +20,14 @@
 //  * kTiled (K6): kFull with the exp of every cls key (m % tile == 0, 0, 129
 //    and 258 at the model's tile) kept in fp32: e_c v_c added with FMAs, as
 //    K1 does for key 0, and the key's entry of the bf16 A operand cleared.
+//  * kNoMax (T2): kQkv without the row max: no pass 1, the exps of the raw
+//    logits (valid only while |logit| < ~80); given no probs. Two passes over
+//    the keys past one chunk.
+//  * kSplit (T1): kQkv with q, k and v read through three pointers, each
+//    with its own row stride (FwdWalk): separate [B, N, C] tensors, or the
+//    column views of a packed qkv with no copy.
+// T1 and T2 walk `hps` heads of `seqs` sequences a block, one pair after
+// another, each as K1's block does it (FwdWalk).
 //
 // Contract (the plain versions: attention_qkv_tpu_plain,
 // masked_attention_qkv_tpu_plain and masked_attention_tiled_plain,
@@ -26,7 +35,9 @@
 // v_h0..], C = H * D, 16-byte aligned; out [B, N, C] bf16, heads at columns
 // h * D; K1: probs [B, H, N, N] bf16 (may be null); K3 and K6: mask [B, N]
 // fp32 (1 = keep); K6: N a multiple of `cls_tile`. N <= kMaxTokens, D a multiple
-// of 16 up to 128, one template instance per D.
+// of 16 up to 128, one template instance per D. T1 and T2: the plain versions
+// headgrid_attn_plain and nomax_attn_plain (editor_tpu_torch/tools/); T1's q,
+// k and v with 16-byte aligned bases and row strides.
 //
 // Layout (attention_fwd_mma_kernel): one block per (head, sequence) (K3, K6:
 // per query chunk of one too), each warp one 16-row query tile at a time. The
@@ -56,10 +67,22 @@
 namespace editor_kernels {
 namespace {
 
-// The three instances of the body: K1 (no mask, probs, the cls key 0 in
+// The five instances of the body: K1 (no mask, probs, the cls key 0 in
 // fp32), K3 (mask, every exp rounded), K6 (mask, a cls key every `cls_tile`
-// tokens in fp32)
-enum class FwdForm { kQkv, kFull, kTiled };
+// tokens in fp32), T2 (K1 without the row max or probs), T1 (K1 from three
+// row-strided pointers)
+enum class FwdForm { kQkv, kFull, kTiled, kNoMax, kSplit };
+
+// T1 and T2: the pairs a block walks, heads [blockIdx.x hps, + hps) of
+// sequences [blockIdx.y seqs, + seqs) below B; T1's q, k and v and their row
+// strides (elements). K1, K3 and K6 take one pair a block and ignore it.
+struct FwdWalk {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  int ldq, ldk, ldv;
+  int B, hps, seqs;
+};
 
 // warps a block, K1's, K3's and K6's: 8 in the chunked instance were slower
 // for K3 at N = 264 (PERF.md, findings)
@@ -90,10 +113,12 @@ __device__ __forceinline__ void st_shared_bf16(unsigned a, float x) {
 // D + 8] each) with 16-byte cp.async; keys >= N are zero-filled (a padded v
 // row meets a zero probability, and 0 x NaN would not be 0). The block's
 // threads all call it: it waits for the copies and synchronises on both sides.
-template <int D>
+// k's row m at seq + m ldq + koff; v's at seq + m ldq + voff, or with kSplit
+// (T1) at vseq + m ldv + voff.
+template <int D, bool kSplit>
 __device__ __forceinline__ void k1_load_kv(const bf16* __restrict__ seq, int ldq, int koff,
                                            int voff, bf16* ks, bf16* vs, int key0, int rows,
-                                           int N, bool with_v) {
+                                           int N, bool with_v, const bf16* vseq, int ldv) {
   constexpr int LD = D + 8, SEG = D / 8;
   __syncthreads();  // every warp is done with the last chunk
   for (int i = threadIdx.x; i < rows * SEG; i += blockDim.x) {
@@ -103,7 +128,8 @@ __device__ __forceinline__ void k1_load_kv(const bf16* __restrict__ seq, int ldq
     if (key0 + m < N) {
       const bf16* src = seq + (size_t)(key0 + m) * ldq + sg * 8;
       cp_async16(kd, src + koff);
-      if (with_v) cp_async16(vd, src + voff);
+      if (with_v)
+        cp_async16(vd, kSplit ? vseq + (size_t)(key0 + m) * ldv + sg * 8 + voff : src + voff);
     } else {
       *reinterpret_cast<uint4*>(kd) = make_uint4(0u, 0u, 0u, 0u);
       if (with_v) *reinterpret_cast<uint4*>(vd) = make_uint4(0u, 0u, 0u, 0u);
@@ -177,30 +203,27 @@ __device__ __forceinline__ void k1_store_span(bf16* dst, const bf16* src, int n,
   for (int i = head + nv * 8 + lane; i < n; i += 32) dst[i] = src[i];
 }
 
-// One block per (head, sequence) (K3, K6: and per chunk of `tpb` query tiles,
-// blockIdx.z), `blockDim.x / 32` warps, each warp one 16-row query tile at a
-// time. The keys come in chunks of 16 KT. kResident (N <= 16 KT): the head's
-// k and v are loaded once and the logits are made once; at most 3 warps and
-// a register budget that lets 4 blocks share an SM at D <= 64. Else (`nch`
-// chunks, at most 4 warps; K6 8) each pass makes each chunk's logits anew; K1
-// loads each chunk of k (and v) for it, K3 and K6 too unless `kvw` (k and v
-// staged whole once). `se`: bf16 elements of each warp's probs staging buffer
-// (K1); `cls_tile`: tokens a tile, whose first is a cls key (K6).
+// The (head h, sequence b) pair of attention_fwd_mma_kernel's block (K3, K6:
+// its chunk of `tpb` query tiles, blockIdx.z), `blockDim.x / 32` warps, each
+// warp one 16-row query tile at a time. The keys come in chunks of 16 KT.
+// kResident (N <= 16 KT): the head's k and v are loaded once and the logits
+// are made once; at most 3 warps and a register budget that lets 4 blocks
+// share an SM at D <= 64. Else (`nch` chunks, at most 4 warps; K6 8) each
+// pass makes each chunk's logits anew; K1 loads each chunk of k (and v) for
+// it, K3 and K6 too unless `kvw` (k and v staged whole once). `se`: bf16
+// elements of each warp's probs staging buffer (K1, T1); `cls_tile`: tokens a
+// tile, whose first is a cls key (K6).
 template <FwdForm kForm, int DK, int KT, bool kResident>
-__global__ void __launch_bounds__(kResident                   ? kK1ResidentWarps * 32
-                                  : kForm == FwdForm::kTiled ? kK6OneBlockWarps * 32
-                                                              : kK1MaxWarps * 32,
-                                  kResident ? k1_resident_blocks(DK) : 1)
-attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
-                         bf16* __restrict__ out, bf16* __restrict__ probs, int N, int H,
-                         float scale, float fill, int nch, int se, int tpb, int kvw,
-                         int cls_tile) {
-  constexpr bool kMasked = kForm != FwdForm::kQkv;
+__device__ __forceinline__ void attention_fwd_mma_pair(
+    const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out,
+    bf16* __restrict__ probs, int N, int H, float scale, float fill, int nch, int se, int tpb,
+    int kvw, int cls_tile, FwdWalk walk, int h, int b) {
+  constexpr bool kMasked = kForm == FwdForm::kFull || kForm == FwdForm::kTiled;
+  constexpr bool kSplit = kForm == FwdForm::kSplit;
   constexpr int D = 16 * DK, LD = D + 8, KC = 16 * KT;
   if (kResident) nch = 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int C = H * D, ldq = 3 * C;
+  const int C = H * D, ldq = kSplit ? walk.ldq : 3 * C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -214,9 +237,17 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
   bf16* stage = vs + rows_kv * LD + warp * se;
   // K3, K6: the key bias, npad floats after k and v
   float* kb = reinterpret_cast<float*>(vs + rows_kv * LD);
-  const bf16* seq = qkv + (size_t)b * N * ldq;
+  // q's rows (seq, ldq); k's and v's: in the packed qkv at koff and voff, or
+  // (T1) through their own pointers and strides
+  const bf16* seq = (kSplit ? walk.q : qkv) + (size_t)b * N * ldq;
+  const bf16* kseq = kSplit ? walk.k + (size_t)b * N * walk.ldk : seq;
+  const bf16* vseq = kSplit ? walk.v + (size_t)b * N * walk.ldv : nullptr;
+  const int ldk = kSplit ? walk.ldk : ldq;
+  // T2 is given no probs, but its instances keep K1's store of them: without
+  // that code ptxas schedules the resident one into spills, and slower
+  // (PERF.md, findings)
   bf16* pmap = probs ? probs + ((size_t)b * H + h) * N * N : nullptr;
-  const int koff = C + h * D, voff = 2 * C + h * D;
+  const int koff = kSplit ? h * D : C + h * D, voff = kSplit ? h * D : 2 * C + h * D;
   int tbeg = 0, tend = ntiles;
   if constexpr (kMasked) {
     tbeg = blockIdx.z * tpb;
@@ -226,7 +257,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
       kb[m] = m < N ? (mask[(size_t)b * N + m] == 0.f ? fill : 0.f) : -INFINITY;
   }
 
-  if (whole) k1_load_kv<D>(seq, ldq, koff, voff, ks, vs, 0, npad, N, true);
+  if (whole)
+    k1_load_kv<D, kSplit>(kseq, ldk, koff, voff, ks, vs, 0, npad, N, true, vseq, walk.ldv);
   for (int r0w = tbeg; r0w < tend; r0w += nwarps) {  // the same trip count in every warp
     const int tile = r0w + warp;
     const bool in_range = tile < tend;  // warp-uniform
@@ -255,23 +287,31 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
       }
     }
     float s[2 * KT][4];
-    // pass 1: the row max (rows g, g + 8)
     float mx0 = -INFINITY, mx8 = -INFINITY;
-    for (int c = 0; c < nch; ++c) {
-      if (!whole) k1_load_kv<D>(seq, ldq, koff, voff, ks, vs, c * KC, min(KC, npad - c * KC),
-                                N, false);
-      if (active) {
-        k1_logits<kMasked, DK, KT>(qa, kMasked && whole ? ks + (size_t)c * KC * LD : ks,
-                                   c * KC, N, scale, s, lane, kb);
+    if constexpr (kForm == FwdForm::kNoMax) {
+      // T2: no pass 1, exp(l - 0); the resident instance makes its logits
+      // here, the chunked one in each of its two passes
+      mx0 = mx8 = 0.f;
+      if (resident && active) k1_logits<false, DK, KT>(qa, ks, 0, N, scale, s, lane);
+    } else {
+      // pass 1: the row max (rows g, g + 8)
+      for (int c = 0; c < nch; ++c) {
+        if (!whole)
+          k1_load_kv<D, kSplit>(kseq, ldk, koff, voff, ks, vs, c * KC, min(KC, npad - c * KC),
+                                N, false, vseq, walk.ldv);
+        if (active) {
+          k1_logits<kMasked, DK, KT>(qa, kMasked && whole ? ks + (size_t)c * KC * LD : ks,
+                                     c * KC, N, scale, s, lane, kb);
 #pragma unroll
-        for (int j = 0; j < 2 * KT; ++j) {
-          mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-          mx8 = fmaxf(mx8, fmaxf(s[j][2], s[j][3]));
+          for (int j = 0; j < 2 * KT; ++j) {
+            mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+            mx8 = fmaxf(mx8, fmaxf(s[j][2], s[j][3]));
+          }
         }
       }
+      mx0 = quad_max(mx0);
+      mx8 = quad_max(mx8);
     }
-    mx0 = quad_max(mx0);
-    mx8 = quad_max(mx8);
     // K1, pass 2: the exp sum (the max element gives exp(0) = 1, so sum >= 1;
     // a padded key's exp(-inf) is 0). K3 and K6 sum the exps in their last
     // pass.
@@ -279,8 +319,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
     if constexpr (!kMasked) {
       for (int c = 0; c < nch; ++c) {
         if (!resident) {
-          k1_load_kv<D>(seq, ldq, koff, voff, ks, vs, c * KC, min(KC, npad - c * KC), N,
-                        false);
+          k1_load_kv<D, kSplit>(kseq, ldk, koff, voff, ks, vs, c * KC, min(KC, npad - c * KC),
+                                N, false, vseq, walk.ldv);
           if (active) k1_logits<kMasked, DK, KT>(qa, ks, c * KC, N, scale, s, lane);
         }
         if (active) {
@@ -309,7 +349,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
       const int key0 = c * KC;
       if constexpr (kMasked) {
         if (!whole)
-          k1_load_kv<D>(seq, ldq, koff, voff, ks, vs, key0, min(KC, npad - key0), N, true);
+          k1_load_kv<D, kSplit>(kseq, ldk, koff, voff, ks, vs, key0, min(KC, npad - key0), N,
+                                true, vseq, walk.ldv);
         if (active) {
           if (!resident)
             k1_logits<kMasked, DK, KT>(qa, whole ? ks + (size_t)key0 * LD : ks, key0, N, scale,
@@ -325,7 +366,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
           }
         }
       } else if (!resident) {
-        k1_load_kv<D>(seq, ldq, koff, voff, ks, vs, key0, min(KC, npad - key0), N, true);
+        k1_load_kv<D, kSplit>(kseq, ldk, koff, voff, ks, vs, key0, min(KC, npad - key0), N,
+                              true, vseq, walk.ldv);
         if (active) {
           k1_logits<kMasked, DK, KT>(qa, ks, key0, N, scale, s, lane);
 #pragma unroll
@@ -485,6 +527,37 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
           *reinterpret_cast<bf16x2*>(o8 + 8 * j) = __floats2bfloat162_rn(o[j][2], o[j][3]);
       }
     }
+  }
+}
+
+// One block per (head, sequence) pair: blockIdx.x, blockIdx.y (K3, K6: and
+// per chunk of query tiles, blockIdx.z). T1 and T2 walk `walk.hps` heads of
+// `walk.seqs` sequences a block, one pair after another (the staged k and v
+// of a pair are rewritten after the barrier that opens the next one's load).
+template <FwdForm kForm, int DK, int KT, bool kResident>
+__global__ void __launch_bounds__(kResident                   ? kK1ResidentWarps * 32
+                                  : kForm == FwdForm::kTiled ? kK6OneBlockWarps * 32
+                                                              : kK1MaxWarps * 32,
+                                  kResident ? k1_resident_blocks(DK) : 1)
+attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                         bf16* __restrict__ out, bf16* __restrict__ probs, int N, int H,
+                         float scale, float fill, int nch, int se, int tpb, int kvw,
+                         int cls_tile, FwdWalk walk) {
+  if constexpr (kForm == FwdForm::kNoMax || kForm == FwdForm::kSplit) {
+    // T2 walks sequences only: with hps a constant 1, ptxas keeps its
+    // resident instances at D = 32 and 48 free of spills
+    const int hps = kForm == FwdForm::kNoMax ? 1 : walk.hps;
+    for (int pair = 0; pair < hps * walk.seqs; ++pair) {
+      const int b = blockIdx.y * walk.seqs + pair / hps;
+      if (b >= walk.B) break;  // block-uniform
+      attention_fwd_mma_pair<kForm, DK, KT, kResident>(
+          qkv, mask, out, probs, N, H, scale, fill, nch, se, tpb, kvw, cls_tile, walk,
+          blockIdx.x * hps + pair % hps, b);
+    }
+  } else {
+    attention_fwd_mma_pair<kForm, DK, KT, kResident>(qkv, mask, out, probs, N, H, scale, fill,
+                                                     nch, se, tpb, kvw, cls_tile, walk,
+                                                     blockIdx.x, blockIdx.y);
   }
 }
 

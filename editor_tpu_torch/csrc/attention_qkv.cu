@@ -1,25 +1,20 @@
 // K1: multi-head softmax attention straight from the raw qkv projection,
-// optionally writing the post-softmax probabilities for the attention rollout;
-// and its design variants T1 and T2.
+// optionally writing the post-softmax probabilities for the attention rollout.
+// Its design variants T1 and T2 are csrc/attention_variants.cu.
 //
-// Replaces the TPU kernels editor_tpu/ops/fused_attention.py::_pallas_attention_qkv
-// (_qkv_kernel, math in _head_split_softmax_av; K1),
-// tools/bench_attn.py::headgrid_attn (_headgrid_kernel; T1) and
-// tools/bench_attn2.py::nomax_attn (_kernel_nomax; T2).
+// Replaces the TPU kernel editor_tpu/ops/fused_attention.py::_pallas_attention_qkv
+// (_qkv_kernel, math in _head_split_softmax_av).
 //
-// Contract (K1's plain versions: attention_qkv_tpu_plain, in the kernel's
-// rounding form, and attention_qkv_plain in editor_tpu_torch/ops/fused_attention.py;
-// T1/T2: headgrid_attn_plain and nomax_attn_plain in editor_tpu_torch/tools/bench_attn{,2}.py):
+// Contract (the plain versions: attention_qkv_tpu_plain, in the kernel's
+// rounding form, and attention_qkv_plain in editor_tpu_torch/ops/fused_attention.py):
 //   qkv   [B, N, 3C] bf16, laid out [q_h0..q_hH | k_h0.. | v_h0..], C = H * D
-//         (T1: separate q, k, v [B, N, C], each with its own row stride)
 //   out   [B, N, C]  bf16 = softmax(q k^T * scale) v, heads at columns h*D
 //   probs [B, H, N, N] bf16 post-softmax rows (may be null)
 // Rounding points, as the TPU body: fp32 logits (bf16 products are exact)
 // times scale; fp32 row max, exp and sum, p = e * (1 / sum); probs = bf16(p);
 // the patch keys' (m >= 1) p rounded to bf16 before p.v, the cls key's p_0
 // kept in fp32 and p_0 v_0 added to the fp32 sum; out rounded once. Only
-// the order of the sums differs from the TPU body. T2 drops the row max (exp
-// of the raw logits), valid only while |logit| < ~80.
+// the order of the sums differs from the TPU body.
 //
 // What bounds K1 on the H100: at the flagship shape (B = 384, N = 129, H =
 // 12, D = 64) one call reads 228 MB of qkv and writes 76 MB of output plus
@@ -45,20 +40,10 @@
 // chunk of k (and v) anew and making its logits again; every N <=
 // kMaxTokens and every D a multiple of 16 up to 128 is one template instance
 // per D.
-//
-// The variants (editor_attention_variant) keep the CUDA-core body of
-// csrc/attention_rows.cuh, one query row per warp: q, k and v as three
-// pointers with row strides (T1 reads separate head-contiguous tensors, or
-// the q/k/v column views of the packed qkv with no copy), 1 or 2 heads per
-// block (4 warps per head, 70 KB of k/v at N = 129 for 2 heads), g sequences
-// per block one after another, and kNoMax (T2).
 #include "attention_fwd_mma.cuh"
-#include "attention_rows.cuh"
 
 namespace editor_kernels {
 namespace {
-
-constexpr int kWarps = 4;  // T1/T2: warps per head
 
 template <int DK>
 int launch_k1(const bf16* qkv, bf16* out, bf16* probs, int B, int N, int H, float scale,
@@ -78,37 +63,7 @@ int launch_k1(const bf16* qkv, bf16* out, bf16* probs, int B, int N, int H, floa
   cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(H, B), warps * 32, smem, stream>>>(qkv, nullptr, out, probs, N, H, scale, 0.f,
-                                                    nch, se, ntiles, 0, 0);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// T1, T2 and K1's block-shape sweep: kHeads heads of `seqs` sequences per block
-template <int kHeads, bool kNoMax>
-__global__ void __launch_bounds__(kWarps * kHeads * 32)
-attention_variant_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, int ldq, int ldk, int ldv,
-                         bf16* __restrict__ out, bf16* __restrict__ probs, int B, int N,
-                         int H, int D, float scale, int seqs) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b0 = blockIdx.y * seqs;
-  const int nseq = min(seqs, B - b0);
-  attention_block<kWarps, kHeads, kNoMax>(q, k, v, ldq, ldk, ldv, out, probs, b0, nseq,
-                                          blockIdx.x * kHeads, N, H, D, scale, smem);
-}
-
-template <int kHeads, bool kNoMax>
-int launch_variant(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv,
-                   void* out, void* probs, int B, int N, int H, int D, float scale,
-                   int seqs, void* stream) {
-  const size_t smem = attention_smem_bytes(N, D, kHeads, kWarps * kHeads);
-  cudaError_t err = allow_dynamic_smem(attention_variant_kernel<kHeads, kNoMax>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(H / kHeads, (B + seqs - 1) / seqs);
-  attention_variant_kernel<kHeads, kNoMax><<<grid, kWarps * kHeads * 32, smem,
-                                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      ldq, ldk, ldv, static_cast<bf16*>(out), static_cast<bf16*>(probs), B, N, H, D, scale,
-      seqs);
+                                                    nch, se, ntiles, 0, 0, FwdWalk{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -135,27 +90,4 @@ extern "C" int editor_attention_qkv(const void* qkv, void* out, void* probs, int
     case 128: return launch_k1<8>(q, o, p, B, N, H, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// T1/T2: q, k, v with row strides ldq, ldk, ldv (elements); heads per block 1
-// or 2 (H even for 2); seqs >= 1 sequences per block; nomax 0 or 1.
-extern "C" int editor_attention_variant(const void* q, const void* k, const void* v,
-                                        int ldq, int ldk, int ldv, void* out, void* probs,
-                                        int B, int N, int H, int D, float scale,
-                                        int heads, int seqs, int nomax, void* stream) {
-  using namespace editor_kernels;
-  if (seqs < 1 || (heads == 2 && H % 2)) return static_cast<int>(cudaErrorInvalidValue);
-  if (heads == 1 && !nomax)
-    return launch_variant<1, false>(q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale,
-                                    seqs, stream);
-  if (heads == 1 && nomax)
-    return launch_variant<1, true>(q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale,
-                                   seqs, stream);
-  if (heads == 2 && !nomax)
-    return launch_variant<2, false>(q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale,
-                                    seqs, stream);
-  if (heads == 2 && nomax)
-    return launch_variant<2, true>(q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale,
-                                   seqs, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -55,7 +55,7 @@ size_t attn_layer_smem_bytes(int N, int H, int D) {
   const size_t gemm = (size_t)kAlBM * (C + kAlPad) * sizeof(bf16) +
                       (size_t)kAlBK * (kAlBN + kAlPad) * sizeof(bf16) +
                       (size_t)kAlWarps * 16 * 16 * sizeof(float);
-  const size_t attn = attention_smem_bytes(N, D, 1, kAlWarps);
+  const size_t attn = attention_smem_bytes(N, D, kAlWarps);
   return gemm > attn ? gemm : attn;
 }
 
@@ -199,9 +199,8 @@ attn_layer_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   // 2. attention, head by head over the block's sequences
   for (int h = 0; h < H; ++h) {
     __syncthreads();  // the workspace rows are written; the last head's k, v consumed
-    attention_block<kAlWarps, 1, false>(qkv_ws, qkv_ws + C, qkv_ws + 2 * C, 3 * C, 3 * C,
-                                        3 * C, att_ws, probs, b0, nseq, h, N, H, D, scale,
-                                        smem);
+    attention_block<kAlWarps>(qkv_ws, qkv_ws + C, qkv_ws + 2 * C, 3 * C, 3 * C, 3 * C, att_ws,
+                              probs, b0, nseq, h, N, H, D, scale, smem);
   }
   // 3. out = att . wp + bp (al_gemm starts with __syncthreads)
   al_gemm<false>(att_ws + row0 * C, M, C, wp, bp, out + row0 * C, C, nullptr, nullptr, 0.f,

@@ -213,7 +213,7 @@ int launch_k36(const bf16* qkv, const float* mask, bf16* out, int B, int N, int 
   err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(H, B, (ntiles + tpb - 1) / tpb), warps * 32, smem, stream>>>(
-      qkv, mask, out, nullptr, N, H, scale, fill, nch, 0, tpb, whole, tile);
+      qkv, mask, out, nullptr, N, H, scale, fill, nch, 0, tpb, whole, tile, FwdWalk{});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,10 +38,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # qkv, out, probs, B, N, H, D, scale, stream
     "editor_attention_qkv": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # T1/T2: q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale, heads per
-    # block, sequences per block, nomax, stream
-    "editor_attention_variant": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                                 _I, _P],
+    # T1: q, k, v, ldq, ldk, ldv, out, probs, B, N, H, D, scale, heads per
+    # block, sequences per block, stream
+    "editor_attention_split": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    # T2: qkv, out, B, N, H, D, scale, sequences per block, stream
+    "editor_attention_nomax": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     # T3: x, ln weight, ln bias, wqkv, bqkv, wp, bp, out, probs, qkv workspace,
     # attention workspace, B, N, H, D, scale, eps, sequences per block, stream
     "editor_attn_layer": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,

@@ -29,17 +29,27 @@ def check_kernel_tensor(name: str, t: torch.Tensor, ndim: int,
 
 def check_rows_tensor(name: str, t: torch.Tensor, head_dim: int) -> int:
     """Raise unless ``t`` [B, N, C] is a bf16 CUDA tensor whose rows a kernel
-    reads with one row stride: unit element stride, sequences N rows apart,
-    rows 4-byte aligned (a column view of the packed qkv qualifies). Returns
-    the row stride in elements."""
+    reads with 16-byte copies (:func:`rows_stride`). Returns the row stride
+    in elements."""
     _check_cuda_bf16(name, t)
+    return rows_stride(name, t, head_dim)
+
+
+def rows_stride(name: str, t: torch.Tensor, head_dim: int) -> int:
+    """The row stride in elements of ``t`` [B, N, C], whose rows a kernel
+    reads with 16-byte copies: unit element stride, sequences N rows apart,
+    a 16-byte aligned base and a row stride of a multiple of 16 bytes (a
+    column view of the packed qkv qualifies); else raise. Checks neither
+    device nor dtype."""
     if t.dim() != 3:
         raise ValueError(f"{name}: expected 3 dims, got {tuple(t.shape)}")
     B, N, _ = t.shape
     ld = t.stride(1)
-    if t.stride(2) != 1 or (B > 1 and t.stride(0) != N * ld) or ld % 2:
-        raise ValueError(f"{name}: strides {t.stride()} are not rows of one even stride")
-    _check_layout(name, t, head_dim, N, 4)
+    if (t.stride(2) != 1 or (B > 1 and t.stride(0) != N * ld)
+            or ld * t.element_size() % 16):
+        raise ValueError(f"{name}: strides {t.stride()} are not rows of one stride "
+                         "of a multiple of 16 bytes")
+    _check_layout(name, t, head_dim, N, 16)
     return ld
 
 

@@ -5,16 +5,18 @@ and v, on one CUDA device.
 
 Counterpart of ``tools/bench_attn.py``, whose TPU kernel ``headgrid_attn``
 reads q, k and v as separate arrays on a (sequence group, head) grid, with g
-sequences and 1 or 2 heads per step. Here :func:`headgrid_attn` launches the
-variant entry of ``csrc/attention_qkv.cu``: the same body as K1 with q, k and
-v as three row-strided tensors (separate [B, N, C] copies, or the column
-views ``qkv.split(C, -1)`` of the packed projection with no copy), ``hps``
-heads and ``g`` sequences per block. At the flagship shape (B = 384, N = 129,
+sequences and 1 or 2 heads per step. Here :func:`headgrid_attn` launches
+``editor_attention_split`` (``csrc/attention_variants.cu``): K1's tensor-core
+body in its ``kSplit`` form, q, k and v read as three row-strided tensors
+(separate [B, N, C] copies, or the column views ``qkv.split(C, -1)`` of the
+packed projection with no copy), each block walking ``hps`` heads of ``g``
+sequences one pair after another. At the flagship shape (B = 384, N = 129,
 C = 768, H = 12, random-normal bf16 qkv, seed 0) it prints, for probs off
 and on, each layout, hps in (1, 2) and g in (1, 2, 4, 8): ms from CUDA
-events, the relative error against the shipped K1, and the bound; then K1,
-its plain version and SDPA. The card's name and power limit come first.
-Exits non-zero without a CUDA device.
+events, the relative error against the shipped K1 and the share of elements
+more than one bf16 ulp off it (both round alike: 0 expected), and the bound;
+each set beside K1 itself; then the plain version and SDPA. The card's name
+and power limit come first. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from editor_tpu_torch.ops._checks import (check_kernel_tensor, check_probs_out,
                                           check_rows_tensor, compute_dtype)
+from editor_tpu_torch.ops.fused_attention import check_k1_head_dim
 from editor_tpu_torch.tools import _bench
 
 B, N, C, H = 384, 129, 768, 12
@@ -50,6 +53,23 @@ def split_softmax_av_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sc
     return torch.matmul(pr, v.to(cd)), p
 
 
+def cls_heavy(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """A copy of qkv [B, N, 3C] (rounded to bf16 by the caller) whose cls key
+    carries most of each row's weight: every q component raised by 1 and
+    k_0 = 7 / sqrt(D) in every component (at scale D^-0.5 its logit is ~7
+    against ~N(0, 2) for the patch keys: p_0 ~ 0.6-0.75), and v_0 scaled by
+    0.1, so that p_0 v_0 is about the size of the patch keys' sum. On these
+    inputs rounding p_0 to bf16 moves ~3-4% of the outputs by more than one
+    bf16 ulp; on random-normal ones (p_0 ~ 1/N) about 0.5%."""
+    C = qkv.shape[-1] // 3
+    D = C // num_heads
+    x = qkv.clone()
+    x[..., :C] += 1.0
+    x[:, 0, C:2 * C] = 7.0 / D ** 0.5
+    x[:, 0, 2 * C:] *= 0.1
+    return x
+
+
 def headgrid_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                         scale: float, with_probs: bool):
     """T1's function, the math of ``_headgrid_kernel``: q, k, v [B, N, C] ->
@@ -64,35 +84,15 @@ def headgrid_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_h
     return (out, p.to(q.dtype)) if with_probs else out
 
 
-def launch_variant(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   num_heads: int, scale: float, g: int, hps: int, nomax: bool,
-                   probs_out=None) -> torch.Tensor:
-    """Launch the variant entry of ``csrc/attention_qkv.cu`` on CUDA tensors
-    q, k, v [B, N, C] (row-strided) and return out [B, N, C]."""
-    from editor_tpu_torch.ops import _build
-
-    Bq, Nq, Cq = q.shape
-    Dq = Cq // num_heads
-    lds = [check_rows_tensor(f"{name} {n}", t, Dq) for n, t in zip("qkv", (q, k, v))]
-    if probs_out is not None:
-        check_kernel_tensor(f"{name} probs_out", probs_out, 4)
-    out = torch.empty((Bq, Nq, Cq), dtype=q.dtype, device=q.device)
-    code = _build.library().editor_attention_variant(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *lds, out.data_ptr(),
-        probs_out.data_ptr() if probs_out is not None else None, Bq, Nq, num_heads, Dq,
-        float(scale), hps, g, int(nomax), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, name)
-    return out
-
-
 def headgrid_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                   scale: float, g: int = 1, hps: int = 1, probs_out=None):
-    """T1: attention from separate q, k, v [B, N, C] (each with unit element
-    stride and one even row stride, e.g. the column views of the packed qkv)
-    with ``hps`` (1 or 2) heads and ``g`` sequences per block; returns (out
-    [B, N, C], probs_out). ``probs_out``: an optional [B, H, N, N] tensor
-    that receives the post-softmax maps. CUDA: ``csrc/attention_qkv.cu``
-    (bf16); CPU: :func:`headgrid_attn_plain`."""
+    """T1: attention from separate q, k, v [B, N, C] with ``hps`` (1 or 2)
+    heads and ``g`` sequences per block; returns (out [B, N, C], probs_out).
+    ``probs_out``: an optional [B, H, N, N] tensor that receives the
+    post-softmax maps. CUDA: ``csrc/attention_variants.cu`` (bf16; a head dim
+    K1 takes, and q, k and v each with unit element stride, a 16-byte aligned
+    base and a row stride of a multiple of 16 bytes, e.g. the column views of
+    a 16-byte aligned packed qkv); CPU: :func:`headgrid_attn_plain`."""
     Bq, Nq, Cq = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape}, {k.shape}, {v.shape}")
@@ -106,7 +106,20 @@ def headgrid_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: 
         out, probs = headgrid_attn_plain(q, k, v, num_heads, scale, True)
         probs_out.copy_(probs)
         return out, probs_out
-    out = launch_variant("headgrid_attn", q, k, v, num_heads, scale, g, hps, False, probs_out)
+    from editor_tpu_torch.ops import _build
+
+    Dq = Cq // num_heads
+    check_k1_head_dim(Dq)
+    # 16-byte cp.async copies of k's and v's rows
+    lds = [check_rows_tensor(f"headgrid_attn {n}", t, Dq) for n, t in zip("qkv", (q, k, v))]
+    if probs_out is not None:
+        check_kernel_tensor("headgrid_attn probs_out", probs_out, 4)
+    out = torch.empty((Bq, Nq, Cq), dtype=q.dtype, device=q.device)
+    code = _build.library().editor_attention_split(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *lds, out.data_ptr(),
+        probs_out.data_ptr() if probs_out is not None else None, Bq, Nq, num_heads, Dq,
+        float(scale), hps, g, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "headgrid_attn")
     headgrid_attn.launches += 1
     return out, probs_out
 
@@ -137,6 +150,9 @@ def main(argv=None) -> None:
     for wp in (False, True):
         po = probs if wp else None
         bnd = _bench.bound(flops, attention_bytes(wp))
+        k1 = lambda: ops.attention_qkv(qkv, H, SCALE, probs_out=po)  # noqa: E731
+        _bench.report(f"K1 attention_qkv probs={int(wp)} (shipped)",
+                      _bench.cuda_ms(k1, args.iters), 0.0, bnd)
         for layout, (q, k, v) in layouts.items():
             for hps in (1, 2):
                 for g in (1, 2, 4, 8):
@@ -144,9 +160,10 @@ def main(argv=None) -> None:
                     ms = _bench.cuda_ms(lambda: headgrid_attn(q, k, v, H, SCALE, g, hps, po),
                                         args.iters)
                     _bench.report(f"headgrid probs={int(wp)} {layout:8s} hps={hps} g={g}", ms,
-                                  _bench.rel_err(out, want), bnd)
-        ms = _bench.cuda_ms(lambda: ops.attention_qkv(qkv, H, SCALE, probs_out=po), args.iters)
-        _bench.report(f"K1 attention_qkv probs={int(wp)} (shipped)", ms, 0.0, bnd)
+                                  _bench.rel_err(out, want), bnd,
+                                  share_off_k1=f"{_bench.bf16_off_share(out, want):.2e}")
+        _bench.report(f"K1 attention_qkv probs={int(wp)} (shipped, again)",
+                      _bench.cuda_ms(k1, args.iters), 0.0, bnd)
     q, k, v = layouts["separate"]
     ref = headgrid_attn_plain(q, k, v, H, SCALE, False)
     ms = _bench.cuda_ms(lambda: headgrid_attn_plain(q, k, v, H, SCALE, True), args.iters)

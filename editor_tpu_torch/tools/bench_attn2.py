@@ -6,10 +6,13 @@ Counterpart of ``tools/bench_attn2.py``. Its TPU kernel ``nomax_attn``
 (``_kernel_nomax``) is K1's attention with the exps of the raw logits: no row
 max, so it is valid only while |logit| < ~80 (random-normal inputs, as in the
 JAX script; the ×30 stress of chip_smoke's K1 check would overflow it).
-:func:`nomax_attn` launches the variant entry of ``csrc/attention_qkv.cu``
-with ``kNoMax`` on the packed qkv, ``g`` sequences per block. The tool prints
-at [384, 129, 2304] (seed 0) the shipped K1, T2 at g in (1, 2, 4) with its
-relative error against K1 and its plain version, and SDPA; then the JAX
+:func:`nomax_attn` launches ``editor_attention_nomax``
+(``csrc/attention_variants.cu``): K1's tensor-core body in its ``kNoMax``
+form on the packed qkv, each block walking ``g`` sequences one after
+another. The tool prints at [384, 129, 2304] (seed 0) the shipped K1 without
+probs, T2 at g in (1, 2, 4) with its relative error against K1 and its plain
+version and its share of elements more than one bf16 ulp off the plain
+version, K1 again, and SDPA; then the JAX
 script's second half: the uncompacted tail's masked attention K6 at
 [128, 387] (three tiles) and [384, 129] (one tile) over its warps per block
 (the TPU script sweeps its group), against the shipped 4 warps: the
@@ -27,9 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from editor_tpu_torch.ops._checks import check_kernel_tensor
+from editor_tpu_torch.ops.fused_attention import check_k1_head_dim
 from editor_tpu_torch.tools import _bench
 from editor_tpu_torch.tools.bench_attn import (SCALE, B, C, D, H, N, attention_bytes,
-                                               launch_variant, split_softmax_av_plain)
+                                               split_softmax_av_plain)
 
 
 def nomax_attn_plain(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
@@ -44,16 +48,24 @@ def nomax_attn_plain(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
 
 def nomax_attn(qkv: torch.Tensor, num_heads: int, scale: float, g: int = 1) -> torch.Tensor:
     """T2: attention from the packed qkv [B, N, 3C] without the row max, ``g``
-    sequences per block -> [B, N, C]. CUDA: ``csrc/attention_qkv.cu`` (bf16,
-    contiguous); CPU: :func:`nomax_attn_plain`."""
+    sequences per block -> [B, N, C]. CUDA: ``csrc/attention_variants.cu``
+    (bf16, contiguous, 16-byte aligned, a head dim K1 takes); CPU:
+    :func:`nomax_attn_plain`."""
     Bq, Nq, C3 = qkv.shape
     if C3 % (3 * num_heads) or g < 1:
         raise ValueError(f"qkv width {C3}, {num_heads} heads, {g} sequences per block")
     if qkv.device.type == "cpu":
         return nomax_attn_plain(qkv, num_heads, scale)
-    check_kernel_tensor("nomax_attn qkv", qkv, 3, C3 // 3 // num_heads, Nq, align=4)
-    q, k, v = qkv.split(C3 // 3, -1)
-    out = launch_variant("nomax_attn", q, k, v, num_heads, scale, g, 1, True)
+    from editor_tpu_torch.ops import _build
+
+    Dq = C3 // 3 // num_heads
+    check_k1_head_dim(Dq)
+    check_kernel_tensor("nomax_attn qkv", qkv, 3, Dq, Nq, align=16)
+    out = torch.empty((Bq, Nq, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    code = _build.library().editor_attention_nomax(
+        qkv.data_ptr(), out.data_ptr(), Bq, Nq, num_heads, Dq, float(scale), g,
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(code, "nomax_attn")
     nomax_attn.launches += 1
     return out
 
@@ -73,14 +85,17 @@ def main(argv=None) -> None:
     qkv = torch.randn(B, N, 3 * C, generator=gen, device="cuda").to(torch.bfloat16)
     want, _ = ops.attention_qkv(qkv, H, SCALE)
     bnd = _bench.bound(4.0 * B * H * N * N * D, attention_bytes(False))
-    ms = _bench.cuda_ms(lambda: ops.attention_qkv(qkv, H, SCALE), args.iters)
-    _bench.report("K1 attention_qkv probs=0 (shipped)", ms, 0.0, bnd)
+    k1 = lambda: ops.attention_qkv(qkv, H, SCALE)  # noqa: E731
+    _bench.report("K1 attention_qkv probs=0 (shipped)", _bench.cuda_ms(k1, args.iters), 0.0, bnd)
     ref = nomax_attn_plain(qkv, H, SCALE)
     for g in (1, 2, 4):
         out = nomax_attn(qkv, H, SCALE, g)
         ms = _bench.cuda_ms(lambda: nomax_attn(qkv, H, SCALE, g), args.iters)
         _bench.report(f"nomax g={g}", ms, _bench.rel_err(out, want), bnd,
-                      relerr_vs_plain=f"{_bench.rel_err(out, ref):.2e}")
+                      relerr_vs_plain=f"{_bench.rel_err(out, ref):.2e}",
+                      share_off_plain=f"{_bench.bf16_off_share(out, ref):.2e}")
+    _bench.report("K1 attention_qkv probs=0 (shipped, again)", _bench.cuda_ms(k1, args.iters),
+                  0.0, bnd)
     ms = _bench.cuda_ms(lambda: nomax_attn_plain(qkv, H, SCALE), args.iters)
     _bench.report("plain nomax_attn_plain", ms, _bench.rel_err(ref, want))
     heads = [t.view(B, N, H, D).transpose(1, 2) for t in qkv.split(C, -1)]

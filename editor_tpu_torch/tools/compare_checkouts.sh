@@ -1,19 +1,22 @@
 #!/usr/bin/env bash
-# Hold this checkout's shipped kernels (K1-K8) against another checkout's on
-# one card: the output digests and ms of kernel_digest.py in the order other,
+# Hold this checkout's shipped kernels (K1-K8) and the variants T1 and T2
+# against another checkout's on one card: the output digests and ms of
+# kernel_digest.py in the order other,
 # this, this, other (so a drift of the card's clock shows as a difference
 # between the two runs of one side), then the registers, spills and SASS
 # instruction mix of each named source in both checkouts (kernel_sass.py).
 # K1's output and probs, K3's output and K4's dqkv at each of their shapes,
 # K5's dqkv at its two, K6's output at its two model shapes and K7's dqkv at
-# its three shapes of the two sides are compared element by element
-# (kernel_digest.py --diff into diff.json; the tensors go to a temporary
-# directory). Name attention_qkv.cu for K1's instances
-# (attention_fwd_mma_kernel<FwdForm::kQkv, ...>; and T1/T2's),
+# its three shapes, T1's output and probs and T2's output of the two sides are
+# compared element by element (kernel_digest.py --diff into diff.json; the
+# tensors go to a temporary directory). Name attention_qkv.cu for K1's
+# instances (attention_fwd_mma_kernel<FwdForm::kQkv, ...>),
+# attention_variants.cu for T2's and T1's (<kNoMax, ...> and <kSplit, ...>),
 # masked_attention.cu for K3's and K6's (<kFull, ...> and <kTiled, ...>; and
 # the CUDA-core bodies of T6 and K6's sweep), attention_qkv_bwd.cu and
 # masked_attention_bwd.cu for K4's, K7's and K5's (and T6's): one JSON line
-# each, with its registers, spills and HMMA count.
+# each, with its registers, spills and HMMA count; a source one checkout
+# lacks is read in the other only.
 #
 #   bash editor_tpu_torch/tools/compare_checkouts.sh <other checkout> <out dir> [source.cu ...]
 #
@@ -42,6 +45,7 @@ for src in "$@"; do
   for who in other this; do
     dir=$here
     [ "$who" = other ] && dir=$other
+    [ -f "$dir/editor_tpu_torch/csrc/$src" ] || continue
     python3 -m editor_tpu_torch.tools.kernel_sass "$dir/editor_tpu_torch/csrc/$src" \
       > "$out/sass_${who}_${src%.cu}.jsonl"
   done

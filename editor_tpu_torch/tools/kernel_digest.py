@@ -1,12 +1,14 @@
-"""Digest and time of each shipped kernel (K1-K8) at the main paths' shapes
-on one CUDA device, to hold two checkouts against each other on one card.
+"""Digest and time of each shipped kernel (K1-K8) at the main paths' shapes,
+and of the design variants T1 and T2, on one CUDA device, to hold two
+checkouts against each other on one card.
 
     PYTHONPATH=<checkout> python3 <this file> [--iters 20] [--save K1.pt]
     PYTHONPATH=<this checkout> python3 <this file> --diff A.pt B.pt
 
 It imports ``editor_tpu_torch`` from the path it is given, so the same file
 runs another checkout's kernels (it calls only K1-K8's wrappers with the
-arguments they have taken since K8 was added). The inputs come from a CUDA
+arguments they have taken since K8 was added, and T1's and T2's with those
+they have taken since they were added). The inputs come from a CUDA
 generator seeded with 0, in one fixed order: K1 with its probs and K4 at
 [384, 129, 2304]; K2 on peaked maps
 (L = 12, Z = 4608, N = 129); K3 and K5 at [384, 88] and [128, 264]; K6 and
@@ -18,18 +20,21 @@ serving shapes [3, 88] and [1, 264] and beyond the model's shapes (B = 3 at
 N = 1, 15, 16, 17, 144, 145, 200 and 512 with D = 64, N = 264 at D = 32, 96
 and 128: every shape chip_smoke holds K3 at but N = 512 with D = 128, where
 the CUDA-core K3 of earlier checkouts needs more shared memory than a block
-has). For each call it prints one JSON line: the kernel, the shape, the
+has); then T1 (``bench_attn.headgrid_attn``: separate q, k, v [384, 129,
+768], 2 heads and 1 sequence a block, with probs) and T2
+(``bench_attn2.nomax_attn`` at [384, 129, 2304], 1 sequence a block). For
+each call it prints one JSON line: the kernel, the shape, the
 sha256 of its output bytes (the first 16 hex digits) and its ms from CUDA
 events. The card's name and power limit come first. Exits non-zero without
 a CUDA device.
 
 ``--save`` also writes K1's output and probs, K3's output and K4's dqkv at
 each of their shapes, K5's dqkv at its two, K6's output at its two model
-shapes ([384, 129] and [128, 387]) and K7's dqkv at its three shapes to a
-file, and ``--diff`` prints, for two such files (two checkouts' kernels
-on the same input), the largest difference of each tensor, the share of
-elements that differ and the largest difference in bf16 ulps of the first
-file's element.
+shapes ([384, 129] and [128, 387]), K7's dqkv at its three shapes, T1's
+output and probs and T2's output to a file, and ``--diff`` prints, for two
+such files (two checkouts' kernels on the same input), the largest
+difference of each tensor, the share of elements that differ and the
+largest difference in bf16 ulps of the first file's element.
 """
 
 from __future__ import annotations
@@ -91,8 +96,8 @@ def diff(path_a: str, path_b: str) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--save", help="write K1's output and probs, K3's and K6's output and "
-                    "K4's, K5's and K7's dqkv to this file")
+    ap.add_argument("--save", help="write K1's output and probs, K3's and K6's output, "
+                    "K4's, K5's and K7's dqkv and T1's and T2's output to this file")
     ap.add_argument("--diff", nargs=2, metavar=("A", "B"), help="compare two --save files")
     args = ap.parse_args(argv)
     if args.diff:
@@ -104,6 +109,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip(), flush=True)
     from editor_tpu_torch import ops
+    from editor_tpu_torch.tools import bench_attn, bench_attn2
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -192,6 +198,19 @@ def main(argv=None) -> None:
         if args.save:
             saved[f"K3 out {list(qkv.shape)}"] = ops.masked_attention_qkv(qkv, m, Hx, Dx ** -0.5,
                                                                           FILL).cpu()
+    del qkv, m
+    q, k, v = (randn(384, 129, C) for _ in range(3))
+    probs = torch.empty(384, H, 129, 129, dtype=bf, device="cuda")
+    line("T1 headgrid_attn", q.shape,
+         lambda: (bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2, probs)[0], probs))
+    if args.save:
+        out, _ = bench_attn.headgrid_attn(q, k, v, H, SCALE, 1, 2, probs)
+        saved.update({"T1 out": out.cpu(), "T1 probs": probs.cpu()})
+    del q, k, v, probs
+    qkv = randn(384, 129, 3 * C)
+    line("T2 nomax_attn", qkv.shape, lambda: bench_attn2.nomax_attn(qkv, H, SCALE, 1))
+    if args.save:
+        saved["T2 out"] = bench_attn2.nomax_attn(qkv, H, SCALE, 1).cpu()
     if args.save:
         torch.save(saved, args.save)
 

@@ -53,7 +53,9 @@ CATEGORIES = (
      r"attention_fwd_mma_kernel<[^,]*fwdform(\)2|::ktiled)|masked_attention_tiled_kernel"),
     ("K7 masked_attention_tiled_bwd", r"attention_bwd_mma_kernel<[^,]*bwdform(\)1|::ktiled)"),
     ("K8 ln_matmul", r"ln_matmul_kernel"),
-    ("T1/T2 attention variants", r"attention_variant_kernel"),
+    # T2 and T1: the forward body's forms kNoMax and kSplit
+    ("T1/T2 attention variants",
+     r"attention_fwd_mma_kernel<[^,]*fwdform(\)[34]|::knomax|::ksplit)"),
     ("T3 attn_layer", r"attn_layer_kernel"),
     ("T4 rollout variants", r"rollout_variant_kernel|rollout_rows_kernel"),
     ("T5 rollout_multi", r"rollout_multi_kernel"),

@@ -81,10 +81,18 @@ from editor_tpu_torch.tools import profile_train as pt
     ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<"
      "FwdForm::kTiled, 8, 5, false>(...)", "K6 masked_attention_tiled"),
     # the design variants T1-T5
-    ("void editor_kernels::(anonymous namespace)::attention_variant_kernel<2, false>(...)",
+    # T2 and T1 on K1's tensor-core body: the forms kNoMax and kSplit
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<"
+     "(editor_kernels::(anonymous namespace)::FwdForm)3, 4, 9, true>(__nv_bfloat16 const*, "
+     "float const*, __nv_bfloat16*, __nv_bfloat16*, int, int, float, float, int, int, int, "
+     "int, int, editor_kernels::(anonymous namespace)::FwdWalk)", "T1/T2 attention variants"),
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<"
+     "(editor_kernels::(anonymous namespace)::FwdForm)4, 8, 5, false>(...)",
      "T1/T2 attention variants"),
-    ("void editor_kernels::(anonymous namespace)::attention_variant_kernel<1, true>(...)",
-     "T1/T2 attention variants"),
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<"
+     "FwdForm::kNoMax, 4, 9, false>(...)", "T1/T2 attention variants"),
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_kernel<"
+     "FwdForm::kSplit, 2, 9, true>(...)", "T1/T2 attention variants"),
     ("void editor_kernels::(anonymous namespace)::attn_layer_kernel(...)", "T3 attn_layer"),
     ("void editor_kernels::(anonymous namespace)::rollout_variant_kernel<true, 2>(...)",
      "T4 rollout variants"),
