@@ -82,9 +82,14 @@ Phases, each printing its lines and its seconds:
      T2 at 1 and 2 sequences a block and B = 3 at N = 512; T1's probs as
      K1's (every element within one bf16 ulp, rows summing to 1); T1 (with
      probs) and T2 at most 2x SDPA's time. T3's probs, whose qkv the kernel
-     makes itself, by the share test and the row sums, T6's forward by K3's
-     share test against the TPU body's form (which must fail the unrounded
-     and the XLA form in the same run) and its backward by K5's shares.
+     makes itself, by the share test and the row sums. T6, K3 and K5 walking
+     g sequences a block at the JAX package's groups (forward 8 and 2,
+     backward 4 and 2 at [384, 88] and [128, 264]), must equal K3 and K5 at
+     group 0 bit for bit; its forward is held by K3's share test against the
+     TPU body's form (which must fail the unrounded and the XLA form in the
+     same run), its backward by K5's check and wrong forms (the unrounded and
+     the cls-kept form); forward + backward over both shapes at most 2x
+     SDPA's forward + backward with the key mask.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
 (K1-K8, T1-T6), and last the result line {"ok": true, "device": {...}}. Any failed check
@@ -128,7 +133,7 @@ KERNELS = {
 }
 # The design-variant kernels T1-T6 (phase 7), each counted where it launches:
 # T1-T5 by the wrapper of the same name in their tool module, T6 by K3's and
-# K5's launches at another warp count than the model paths' (launch_counts)
+# K5's launches at a group g >= 1, not the model paths' 0 (launch_counts)
 VARIANTS = {
     "headgrid_attn": dict(tool="bench_attn",
                           source="editor_tpu_torch/csrc/attention_variants.cu",
@@ -1005,8 +1010,8 @@ def variant_phase(gen: torch.Generator) -> dict:
     configuration each, against their plain versions with the phase 2
     limits (T4/T5's bf16 chain: one bf16 ulp of the output's largest
     magnitude, and at most 5% of the outputs more than 8 fp32 ulps off the
-    plain bf16 chain; T6's backward: K5's shares), with kernel, plain and
-    library-call times and the bound."""
+    plain bf16 chain; T6: bit-identical to K3 and K5, K3's and K5's checks),
+    with kernel, plain and library-call times and the bound."""
     from editor_tpu_torch import ops
     from editor_tpu_torch.tools import (_bench, bench_attn, bench_attn2, bench_attn_layer,
                                         bench_full_kernel, bench_rollout, bench_rollout2)
@@ -1234,21 +1239,38 @@ def variant_phase(gen: torch.Generator) -> dict:
     del maps, ref_bf, ref_f32, got_bf, got_rows, got
     torch.cuda.empty_cache()
 
-    # T6: K3 and K5 with 8 warps per block (the CUDA-core bodies) at the
-    # compact tail's shapes, masks as phase 2's; one forward and one backward
-    # of each shape. The counts sit at the launch: the 8-warp pair counts as T6
-    # alone, the 4-warp pair (the tensor-core kernels K3 and K5) as K3 and K5
-    # alone. Both halves round where K3 and K5 do: held by their share tests
+    # T6: K3 and K5 walking g sequences a block at the JAX package's groups
+    # (bench_full_kernel.full_group: forward 8, backward 4 at [384, 88];
+    # both 2 at [128, 264]), masks as phase 2's; one forward and one backward
+    # of each shape. The counts sit at the launch: the walking pair counts as
+    # T6 alone, the group-0 pair (K3 and K5) as K3 and K5 alone. Each pair is
+    # computed as K3's and K5's blocks compute it, so T6 must equal them bit
+    # for bit; and it is held by K3's and K5's share tests and wrong forms
     calls = []
     for Bm, Nm in ((3 * B_EVAL, 88), (B_EVAL, 264)):
         qkv = randn(Bm, Nm, 3 * C)
         m = torch.rand(Bm, Nm, generator=gen, device=dev) < 0.5
         m = (m | (torch.arange(Nm, device=dev) % 88 == 0)[None, :]).float()
+        m[0, 1:] = 0.0  # one sequence with only its cls token
         g = randn(Bm, Nm, C)
+        gf, gb = bench_full_kernel.full_group(Nm, Bm), bench_full_kernel.full_group(Nm, Bm, True)
         reset_counts()
-        fwd = bench_full_kernel.masked_full(qkv, m, H, SCALE, 8)
-        bwd = bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 8)
+        fwd = bench_full_kernel.masked_full(qkv, m, H, SCALE, gf)
+        bwd = bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, gb)
         counts = [launch_counts()]
+        fwd0 = ops.masked_attention_qkv(qkv, m, H, SCALE, FILL)
+        bwd0 = ops.masked_attention_qkv_bwd(qkv, m, g, H, SCALE, FILL)
+        counts.append(launch_counts())
+        torch.cuda.synchronize()
+        seen = [(c["masked_full"], c["masked_attention_qkv"], c["masked_attention_qkv_bwd"])
+                for c in counts]
+        if seen != [(2, 0, 0), (2, 1, 1)]:
+            raise AssertionError(f"(T6, K3, K5) launches after the walking pair and then the "
+                                 f"group-0 pair: {seen} != [(2, 0, 0), (2, 1, 1)]")
+        if not (torch.equal(fwd, fwd0) and torch.equal(bwd, bwd0)):
+            raise AssertionError(f"masked_full N={Nm}: g = {gf} (forward), {gb} (backward) "
+                                 "not bit-identical to K3 and K5 at group 0")
+        del fwd0, bwd0
         # the forward against the TPU body's form (masked_full_plain), by K3's
         # share test, which must fail the unrounded and the XLA form
         ref_f = bench_full_kernel.masked_full_plain(qkv, m, H, SCALE)
@@ -1256,50 +1278,51 @@ def variant_phase(gen: torch.Generator) -> dict:
         caught_f = _k3_wrong_forms(qkv, m, ref_f, H, D)
         e_f = t6["err"]
         del ref_f
+        # the backward by K5's check and wrong forms (unrounded; cls-kept)
         ref_b = bench_full_kernel.masked_full_bwd_plain(qkv, m, g, H, SCALE)
-        e_b = _scaled(bwd, ref_b)
-        shares_b = _bwd_shares(f"masked_full_bwd N={Nm}", bwd, ref_b, K5_CLS_ROWS, C)
+        k5 = _k5_check(f"masked_full_bwd N={Nm}", bwd, ref_b, m, C)
+        caught_b = _wrong_forms(
+            "masked_full_bwd",
+            ops.masked_attention_qkv_bwd_plain(qkv.float(), m, g.float(), H, SCALE,
+                                               FILL).to(torch.bfloat16),
+            ops.masked_attention_tiled_bwd_plain(qkv, m, g, H, SCALE, FILL, K5_CLS_ROWS),
+            ref_b, K5_CLS_ROWS, C, "cls_kept")
+        e_b = k5["scaled_err"]
         del ref_b
-        # against the 4-warp pair, the tensor-core kernels K3 and K5 (the same
-        # rounding points: the share of elements more than one bf16 ulp apart)
-        vs4 = dict(fwd_share_off_4_warps=_bench.bf16_off_share(
-                       fwd, bench_full_kernel.masked_full(qkv, m, H, SCALE, 4)),
-                   bwd_share_off_4_warps=_bench.bf16_off_share(
-                       bwd, bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 4)))
-        counts.append(launch_counts())
-        torch.cuda.synchronize()
-        seen = [(c["masked_full"], c["masked_attention_qkv"], c["masked_attention_qkv_bwd"])
-                for c in counts]
-        if seen != [(2, 0, 0), (2, 1, 1)]:
-            raise AssertionError(f"(T6, K3, K5) launches after the 8-warp pair and then the "
-                                 f"4-warp pair: {seen} != [(2, 0, 0), (2, 1, 1)]")
-        _require(f"masked_full_bwd N={Nm} (scaled)", e_b, 1e-2)
         pairs = float((m.sum(1) ** 2).sum())
         keys = m.bool()[:, None, None, :]
         c = dict(err=max(e_f, e_b), flops=14.0 * H * D * pairs,
                  bytes=2.0 * Bm * Nm * (4 * C + 7 * C) + 8.0 * Bm * Nm,
-                 ms=cuda_ms(lambda: bench_full_kernel.masked_full(qkv, m, H, SCALE, 8))
-                 + cuda_ms(lambda: bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, 8)),
+                 ms=cuda_ms(lambda: bench_full_kernel.masked_full(qkv, m, H, SCALE, gf))
+                 + cuda_ms(lambda: bench_full_kernel.masked_full_bwd(qkv, m, g, H, SCALE, gb)),
                  plain_ms=cuda_ms(lambda: bench_full_kernel.masked_full_plain(qkv, m, H, SCALE))
                  + cuda_ms(lambda: bench_full_kernel.masked_full_bwd_plain(qkv, m, g, H, SCALE)),
                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                      *_heads(qkv), attn_mask=keys, scale=SCALE)) + _sdpa_bwd_ms(qkv, g, m.bool()))
-        c.update(fwd_share=t6["share"], fwd_wrong_forms=caught_f, bwd_share=shares_b["share"],
-                 bwd_cls_share=shares_b["cls_share"])
+        c.update(fwd_share=t6["share"], fwd_wrong_forms=caught_f, bwd_share=k5["share"],
+                 bwd_cls_share=k5["cls_share"], bwd_wrong_forms=caught_b)
         calls.append(c)
-        say("7 variant masked_full (T6)", shape=list(qkv.shape), warps=8, fwd_err=e_f,
-            fwd_share=t6["share"], share_tol=SHARE_TOL, fwd_wrong_forms=json.dumps(caught_f),
-            bwd_scaled_err=e_b, bwd_share=shares_b["share"],
-            bwd_cls_share=shares_b["cls_share"], vs_4_warps=json.dumps(vs4),
-            ms=f"{c['ms']:.4f}",
-            plain_ms=f"{c['plain_ms']:.4f}", sdpa_fwd_bwd_ms=f"{c['library_ms']:.4f}",
+        say("7 variant masked_full (T6)", shape=list(qkv.shape), g_fwd=gf, g_bwd=gb,
+            equal_to_group0=True, fwd_err=e_f, fwd_share=t6["share"], share_tol=SHARE_TOL,
+            fwd_wrong_forms=json.dumps(caught_f), bwd_scaled_err=e_b, bwd_share=k5["share"],
+            bwd_cls_share=k5["cls_share"], bwd_wrong_forms=json.dumps(caught_b),
+            ms=f"{c['ms']:.4f}", plain_ms=f"{c['plain_ms']:.4f}",
+            sdpa_fwd_bwd_ms=f"{c['library_ms']:.4f}",
             bound_ms=f"{bound(c['flops'], c['bytes'])['bound_ms']:.4f}")
         del qkv, g, fwd, bwd
     _sum_rows(results, "masked_full", calls, phase="7")
+    t6_ms, sdpa_ms = results["masked_full"]["ms"], results["masked_full"]["library_ms"]
+    if not t6_ms <= 2.0 * sdpa_ms:
+        raise AssertionError(f"masked_full: {t6_ms} ms forward + backward on the two shapes, "
+                             f"more than 2x SDPA's forward + backward with the key mask, "
+                             f"{sdpa_ms} ms")
+    say("7 sum masked_full vs sdpa fwd + bwd", ms=f"{t6_ms:.4f}", sdpa_ms=f"{sdpa_ms:.4f}",
+        factor=f"{t6_ms / sdpa_ms:.3f}", limit="2")
     results["masked_full"].update(
-        config="8 warps per block, forward + backward",
+        config="JAX `_full_group` groups, forward + backward", equal_to_group0=True,
         **{k: [c[k] for c in calls]
-           for k in ("fwd_share", "fwd_wrong_forms", "bwd_share", "bwd_cls_share")})
+           for k in ("fwd_share", "fwd_wrong_forms", "bwd_share", "bwd_cls_share",
+                     "bwd_wrong_forms")})
     return results
 
 
@@ -1321,9 +1344,9 @@ def flagship(opts=()):
 def launch_counts() -> dict:
     """Launches of each kernel row since the last reset_counts(), counted
     where the kernel launches: K1-K8 by their wrappers (K3, K5 and K6 at the
-    model paths' 4 warps), T1-T5 by the wrapper of the same name in their tool
-    module, T6 (masked_full) by K3's and K5's launches at other warp counts,
-    and K6's own at other warp counts (a sweep of bench_attn2) apart."""
+    model paths' group 0), T1-T5 by the wrapper of the same name in their tool
+    module, T6 (masked_full) by K3's and K5's launches at groups g >= 1, and
+    K6's own at g >= 1 (the group sweep of bench_attn2) apart."""
     import importlib
 
     from editor_tpu_torch import ops
@@ -1335,7 +1358,7 @@ def launch_counts() -> dict:
             counts[name] = getattr(mod, name).launches
     counts["masked_full"] = (ops.masked_attention_qkv.variant_launches
                              + ops.masked_attention_qkv_bwd.variant_launches)
-    counts["masked_attention_tiled (other warps)"] = ops.masked_attention_tiled.variant_launches
+    counts["masked_attention_tiled (group >= 1)"] = ops.masked_attention_tiled.variant_launches
     return counts
 
 

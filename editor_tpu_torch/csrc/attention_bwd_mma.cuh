@@ -39,7 +39,8 @@
 // count.
 //
 // Design (attention_bwd_mma_kernel): one block per (head, sequence), two
-// passes.
+// passes; the body is attention_bwd_mma_pair, which T6's
+// attention_bwd_mma_walk_kernel calls for g sequences a block in turn.
 //  * Row pass: the head's k and v, all Np rows, go to shared memory ([Np,
 //    D + 8] each, 16-byte cp.async, rows >= N zero). Each warp owns 16-row
 //    query tiles; q and g come from global memory as A operands. S = q k^T and
@@ -158,14 +159,30 @@ __host__ __device__ inline BwdMmaSmem bwd_mma_smem_layout(int N, int n_tiles, in
   return s;
 }
 
+// The thread's index in the block. kWalk (the walk kernel): read anew at
+// each use with a volatile move, so that the compiler cannot hoist what the
+// pair derives from it out of the walk's loop and hold it across the pairs
+// (K5's own block recomputes it at each use; held, the walk's D = 64
+// chunked instance spilled 8 bytes at its 168 registers)
+template <bool kWalk>
+__device__ __forceinline__ unsigned bwd_thread() {
+  if constexpr (kWalk) {
+    unsigned t;
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+    return t;
+  } else {
+    return threadIdx.x;
+  }
+}
+
 // Rows [0, np) of one head's [N, D] slice (row stride ld, column offset off)
 // into shared memory [np, D + 8] with 16-byte cp.async; rows >= N are zero
 // (0 x NaN would not be 0). The caller waits for the copies.
-template <int D>
+template <int D, bool kWalk>
 __device__ __forceinline__ void stage_head(const bf16* __restrict__ src, int ld, int off,
                                            bf16* dst, int np, int N) {
   constexpr int LD = D + 8, SEG = D / 8;
-  for (int i = threadIdx.x; i < np * SEG; i += blockDim.x) {
+  for (int i = bwd_thread<kWalk>(); i < np * SEG; i += blockDim.x) {
     const int m = i / SEG, sg = i - m * SEG;
     bf16* d = dst + m * LD + sg * 8;
     if (m < N)
@@ -269,29 +286,28 @@ __device__ __forceinline__ uint32_t bwd_column_pair(const bf16* __restrict__ col
   return lo | hi << 16;
 }
 
-// One block per (head, sequence), `blockDim.x / 32` warps. kResident (Np <=
-// 16 KT): a row's logits are made once and kept; else in chunks of KT key
-// tiles, made anew in each pass. kForm: K7 (mask, fill, cls keys every `tile`
-// tokens), K4 (one cls key at m = 0; mask, fill and tile unused) or K5
-// (mask, fill, no cls key; tile unused). The on-chip instances keep the attn
-// and dl scratch in shared memory (pst and dlst unused), the half-staged ones
-// read v and g from global memory; else pst and dlst are [B H, Np, Np].
-template <BwdForm kForm, int DK, int KT, bool kResident>
-__global__ void __launch_bounds__(bwd_max_warps(kForm, DK, kResident) * 32,
-                                  bwd_min_blocks(kForm, DK, kResident))
-attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
-                         const bf16* __restrict__ g, bf16* __restrict__ dqkv,
-                         bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
-                         float scale, float fill, int tile) {
+// The (head h, sequence b) pair of a block of `blockDim.x / 32` warps.
+// kResident (Np <= 16 KT): a row's logits are made once and kept; else in
+// chunks of KT key tiles, made anew in each pass. kForm: K7 (mask, fill, cls
+// keys every `tile` tokens), K4 (one cls key at m = 0; mask, fill and tile
+// unused) or K5 (mask, fill, no cls key; tile unused). The on-chip instances
+// keep the attn and dl scratch in shared memory (pst and dlst unused), the
+// half-staged ones read v and g from global memory; else pst and dlst are
+// [B H, Np, Np], the pair's at b H + h. kWalk: called in the walk kernel's
+// loop (bwd_thread).
+template <BwdForm kForm, int DK, int KT, bool kResident, bool kWalk>
+__device__ __forceinline__ void attention_bwd_mma_pair(
+    const bf16* __restrict__ qkv, const float* __restrict__ mask, const bf16* __restrict__ g,
+    bf16* __restrict__ dqkv, bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
+    float scale, float fill, int tile, int h, int b) {
   constexpr bool kMasked = bwd_masked(kForm), kCls = bwd_cls(kForm);
   constexpr bool kOnChip = bwd_onchip(kForm, kResident);
   constexpr bool kHalf = bwd_half_staged(kForm, DK, kResident);
   constexpr int kStaged = kHalf ? 1 : 2;  // [Np, D + 8] buffers in shared memory
   constexpr int D = 16 * DK, LD = D + 8, KC = 16 * KT;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
   const int C = H * D, ldq = 3 * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = bwd_thread<kWalk>() >> 5, lane = bwd_thread<kWalk>() & 31;
   const int nwarps = blockDim.x >> 5;
   const int gr = lane >> 2, t = lane & 3;
   const int np = (N + 15) & ~15, ntiles = np >> 4;
@@ -318,10 +334,10 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
   bf16* DL = kOnChip ? P + (size_t)np * sld : dlst + bh * np * np;
 
   // ---- row pass: attn, dl and dq of every query tile ---------------------
-  stage_head<D>(seq, ldq, C + h * D, buf0, np, N);
-  if constexpr (!kHalf) stage_head<D>(seq, ldq, 2 * C + h * D, buf1, np, N);
+  stage_head<D, kWalk>(seq, ldq, C + h * D, buf0, np, N);
+  if constexpr (!kHalf) stage_head<D, kWalk>(seq, ldq, 2 * C + h * D, buf1, np, N);
   if constexpr (kMasked) {
-    for (int m = threadIdx.x; m < np; m += blockDim.x)
+    for (int m = bwd_thread<kWalk>(); m < np; m += blockDim.x)
       mk[m] = m < N ? mask[(size_t)b * N + m] : 0.f;
   }
   cp_async_wait_all();
@@ -526,15 +542,15 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
   __syncthreads();  // the scratch and the cls columns written; k, v done
 
   // ---- column pass: dk = dl^T q, dv = attn^T g -----------------------------
-  stage_head<D>(seq, ldq, h * D, buf0, np, N);
-  if constexpr (!kHalf) stage_head<D>(gseq, C, h * D, buf1, np, N);
+  stage_head<D, kWalk>(seq, ldq, h * D, buf0, np, N);
+  if constexpr (!kHalf) stage_head<D, kWalk>(gseq, C, h * D, buf1, np, N);
   cp_async_wait_all();
   __syncthreads();
 
   // the cls keys from their fp32 attn and dl (rows >= N and masked rows hold
   // 0 there); nothing else writes these rows' k and v columns
   if constexpr (kCls) {
-    for (int i = threadIdx.x; i < n_tiles * (D / 2); i += blockDim.x) {
+    for (int i = bwd_thread<kWalk>(); i < n_tiles * (D / 2); i += blockDim.x) {
       const int tt = i / (D / 2), d2 = i - tt * (D / 2);
       const float* pt = pc + tt * np;
       const float* lt = dlc + tt * np;
@@ -648,12 +664,49 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
   }
 }
 
+// One block per (head, sequence): blockIdx.x, blockIdx.y
+template <BwdForm kForm, int DK, int KT, bool kResident>
+__global__ void __launch_bounds__(bwd_max_warps(kForm, DK, kResident) * 32,
+                                  bwd_min_blocks(kForm, DK, kResident))
+attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                         const bf16* __restrict__ g, bf16* __restrict__ dqkv,
+                         bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
+                         float scale, float fill, int tile) {
+  attention_bwd_mma_pair<kForm, DK, KT, kResident, false>(qkv, mask, g, dqkv, pst, dlst, N, H,
+                                                          scale, fill, tile, blockIdx.x,
+                                                          blockIdx.y);
+}
+
+// T6's backward half: K5's block (head blockIdx.x) walking `seqs` sequences
+// from blockIdx.y seqs below B, one after another, each as K5's own block
+// does it. A kernel of its own, so that K4's, K5's and K7's instances keep
+// their code. The barrier between pairs: every warp is done with the last
+// pair's staged q and g, mask, on-chip scratch and column stages before the
+// next pair writes them.
+template <BwdForm kForm, int DK, int KT, bool kResident>
+__global__ void __launch_bounds__(bwd_max_warps(kForm, DK, kResident) * 32,
+                                  bwd_min_blocks(kForm, DK, kResident))
+attention_bwd_mma_walk_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                              const bf16* __restrict__ g, bf16* __restrict__ dqkv,
+                              bf16* __restrict__ pst, bf16* __restrict__ dlst, int N, int H,
+                              float scale, float fill, int tile, int B, int seqs) {
+  static_assert(kForm == BwdForm::kFull, "K5's form");
+  const int b0 = blockIdx.y * seqs, b1 = min(B, b0 + seqs);  // as the forward's walk
+#pragma unroll 1
+  for (int b = b0; b < b1; ++b) {
+    if (b != b0) __syncthreads();
+    attention_bwd_mma_pair<kForm, DK, KT, kResident, true>(qkv, mask, g, dqkv, pst, dlst, N, H,
+                                                           scale, fill, tile, blockIdx.x, b);
+  }
+}
+
 // Launch K7 (`tile` tokens per tile), K4 (one cls key) or K5 (no cls key)
-// with the fewest warps for the rounds the block's query tiles need
+// with the fewest warps for the rounds the block's query tiles need; K5 with
+// `group` g >= 1 (T6) walks g sequences a block, grid (H, ceil(B / g))
 template <BwdForm kForm, int DK>
 int launch_attention_bwd_mma(const bf16* qkv, const float* mask, const bf16* g, bf16* dqkv,
                              bf16* pst, bf16* dlst, int B, int N, int H, float scale,
-                             float fill, int tile, cudaStream_t stream) {
+                             float fill, int tile, int group, cudaStream_t stream) {
   constexpr int KT = bwd_key_tiles(DK);
   const int np = (N + 15) & ~15, ntiles = np / 16;
   const bool resident = np <= 16 * KT;
@@ -665,6 +718,17 @@ int launch_attention_bwd_mma(const bf16* qkv, const float* mask, const bf16* g, 
   const int n_tiles = kForm == BwdForm::kTiled ? N / tile : bwd_cls(kForm) ? 1 : 0;
   const size_t smem = resident ? bwd_mma_smem_layout<kForm, DK, true>(N, n_tiles, warps).total
                                : bwd_mma_smem_layout<kForm, DK, false>(N, n_tiles, warps).total;
+  if constexpr (kForm == BwdForm::kFull) {
+    if (group > 0) {
+      auto walk = resident ? attention_bwd_mma_walk_kernel<kForm, DK, KT, true>
+                           : attention_bwd_mma_walk_kernel<kForm, DK, kBwdChunkTiles, false>;
+      cudaError_t err = allow_dynamic_smem(walk, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      walk<<<dim3(H, (B + group - 1) / group), warps * 32, smem, stream>>>(
+          qkv, mask, g, dqkv, pst, dlst, N, H, scale, fill, tile, B, group);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   auto kernel = resident ? attention_bwd_mma_kernel<kForm, DK, KT, true>
                          : attention_bwd_mma_kernel<kForm, DK, kBwdChunkTiles, false>;
   cudaError_t err = allow_dynamic_smem(kernel, smem);
@@ -678,7 +742,7 @@ int launch_attention_bwd_mma(const bf16* qkv, const float* mask, const bf16* g, 
 template <BwdForm kForm>
 int launch_attention_bwd_mma_d(const void* qkv, const void* mask, const void* g, void* dqkv,
                                void* pst, void* dlst, int B, int N, int H, int D, float scale,
-                               float fill, int tile, void* stream) {
+                               float fill, int tile, int group, void* stream) {
   const bf16* q = static_cast<const bf16*>(qkv);
   const float* m = static_cast<const float*>(mask);
   const bf16* gp = static_cast<const bf16*>(g);
@@ -689,28 +753,28 @@ int launch_attention_bwd_mma_d(const void* qkv, const void* mask, const void* g,
   switch (D) {
     case 16:
       return launch_attention_bwd_mma<kForm, 1>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                st);
+                                                group, st);
     case 32:
       return launch_attention_bwd_mma<kForm, 2>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                st);
+                                                group, st);
     case 48:
       return launch_attention_bwd_mma<kForm, 3>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                st);
+                                                group, st);
     case 64:
       return launch_attention_bwd_mma<kForm, 4>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                st);
+                                                group, st);
     case 80:
       return launch_attention_bwd_mma<kForm, 5>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                st);
+                                                group, st);
     case 96:
       return launch_attention_bwd_mma<kForm, 6>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                st);
+                                                group, st);
     case 112:
       return launch_attention_bwd_mma<kForm, 7>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                st);
+                                                group, st);
     case 128:
       return launch_attention_bwd_mma<kForm, 8>(q, m, gp, d, p, l, B, N, H, scale, fill, tile,
-                                                st);
+                                                group, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

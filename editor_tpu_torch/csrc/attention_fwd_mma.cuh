@@ -27,7 +27,9 @@
 //    with its own row stride (FwdWalk): separate [B, N, C] tensors, or the
 //    column views of a packed qkv with no copy.
 // T1 and T2 walk `hps` heads of `seqs` sequences a block, one pair after
-// another, each as K1's block does it (FwdWalk).
+// another, each as K1's block does it (FwdWalk); T6's forward half and K6's
+// group sweep walk `seqs` sequences a block through K3's and K6's forms
+// (attention_fwd_mma_walk_kernel), so each pair's output is K3's or K6's.
 //
 // Contract (the plain versions: attention_qkv_tpu_plain,
 // masked_attention_qkv_tpu_plain and masked_attention_tiled_plain,
@@ -75,7 +77,8 @@ enum class FwdForm { kQkv, kFull, kTiled, kNoMax, kSplit };
 
 // T1 and T2: the pairs a block walks, heads [blockIdx.x hps, + hps) of
 // sequences [blockIdx.y seqs, + seqs) below B; T1's q, k and v and their row
-// strides (elements). K1, K3 and K6 take one pair a block and ignore it.
+// strides (elements). K1, K3 and K6 take one pair a block and ignore it; the
+// walk kernel of K3's and K6's forms reads B and seqs.
 struct FwdWalk {
   const bf16* q;
   const bf16* k;
@@ -558,6 +561,34 @@ attention_fwd_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__
     attention_fwd_mma_pair<kForm, DK, KT, kResident>(qkv, mask, out, probs, N, H, scale, fill,
                                                      nch, se, tpb, kvw, cls_tile, walk,
                                                      blockIdx.x, blockIdx.y);
+  }
+}
+
+// T6's forward half and K6's group sweep: K3's and K6's block (head
+// blockIdx.x, query chunk blockIdx.z) walking `walk.seqs` sequences from
+// blockIdx.y seqs below walk.B, one after another, each as K3's or K6's own
+// block does it. A kernel of its own, so that K3's and K6's instances keep
+// their code. The barrier between pairs: every warp is done with the last
+// pair's key bias, k and v before the next pair writes them.
+template <FwdForm kForm, int DK, int KT, bool kResident>
+__global__ void __launch_bounds__(kResident                   ? kK1ResidentWarps * 32
+                                  : kForm == FwdForm::kTiled ? kK6OneBlockWarps * 32
+                                                              : kK1MaxWarps * 32,
+                                  kResident ? k1_resident_blocks(DK) : 1)
+attention_fwd_mma_walk_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                              bf16* __restrict__ out, bf16* __restrict__ probs, int N, int H,
+                              float scale, float fill, int nch, int se, int tpb, int kvw,
+                              int cls_tile, FwdWalk walk) {
+  static_assert(kForm == FwdForm::kFull || kForm == FwdForm::kTiled, "K3's and K6's forms");
+  // the sequences [b0, b1): a loop of this form left every walk instance free
+  // of spills, one counting pairs from 0 did not (PERF.md, findings)
+  const int b0 = blockIdx.y * walk.seqs, b1 = min(walk.B, b0 + walk.seqs);
+#pragma unroll 1
+  for (int b = b0; b < b1; ++b) {
+    if (b != b0) __syncthreads();
+    attention_fwd_mma_pair<kForm, DK, KT, kResident>(qkv, mask, out, probs, N, H, scale, fill,
+                                                     nch, se, tpb, kvw, cls_tile, walk,
+                                                     blockIdx.x, b);
   }
 }
 

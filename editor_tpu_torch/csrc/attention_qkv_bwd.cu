@@ -43,7 +43,7 @@ extern "C" int editor_attention_qkv_bwd(const void* qkv, const void* g, void* dq
   using namespace editor_kernels;
   if (N < 1 || N > kMaxTokens) return static_cast<int>(cudaErrorInvalidValue);
   return launch_attention_bwd_mma_d<BwdForm::kQkv>(qkv, nullptr, g, dqkv, pst, dlst, B, N, H,
-                                                   D, scale, 0.f, N, stream);
+                                                   D, scale, 0.f, N, 0, stream);
 }
 
 // The side Np of the two [B H, Np, Np] scratch maps that K4's launch for N

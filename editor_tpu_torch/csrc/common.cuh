@@ -76,23 +76,10 @@ __device__ __forceinline__ void stage_kv_rows(const bf16* __restrict__ ksrc,
   }
 }
 
-// Stage the k and v slices of head h of one sequence from the raw
-// [N, 3C] qkv rows.
-__device__ __forceinline__ void stage_kv(const bf16* __restrict__ seq, bf16* ks,
-                                         bf16* vs, int N, int C, int h, int D) {
-  stage_kv_rows(seq + C + h * D, seq + 2 * C + h * D, 3 * C, 3 * C, ks, vs, N, D);
-}
-
 // Load one query row (D bf16 at src) as fp32 into a warp's shared scratch row.
 __device__ __forceinline__ void load_q_row(const bf16* __restrict__ src, float* q, int D,
                                            int lane) {
   for (int d = lane; d < D; d += 32) q[d] = __bfloat162float(src[d]);
-}
-
-// Load query row n of head h of the raw [N, 3C] qkv rows.
-__device__ __forceinline__ void load_q(const bf16* __restrict__ seq, float* q,
-                                       int n, int C, int h, int D, int lane) {
-  load_q_row(seq + (size_t)n * 3 * C + h * D, q, D, lane);
 }
 
 // out[d] = sum_m w[m] * v[m, d] for the d pairs of one lane; w is a

@@ -15,25 +15,23 @@ hand-written CUDA kernel for Hopper beside its plain PyTorch version.
 K1, K3 and K6 share the tensor-core forward body of
 ``csrc/attention_fwd_mma.cuh`` (K1 unmasked with probs and an fp32 cls key,
 K3 masked with every exp rounded and lazy normalisation, K6 as K3 with each
-tile's cls key in fp32); T6's forward half and K6's sweep keep the
-CUDA-core body of ``csrc/masked_attention.cu``. K4, K7 and K5 share the
-tensor-core backward body of ``csrc/attention_bwd_mma.cuh`` (K4 unmasked with one cls
-key, K7 masked with a cls key a tile, K5 masked with none); T6's backward
-half keeps the CUDA-core body of ``csrc/attention_bwd.cuh``; the
-tensor-core bodies use the helpers of ``csrc/mma.cuh``. A wrapper runs its
-plain version for a CPU tensor; for a CUDA tensor it launches its kernel
-(built on first use by :mod:`._build`) or raises. Each wrapper counts its kernel
-launches in its ``launches`` attribute. :func:`attention_qkv_fn` (K1 + K4),
+tile's cls key in fp32). K4, K7 and K5 share the tensor-core backward body of
+``csrc/attention_bwd_mma.cuh`` (K4 unmasked with one cls key, K7 masked with
+a cls key a tile, K5 masked with none); the tensor-core bodies use the
+helpers of ``csrc/mma.cuh``. A wrapper runs its plain version for a CPU
+tensor; for a CUDA tensor it launches its kernel (built on first use by
+:mod:`._build`) or raises. Each wrapper counts its kernel launches in its
+``launches`` attribute. :func:`attention_qkv_fn` (K1 + K4),
 :func:`masked_attention_qkv_fn` (K3 + K5), :func:`masked_attention_tiled_fn`
 (K6 + K7) and :func:`ln_matmul_fn` (K8, plain backward) are the autograd
 forms; :func:`masked_attention_from_qkv` picks the fusion block's pair (K6/K7
 for 1 + 128-token tiles, else K3/K5). K8 is on no model path, as in the JAX
-package. The raw K3, K5 and K6 wrappers (:data:`WARP_WRAPPERS`) take
-``warps=`` per block (4 on the model paths; the others serve the block-shape
-sweeps of the design-variant tools in ``editor_tpu_torch/tools/``, whose
-kernels T1-T6 sit beside their plain versions there; K3 and K6 at 8 or 16
-warps and K5 at 8 are the CUDA-core bodies, not the tensor-core kernels) and
-count a launch at another warp count in ``variant_launches``, not ``launches``.
+package. The raw K3, K5 and K6 wrappers (:data:`GROUP_WRAPPERS`) take
+``group=``, the sequences a block walks: 0 on the model paths; g >= 1 serves
+the group sweeps of the design-variant tools in ``editor_tpu_torch/tools/``
+(T6 is K3 and K5 at the JAX tool's groups; the kernels T1-T6 sit beside
+their plain versions there), gives group 0's output bit for bit, and counts
+in ``variant_launches``, not ``launches``.
 """
 
 from editor_tpu_torch.ops.fused_attention import (attention_qkv, attention_qkv_bwd,
@@ -59,17 +57,17 @@ from editor_tpu_torch.ops.rollout import rollout_chain, rollout_from_probs_plain
 KERNEL_WRAPPERS = (attention_qkv, rollout_chain, masked_attention_qkv,
                    attention_qkv_bwd, masked_attention_qkv_bwd, masked_attention_tiled,
                    masked_attention_tiled_bwd, ln_matmul)
-WARP_WRAPPERS = (masked_attention_qkv, masked_attention_qkv_bwd, masked_attention_tiled)
+GROUP_WRAPPERS = (masked_attention_qkv, masked_attention_qkv_bwd, masked_attention_tiled)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
-    for fn in WARP_WRAPPERS:
+    for fn in GROUP_WRAPPERS:
         fn.variant_launches = 0
 
 
-__all__ = ["MASK_FILL", "KERNEL_WRAPPERS", "WARP_WRAPPERS", "attention_qkv",
+__all__ = ["MASK_FILL", "KERNEL_WRAPPERS", "GROUP_WRAPPERS", "attention_qkv",
            "attention_qkv_bwd", "attention_qkv_bwd_plain", "attention_qkv_fn", "attention_qkv_plain",
            "attention_qkv_tpu_plain",
            "ln_matmul", "ln_matmul_fn", "ln_matmul_plain", "masked_attention_from_qkv",

@@ -53,17 +53,17 @@ SIGNATURES = {
     "editor_rollout_variant": [_P, _P, _I, _I, _I, _I, _I, _P],
     # T5: probs, out, L, Z, N, maps in flight, pairs per block, stream
     "editor_rollout_multi": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # qkv, mask, out, B, N, H, D, scale, fill, warps per block, stream
+    # qkv, mask, out, B, N, H, D, scale, fill, group (sequences a block; 0: one), stream
     "editor_masked_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     # qkv, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, stream
     "editor_attention_qkv_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # N, D, the side of each scratch map (out; 0: none)
     "editor_attention_qkv_bwd_scratch": [_I, _I, ctypes.POINTER(_I)],
-    # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, warps, stream
+    # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, group, stream
     "editor_masked_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
-    # N, D, the side of each scratch map of K5's 4-warp launch (out; 0: none)
+    # N, D, the side of each scratch map of K5's launch (out; 0: none)
     "editor_masked_attention_bwd_scratch": [_I, _I, ctypes.POINTER(_I)],
-    # qkv, mask, out, B, N, H, D, scale, fill, tile, warps per block, stream
+    # qkv, mask, out, B, N, H, D, scale, fill, tile, group, stream
     "editor_masked_attention_tiled": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, tile, stream
     "editor_masked_attention_tiled_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,

@@ -23,16 +23,15 @@ dispatch rule (:func:`masked_attention_route`):
 On a CUDA tensor each wrapper launches its kernel (bf16 qkv, N <= 512) or
 raises; on a CPU tensor it runs its plain version. :func:`masked_attention_qkv_fn`
 and :func:`masked_attention_tiled_fn` join each pair under autograd for the
-train step; the mask gets no gradient. K3, K5 and K6 take ``warps`` per block:
-a launch with the model paths' :data:`SHIPPED_WARPS` counts in the wrapper's
-``launches``, any other (the block-shape sweeps, T6 for K3/K5) in its
-``variant_launches``. At :data:`SHIPPED_WARPS` K3 and K6 are the masked
-instances of K1's tensor-core forward (``csrc/attention_fwd_mma.cuh``; K6
-with each tile's cls key in fp32) and K5 the instance without cls keys of
-the tensor-core backward that K4 and K7 share (``csrc/attention_bwd_mma.cuh``);
-at 8 and 16 warps they launch the CUDA-core bodies that T6 and the K6 sweep
-of ``tools/bench_attn2.py`` take (``csrc/masked_attention.cu``,
-``csrc/attention_bwd.cuh``). The plain version in the rounding form of K3's
+train step; the mask gets no gradient. K3 and K6 are the masked instances of
+K1's tensor-core forward (``csrc/attention_fwd_mma.cuh``; K6 with each tile's
+cls key in fp32) and K5 the instance without cls keys of the tensor-core
+backward that K4 and K7 share (``csrc/attention_bwd_mma.cuh``). K3, K5 and K6
+take ``group``: 0 (the model paths) launches one sequence a block and counts
+in the wrapper's ``launches``; g >= 1 walks g sequences a block through the
+same body (T6, the JAX tool's group sweep of K3 and K5, and K6's sweep in
+``tools/bench_attn2.py``; bit-identical to group 0) and counts in its
+``variant_launches``. The plain version in the rounding form of K3's
 TPU kernel, which the CUDA kernel follows, is
 :func:`masked_attention_qkv_tpu_plain`; the model's CPU path keeps
 :func:`masked_attention_qkv_plain`, the XLA form. K5's, K6's and K7's plain
@@ -48,19 +47,21 @@ import torch
 from editor_tpu_torch.ops._checks import MAX_TOKENS, check_kernel_tensor, compute_dtype
 
 MASK_FILL = -65504.0  # reference: vit_pytorch.py:252
-# warps per block the kernels take (csrc/masked_attention{,_bwd}.cu): the
-# model paths launch 4; the block-shape sweeps of the design-variant tools
-# (T6, editor_tpu_torch/tools/bench_full_kernel.py) take the others
-FWD_WARPS = (4, 8, 16)
-BWD_WARPS = (4, 8)
-SHIPPED_WARPS = 4
 
 
-def count_launch(fn, warps: int) -> None:
-    """Count one launch of ``fn``'s kernel where it launches, by its block
-    shape: :data:`SHIPPED_WARPS` in ``fn.launches``, other warp counts in
+def check_group(group: int) -> None:
+    """Raise unless ``group`` is a number of sequences a block walks: 0 (the
+    model paths' launch) or more."""
+    if group < 0:
+        raise ValueError(f"group {group} < 0: sequences a block walks, 0 for the model "
+                         "paths' launch")
+
+
+def count_launch(fn, group: int) -> None:
+    """Count one launch of ``fn``'s kernel where it launches: group 0 (the
+    model paths) in ``fn.launches``, any other group in
     ``fn.variant_launches``."""
-    if warps == SHIPPED_WARPS:
+    if group == 0:
         fn.launches += 1
     else:
         fn.variant_launches += 1
@@ -217,11 +218,9 @@ def masked_attention_tiled_bwd_plain(qkv: torch.Tensor, mask: torch.Tensor,
 
 
 def _check_args(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
-                g: torch.Tensor = None, tile: int = 0, warps: int = 4,
-                allowed=FWD_WARPS) -> int:
+                g: torch.Tensor = None, tile: int = 0, group: int = 0) -> int:
     """Shape checks shared by the wrappers; returns the head dim."""
-    if warps not in allowed:
-        raise ValueError(f"warps per block {warps} not in {allowed}")
+    check_group(group)
     B, N, C3 = qkv.shape
     if C3 % (3 * num_heads):
         raise ValueError(f"qkv width {C3} is not 3 x heads ({num_heads}) x D")
@@ -235,13 +234,14 @@ def _check_args(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
 
 
 def _kernel_inputs(name: str, qkv: torch.Tensor, mask: torch.Tensor, D: int,
-                   g: torch.Tensor = None, align: int = 4) -> torch.Tensor:
-    """Check the CUDA tensors (``align``: the bytes qkv and g must be aligned
-    to); returns the mask as contiguous fp32."""
+                   g: torch.Tensor = None) -> torch.Tensor:
+    """Check the CUDA tensors (qkv and g 16-byte aligned: the tensor-core
+    kernels copy the head's rows with 16-byte cp.async); returns the mask as
+    contiguous fp32."""
     N = qkv.shape[1]
-    check_kernel_tensor(f"{name} qkv", qkv, 3, D, N, align=align)
+    check_kernel_tensor(f"{name} qkv", qkv, 3, D, N, align=16)
     if g is not None:
-        check_kernel_tensor(f"{name} g", g, 3, D, N, align=align)
+        check_kernel_tensor(f"{name} g", g, 3, D, N, align=16)
     if mask.device != qkv.device:
         raise ValueError(f"mask on {mask.device}, qkv on {qkv.device}")
     return mask.to(torch.float32).contiguous()
@@ -292,29 +292,26 @@ def check_k5_head_dim(D: int) -> None:
 
 def masked_attention_qkv(qkv: torch.Tensor, mask: torch.Tensor,
                          num_heads: int, scale: float,
-                         mask_fill: float = MASK_FILL, warps: int = 4) -> torch.Tensor:
+                         mask_fill: float = MASK_FILL, group: int = 0) -> torch.Tensor:
     """K3: masked attention from the raw qkv; ``mask`` [B, N] in any dtype.
-    ``warps`` per block (:data:`FWD_WARPS`): :data:`SHIPPED_WARPS` launches
-    the tensor-core kernel (``csrc/attention_fwd_mma.cuh``; qkv 16-byte
-    aligned, :func:`check_k3_head_dim`), 8 and 16 the CUDA-core body of T6
-    (``csrc/masked_attention.cu``). CPU: :func:`masked_attention_qkv_plain`."""
-    D = _check_args(qkv, mask, num_heads, warps=warps)
+    CUDA: the tensor-core kernel (``csrc/attention_fwd_mma.cuh``; qkv 16-byte
+    aligned, :func:`check_k3_head_dim`), one sequence a block at ``group`` 0,
+    ``group`` sequences a block otherwise (T6). CPU:
+    :func:`masked_attention_qkv_plain` at any group."""
+    D = _check_args(qkv, mask, num_heads, group=group)
     if qkv.device.type == "cpu":
         return masked_attention_qkv_plain(qkv, mask, num_heads, scale, mask_fill)
-    if warps == SHIPPED_WARPS:
-        check_k3_head_dim(D)
-    # 16-byte cp.async copies of the head's rows in the tensor-core kernel
-    mask32 = _kernel_inputs("masked_attention_qkv", qkv, mask, D,
-                            align=16 if warps == SHIPPED_WARPS else 4)
+    check_k3_head_dim(D)
+    mask32 = _kernel_inputs("masked_attention_qkv", qkv, mask, D)
     from editor_tpu_torch.ops import _build
 
     B, N, C3 = qkv.shape
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     code = _build.library().editor_masked_attention(
         qkv.data_ptr(), mask32.data_ptr(), out.data_ptr(), B, N, num_heads, D,
-        float(scale), float(mask_fill), warps, _stream(qkv))
+        float(scale), float(mask_fill), group, _stream(qkv))
     _build.check(code, "masked_attention_qkv")
-    count_launch(masked_attention_qkv, warps)
+    count_launch(masked_attention_qkv, group)
     return out
 
 
@@ -324,31 +321,27 @@ masked_attention_qkv.variant_launches = 0
 
 def masked_attention_tiled(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
                            scale: float, mask_fill: float = MASK_FILL,
-                           tile: int = 129, warps: int = 4) -> torch.Tensor:
+                           tile: int = 129, group: int = 0) -> torch.Tensor:
     """K6: masked attention from the raw qkv over ``tile``-token tiles (N a
-    multiple of ``tile``); ``mask`` [B, N] in any dtype. ``warps`` per block
-    (:data:`FWD_WARPS`): :data:`SHIPPED_WARPS` launches the tensor-core
-    kernel (``csrc/attention_fwd_mma.cuh``; qkv 16-byte aligned,
-    :func:`check_k6_shape`), 8 and 16 the CUDA-core body of
-    ``csrc/masked_attention.cu``. CPU: :func:`masked_attention_tiled_plain`
-    at any tile."""
-    D = _check_args(qkv, mask, num_heads, tile=tile, warps=warps)
+    multiple of ``tile``); ``mask`` [B, N] in any dtype. CUDA: the
+    tensor-core kernel (``csrc/attention_fwd_mma.cuh``; qkv 16-byte aligned,
+    :func:`check_k6_shape`), one sequence a block at ``group`` 0, ``group``
+    sequences a block otherwise (the group sweep). CPU:
+    :func:`masked_attention_tiled_plain` at any tile and group."""
+    D = _check_args(qkv, mask, num_heads, tile=tile, group=group)
     if qkv.device.type == "cpu":
         return masked_attention_tiled_plain(qkv, mask, num_heads, scale, mask_fill, tile)
-    if warps == SHIPPED_WARPS:
-        check_k6_shape(D, tile)
-    # 16-byte cp.async copies of the head's rows in the tensor-core kernel
-    mask32 = _kernel_inputs("masked_attention_tiled", qkv, mask, D,
-                            align=16 if warps == SHIPPED_WARPS else 4)
+    check_k6_shape(D, tile)
+    mask32 = _kernel_inputs("masked_attention_tiled", qkv, mask, D)
     from editor_tpu_torch.ops import _build
 
     B, N, C3 = qkv.shape
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     code = _build.library().editor_masked_attention_tiled(
         qkv.data_ptr(), mask32.data_ptr(), out.data_ptr(), B, N, num_heads, D,
-        float(scale), float(mask_fill), tile, warps, _stream(qkv))
+        float(scale), float(mask_fill), tile, group, _stream(qkv))
     _build.check(code, "masked_attention_tiled")
-    count_launch(masked_attention_tiled, warps)
+    count_launch(masked_attention_tiled, group)
     return out
 
 
@@ -358,45 +351,38 @@ masked_attention_tiled.variant_launches = 0
 
 def masked_attention_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                              num_heads: int, scale: float,
-                             mask_fill: float = MASK_FILL, warps: int = 4) -> torch.Tensor:
+                             mask_fill: float = MASK_FILL, group: int = 0) -> torch.Tensor:
     """K5: dqkv [B, N, 3C] from qkv, the mask [B, N] and the output's
-    cotangent g [B, N, C]. ``warps`` per block (:data:`BWD_WARPS`):
-    :data:`SHIPPED_WARPS` launches the tensor-core kernel
+    cotangent g [B, N, C]. CUDA: the tensor-core kernel
     (``csrc/attention_bwd_mma.cuh``; qkv and g 16-byte aligned,
     :func:`check_k5_head_dim`, a [B H, Np, Np] bf16 scratch pair where its
     chunked instance needs one: ``editor_masked_attention_bwd_scratch``
-    gives Np), 8 the CUDA-core body of T6 (``csrc/attention_bwd.cuh``, a
-    [B H, N, N] scratch pair). CPU: :func:`masked_attention_qkv_bwd_plain`."""
-    D = _check_args(qkv, mask, num_heads, g, warps=warps, allowed=BWD_WARPS)
+    gives Np), one sequence a block at ``group`` 0, ``group`` sequences a
+    block otherwise (T6). CPU: :func:`masked_attention_qkv_bwd_plain` at any
+    group."""
+    D = _check_args(qkv, mask, num_heads, g, group=group)
     if qkv.device.type == "cpu":
         return masked_attention_qkv_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill)
-    shipped = warps == SHIPPED_WARPS
-    if shipped:
-        check_k5_head_dim(D)
-    # 16-byte cp.async copies of the head's rows in the tensor-core kernel
-    mask32 = _kernel_inputs("masked_attention_qkv_bwd", qkv, mask, D, g,
-                            align=16 if shipped else 4)
+    check_k5_head_dim(D)
+    mask32 = _kernel_inputs("masked_attention_qkv_bwd", qkv, mask, D, g)
     from editor_tpu_torch.ops import _build
 
     lib = _build.library()
     B, N, _ = qkv.shape
-    side = N  # the CUDA-core body's scratch rows
-    if shipped:
-        side_out = ctypes.c_int()
-        _build.check(lib.editor_masked_attention_bwd_scratch(N, D, ctypes.byref(side_out)),
-                     "masked_attention_qkv_bwd")
-        side = side_out.value
+    side = ctypes.c_int()
+    _build.check(lib.editor_masked_attention_bwd_scratch(N, D, ctypes.byref(side)),
+                 "masked_attention_qkv_bwd")
     dqkv = torch.empty_like(qkv)
     scratch = [None, None]
-    if side:  # per-(b, h) scratch of the rounded attn and dl
-        scratch = [torch.empty((B * num_heads, side, side), dtype=qkv.dtype,
+    if side.value:  # per-(b, h) scratch of the rounded attn and dl
+        scratch = [torch.empty((B * num_heads, side.value, side.value), dtype=qkv.dtype,
                                device=qkv.device) for _ in range(2)]
     code = lib.editor_masked_attention_bwd(
         qkv.data_ptr(), mask32.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         *(t.data_ptr() if t is not None else None for t in scratch),
-        B, N, num_heads, D, float(scale), float(mask_fill), warps, _stream(qkv))
+        B, N, num_heads, D, float(scale), float(mask_fill), group, _stream(qkv))
     _build.check(code, "masked_attention_qkv_bwd")
-    count_launch(masked_attention_qkv_bwd, warps)
+    count_launch(masked_attention_qkv_bwd, group)
     return dqkv
 
 
@@ -430,7 +416,7 @@ def masked_attention_tiled_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.T
         return masked_attention_tiled_bwd_plain(qkv, mask, g, num_heads, scale, mask_fill,
                                                 tile)
     check_k7_shape(D, tile)
-    mask32 = _kernel_inputs("masked_attention_tiled_bwd", qkv, mask, D, g, align=16)
+    mask32 = _kernel_inputs("masked_attention_tiled_bwd", qkv, mask, D, g)
     from editor_tpu_torch.ops import _build
 
     B, N, _ = qkv.shape

@@ -14,11 +14,11 @@ probs, T2 at g in (1, 2, 4) with its relative error against K1 and its plain
 version and its share of elements more than one bf16 ulp off the plain
 version, K1 again, and SDPA; then the JAX
 script's second half: the uncompacted tail's masked attention K6 at
-[128, 387] (three tiles) and [384, 129] (one tile) over its warps per block
-(the TPU script sweeps its group), against the shipped 4 warps: the
-tensor-core kernel there, the CUDA-core body at 8 and 16, so the line gives
-the share of elements more than one bf16 ulp off the 4-warp output (the two
-round at the same points: near 0). The card's name and power limit come
+[128, 387] (three tiles) at groups 1 and 2 and [384, 129] (one tile) at 4
+and 8, as the TPU script sweeps ``_pallas_masked_from_qkv(group=g)``: the
+tensor-core kernel with each block walking g sequences, beside K6's own
+launch (group 0), with ``equal_to_group0`` (each pair is computed as K6's
+block computes it: equal bit for bit). The card's name and power limit come
 first. Exits non-zero without a CUDA device.
 """
 
@@ -75,7 +75,7 @@ nomax_attn.launches = 0
 
 def main(argv=None) -> None:
     from editor_tpu_torch import ops
-    from editor_tpu_torch.ops.masked_attention import FWD_WARPS, MASK_FILL
+    from editor_tpu_torch.ops.masked_attention import MASK_FILL
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
@@ -102,24 +102,27 @@ def main(argv=None) -> None:
     ms = _bench.cuda_ms(lambda: F.scaled_dot_product_attention(*heads, scale=SCALE), args.iters)
     _bench.report("library SDPA", ms)
 
-    # the tail: K6 over its warps per block, masks as the JAX script's
+    # the tail: K6 over the JAX script's groups, masks as the JAX script's
     tile, B2 = 129, 128
     mask = torch.rand(B2, tile, generator=gen, device="cuda") > 0.5
     mask[:, 0] = True
-    for name, Bm, m in (("joint N=387", B2, mask.repeat(1, 3)), ("modal N=129", 3 * B2,
-                                                                 mask.repeat(3, 1))):
+    for name, Bm, m, groups in (("joint N=387", B2, mask.repeat(1, 3), (1, 2)),
+                                ("modal N=129", 3 * B2, mask.repeat(3, 1), (4, 8))):
         m = m.float()
         Nm = m.shape[1]
         x = torch.randn(Bm, Nm, 3 * C, generator=gen, device="cuda").to(torch.bfloat16)
         base = ops.masked_attention_tiled(x, m, H, SCALE, MASK_FILL, tile)
         pairs = float((m.sum(1) ** 2).sum())
         b6 = _bench.bound(4.0 * H * D * pairs, 2.0 * Bm * Nm * 4 * C + 4.0 * Bm * Nm)
-        for w in FWD_WARPS:
-            out = ops.masked_attention_tiled(x, m, H, SCALE, MASK_FILL, tile, warps=w)
+        ms = _bench.cuda_ms(lambda: ops.masked_attention_tiled(x, m, H, SCALE, MASK_FILL, tile),
+                            args.iters)
+        _bench.report(f"K6 {name} group=0", ms, 0.0, b6)
+        for g in groups:
+            out = ops.masked_attention_tiled(x, m, H, SCALE, MASK_FILL, tile, group=g)
             ms = _bench.cuda_ms(lambda: ops.masked_attention_tiled(x, m, H, SCALE, MASK_FILL,
-                                                                   tile, warps=w), args.iters)
-            _bench.report(f"K6 {name} warps={w}", ms, _bench.rel_err(out, base), b6,
-                          share_off_4_warps=f"{_bench.bf16_off_share(out, base):.2e}")
+                                                                   tile, group=g), args.iters)
+            _bench.report(f"K6 {name} g={g}", ms, _bench.rel_err(out, base), b6,
+                          equal_to_group0=bool(torch.equal(out, base)))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Hold this checkout's shipped kernels (K1-K8) and the variants T1 and T2
+# Hold this checkout's shipped kernels (K1-K8) and the variants T1, T2 and T6
 # against another checkout's on one card: the output digests and ms of
 # kernel_digest.py in the order other,
 # this, this, other (so a drift of the card's clock shows as a difference
@@ -7,15 +7,16 @@
 # instruction mix of each named source in both checkouts (kernel_sass.py).
 # K1's output and probs, K3's output and K4's dqkv at each of their shapes,
 # K5's dqkv at its two, K6's output at its two model shapes and K7's dqkv at
-# its three shapes, T1's output and probs and T2's output of the two sides are
-# compared element by element (kernel_digest.py --diff into diff.json; the
+# its three shapes, T1's output and probs, T2's output and T6's output and
+# dqkv at its two shapes of the two sides are compared element by element (kernel_digest.py --diff into diff.json; the
 # tensors go to a temporary directory). Name attention_qkv.cu for K1's
 # instances (attention_fwd_mma_kernel<FwdForm::kQkv, ...>),
 # attention_variants.cu for T2's and T1's (<kNoMax, ...> and <kSplit, ...>),
-# masked_attention.cu for K3's and K6's (<kFull, ...> and <kTiled, ...>; and
-# the CUDA-core bodies of T6 and K6's sweep), attention_qkv_bwd.cu and
-# masked_attention_bwd.cu for K4's, K7's and K5's (and T6's): one JSON line
-# each, with its registers, spills and HMMA count; a source one checkout
+# masked_attention.cu for K3's and K6's (<kFull, ...> and <kTiled, ...>, and
+# the same forms of attention_fwd_mma_walk_kernel: T6's forward and K6's
+# group sweep), attention_qkv_bwd.cu and masked_attention_bwd.cu for K4's,
+# K7's and K5's (and attention_bwd_mma_walk_kernel<kFull, ...>, T6's
+# backward): one JSON line each, with its registers, spills and HMMA count; a source one checkout
 # lacks is read in the other only.
 #
 #   bash editor_tpu_torch/tools/compare_checkouts.sh <other checkout> <out dir> [source.cu ...]

@@ -1,5 +1,5 @@
 """Digest and time of each shipped kernel (K1-K8) at the main paths' shapes,
-and of the design variants T1 and T2, on one CUDA device, to hold two
+and of the design variants T1, T2 and T6, on one CUDA device, to hold two
 checkouts against each other on one card.
 
     PYTHONPATH=<checkout> python3 <this file> [--iters 20] [--save K1.pt]
@@ -7,8 +7,8 @@ checkouts against each other on one card.
 
 It imports ``editor_tpu_torch`` from the path it is given, so the same file
 runs another checkout's kernels (it calls only K1-K8's wrappers with the
-arguments they have taken since K8 was added, and T1's and T2's with those
-they have taken since they were added). The inputs come from a CUDA
+arguments they have taken since K8 was added, and T1's, T2's and T6's with
+those they have taken since they were added). The inputs come from a CUDA
 generator seeded with 0, in one fixed order: K1 with its probs and K4 at
 [384, 129, 2304]; K2 on peaked maps
 (L = 12, Z = 4608, N = 129); K3 and K5 at [384, 88] and [128, 264]; K6 and
@@ -21,9 +21,13 @@ N = 1, 15, 16, 17, 144, 145, 200 and 512 with D = 64, N = 264 at D = 32, 96
 and 128: every shape chip_smoke holds K3 at but N = 512 with D = 128, where
 the CUDA-core K3 of earlier checkouts needs more shared memory than a block
 has); then T1 (``bench_attn.headgrid_attn``: separate q, k, v [384, 129,
-768], 2 heads and 1 sequence a block, with probs) and T2
-(``bench_attn2.nomax_attn`` at [384, 129, 2304], 1 sequence a block). For
-each call it prints one JSON line: the kernel, the shape, the
+768], 2 heads and 1 sequence a block, with probs), T2
+(``bench_attn2.nomax_attn`` at [384, 129, 2304], 1 sequence a block) and T6
+(``bench_full_kernel.masked_full`` and ``masked_full_bwd`` at [384, 88] and
+[128, 264] at the JAX package's groups, ``full_group``: forward 8 and 2,
+backward 4 and 2 sequences a block; a checkout whose T6 takes ``warps`` in
+place of ``g`` runs its 8 warps a block). For each call it prints one JSON
+line: the kernel, the shape, the
 sha256 of its output bytes (the first 16 hex digits) and its ms from CUDA
 events. The card's name and power limit come first. Exits non-zero without
 a CUDA device.
@@ -31,7 +35,8 @@ a CUDA device.
 ``--save`` also writes K1's output and probs, K3's output and K4's dqkv at
 each of their shapes, K5's dqkv at its two, K6's output at its two model
 shapes ([384, 129] and [128, 387]), K7's dqkv at its three shapes, T1's
-output and probs and T2's output to a file, and ``--diff`` prints, for two
+output and probs, T2's output and T6's output and dqkv at its two shapes to
+a file, and ``--diff`` prints, for two
 such files (two checkouts' kernels on the same input), the largest
 difference of each tensor, the share of elements that differ and the
 largest difference in bf16 ulps of the first file's element.
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -97,7 +103,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--save", help="write K1's output and probs, K3's and K6's output, "
-                    "K4's, K5's and K7's dqkv and T1's and T2's output to this file")
+                    "K4's, K5's and K7's dqkv, T1's and T2's output and T6's output and "
+                    "dqkv to this file")
     ap.add_argument("--diff", nargs=2, metavar=("A", "B"), help="compare two --save files")
     args = ap.parse_args(argv)
     if args.diff:
@@ -109,7 +116,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip(), flush=True)
     from editor_tpu_torch import ops
-    from editor_tpu_torch.tools import bench_attn, bench_attn2
+    from editor_tpu_torch.tools import bench_attn, bench_attn2, bench_full_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -211,6 +218,23 @@ def main(argv=None) -> None:
     line("T2 nomax_attn", qkv.shape, lambda: bench_attn2.nomax_attn(qkv, H, SCALE, 1))
     if args.save:
         saved["T2 out"] = bench_attn2.nomax_attn(qkv, H, SCALE, 1).cpu()
+    del qkv
+    t6 = bench_full_kernel
+    old_t6 = "warps" in inspect.signature(t6.masked_full).parameters
+    for B, N in ((384, 88), (128, 264)):
+        qkv, m, g = randn(B, N, 3 * C), mask(B, N, 88), randn(B, N, C)
+        if old_t6:  # the 8-warp CUDA-core bodies
+            fwd = lambda: t6.masked_full(qkv, m, H, SCALE, warps=8)  # noqa: E731
+            bwd = lambda: t6.masked_full_bwd(qkv, m, g, H, SCALE, warps=8)  # noqa: E731
+        else:
+            gf, gb = t6.full_group(N, B), t6.full_group(N, B, bwd=True)
+            fwd = lambda: t6.masked_full(qkv, m, H, SCALE, gf)  # noqa: E731
+            bwd = lambda: t6.masked_full_bwd(qkv, m, g, H, SCALE, gb)  # noqa: E731
+        line("T6 masked_full", qkv.shape, fwd)
+        line("T6 masked_full_bwd", qkv.shape, bwd)
+        if args.save:
+            saved[f"T6 out [{B}, {N}]"] = fwd().cpu()
+            saved[f"T6 dqkv [{B}, {N}]"] = bwd().cpu()
     if args.save:
         torch.save(saved, args.save)
 

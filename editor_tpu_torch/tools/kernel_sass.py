@@ -10,8 +10,10 @@ name matches REGEX: its registers, spill bytes, static shared memory, the
 number of SASS instructions and the count of each opcode (without its
 modifiers), with its demangled name (``cu++filt``; the template arguments
 tell the instances apart, e.g. K1's, K3's, K6's, T2's and T1's
-``attention_fwd_mma_kernel<FwdForm, head-dim tiles, key tiles, resident>``
-and K4's, K7's and K5's ``attention_bwd_mma_kernel<BwdForm, ...>``). The
+``attention_fwd_mma_kernel<FwdForm, head-dim tiles, key tiles, resident>``,
+K4's, K7's and K5's ``attention_bwd_mma_kernel<BwdForm, ...>``, and the walk
+kernels of T6 and K6's group sweep, ``attention_fwd_mma_walk_kernel<kFull |
+kTiled, ...>`` and ``attention_bwd_mma_walk_kernel<kFull, ...>``). The
 source may lie in another checkout: its includes resolve beside it. Needs
 ``nvcc``, ``cuobjdump`` and ``cu++filt`` of the CUDA toolkit, no card.
 """

@@ -12,11 +12,11 @@ seeded random weights and images) after two warm-ups, images per second,
 peak device memory, and a ``torch.profiler`` trace of ``--profile-iters``
 more calls. The trace's device time is grouped per forward into the port's
 kernels (K1-K8, and the design variants T1-T5 of the ``bench_*`` tools;
-T6 launches K3/K5), GEMMs, LayerNorm, GELU, the patch conv and the remaining
-elementwise and copy kernels; the device's idle share is 1 - (device busy
-time / event time). The
-card's name and power limit head the output; the full per-kernel tables go to
-``--out`` (by default the git-ignored
+T6 launches K3/K5 walking g sequences a block), GEMMs, LayerNorm, GELU, the
+patch conv and the remaining elementwise and copy kernels; the device's idle
+share is 1 - (device busy time / event time). The card's name and power
+limit head the output; the full per-kernel tables go to ``--out`` (by
+default the git-ignored
 ``editor_tpu_torch/_build/profile_forward.txt``). Exits non-zero without a
 CUDA device.
 """
@@ -37,20 +37,18 @@ import torch
 CATEGORIES = (
     # K1, K3 and K6: the tensor-core forward body's forms kQkv, kFull and
     # kTiled (an enum argument, demangled as "(...FwdForm)0" or by name); K3
-    # at 8 or 16 warps (T6) is the CUDA-core masked_attention_kernel, K6 at 8
-    # or 16 (its sweep) the CUDA-core masked_attention_tiled_kernel
+    # and K6 walking g sequences a block (T6's forward, K6's group sweep) are
+    # the same forms of its walk kernel
     ("K1 attention_qkv", r"attention_fwd_mma_kernel<[^,]*fwdform(\)0|::kqkv)"),
     ("K2 rollout_chain", r"rollout_chain_kernel"),
-    ("K3 masked_attention",
-     r"attention_fwd_mma_kernel<[^,]*fwdform(\)1|::kfull)|masked_attention_kernel"),
+    ("K3 masked_attention", r"attention_fwd_mma(_walk)?_kernel<[^,]*fwdform(\)1|::kfull)"),
     # K4, K7 and K5: the tensor-core backward body's forms kQkv, kTiled and
     # kFull (an enum argument, demangled as "(...BwdForm)0" or by name); K5
-    # at 8 warps (T6) is the CUDA-core attention_bwd_kernel
+    # walking g sequences a block (T6's backward) is kFull of its walk kernel
     ("K4 attention_qkv_bwd", r"attention_bwd_mma_kernel<[^,]*bwdform(\)0|::kqkv)"),
     ("K5 masked_attention_bwd",
-     r"attention_bwd_mma_kernel<[^,]*bwdform(\)2|::kfull)|attention_bwd_kernel<"),
-    ("K6 masked_attention_tiled",
-     r"attention_fwd_mma_kernel<[^,]*fwdform(\)2|::ktiled)|masked_attention_tiled_kernel"),
+     r"attention_bwd_mma(_walk)?_kernel<[^,]*bwdform(\)2|::kfull)"),
+    ("K6 masked_attention_tiled", r"attention_fwd_mma(_walk)?_kernel<[^,]*fwdform(\)2|::ktiled)"),
     ("K7 masked_attention_tiled_bwd", r"attention_bwd_mma_kernel<[^,]*bwdform(\)1|::ktiled)"),
     ("K8 ln_matmul", r"ln_matmul_kernel"),
     # T2 and T1: the forward body's forms kNoMax and kSplit

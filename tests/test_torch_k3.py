@@ -146,12 +146,13 @@ def test_kernel_head_dim_check(D, ok):
 
 def test_cpu_wrapper_runs_the_model_paths_plain_version():
     """On a CPU tensor the wrapper runs the XLA form that JAX's CPU path runs,
-    at any warp count and head dim, and counts no launch."""
+    at any group (0, the model paths'; 3, which B = 4 leaves a short last
+    block) and head dim, and counts no launch."""
     qkv, mask, _ = _case(88, 2, 16, 1.0)
     before = (ops.masked_attention_qkv.launches, ops.masked_attention_qkv.variant_launches)
     want = ops.masked_attention_qkv_plain(qkv, mask, 2, 0.25, FILL)
-    for warps in port_ma.FWD_WARPS:
-        got = ops.masked_attention_qkv(qkv, mask, 2, 0.25, FILL, warps=warps)
+    for group in (0, 1, 2, 3, 8):
+        got = ops.masked_attention_qkv(qkv, mask, 2, 0.25, FILL, group=group)
         assert torch.equal(got, want)
     odd = ops.masked_attention_qkv(qkv.float()[..., :24], mask, 2, 0.5, FILL)  # D = 4
     assert odd.shape == (B, 88, 8)

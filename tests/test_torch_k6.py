@@ -151,14 +151,15 @@ def test_kernel_shape_check(D, tile, ok):
 
 
 def test_cpu_wrapper_runs_the_plain_version():
-    """On a CPU tensor the wrapper runs the plain version at every warp count,
-    at any tile and head dim, and counts no launch."""
+    """On a CPU tensor the wrapper runs the plain version at every group of
+    the JAX sweep (and 0, the model path's), at any tile and head dim, and
+    counts no launch."""
     qkv, mask, _ = _case(129, 2, 16, 1.0, 0.5)
     fn = ops.masked_attention_tiled
     before = (fn.launches, fn.variant_launches)
     want = ops.masked_attention_tiled_plain(qkv, mask, 2, 0.25, FILL, TILE)
-    for warps in port_ma.FWD_WARPS:
-        assert torch.equal(fn(qkv, mask, 2, 0.25, FILL, TILE, warps=warps), want)
+    for group in (0, 1, 2, 4, 8):
+        assert torch.equal(fn(qkv, mask, 2, 0.25, FILL, TILE, group=group), want)
     small = fn(qkv[:, :11], mask[:, :11], 2, 0.25, FILL, 11)  # a tile of 11
     assert torch.equal(small, ops.masked_attention_tiled_plain(qkv[:, :11], mask[:, :11], 2,
                                                                0.25, FILL, 11))

@@ -47,18 +47,20 @@ from editor_tpu_torch.tools import profile_train as pt
      "editor_kernels::(anonymous namespace)::FwdForm::kFull, 4, 9, true>(...)",
      "K3 masked_attention"),
     ("void editor_kernels::(anonymous namespace)::ln_matmul_kernel(...)", "K8 ln_matmul"),
-    # the warp count is a template argument of K3, K5, K6 (the T6 sweep); K4's
-    # chunked and resident instances, the enum argument by name
+    # K4's chunked and resident instances, the enum argument by name; the
+    # walk kernels of T6 (K3's and K5's forms) and of K6's group sweep
     ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
      "BwdForm::kQkv, 8, 2, false>(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
     ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
      "(BwdForm)0, 4, 9, true>(__nv_bfloat16 const*, ...)", "K4 attention_qkv_bwd"),
-    ("void editor_kernels::attention_bwd_kernel<8>(__nv_bfloat16 const*, ...)",
-     "K5 masked_attention_bwd"),
-    ("void editor_kernels::(anonymous namespace)::masked_attention_kernel<8>(...)",
+    ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_walk_kernel<"
+     "(editor_kernels::(anonymous namespace)::BwdForm)2, 4, 2, false>(__nv_bfloat16 const*, "
+     "...)", "K5 masked_attention_bwd"),
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_walk_kernel<"
+     "(editor_kernels::(anonymous namespace)::FwdForm)1, 4, 9, true>(...)",
      "K3 masked_attention"),
-    ("void editor_kernels::(anonymous namespace)::masked_attention_tiled_kernel<16>(...)",
-     "K6 masked_attention_tiled"),
+    ("void editor_kernels::(anonymous namespace)::attention_fwd_mma_walk_kernel<"
+     "FwdForm::kTiled, 4, 9, false>(...)", "K6 masked_attention_tiled"),
     ("void editor_kernels::(anonymous namespace)::attention_bwd_mma_kernel<"
      "BwdForm::kTiled, 8, 5, true>(...)", "K7 masked_attention_tiled_bwd"),
     # K7 and K5 on the tensor cores: the form, head-dim tiles, key tiles and

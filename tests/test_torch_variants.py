@@ -15,9 +15,10 @@ oracles, and the wrappers' CPU path.
   ``_xla_attention_qkv``; T3 against an LN -> matmul -> ``_xla_attention_qkv``
   -> matmul composition; T4 ``f32`` and ``rows`` against
   ``rollout_from_probs``): rtol 1e-9, the two differ only in summation order.
-* T6 is K3/K5 at other warp counts: on a CPU tensor every warp count runs
+* T6 is K3/K5 walking g sequences a block: on a CPU tensor every group runs
   the same plain version, held against ``_qkv_masked_full_kernel`` and
-  ``_qkv_masked_full_bwd_kernel`` in interpret mode at the script's groups.
+  ``_qkv_masked_full_bwd_kernel`` in interpret mode at the script's groups
+  (and by ``tests/test_torch_t6.py`` with its wrong forms).
 """
 
 import functools
@@ -33,7 +34,6 @@ import torch
 
 from editor_tpu.ops.rollout import rollout_from_probs
 from editor_tpu_torch import ops
-from editor_tpu_torch.ops.masked_attention import BWD_WARPS, FWD_WARPS
 from editor_tpu_torch.tools import (_bench, bench_attn, bench_attn2, bench_attn_layer,
                                     bench_full_kernel, bench_rollout, bench_rollout2)
 from tests.torch_parity import assert_close, bf16_pair, ulp_of_max, x64  # noqa: F401
@@ -380,7 +380,7 @@ def test_chain_wrappers_on_cpu_are_plain():
 
 
 # ---------------------------------------------------------------------------
-# T6: masked_full, masked_full_bwd (K3/K5 at other warp counts)
+# T6: masked_full, masked_full_bwd (K3/K5 walking g sequences a block)
 # ---------------------------------------------------------------------------
 
 def _interpret_full(kernel, g, qkv, mask, gout=None):
@@ -423,48 +423,53 @@ def test_masked_full_plain_matches_tpu_kernel_bf16(g):
     _assert_within_ulp(bench_full_kernel.masked_full_bwd_plain(tq, tm, tg, H, SCALE, FILL), ref)
 
 
+GROUPS = (1, 2, 4, 8, 16, 32)  # the JAX tool's groups at its two shapes
+
+
 def _warp_counts():
-    return [(fn.launches, fn.variant_launches) for fn in ops.WARP_WRAPPERS]
+    return [(fn.launches, fn.variant_launches) for fn in ops.GROUP_WRAPPERS]
 
 
 def test_masked_full_every_warp_count_runs_the_plain_version_on_cpu():
+    """T6 at every group of the JAX tool (and K6 at every group of its
+    sweep) runs the plain version on CPU tensors and counts nothing; T6
+    refuses g = 0, K3's and K5's own launch."""
     (_, tq), mask, (_, tg) = _full_inputs(3, 22, 50)
     tm = torch.from_numpy(mask)
     before = _warp_counts()
     ref = bench_full_kernel.masked_full_plain(tq, tm, H, SCALE, FILL)
     ref_bwd = bench_full_kernel.masked_full_bwd_plain(tq, tm, tg, H, SCALE, FILL)
-    for w in FWD_WARPS:
-        assert torch.equal(bench_full_kernel.masked_full(tq, tm, H, SCALE, w, FILL), ref)
+    for g in GROUPS:
+        assert torch.equal(bench_full_kernel.masked_full(tq, tm, H, SCALE, g, FILL), ref)
         assert torch.equal(ops.masked_attention_tiled(tq[:, :11], tm[:, :11], H, SCALE, FILL,
-                                                      11, warps=w),
+                                                      11, group=g),
                            ops.masked_attention_tiled_plain(tq[:, :11], tm[:, :11], H, SCALE,
                                                             FILL, 11))
-    for w in BWD_WARPS:
-        assert torch.equal(bench_full_kernel.masked_full_bwd(tq, tm, tg, H, SCALE, w, FILL),
+        assert torch.equal(bench_full_kernel.masked_full_bwd(tq, tm, tg, H, SCALE, g, FILL),
                            ref_bwd)
     assert _warp_counts() == before  # no kernel on the CPU
-    with pytest.raises(ValueError, match="warps"):
-        bench_full_kernel.masked_full(tq, tm, H, SCALE, 2)
-    with pytest.raises(ValueError, match="warps"):
-        bench_full_kernel.masked_full_bwd(tq, tm, tg, H, SCALE, 16)
+    with pytest.raises(ValueError, match="g = 0"):
+        bench_full_kernel.masked_full(tq, tm, H, SCALE, 0)
+    with pytest.raises(ValueError, match="g = -1"):
+        bench_full_kernel.masked_full_bwd(tq, tm, tg, H, SCALE, -1)
 
 
-@pytest.mark.parametrize("warps", sorted(set(FWD_WARPS + BWD_WARPS)))
-def test_warp_count_decides_which_count_a_launch_joins(warps):
-    """A K3/K5/K6 launch at the model paths' 4 warps counts in ``launches``
-    (K3, K5, K6), at any other in ``variant_launches`` (T6 and K6's sweep),
-    so a model path that launched another block shape would show."""
-    from editor_tpu_torch.ops.masked_attention import SHIPPED_WARPS, count_launch
+@pytest.mark.parametrize("group", [0, 1, 2, 4, 8, 16])
+def test_warp_count_decides_which_count_a_launch_joins(group):
+    """A K3/K5/K6 launch at the model paths' group 0 counts in ``launches``
+    (K3, K5, K6), at any group g >= 1 in ``variant_launches`` (T6 and K6's
+    sweep), so a model path that launched a walking block would show."""
+    from editor_tpu_torch.ops.masked_attention import count_launch
 
     saved = _warp_counts()
     try:
         ops.reset_launch_counts()
-        for fn in ops.WARP_WRAPPERS:
-            count_launch(fn, warps)
-        want = (1, 0) if warps == SHIPPED_WARPS else (0, 1)
-        assert _warp_counts() == [want] * len(ops.WARP_WRAPPERS)
+        for fn in ops.GROUP_WRAPPERS:
+            count_launch(fn, group)
+        want = (1, 0) if group == 0 else (0, 1)
+        assert _warp_counts() == [want] * len(ops.GROUP_WRAPPERS)
         ops.reset_launch_counts()
-        assert _warp_counts() == [(0, 0)] * len(ops.WARP_WRAPPERS)
+        assert _warp_counts() == [(0, 0)] * len(ops.GROUP_WRAPPERS)
     finally:
-        for fn, (n, v) in zip(ops.WARP_WRAPPERS, saved):
+        for fn, (n, v) in zip(ops.GROUP_WRAPPERS, saved):
             fn.launches, fn.variant_launches = n, v
