@@ -42,7 +42,14 @@ Phases, each printing its lines and its seconds:
      second) in the same run, at the uncompacted tail's shapes, x30 and 14
      more (N = 129-512, D = 32-128, tiles of 16, 64 and 128); masked query
      rows must be exact zeros; its time on the two model shapes must be at
-     most 2x SDPA's with the key mask;
+     most 2x SDPA's with the key mask. K8 is held by the same share test
+     against its plain version at both backbone shapes, which must fail the
+     form that leaves the LayerNorm's output in fp32, and on wide inputs
+     (pre-activations of ~1.9, biases comparable) the forms that round the
+     product before the bias and apply the GELU to a rounded pre-activation;
+     also a ragged row count without bias, C = 1040 (a last k slice of 16)
+     and C = 96 (one k slice); its time over both shapes must be at most 2x
+     the three-call chain's;
   3. forward: the flagship tri-modal eval forward (ViT-B/16, 256x128,
      seeded random weights, B=128, bf16, compact tail) through
      build_eval_step; one forward launches K1 12, K2 1 and K3 2 times, and
@@ -81,8 +88,16 @@ Phases, each printing its lines and its seconds:
      1 and 2 heads and 1 and 2 sequences a block, x30 and B = 3 at N = 200;
      T2 at 1 and 2 sequences a block and B = 3 at N = 512; T1's probs as
      K1's (every element within one bf16 ulp, rows summing to 1); T1 (with
-     probs) and T2 at most 2x SDPA's time. T3's probs, whose qkv the kernel
-     makes itself, by the share test and the row sums. T6, K3 and K5 walking
+     probs) and T2 at most 2x SDPA's time. T3, whose output end to end is
+     chaotic in the qkv product's summation order, is held stage by stage on
+     its own workspaces (bench_attn_layer.stage_shares): qkv, attention and
+     output each by the share test against the TPU form of the stage's own
+     input, the attention equal to K1's on the same qkv, the forms that
+     leave y, qkv or the attention in fp32 required to fail; its probs by the
+     share test and the row sums, its output end to end by the scaled error;
+     equal at g = 1, 2 and 4; B = 3 at N = 200 and D = 32 too; its time
+     without probs at most 2x the four-call chain's (LN, linear, SDPA,
+     linear). T6, K3 and K5 walking
      g sequences a block at the JAX package's groups (forward 8 and 2,
      backward 4 and 2 at [384, 88] and [128, 264]), must equal K3 and K5 at
      group 0 bit for bit; its forward is held by K3's share test against the
@@ -952,57 +967,154 @@ def tiled_kernels(randn, gen: torch.Generator, results: dict) -> None:
         sdpa_bwd_ms=f"{sdpa_ms:.4f}", factor=f"{k7_ms / sdpa_ms:.3f}", limit="3")
 
 
+def _k8_forms(x, w, b, gm, bt, act: str) -> dict:
+    """K8's wrong forms, composed from the plain version: the LayerNorm's
+    output left in fp32 (the plain version on fp32 x), the product rounded
+    before the bias (``_xla_ln_matmul``'s form), the GELU of the rounded
+    pre-activation."""
+    from editor_tpu_torch import ops
+
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    wb = w.to(bf).float()
+    forms = {"y_fp32": ops.ln_matmul_plain(x.float(), wb, b, gm, bt, 1e-6, act).to(bf)}
+    rounded = ops.ln_matmul_plain(x, w, None, gm, bt, 1e-6, "").float() + b
+    forms["product_rounded"] = (F.gelu(rounded) if act else rounded).to(bf)
+    if act:
+        forms["gelu_on_bf16"] = F.gelu(ops.ln_matmul_plain(x, w, b, gm, bt, 1e-6, "").float()
+                                       ).to(bf)
+    return forms
+
+
+def _k8_check(name: str, got, ref, forms: dict, need: tuple) -> dict:
+    """K8 against its plain version: finite, scaled error <= 1e-2, at most
+    SHARE_TOL of the elements more than one bf16 ulp off; each wrong form in
+    ``need`` must exceed that share in the same run (the others are
+    printed)."""
+    from editor_tpu_torch.tools import _bench
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: non-finite output")
+    err = _scaled(got, ref)
+    _require(f"{name} (scaled)", err, 1e-2)
+    share = _bench.bf16_off_share(got, ref)
+    _require(f"{name} share off the plain version", share, SHARE_TOL)
+    caught = {form: _bench.bf16_off_share(f, ref) for form, f in forms.items()}
+    for form in need:
+        if not caught[form] > SHARE_TOL:
+            raise AssertionError(f"{name} share test too loose: the {form} form is off in "
+                                 f"only {caught[form]} of the elements")
+    return dict(err=err, share=share, wrong_forms=caught)
+
+
 def ln_matmul_kernel(randn, gen: torch.Generator, results: dict) -> None:
     """K8 on the backbone's shapes (T = 384 x 129 tokens, C = 768): norm1 ->
     qkv (O = 2304) and norm2 -> fc1 + GELU (O = 3072), against its plain
-    version (scaled max error <= 1e-2); a ragged row count and no bias
-    checked too. K8 is on no model path (as in the JAX package), so its
-    launches on the main path are 0. Library time: the three-call chain
-    F.layer_norm -> F.linear -> F.gelu in bf16, what the backbone runs."""
+    version by _k8_check (the share test, with the y-in-fp32 form required
+    to fail it); the product-rounded and GELU-on-bf16 forms are under the
+    limit on these inputs (weights x 0.02: pre-activations of ~0.7 and
+    biases of 0.02), so they are read on wide inputs (weights x 0.05, biases
+    x 0.3, T = 8192), where the kernel must pass too; a ragged row count and
+    no bias, a C whose last k slice is 16 deep and a C of one k slice (the
+    path that normalises every slice) checked too. K8 is on no model path (as
+    in the JAX package), so its launches on the main path are 0. Library
+    time: the three-call chain F.layer_norm -> F.linear -> F.gelu in bf16,
+    what the backbone runs; K8's time over both shapes must be at most 2x the
+    chain's."""
     from editor_tpu_torch import ops
 
     F = torch.nn.functional
     dev, Tk = "cuda", 3 * B_EVAL * 129
 
-    def params(O):
-        return (torch.randn(O, C, generator=gen, device=dev) * 0.02,
-                torch.randn(O, generator=gen, device=dev) * 0.02,
-                1.0 + 0.1 * torch.randn(C, generator=gen, device=dev),
-                0.1 * torch.randn(C, generator=gen, device=dev))
+    def params(O, Cx=C, ws=0.02, bs=0.02):
+        return (torch.randn(O, Cx, generator=gen, device=dev) * ws,
+                torch.randn(O, generator=gen, device=dev) * bs,
+                1.0 + 0.1 * torch.randn(Cx, generator=gen, device=dev),
+                0.1 * torch.randn(Cx, generator=gen, device=dev))
 
-    xr = randn(1000, C, mul=2.0)  # 1000 rows: not a multiple of the 64-row tile
-    wr = params(256)
-    e_ragged = _scaled(ops.ln_matmul(xr, wr[0], None, *wr[2:], act="gelu"),
-                       ops.ln_matmul_plain(xr, wr[0], None, *wr[2:], act="gelu"))
-    _require("ln_matmul ragged rows, no bias (scaled)", e_ragged, 1e-2)
-    rows = []
+    extra = {}
+    for label, (T, Cx, O) in {"ragged rows, no bias": (1000, C, 256),
+                              "C = 1040 (a last k slice of 16)": (1000, 1040, 272),
+                              "C = 96 (one k slice)": (300, 96, 128)}.items():
+        xr = randn(T, Cx, mul=2.0)
+        w, b, gm, bt = params(O, Cx)
+        b = None if label.startswith("ragged") else b
+        got = ops.ln_matmul(xr, w, b, gm, bt, act="gelu")
+        ref = ops.ln_matmul_plain(xr, w, b, gm, bt, act="gelu")
+        extra[label] = _k8_check(f"ln_matmul {label}", got, ref, {}, ())
+    wide = {}
+    xw = randn(8192, C, mul=2.0)
+    for O, act in ((3 * C, ""), (4 * C, "gelu")):
+        w, b, gm, bt = params(O, ws=0.05, bs=0.3)
+        wide[f"O={O} {act or 'linear'}"] = _k8_check(
+            f"ln_matmul wide O={O} {act or 'linear'}", ops.ln_matmul(xw, w, b, gm, bt, 1e-6, act),
+            ops.ln_matmul_plain(xw, w, b, gm, bt, 1e-6, act), _k8_forms(xw, w, b, gm, bt, act),
+            ("y_fp32", "product_rounded") + (("gelu_on_bf16",) if act else ()))
+    del xw
+    rows, checks = [], {}
     x = randn(Tk, C, mul=2.0)
     for O, act in ((3 * C, ""), (4 * C, "gelu")):
         w, b, gm, bt = params(O)
-        got = ops.ln_matmul(x, w, b, gm, bt, 1e-6, act)
-        ref = ops.ln_matmul_plain(x, w, b, gm, bt, 1e-6, act)
-        torch.cuda.synchronize()
-        e = _scaled(got, ref)
-        _require(f"ln_matmul O={O} {act or 'linear'} (scaled)", e, 1e-2)
-        del got, ref
+        key = f"O={O} {act or 'linear'}"
+        checks[key] = _k8_check(f"ln_matmul {key}", ops.ln_matmul(x, w, b, gm, bt, 1e-6, act),
+                                ops.ln_matmul_plain(x, w, b, gm, bt, 1e-6, act),
+                                _k8_forms(x, w, b, gm, bt, act), ("y_fp32",))
+        torch.cuda.empty_cache()
         wb, bb, gb, btb = (t.to(torch.bfloat16) for t in (w, b, gm, bt))
 
         def chain():
             y = F.linear(F.layer_norm(x, (C,), gb, btb, 1e-6), wb, bb)
             return F.gelu(y) if act else y
-        row = dict(err=e, flops=2.0 * Tk * C * O,
+        row = dict(err=checks[key]["err"], flops=2.0 * Tk * C * O,
                    bytes=2.0 * Tk * C + 4.0 * O * C + 4.0 * O + 8.0 * C + 2.0 * Tk * O,
                    ms=cuda_ms(lambda: ops.ln_matmul(x, w, b, gm, bt, 1e-6, act)),
                    plain_ms=cuda_ms(lambda: ops.ln_matmul_plain(x, w, b, gm, bt, 1e-6, act)),
                    library_ms=cuda_ms(chain))
         b_ = bound(row["flops"], row["bytes"])
-        say("2 kernel ln_matmul", shape=[Tk, C, O], act=act or "none", scaled_err=e,
-            ragged_scaled_err=e_ragged, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
-            chain3_ms=f"{row['library_ms']:.4f}", bound_ms=f"{b_['bound_ms']:.4f}",
-            bound_by=b_["bound_by"], tflops=f"{row['flops'] / row['ms'] / 1e9:.1f}")
+        say("2 kernel ln_matmul", shape=[Tk, C, O], act=act or "none",
+            scaled_err=checks[key]["err"], share=checks[key]["share"], share_tol=SHARE_TOL,
+            wrong_forms=json.dumps(checks[key]["wrong_forms"]), ms=f"{row['ms']:.4f}",
+            plain_ms=f"{row['plain_ms']:.4f}", chain3_ms=f"{row['library_ms']:.4f}",
+            bound_ms=f"{b_['bound_ms']:.4f}", bound_by=b_["bound_by"],
+            tflops=f"{row['flops'] / row['ms'] / 1e9:.1f}",
+            l2_weight_gb=f"{-(-Tk // 128) * O * C * 2 / 1e9:.3f}")
         rows.append(row)
         torch.cuda.empty_cache()
+    say("2 kernel ln_matmul checks", wide=json.dumps(wide), extra_shapes=json.dumps(extra))
     _sum_rows(results, "ln_matmul", rows)
+    res = results["ln_matmul"]
+    res.update(checks=checks, wide=wide, extra_shapes=extra)
+    if not res["ms"] <= 2.0 * res["library_ms"]:
+        raise AssertionError(f"ln_matmul: {res['ms']} ms over both shapes, more than 2x the "
+                             f"three-call chain's {res['library_ms']} ms")
+
+
+def _t3_stages(name: str, ins, Hx: int, scale: float, out, g: int = 1) -> dict:
+    """T3 read stage by stage (``bench_attn_layer.stage_shares`` on the
+    kernel's own workspaces, from a second launch that must give ``out``
+    again): qkv, att and out each at most SHARE_TOL of the elements more
+    than one bf16 ulp off the TPU form of the stage's own input; att equal
+    to K1's output on the same qkv; the y-in-fp32, qkv-in-fp32 and
+    att-in-fp32 forms above the limit (the cls-rounded form is printed: on
+    these inputs it sits at the limit; K1's and T1's checks hold that
+    rounding of the same body)."""
+    from editor_tpu_torch import ops
+    from editor_tpu_torch.tools import bench_attn_layer
+
+    o, qkv, att = bench_attn_layer.attn_layer_stages(*ins, Hx, scale, 1e-6, g)
+    if not torch.equal(o, out):
+        raise AssertionError(f"{name}: a second launch gave another output")
+    if not torch.equal(att, ops.attention_qkv(qkv, Hx, scale)[0]):
+        raise AssertionError(f"{name}: the attention stage is not K1's output on its qkv")
+    shares, wrong = bench_attn_layer.stage_shares(*ins, Hx, scale, 1e-6, qkv, att, o)
+    for stage, share in shares.items():
+        _require(f"{name} {stage} share off the plain stage", share, SHARE_TOL)
+    for form in ("y_fp32", "qkv_fp32", "att_fp32"):
+        if not wrong[form] > SHARE_TOL:
+            raise AssertionError(f"{name} share test too loose: the {form} form is off in "
+                                 f"only {wrong[form]} of the elements")
+    return dict(shares=shares, wrong_forms=wrong)
 
 
 def variant_phase(gen: torch.Generator) -> dict:
@@ -1139,19 +1251,37 @@ def variant_phase(gen: torch.Generator) -> dict:
         bound_ms=f"{b_np['bound_ms']:.4f}")
     del qkv, ref, every
 
-    # T3: the half-layer, 1 sequence per block, with and without probs
+    # T3: the half-layer at the JAX tool's groups, with and without probs.
+    # End to end its output is chaotic in the qkv product's summation order
+    # (bench_attn_layer.stage_shares), so the share test reads each stage
+    # against the TPU form of the kernel's own input to it, with the wrong
+    # forms required to fail at the stage where each acts; the attention
+    # stage must be K1's output on the kernel's qkv bit for bit
     ins = bench_attn_layer.layer_inputs(gen)
     out, _ = bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, 1, probs)
-    out_np, _ = bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, 1)
     ref, ref_probs = bench_attn_layer.attn_layer_plain(*ins, H, SCALE, 1e-6, True)
     torch.cuda.synchronize()
-    e_out = max(_scaled(out, ref), _scaled(out_np, ref))
+    e_out = _scaled(out, ref)
     _require("attn_layer out (scaled)", e_out, 1e-2)
-    # the kernel makes its own qkv (LayerNorm, then fp32 sums in another
-    # order, then bf16): the probs by the share test, not one ulp each
     t3 = _probs_errors("attn_layer", probs, ref_probs, own_qkv=True)
     e_probs = t3["probs_err"]
+    end_share = _bench.bf16_off_share(out, ref)
+    del ref, ref_probs
+    for g in (2, 4):  # the JAX tool's groups: each row computed as at g = 1
+        if not torch.equal(bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, g)[0], out):
+            raise AssertionError(f"attn_layer g={g}: output differs from g=1's")
+    t3_stages = _t3_stages("attn_layer", ins, H, SCALE, out)
+    extra = {}
+    for Bx, Nx, Cx, Hx, g in ((3, 200, C, H, 2), (5, 17, 256, 8, 2)):
+        xi = bench_attn_layer.layer_inputs(gen, Bx, Nx, Cx)
+        case = f"attn_layer B={Bx} N={Nx} C={Cx} H={Hx} g={g}"
+        o, _ = bench_attn_layer.attn_layer(*xi, Hx, (Cx // Hx) ** -0.5, 1e-6, g)
+        e = _scaled(o, bench_attn_layer.attn_layer_plain(*xi, Hx, (Cx // Hx) ** -0.5, 1e-6,
+                                                         False))
+        _require(f"{case} (scaled)", e, 1e-2)
+        extra[case] = dict(err=e, **_t3_stages(case, xi, Hx, (Cx // Hx) ** -0.5, o, g))
     b = dict(zip(("bound_ms", "bound_by"), bench_attn_layer.layer_bound(with_probs=True)))
+    b_np = bench_attn_layer.layer_bound()[0]
     sdpa = lambda t: bench_attn_layer.sdpa_from_qkv(t, H, SCALE)
     row = dict(max_abs_err=max(e_out, e_probs),
                ms=cuda_ms(lambda: bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, 1, probs)),
@@ -1162,19 +1292,27 @@ def variant_phase(gen: torch.Generator) -> dict:
                composed_k1_ms=cuda_ms(lambda: bench_attn_layer.composed(*ins, H, SCALE,
                                                                         probs_out=probs)),
                ms_no_probs=cuda_ms(lambda: bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, 1)),
-               config="g=1", probs_ulps=t3["probs_ulps"], probs_share=t3["probs_share"],
-               row_sum_err=t3["row_sum_err"], **b)
+               bound_ms_no_probs=b_np, config="g=1", probs_ulps=t3["probs_ulps"],
+               probs_share=t3["probs_share"], row_sum_err=t3["row_sum_err"],
+               end_to_end_share=end_share, stages=t3_stages, extra_shapes=extra,
+               l2_weight_bytes=bench_attn_layer.weight_bytes(Bk, N, C, 1), **b)
+    flops = bench_attn_layer.layer_flops()
     results["attn_layer"] = row
     say("7 variant attn_layer (T3)", shape=list(ins[0].shape), config="'g=1'",
-        scaled_err=e_out, probs_err=e_probs, probs_ulps=t3["probs_ulps"],
-        probs_share=t3["probs_share"], share_tol=SHARE_TOL, row_sum_err=t3["row_sum_err"],
-        ms=f"{row['ms']:.4f}",
+        scaled_err=e_out, end_to_end_share=end_share, stages=json.dumps(t3_stages),
+        probs_err=e_probs, probs_ulps=t3["probs_ulps"], probs_share=t3["probs_share"],
+        share_tol=SHARE_TOL, row_sum_err=t3["row_sum_err"], equal_at_g="2 4",
+        extra_shapes=json.dumps(extra), ms=f"{row['ms']:.4f}",
         ms_no_probs=f"{row['ms_no_probs']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
         chain4_sdpa_ms=f"{row['library_ms']:.4f}",
         composed_k1_ms=f"{row['composed_k1_ms']:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
-        bound_by=b["bound_by"],
-        tflops=f"{(8.0 * Bk * N * C * C + 4.0 * Bk * N * N * C) / row['ms'] / 1e9:.1f}")
-    del ins, out, out_np, ref, ref_probs, probs
+        bound_ms_no_probs=f"{b_np:.4f}", bound_by=b["bound_by"],
+        tflops=f"{flops / row['ms_no_probs'] / 1e9:.1f}",
+        l2_weight_gb=f"{row['l2_weight_bytes'] / 1e9:.3f}")
+    if not row["ms_no_probs"] <= 2.0 * row["library_ms"]:
+        raise AssertionError(f"attn_layer: {row['ms_no_probs']} ms without probs, more than 2x "
+                             f"the four-call chain's {row['library_ms']} ms")
+    del ins, out, probs
     torch.cuda.empty_cache()
 
     # T4 and T5 on phase 2's peaked maps (L = 12, Z = 4608, N = 129). The bf16

@@ -44,7 +44,8 @@ SIGNATURES = {
     # T2: qkv, out, B, N, H, D, scale, sequences per block, stream
     "editor_attention_nomax": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     # T3: x, ln weight, ln bias, wqkv, bqkv, wp, bp, out, probs, qkv workspace,
-    # attention workspace, B, N, H, D, scale, eps, sequences per block, stream
+    # attention workspace (first the normalised rows'), B, N, H, D, scale, eps,
+    # sequences per block, stream
     "editor_attn_layer": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                           _I, _P],
     # probs, out, L, Z, N, stream
@@ -68,8 +69,9 @@ SIGNATURES = {
     # qkv, mask, g, dqkv, p scratch, dl scratch, B, N, H, D, scale, fill, tile, stream
     "editor_masked_attention_tiled_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                           _I, _P],
-    # x, w, bias (or null), gamma, beta, out, T, C, O, eps, gelu, stream
-    "editor_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # x, w, bias (or null), gamma, beta, out, scratch for the normalised rows,
+    # T, C, O, eps, gelu, stream
+    "editor_ln_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

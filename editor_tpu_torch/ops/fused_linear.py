@@ -7,8 +7,9 @@ package it is a library op on no model path: the JAX backbone keeps it out
 (``editor_tpu/models/vit.py:379-384``), so the port's does too.
 
 On a CUDA tensor :func:`ln_matmul` launches ``csrc/ln_matmul.cu`` (bf16 x,
-C and O multiples of 16) or raises; on a CPU tensor it runs
-:func:`ln_matmul_plain`. :func:`ln_matmul_fn` is the autograd form: K8
+C and O multiples of 16, C up to :data:`K8_MAX_C`: the tensor-core GEMM
+body ``csrc/ln_gemm_mma.cuh`` with the LayerNorm prologue) or raises; on a
+CPU tensor it runs :func:`ln_matmul_plain`. :func:`ln_matmul_fn` is the autograd form: K8
 forward, and a backward that differentiates the plain version on the saved
 inputs (the JAX ``custom_vjp`` recomputes through XLA the same way; there is
 no backward kernel).
@@ -24,6 +25,19 @@ import torch.nn.functional as F
 from editor_tpu_torch.ops._checks import check_kernel_tensor, compute_dtype
 
 ACTS = ("", "gelu")
+# Largest C the kernel takes (kGemmMaxK in csrc/ln_gemm_mma.cuh): a block
+# keeps its rows' normalised activations in shared memory, 128 rows up to
+# C = 768 and 64 up to 1536
+K8_MAX_C = 1536
+
+
+def check_k8_shape(C: int, O: int) -> None:
+    """Raise unless K8's CUDA kernel takes C input and O output features:
+    multiples of 16 (the tensor-core tiles are 16 deep), C at most
+    :data:`K8_MAX_C`."""
+    if C < 16 or O < 16 or C % 16 or O % 16 or C > K8_MAX_C:
+        raise ValueError(f"the CUDA kernel takes C and O in multiples of 16 and C <= "
+                         f"{K8_MAX_C}, got {C}, {O}")
 
 
 def ln_matmul_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -61,7 +75,7 @@ def ln_matmul(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
     x [..., C]; ``weight`` [O, C], the torch Linear layout (cast to x's
     dtype per call, as the JAX op casts its [C, O] weight); ``bias`` [O] or
     None; ``ln_weight``, ``ln_bias`` [C]. CUDA: ``csrc/ln_matmul.cu`` (bf16
-    x, C % 16 == 0, O % 16 == 0, any row count); CPU: :func:`ln_matmul_plain`."""
+    x, :func:`check_k8_shape`, any row count); CPU: :func:`ln_matmul_plain`."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
     C = x.shape[-1]
@@ -73,8 +87,7 @@ def ln_matmul(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
         raise ValueError(f"bias {tuple(bias.shape)} != ({O},)")
     if x.device.type == "cpu":
         return ln_matmul_plain(x, weight, bias, ln_weight, ln_bias, eps, act)
-    if C % 16 or O % 16:
-        raise ValueError(f"the CUDA kernel takes C and O in multiples of 16, got {C}, {O}")
+    check_k8_shape(C, O)
     x2 = x.reshape(-1, C)
     check_kernel_tensor("ln_matmul x", x2, 2, align=16)
     w = weight.to(x.dtype).contiguous()
@@ -85,9 +98,10 @@ def ln_matmul(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
 
     T = x2.shape[0]
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
+    ys = torch.empty_like(x2)  # the normalised rows, streamed back by the later column tiles
     code = _build.library().editor_ln_matmul(
         x2.data_ptr(), w.data_ptr(), None if f32[0] is None else f32[0].data_ptr(),
-        f32[1].data_ptr(), f32[2].data_ptr(), out.data_ptr(), T, C, O, float(eps),
+        f32[1].data_ptr(), f32[2].data_ptr(), out.data_ptr(), ys.data_ptr(), T, C, O, float(eps),
         int(act == "gelu"), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ln_matmul")
     ln_matmul.launches += 1

@@ -1,14 +1,15 @@
 #!/usr/bin/env bash
-# Hold this checkout's shipped kernels (K1-K8) and the variants T1, T2 and T6
-# against another checkout's on one card: the output digests and ms of
+# Hold this checkout's shipped kernels (K1-K8) and the variants T1, T2, T6 and
+# T3 against another checkout's on one card: the output digests and ms of
 # kernel_digest.py in the order other,
 # this, this, other (so a drift of the card's clock shows as a difference
 # between the two runs of one side), then the registers, spills and SASS
 # instruction mix of each named source in both checkouts (kernel_sass.py).
 # K1's output and probs, K3's output and K4's dqkv at each of their shapes,
 # K5's dqkv at its two, K6's output at its two model shapes and K7's dqkv at
-# its three shapes, T1's output and probs, T2's output and T6's output and
-# dqkv at its two shapes of the two sides are compared element by element (kernel_digest.py --diff into diff.json; the
+# its three shapes, T1's output and probs, T2's output, T6's output and
+# dqkv at its two shapes and T3's output and probs of the two sides are
+# compared element by element (kernel_digest.py --diff into diff.json; the
 # tensors go to a temporary directory). Name attention_qkv.cu for K1's
 # instances (attention_fwd_mma_kernel<FwdForm::kQkv, ...>),
 # attention_variants.cu for T2's and T1's (<kNoMax, ...> and <kSplit, ...>),

@@ -22,12 +22,14 @@ and 128: every shape chip_smoke holds K3 at but N = 512 with D = 128, where
 the CUDA-core K3 of earlier checkouts needs more shared memory than a block
 has); then T1 (``bench_attn.headgrid_attn``: separate q, k, v [384, 129,
 768], 2 heads and 1 sequence a block, with probs), T2
-(``bench_attn2.nomax_attn`` at [384, 129, 2304], 1 sequence a block) and T6
+(``bench_attn2.nomax_attn`` at [384, 129, 2304], 1 sequence a block), T6
 (``bench_full_kernel.masked_full`` and ``masked_full_bwd`` at [384, 88] and
 [128, 264] at the JAX package's groups, ``full_group``: forward 8 and 2,
 backward 4 and 2 sequences a block; a checkout whose T6 takes ``warps`` in
-place of ``g`` runs its 8 warps a block). For each call it prints one JSON
-line: the kernel, the shape, the
+place of ``g`` runs its 8 warps a block) and last T3
+(``bench_attn_layer.attn_layer`` on ``layer_inputs`` at [384, 129, 768], g =
+1, 2 and 4, each with and without the probs). For each call it prints one
+JSON line: the kernel, the shape, the
 sha256 of its output bytes (the first 16 hex digits) and its ms from CUDA
 events. The card's name and power limit come first. Exits non-zero without
 a CUDA device.
@@ -35,8 +37,8 @@ a CUDA device.
 ``--save`` also writes K1's output and probs, K3's output and K4's dqkv at
 each of their shapes, K5's dqkv at its two, K6's output at its two model
 shapes ([384, 129] and [128, 387]), K7's dqkv at its three shapes, T1's
-output and probs, T2's output and T6's output and dqkv at its two shapes to
-a file, and ``--diff`` prints, for two
+output and probs, T2's output, T6's output and dqkv at its two shapes and
+T3's output and probs (g = 1) to a file, and ``--diff`` prints, for two
 such files (two checkouts' kernels on the same input), the largest
 difference of each tensor, the share of elements that differ and the
 largest difference in bf16 ulps of the first file's element.
@@ -103,8 +105,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--save", help="write K1's output and probs, K3's and K6's output, "
-                    "K4's, K5's and K7's dqkv, T1's and T2's output and T6's output and "
-                    "dqkv to this file")
+                    "K4's, K5's and K7's dqkv, T1's and T2's output, T6's output and "
+                    "dqkv and T3's output and probs to this file")
     ap.add_argument("--diff", nargs=2, metavar=("A", "B"), help="compare two --save files")
     args = ap.parse_args(argv)
     if args.diff:
@@ -116,7 +118,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip(), flush=True)
     from editor_tpu_torch import ops
-    from editor_tpu_torch.tools import bench_attn, bench_attn2, bench_full_kernel
+    from editor_tpu_torch.tools import bench_attn, bench_attn2, bench_attn_layer, bench_full_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -235,7 +237,17 @@ def main(argv=None) -> None:
         if args.save:
             saved[f"T6 out [{B}, {N}]"] = fwd().cpu()
             saved[f"T6 dqkv [{B}, {N}]"] = bwd().cpu()
+    del qkv, m, g
+    ins = bench_attn_layer.layer_inputs(gen)
+    probs = torch.empty(384, H, 129, 129, dtype=bf, device="cuda")
+    for g in (1, 2, 4):
+        line(f"T3 attn_layer g={g} probs", ins[0].shape,
+             lambda: bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, g, probs))
+        line(f"T3 attn_layer g={g}", ins[0].shape,
+             lambda: bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, g)[0])
     if args.save:
+        out, _ = bench_attn_layer.attn_layer(*ins, H, SCALE, 1e-6, 1, probs)
+        saved.update({"T3 out": out.cpu(), "T3 probs": probs.cpu()})
         torch.save(saved, args.save)
 
 
