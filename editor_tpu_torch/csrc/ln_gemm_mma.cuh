@@ -36,7 +36,8 @@
 //
 // Shared memory (gemm_smem_bytes): STAGES (BM + BN) BK bf16.
 // Requirements: K % 16 == 0 up to kGemmMaxK, O % 16 == 0, A rows and W
-// 16-byte aligned with row strides that are multiples of 8 elements.
+// 16-byte aligned with row strides that are multiples of 8 elements, gamma
+// and beta 16-byte aligned (load8).
 #pragma once
 
 #include "mma.cuh"

@@ -68,8 +68,9 @@ ln_matmul_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }  // namespace
 }  // namespace editor_kernels
 
-// C % 16 == 0 up to kGemmMaxK, O % 16 == 0, T >= 1; x, w, ys 16-byte
-// aligned; ys: a [T, C] bf16 scratch for the normalised rows
+// C % 16 == 0 up to kGemmMaxK, O % 16 == 0, T >= 1; x, w, ys, gamma and beta
+// 16-byte aligned (the pre-pass reads gamma and beta with 16-byte loads),
+// bias 4-byte aligned; ys: a [T, C] bf16 scratch for the normalised rows
 extern "C" int editor_ln_matmul(const void* x, const void* w, const void* bias,
                                 const void* gamma, const void* beta, void* out, void* ys,
                                 int T, int C, int O, float eps, int gelu, void* stream) {

@@ -5,6 +5,10 @@ from __future__ import annotations
 import torch
 
 MAX_TOKENS = 512  # kMaxTokens in csrc/common.cuh
+# Largest K of the tensor-core GEMM body (kGemmMaxK in csrc/ln_gemm_mma.cuh),
+# the C of K8 and T3: its LayerNorm pre-pass holds each lane's share of two
+# rows (K / 256 16-byte chunks a row) in registers while it normalises them
+GEMM_MAX_C = 1536
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:

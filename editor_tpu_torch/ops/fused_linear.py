@@ -7,7 +7,7 @@ package it is a library op on no model path: the JAX backbone keeps it out
 (``editor_tpu/models/vit.py:379-384``), so the port's does too.
 
 On a CUDA tensor :func:`ln_matmul` launches ``csrc/ln_matmul.cu`` (bf16 x,
-C and O multiples of 16, C up to :data:`K8_MAX_C`: the tensor-core GEMM
+C and O multiples of 16, C up to ``GEMM_MAX_C``: the tensor-core GEMM
 body ``csrc/ln_gemm_mma.cuh`` with the LayerNorm prologue) or raises; on a
 CPU tensor it runs :func:`ln_matmul_plain`. :func:`ln_matmul_fn` is the autograd form: K8
 forward, and a backward that differentiates the plain version on the saved
@@ -22,22 +22,26 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from editor_tpu_torch.ops._checks import check_kernel_tensor, compute_dtype
+from editor_tpu_torch.ops._checks import GEMM_MAX_C, check_kernel_tensor, compute_dtype
 
 ACTS = ("", "gelu")
-# Largest C the kernel takes (kGemmMaxK in csrc/ln_gemm_mma.cuh): a block
-# keeps its rows' normalised activations in shared memory, 128 rows up to
-# C = 768 and 64 up to 1536
-K8_MAX_C = 1536
 
 
 def check_k8_shape(C: int, O: int) -> None:
     """Raise unless K8's CUDA kernel takes C input and O output features:
     multiples of 16 (the tensor-core tiles are 16 deep), C at most
-    :data:`K8_MAX_C`."""
-    if C < 16 or O < 16 or C % 16 or O % 16 or C > K8_MAX_C:
+    ``GEMM_MAX_C``."""
+    if C < 16 or O < 16 or C % 16 or O % 16 or C > GEMM_MAX_C:
         raise ValueError(f"the CUDA kernel takes C and O in multiples of 16 and C <= "
-                         f"{K8_MAX_C}, got {C}, {O}")
+                         f"{GEMM_MAX_C}, got {C}, {O}")
+
+
+def f32_param(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` as a contiguous fp32 tensor on ``device`` whose base is 16-byte
+    aligned (K8 reads gamma and beta with 16-byte loads): a fresh copy where
+    the converted tensor is a view at another offset."""
+    t = t.to(device=device, dtype=torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ln_matmul_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -92,8 +96,7 @@ def ln_matmul(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
     check_kernel_tensor("ln_matmul x", x2, 2, align=16)
     w = weight.to(x.dtype).contiguous()
     check_kernel_tensor("ln_matmul weight", w, 2, align=16)
-    f32 = [None if t is None else t.to(device=x.device, dtype=torch.float32).contiguous()
-           for t in (bias, ln_weight, ln_bias)]
+    f32 = [None if t is None else f32_param(t, x.device) for t in (bias, ln_weight, ln_bias)]
     from editor_tpu_torch.ops import _build
 
     T = x2.shape[0]

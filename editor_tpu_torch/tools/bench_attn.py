@@ -22,6 +22,7 @@ and power limit come first. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,19 +38,22 @@ SCALE = D ** -0.5
 
 
 def split_softmax_av_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                           nomax: bool = False):
+                           nomax: bool = False, dtype: Optional[torch.dtype] = None,
+                           cls_fp32: bool = True):
     """The attention of the TPU variant bodies (``_split_softmax_av``, and
     ``_kernel_nomax`` with ``nomax``): q, k, v [..., N, D] -> (out [..., N, D],
     probs [..., N, N]), both in at least fp32. Logits, exp and sum in at
     least fp32; ``nomax`` drops the row max (exp of the raw logits, valid
     while |logit| < ~80); the patch keys' (m >= 1) probabilities are rounded
-    to q.dtype before p.v, the cls key's (m = 0) is not."""
+    to ``dtype`` (default q.dtype) before p.v, the cls key's (m = 0) is not
+    (without ``cls_fp32`` it is too: a wrong form)."""
     cd = compute_dtype(q.dtype)
     logits = torch.matmul(q.to(cd), k.to(cd).transpose(-1, -2)) * scale
     e = torch.exp(logits if nomax else logits - logits.amax(-1, keepdim=True))
     p = e * (1.0 / e.sum(-1, keepdim=True))
-    cls_key = torch.arange(q.shape[-2], device=q.device) == 0
-    pr = torch.where(cls_key, p, p.to(q.dtype).to(cd))
+    pr = p.to(dtype or q.dtype).to(cd)
+    if cls_fp32:
+        pr = torch.where(torch.arange(q.shape[-2], device=q.device) == 0, p, pr)
     return torch.matmul(pr, v.to(cd)), p
 
 

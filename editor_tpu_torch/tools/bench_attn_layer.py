@@ -30,9 +30,10 @@ import argparse
 import torch
 import torch.nn.functional as F
 
-from editor_tpu_torch.ops._checks import (MAX_TOKENS, check_kernel_tensor, check_probs_out,
-                                          compute_dtype)
+from editor_tpu_torch.ops._checks import (GEMM_MAX_C, MAX_TOKENS, check_kernel_tensor,
+                                          check_probs_out, compute_dtype)
 from editor_tpu_torch.tools import _bench
+from editor_tpu_torch.tools.bench_attn import split_softmax_av_plain
 
 B, N, C, H = 384, 129, 768, 12
 D = C // H
@@ -51,19 +52,13 @@ def _layer_norm(x: torch.Tensor, lnw: torch.Tensor, lnb: torch.Tensor, eps: floa
 
 def _attention(qkv: torch.Tensor, num_heads: int, scale: float, dtype: torch.dtype,
                cls_fp32: bool = True):
-    """The attention of ``_split_softmax_av`` from qkv [B, N, 3C] in at least
-    fp32: (att [B, N, C], probs [B, H, N, N]) unrounded; the patch keys'
-    probabilities (without ``cls_fp32`` the cls key's too) rounded to
-    ``dtype`` before p.v."""
+    """:func:`bench_attn.split_softmax_av_plain` on qkv [B, N, 3C] in at
+    least fp32: (att [B, N, C], probs [B, H, N, N]) unrounded, the
+    probabilities rounded to ``dtype`` before p.v."""
     Bx, Nx, C3 = qkv.shape
     q, k, v = qkv.reshape(Bx, Nx, 3, num_heads, C3 // 3 // num_heads).permute(2, 0, 3, 1, 4)
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    p = e * (1.0 / e.sum(-1, keepdim=True))
-    pr = p.to(dtype).to(p.dtype)
-    if cls_fp32:
-        pr = torch.where(torch.arange(Nx, device=qkv.device) == 0, p, pr)
-    return torch.matmul(pr, v).transpose(1, 2).reshape(Bx, Nx, C3 // 3), p
+    att, p = split_softmax_av_plain(q, k, v, scale, dtype=dtype, cls_fp32=cls_fp32)
+    return att.transpose(1, 2).reshape(Bx, Nx, C3 // 3), p
 
 
 def qkv_plain(x: torch.Tensor, lnw: torch.Tensor, lnb: torch.Tensor, wqkv: torch.Tensor,
@@ -169,19 +164,18 @@ def stage_shares(x, lnw, lnb, wqkv, bqkv, wp, bp, num_heads: int, scale: float, 
 # Rows a chunk of the kernel's products (csrc/attn_layer.cu, T3Cfg::BM): each
 # chunk streams both weight matrices once
 CHUNK_ROWS = 144
-MAX_C = 1536  # kGemmMaxK in csrc/ln_gemm_mma.cuh
 
 
 def check_t3_shape(N: int, C: int, num_heads: int) -> None:
     """Raise unless T3's CUDA kernel takes N tokens of C = H D features: D a
-    head dim K1 takes (a multiple of 16 up to 128), C up to :data:`MAX_C`,
+    head dim K1 takes (a multiple of 16 up to 128), C up to ``GEMM_MAX_C``,
     1 <= N <= MAX_TOKENS."""
     if C % num_heads:
         raise ValueError(f"attn_layer: {C} columns do not split into {num_heads} heads")
     D = C // num_heads
-    if D % 16 or not 16 <= D <= 128 or C > MAX_C or not 1 <= N <= MAX_TOKENS:
+    if D % 16 or not 16 <= D <= 128 or C > GEMM_MAX_C or not 1 <= N <= MAX_TOKENS:
         raise ValueError(f"attn_layer: the kernel takes D a multiple of 16 up to 128, C up to "
-                         f"{MAX_C} and N <= {MAX_TOKENS}, got D = {D}, C = {C}, N = {N}")
+                         f"{GEMM_MAX_C} and N <= {MAX_TOKENS}, got D = {D}, C = {C}, N = {N}")
 
 
 def weight_bytes(Bx: int, Nx: int, Cx: int, g: int) -> int:

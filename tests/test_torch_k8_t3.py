@@ -41,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from editor_tpu_torch import ops
-from editor_tpu_torch.ops.fused_linear import K8_MAX_C, check_k8_shape
+from editor_tpu_torch.ops._checks import GEMM_MAX_C
+from editor_tpu_torch.ops.fused_linear import check_k8_shape, f32_param
 from editor_tpu_torch.tools import _bench, bench_attn_layer
 from tests.torch_parity import bf16_pair as _bf16
 
@@ -157,13 +158,27 @@ def test_k8_forms_not_told_apart_on_flagship_inputs():
 
 def test_check_k8_shape():
     """The shapes K8's CUDA kernel takes, checked without a card: C and O
-    multiples of 16, C up to K8_MAX_C (the block's normalised rows in shared
-    memory)."""
-    for C, O in ((768, 2304), (768, 3072), (16, 16), (K8_MAX_C, 256), (1024, 512)):
+    multiples of 16, C up to GEMM_MAX_C (a lane's share of a row in
+    registers in the LayerNorm pre-pass)."""
+    for C, O in ((768, 2304), (768, 3072), (16, 16), (GEMM_MAX_C, 256), (1024, 512)):
         check_k8_shape(C, O)
-    for C, O in ((760, 2304), (768, 2300), (K8_MAX_C + 16, 256), (0, 16), (16, 8)):
+    for C, O in ((760, 2304), (768, 2300), (GEMM_MAX_C + 16, 256), (0, 16), (16, 8)):
         with pytest.raises(ValueError, match="multiples of 16"):
             check_k8_shape(C, O)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_fp32_params_are_16_byte_aligned(dtype):
+    """K8 reads gamma and beta with 16-byte loads: the wrapper hands the
+    kernel fp32 copies whose base is 16-byte aligned, also where the caller
+    passes a view at a 4-byte offset, with the values unchanged."""
+    base = torch.arange(41, dtype=dtype)
+    for t in (base, base[1:], base[3:40]):
+        got = f32_param(t, t.device)
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0
+        assert torch.equal(got, t.float())
+    assert base.float()[1:].data_ptr() % 16  # an fp32 view at offset 1 is misaligned
 
 
 def test_k8_wrapper_on_cpu_runs_plain_beyond_the_kernel_shapes():
@@ -342,11 +357,12 @@ def test_t3_plain_is_the_forms_with_every_rounding():
 
 def test_check_t3_shape():
     """The shapes T3's CUDA kernel takes, checked without a card: K1's head
-    dims (multiples of 16 up to 128), C up to MAX_C, N up to 512."""
+    dims (multiples of 16 up to 128), C up to GEMM_MAX_C, N up to 512."""
     check = bench_attn_layer.check_t3_shape
     for N, C, H in ((129, 768, 12), (1, 32, 2), (512, 1536, 12), (200, 48, 3)):
         check(N, C, H)
-    refused = {"D = 8": (129, 96, 12), "D = 144": (129, 576, 4), "C > MAX_C": (129, 1664, 13),
+    refused = {"D = 8": (129, 96, 12), "D = 144": (129, 576, 4),
+               "C > GEMM_MAX_C": (129, 1664, 13),
                "N > 512": (513, 768, 12), "N = 0": (0, 768, 12),
                "heads do not split C": (129, 768, 7)}
     for why, (N, C, H) in refused.items():
