@@ -105,10 +105,36 @@ Phases, each printing its lines and its seconds:
      TPU body's form (which must fail the unrounded and the XLA form in the
      same run), its backward by K5's check and wrong forms (the unrounded and
      the cls-kept form); forward + backward over both shapes at most 2x
-     SDPA's forward + backward with the key mask.
+     SDPA's forward + backward with the key mask;
+  8. loop: the flagship through the training loop, ``cli.train`` ->
+     ``do_train`` on in-memory data through a numpy decode_fn, logging,
+     evaluating and checkpointing every epoch into a temporary directory
+     that it deletes. The checked runs train on 16 ids x 32 items (3 steps
+     of 8 ids x 16 an epoch) and evaluate as RGBNT201's test split in size
+     (query = gallery = 836 items of 30 ids in 4 cameras: 1672 rows, 27
+     batches of 64): (a) every step launches K1 12, K2 1, K3 2, K4 12 and K5
+     2 times and every eval batch K1 12, K2 1 and K3 2 times, the run's
+     totals these sums; (b) the log, metrics, config.yaml and checkpoints are
+     written and the losses are finite; (d) a third epoch resumed from the
+     epoch-2 checkpoint against three uninterrupted epochs: losses within
+     1e-5 relative, the largest parameter difference and whether it is bit
+     for bit printed; (e) cli.test on the best epoch's checkpoint (alone in
+     a directory) gives the mAP the loop logged for that epoch (within
+     1e-6); (c) over the features that do_inference handed the evaluator in
+     (e), the card's distances within 1e-5 of the CPU evaluator's, and the
+     card's CMC equal to and its mAP within 1e-6 of the CPU metric's on the
+     card's distances (the CPU evaluator's end to end printed). Printed:
+     eval images/s through ``evaluate`` (twice), the metric's ms, a
+     checkpoint's save ms and bytes, and from a run of 2 epochs over 171 ids
+     x 3951 items (21 steps an epoch, logging every 10, no evaluation) the
+     loop's ms per step (CUDA events between step starts within an epoch,
+     the run's first two steps left out: median, mean, p10, p90), the gap
+     from a step's last launch to the next one's start (the next batch's
+     copy and any idle), the idle share (gaps over intervals) and the loop
+     step against phase 5's bare step.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
-(K1-K8, T1-T6), and last the result line {"ok": true, "device": {...}}. Any failed check
+(K1-K8, T1-T6; launches by path: compact, uncompacted, loop), and last the result line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero without the result line; it does the
 same without a CUDA device.
 """
@@ -117,6 +143,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import time
 
@@ -1725,12 +1752,12 @@ def train_check(cfg, ecfg, gen: torch.Generator, label: str, want: dict,
         timing.update(learn_first5=f"{np.mean(curve[:5]):.4f}",
                       learn_last5=f"{np.mean(curve[-5:]):.4f}")
     say(f"{label} timing", **timing)
-    return launches
+    return launches, step_ms
 
 
-def train_phase(gen: torch.Generator) -> dict:
+def train_phase(gen: torch.Generator) -> tuple:
     """Phase 5: the flagship train step (compact tail): K1, K2, K3 forward,
-    K4, K5 backward."""
+    K4, K5 backward. Returns its launches and its ms per step."""
     cfg, ecfg = flagship()
     L = ecfg.vit.depth
     return train_check(cfg, ecfg, gen, "5 train",
@@ -1767,12 +1794,379 @@ def uncompacted_phase(gen: torch.Generator):
     say("6b compaction exact", max_rel_l2=f"{rel:.3e}", limit="1e-4")
     del model, ref_model, compact, batch, ref, comp
     torch.cuda.empty_cache()
-    train_launches = train_check(
+    train_launches, _ = train_check(
         cfg, ecfg, gen, "6c uncompacted train",
         expected(attention_qkv=L, rollout_chain=1, attention_qkv_bwd=L,
                  masked_attention_tiled=2, masked_attention_tiled_bwd=2),
         learn=False)
     return eval_launches, train_launches
+
+
+# The training loop (phase 8). The checked runs train on 16 ids x 32 items
+# (the P x K sampler makes 3 batches of 8 ids x 16 an epoch); the timed run on
+# RGBNT201's train split in size (171 ids, 3951 items: 21 batches an epoch).
+# Evaluation as RGBNT201's test split: 30 ids, 836 items in 4 cameras, query
+# = gallery = the same items (each query has 20 or 21 matches in other cameras)
+LOOP_IDS, LOOP_PER_ID = 16, 32
+TRAIN_IDS, TRAIN_ITEMS, TEST_IDS, TEST_ITEMS, CAMS = 171, 3951, 30, 836, 4
+
+
+def _spread(n_items: int, n_ids: int, first_pid: int = 0) -> list:
+    """(index, pid, camid) of ``n_items`` over ``n_ids`` ids as evenly as
+    they go, each id's items in turn over the cameras."""
+    per, extra = divmod(n_items, n_ids)
+    out = []
+    for pid in range(n_ids):
+        for j in range(per + (pid < extra)):
+            out.append((len(out), first_pid + pid, j % CAMS))
+    return out
+
+
+def _loop_data(size_hw):
+    """(checked splits, timed splits, decode_fn) of phase 8 at ``size_hw``:
+    per-identity uint8 prototypes plus noise from the seed, four noisy
+    variants an identity made once, so that the decode costs the host only
+    the batch's copy (the loader's)."""
+    from editor_tpu_torch.data.datasets import DatasetSplits
+
+    checked = [(("train", i), i // LOOP_PER_ID, i % CAMS, -1)
+               for i in range(LOOP_IDS * LOOP_PER_ID)]
+    timed = [(("train", i), pid, cam, -1) for i, pid, cam in _spread(TRAIN_ITEMS, TRAIN_IDS)]
+    test = [(("test", i), pid, cam, -1)
+            for i, pid, cam in _spread(TEST_ITEMS, TEST_IDS, first_pid=1000)]
+    rng = np.random.default_rng(0)
+    bank = {}
+    for pid in sorted({it[1] for it in timed + test}):
+        proto = rng.integers(0, 256, (3, *size_hw, 3), dtype=np.int16)
+        bank[pid] = [np.clip(proto + rng.integers(-25, 26, proto.shape, dtype=np.int16),
+                             0, 255).astype(np.uint8) for _ in range(4)]
+
+    def decode(item):
+        return list(bank[item[1]][(item[0][1] // CAMS) % 4])
+
+    return (DatasetSplits(checked, test, test, LOOP_IDS, CAMS),
+            DatasetSplits(timed, test, test, TRAIN_IDS, CAMS), decode)
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _event_pair() -> tuple:
+    """Two timing events, the first recorded now."""
+    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev[0].record()
+    return ev
+
+
+class _LoopProbe:
+    """Wraps the builders of the loop's train step and eval step (the loop
+    and ``do_inference`` look them up at call time): per train step the
+    launch counts it added, CUDA events recorded at its start and its end
+    (after its last launch) and, with ``read_loss``, its loss (a host sync);
+    per eval batch the launch counts and the same two events."""
+
+    def __init__(self, read_loss: bool = True):
+        self.read_loss = read_loss
+        self.steps, self.events, self.losses, self.evals = [], [], [], []
+        self.eval_events = []
+
+    def __enter__(self):
+        from editor_tpu_torch.engine import evaluate, loop
+
+        self._saved = loop.build_train_step, evaluate.build_eval_step
+        build_train, build_eval = self._saved
+
+        def train_builder(*a, **k):
+            inner = build_train(*a, **k)
+
+            def step(batch, epoch):
+                ev = _event_pair()
+                before = launch_counts()
+                m = inner(batch, epoch)
+                ev[1].record()
+                self.steps.append(_delta(launch_counts(), before))
+                self.events.append((epoch, *ev))
+                if self.read_loss:
+                    self.losses.append(float(m["loss"]))
+                return m
+
+            step.generator = inner.generator
+            return step
+
+        def eval_builder(*a, **k):
+            inner = build_eval(*a, **k)
+
+            def extract(batch):
+                ev = _event_pair()
+                before = launch_counts()
+                out = inner(batch)
+                ev[1].record()
+                self.evals.append(_delta(launch_counts(), before))
+                self.eval_events.append(ev)
+                return out
+
+            return extract
+
+        loop.build_train_step, evaluate.build_eval_step = train_builder, eval_builder
+        return self
+
+    def __exit__(self, *exc):
+        from editor_tpu_torch.engine import evaluate, loop
+
+        loop.build_train_step, evaluate.build_eval_step = self._saved
+
+    def step_ms(self, skip: int) -> tuple:
+        """Device ms between the starts of consecutive steps of one epoch (a
+        step, its next batch's copy, any idle), the run's first ``skip``
+        steps left out, and of each the ms from the step's last launch to
+        the next one's start: the next batch's copy and the device's idle."""
+        torch.cuda.synchronize()
+        pairs = [(a, b) for a, b in zip(self.events[skip:], self.events[skip + 1:])
+                 if a[0] == b[0]]
+        return ([a[1].elapsed_time(b[1]) for a, b in pairs],
+                [a[2].elapsed_time(b[1]) for a, b in pairs])
+
+    def eval_ms(self) -> tuple:
+        """Per eval batch the device ms from its forward's start to its last
+        launch's end, and between consecutive batches the ms from one's end
+        to the next one's start (its copy, its transform and any idle)."""
+        torch.cuda.synchronize()
+        ev = self.eval_events
+        return ([a.elapsed_time(b) for a, b in ev],
+                [a[1].elapsed_time(b[0]) for a, b in zip(ev, ev[1:])])
+
+
+class _ComputeProbe:
+    """Wraps ``R1mAPEvaluator.compute``: keeps the last evaluator's features
+    (as ``do_inference`` handed them over) and result."""
+
+    def __enter__(self):
+        from editor_tpu_torch.evals.metrics import R1mAPEvaluator
+
+        self._saved = compute = R1mAPEvaluator.compute
+
+        def probe(ev):
+            self.feats, self.num_query = torch.cat(ev.feats), ev.num_query
+            self.out = compute(ev)
+            return self.out
+
+        R1mAPEvaluator.compute = probe
+        return self
+
+    def __exit__(self, *exc):
+        from editor_tpu_torch.evals.metrics import R1mAPEvaluator
+
+        R1mAPEvaluator.compute = self._saved
+
+
+def _train_cli(opts, splits, decode, read_loss=True):
+    """cli.train on the in-memory data; (result, probe)."""
+    from editor_tpu_torch.cli import train
+
+    with _LoopProbe(read_loss) as probe:
+        result = train.main(opts, splits=splits, decode_fn=decode)
+    return result, probe
+
+
+def _metrics_records(out: str) -> list:
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def loop_phase(card: str, bare_step_ms: float) -> dict:
+    """Phase 8: the flagship through the training loop (cli.train -> do_train)
+    on in-memory data: (a) per-step and per-eval-batch launches, (b) the run's
+    files and finite losses, (d) a resume against an uninterrupted run, (e)
+    cli.test on the best epoch's checkpoint gives the loop's mAP of that
+    epoch, (c) over the features do_inference handed the evaluator in (e),
+    the card's distances within 1e-5 of the CPU evaluator's and the card's
+    CMC and mAP equal to the CPU metric's on the card's distances; then eval
+    images/s through ``evaluate``, metric ms, checkpoint save ms and bytes,
+    and the loop's ms per step against phase 5's bare step and its idle
+    share."""
+    import shutil
+    import tempfile
+
+    from editor_tpu_torch.cli import test as cli_test
+    from editor_tpu_torch.config import RGBNT201_PRESET, load_config
+    from editor_tpu_torch.data.loader import ReIDDataModule
+    from editor_tpu_torch.data.sampler import PKSampler
+    from editor_tpu_torch.engine import loop
+    from editor_tpu_torch.evals.metrics import R1mAPEvaluator, cmc_map
+    from editor_tpu_torch.utils.checkpoint import CheckpointManager, train_state
+
+    base = RGBNT201_PRESET + ["MODEL.PRETRAIN_CHOICE", "random", "SOLVER.LOG_PERIOD", "1",
+                              "SOLVER.EVAL_PERIOD", "1", "SOLVER.CHECKPOINT_PERIOD", "1"]
+    cfg = load_config(None, base + ["OUTPUT_DIR", ""])
+    splits, timed_splits, decode = _loop_data(cfg.INPUT.SIZE_TRAIN)
+    L = 12
+    want_step = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2,
+                         attention_qkv_bwd=L, masked_attention_qkv_bwd=2)
+    want_eval = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2)
+    n_val = len(splits.query) + len(splits.gallery)
+    n_eval = -(-n_val // cfg.TEST.IMS_PER_BATCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        # (a), (b): two epochs with checkpoints, counted from zero
+        x = os.path.join(tmp, "run")
+        reset_counts()
+        a, probe_a = _train_cli(base + ["SOLVER.MAX_EPOCHS", "2", "OUTPUT_DIR", x], splits,
+                                decode)
+        run_launches = launch_counts()
+        sampler = PKSampler(splits.train, 128, 16, seed=cfg.SOLVER.SEED)
+        ends = np.cumsum([len(sampler.epoch_indices(e)) // 128 for e in (1, 2, 3)])
+        if len(probe_a.steps) != ends[1] or len(probe_a.evals) != 2 * n_eval:
+            raise AssertionError(f"{len(probe_a.steps)} steps, {len(probe_a.evals)} eval batches")
+        bad = [d for d in probe_a.steps if d != want_step] + [
+            d for d in probe_a.evals if d != want_eval]
+        if bad:
+            raise AssertionError(f"loop launches {bad[0]} != {want_step} a step / "
+                                 f"{want_eval} an eval batch")
+        total = {k: len(probe_a.steps) * want_step[k] + len(probe_a.evals) * want_eval[k]
+                 for k in want_step}
+        if run_launches != total:
+            raise AssertionError(f"run launches {run_launches} != {total}")
+        files = sorted(os.listdir(x)) + sorted(os.listdir(os.path.join(x, "ckpt")))
+        need = ["config.yaml", "metrics.jsonl", "train_log.txt", f"step_{ends[0]:09d}.pt",
+                f"step_{ends[1]:09d}.pt"]
+        losses_logged = [r["loss"] for r in _metrics_records(x) if "loss" in r]
+        if not (set(need) <= set(files) and np.isfinite(probe_a.losses).all()
+                and losses_logged == probe_a.losses):
+            raise AssertionError(f"run files {files}, losses {probe_a.losses} {losses_logged}")
+        say("8a loop launches", steps=len(probe_a.steps), eval_batches=len(probe_a.evals),
+            eval_rows=n_val, per_step="as phase 5", per_eval_batch="as phase 3",
+            run=json.dumps(run_launches))
+        say("8b loop run", files=",".join(files), losses=json.dumps(probe_a.losses),
+            best_map=f"{a['best']['mAP']:.6f}")
+        del a
+        torch.cuda.empty_cache()
+
+        # (d): a third epoch resumed from the epoch-2 checkpoint, and three
+        # uninterrupted epochs (no output directory: no checkpoints)
+        b, probe_b = _train_cli(base + ["SOLVER.MAX_EPOCHS", "3", "OUTPUT_DIR", x], splits,
+                                decode)
+        c, probe_c = _train_cli(base + ["SOLVER.MAX_EPOCHS", "3", "OUTPUT_DIR", ""], splits,
+                                decode)
+        with open(os.path.join(x, "train_log.txt")) as f:
+            resumed = f"Resumed from checkpoint step {ends[1]} (epoch 2)" in f.read()
+        got, ref = probe_a.losses + probe_b.losses, probe_c.losses
+        rel = [abs(g - r) / abs(r) for g, r in zip(got, ref)]
+        sb, sc = b["model"].state_dict(), c["model"].state_dict()
+        max_param = max(float((sb[k].double() - sc[k].double()).abs().max()) for k in sb)
+        bitwise = all(torch.equal(sb[k], sc[k]) for k in sb)
+        if not (resumed and len(got) == len(ref) == ends[2] and max(rel) <= 1e-5):
+            raise AssertionError(f"resume: resumed={resumed}, losses {got} vs {ref}")
+        say("8d resume", resumed_at_step=ends[1], epoch3_losses=json.dumps(probe_b.losses),
+            uninterrupted=json.dumps(ref[ends[1]:]), max_rel_dloss=f"{max(rel):.3e}",
+            limit="1e-5",
+            max_abs_param_diff=f"{max_param:.3e}", bit_for_bit=bitwise)
+        del c
+        torch.cuda.empty_cache()
+
+        # (e): cli.test on the best epoch's checkpoint, alone in a directory
+        logged = [r["mAP"] for r in _metrics_records(x) if "mAP" in r]
+        best_epoch = max(range(3), key=lambda e: (logged[e], e)) + 1
+        best_dir = os.path.join(tmp, "best")
+        os.makedirs(best_dir)
+        os.link(os.path.join(x, "ckpt", f"step_{ends[best_epoch - 1]:09d}.pt"),
+                os.path.join(best_dir, f"step_{ends[best_epoch - 1]:09d}.pt"))
+        with _ComputeProbe() as computed:
+            _, map_test = cli_test.main(base + ["TEST.WEIGHT", best_dir, "OUTPUT_DIR", ""],
+                                        splits=splits, decode_fn=decode)
+        if not abs(map_test - logged[best_epoch - 1]) <= 1e-6:
+            raise AssertionError(f"cli.test mAP {map_test} != the loop's "
+                                 f"{logged[best_epoch - 1]} (epoch {best_epoch})")
+        say("8e cli.test", weight=f"the best checkpoint (epoch {best_epoch})",
+            map=f"{map_test:.7f}", loop_maps=json.dumps(logged))
+
+        # (c): over the features of (e), the card's distances against the CPU
+        # evaluator's (fp32 both, summed in other orders), and the card's CMC
+        # and mAP against the CPU metric's (stable sort, gathers, cumsums) on
+        # the card's distances
+        feats, nq = computed.feats, computed.num_query
+        cmc_gpu, map_gpu, dist_gpu, pids, cams, *_ = computed.out
+        cmc_cpu, map_cpu = cmc_map(dist_gpu, pids[:nq], pids[nq:], cams[:nq], cams[nq:])
+
+        def score(f):
+            ev = R1mAPEvaluator(nq)
+            ev.update(f, pids, cams)
+            return ev.compute()
+
+        cmc_e2e, map_e2e, dist_cpu, *_ = score(feats.cpu())
+        dist_diff = float(np.abs(dist_gpu - dist_cpu).max())
+        if not (feats.is_cuda and dist_diff <= 1e-5 and np.array_equal(cmc_gpu, cmc_cpu)
+                and abs(map_gpu - map_cpu) <= 1e-6):
+            raise AssertionError(f"card vs CPU metric: distances {dist_diff} apart, "
+                                 f"{cmc_gpu[:5]} {map_gpu} vs {cmc_cpu[:5]} {map_cpu}")
+        score(feats)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            score(feats)
+        metric_ms = (time.perf_counter() - t0) / 5 * 1e3
+        say("8c metric", queries=nq, gallery=len(pids) - nq, max_dist_diff=f"{dist_diff:.3e}",
+            dist_limit="1e-5", map_card=f"{map_gpu:.7f}", map_cpu_same_dist=f"{map_cpu:.7f}",
+            rank1=f"{cmc_gpu[0]:.4f}", cmc_equal=True, map_cpu_end_to_end=f"{map_e2e:.7f}",
+            cmc_end_to_end_equal=bool(np.array_equal(cmc_gpu, cmc_e2e)),
+            metric_ms=f"{metric_ms:.2f}", card=repr(card))
+        del feats, computed
+
+        # eval images/s through evaluate (twice), the resumed model
+        model = b["model"]
+        dm = ReIDDataModule(cfg, splits=splits, decode_fn=decode)
+        eval_s, fwd, gaps, per_pass = [], [], [], []
+        for _ in range(2):
+            with _LoopProbe() as probe_e:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.evaluate(cfg, model, dm, torch.bfloat16)
+                torch.cuda.synchronize()
+                eval_s.append(time.perf_counter() - t0)
+            f, g = probe_e.eval_ms()
+            fwd, gaps = fwd + f[:-1], gaps + g  # the trimmed tail batch left out
+            per_pass.append([round(v, 2) for v in g])
+        say("8 eval timing", rows=n_val, batches=n_eval, batch=cfg.TEST.IMS_PER_BATCH,
+            eval_s=json.dumps([round(v, 4) for v in eval_s]),
+            eval_img_s=json.dumps([round(n_val / v, 1) for v in eval_s]),
+            forward_ms_median=f"{np.median(fwd):.3f}",
+            gap_ms_median=f"{np.median(gaps):.3f}", gap_ms_max=f"{max(gaps):.3f}",
+            idle_share=f"{sum(gaps) / (sum(gaps) + sum(fwd)):.4f}",
+            gaps_ms=json.dumps(per_pass), card=repr(card))
+
+        # checkpoint save: time and bytes
+        mgr = CheckpointManager(os.path.join(tmp, "save"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(int(ends[2]), train_state(model, b["optimizer"], b["step"].generator, 3))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(mgr.path(int(ends[2])))
+        del b, model
+        torch.cuda.empty_cache()
+
+        # time: two epochs of RGBNT201's train split in size, logging every
+        # 10 steps (a host sync), no evaluation and no checkpoints; the
+        # run's first two steps left out
+        t, probe_t = _train_cli(
+            RGBNT201_PRESET + ["MODEL.PRETRAIN_CHOICE", "random", "SOLVER.MAX_EPOCHS", "2",
+                               "SOLVER.EVAL_PERIOD", "100", "OUTPUT_DIR", ""],
+            timed_splits, decode, read_loss=False)
+        ms, gap = probe_t.step_ms(skip=2)
+        if len(ms) < 20 or probe_t.steps[-1] != want_step:
+            raise AssertionError(f"{len(ms)} timed steps, the last launching {probe_t.steps[-1]}")
+        loop_ms = float(np.median(ms))
+        say("8 loop timing", steps=len(probe_t.steps), timed=len(ms),
+            loop_step_ms=f"{loop_ms:.2f}", mean=f"{np.mean(ms):.2f}",
+            p10=f"{np.percentile(ms, 10):.2f}", p90=f"{np.percentile(ms, 90):.2f}",
+            gap_ms_median=f"{np.median(gap):.3f}", gap_ms_max=f"{max(gap):.3f}",
+            idle_share=f"{sum(gap) / sum(ms):.4f}", bare_step_ms=f"{bare_step_ms:.2f}",
+            vs_bare=f"{1 - bare_step_ms / loop_ms:.4f}", img_s=f"{128 / loop_ms * 1e3:.1f}",
+            ckpt_save_ms=f"{save_ms:.1f}", ckpt_bytes=nbytes, card=repr(card))
+        del t
+        torch.cuda.empty_cache()
+        return {"run": run_launches, "train": want_step, "eval": want_eval}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def timed(name: str, fn, *args):
@@ -1791,22 +2185,27 @@ def main() -> None:
     timed("4 serving", serving_phase, model, gen, card)
     del model
     torch.cuda.empty_cache()
-    launches = timed("5 train", train_phase, gen)
+    launches, bare_step_ms = timed("5 train", train_phase, gen)
     torch.cuda.empty_cache()
     un_eval, un_train = timed("6 uncompacted", uncompacted_phase, gen)
     torch.cuda.empty_cache()
     kernels.update(timed("7 variants", variant_phase, gen))
-    # launches, launches_eval: per train step and per eval forward, summed
-    # over the two paths (compact: phases 3 and 5; uncompacted: phase 6),
-    # each path counted from zero just before it runs
+    torch.cuda.empty_cache()
+    looped = timed("8 loop", loop_phase, card, bare_step_ms)
+    # launches, launches_eval: per train step and per eval forward (loop: eval
+    # batch), summed over the three paths (compact: phases 3 and 5;
+    # uncompacted: phase 6; the loop: phase 8, with its run's total), each
+    # path counted from zero just before it runs
     rows = []
     for name, spec in {**KERNELS, **VARIANTS}.items():
         by_path = {"compact": {"train": launches[name], "eval": eval_launches[name]},
-                   "uncompacted": {"train": un_train[name], "eval": un_eval[name]}}
+                   "uncompacted": {"train": un_train[name], "eval": un_eval[name]},
+                   "loop": {k: looped[k][name] for k in ("train", "eval", "run")}}
         info = {k: v for k, v in spec.items() if k != "tool"}
         rows.append(dict(name=name, route="cuda", **info,
-                         launches=launches[name] + un_train[name],
-                         launches_eval=eval_launches[name] + un_eval[name],
+                         launches=launches[name] + un_train[name] + looped["train"][name],
+                         launches_eval=(eval_launches[name] + un_eval[name]
+                                        + looped["eval"][name]),
                          launches_by_path=by_path, **kernels[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ config/defaults.py), a YAML merge and dotted-key ``SECTION.KEY value``
 overrides, so the repo's presets (``configs/*.yaml``) load unchanged. The
 ``TPU`` section keeps its name so that presets and overrides transfer; on the
 GPU its ``COMPUTE_DTYPE``, ``GRAD_ACCUM``, ``REMAT*`` and ``COMPACT_TAIL``
-knobs mean what they say and the mesh and checkpoint knobs are unused. ``yaml``
-is imported only where a file is read or written, since the card's machine is
-not promised it.
+knobs mean what they say, the mesh knobs above one device raise in the
+training loop and the checkpoint knobs are unused. ``yaml`` is imported only
+where a file is read (``dump`` writes JSON, which is YAML), since the card's
+machine is not promised it.
 """
 
 from __future__ import annotations
@@ -214,9 +215,10 @@ class Config:
         return dataclasses.asdict(self)
 
     def dump(self) -> str:
-        import yaml
-
-        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+        """The config as a YAML document in JSON form (YAML 1.2 is a superset
+        of JSON): ``load_config`` and any YAML reader take it, and writing it
+        needs no yaml module, which the card's machine is not promised."""
+        return json.dumps(self.to_dict(), indent=2) + "\n"
 
 
 # ---------------------------------------------------------------------------

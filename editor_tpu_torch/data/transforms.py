@@ -15,6 +15,7 @@ tests hold the augmentation by its statistics.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Sequence
 
@@ -24,9 +25,16 @@ PIXEL_MEAN = (0.5, 0.5, 0.5)
 PIXEL_STD = (0.5, 0.5, 0.5)
 
 
+@functools.lru_cache(maxsize=None)
+def _channel_values(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A per-channel constant on ``device``, made once: a host-to-device copy
+    at every call would wait for the work already queued on the device."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def normalize(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
-    m = torch.tensor(mean, dtype=x.dtype, device=x.device)
-    s = torch.tensor(std, dtype=x.dtype, device=x.device)
+    m = _channel_values(tuple(mean), x.dtype, x.device)
+    s = _channel_values(tuple(std), x.dtype, x.device)
     return (x - m) / s
 
 

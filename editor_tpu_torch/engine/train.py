@@ -4,11 +4,14 @@
 One call runs the forward, the output-tuple loss, the backward and the
 optimizer update on the model's device. The JAX ``TrainState`` has no
 separate object here: the parameters, BN running stats and OCFR centers live
-in the model, the momentum (or Adam moments) in the :class:`Optimizer`, and
-the random stream in the step's ``torch.Generator``. Mixed precision as in
-JAX: fp32 master weights, images and activations in ``compute_dtype``
-(weights are cast at each use), losses in fp32, fp32 gradients into the
-optimizer. No loss scaling: bf16 has fp32's exponent range.
+in the model, the momentum (or Adam moments) and the step count in the
+:class:`Optimizer` (``count``, JAX's ``TrainState.step``), and the random
+stream in the step's ``torch.Generator``, exposed as ``step.generator``
+(JAX's ``TrainState.rng``) so that a run can be saved and resumed exactly.
+Mixed precision as in JAX: fp32 master weights, images and activations in
+``compute_dtype`` (weights are cast at each use), losses in fp32, fp32
+gradients into the optimizer. No loss scaling: bf16 has fp32's exponent
+range.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
     ``lr_fn(epoch, base_lr)`` (each group scales it by its factor). ``loss``
     and ``acc`` come back as 0-dim tensors on the device (no host sync), ``lr``
     as a float. ``seed`` seeds the step's generator (augmentation, drop path,
-    dropout).
+    dropout), which the returned function carries as ``step.generator``.
 
     ``grad_accum > 1`` splits the batch into that many microbatches, sums
     their gradients, averages them and steps the optimizer once; the BN stats
@@ -91,4 +94,5 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
         optimizer.step(lr)
         return {"loss": loss, "acc": acc, "lr": lr}
 
+    step.generator = gen
     return step

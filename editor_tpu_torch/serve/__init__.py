@@ -10,10 +10,9 @@ Counterpart of ``editor_tpu/serve/__init__.py``:
   pays for up to almost twice the images of a tail (17 runs as 32);
 * :class:`GalleryIndex` is an in-memory float32 feature index with the
   offline-eval squared-euclidean distance over (optionally L2-normalised)
-  features, saved and loaded as ``.npz``.
+  features, or k-reciprocal re-ranking of it, saved and loaded as ``.npz``.
 
-Not ported yet: k-reciprocal re-ranking (``search(reranking=True)``) and the
-HTTP ``RetrievalServer``.
+Not ported yet: the HTTP ``RetrievalServer``.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ import torch
 
 from editor_tpu_torch.data.transforms import make_eval_transform
 from editor_tpu_torch.engine.evaluate import build_eval_step
+from editor_tpu_torch.evals.reranking import k_reciprocal_rerank
 from editor_tpu_torch.models.editor import MODALITIES, Editor
 
 __all__ = ["FeatureExtractor", "GalleryIndex"]
@@ -137,17 +137,22 @@ class GalleryIndex:
 
     def search(self, qf: np.ndarray, topk: int = 5,
                reranking: bool = False) -> List[List[dict]]:
-        """qf: [Q, feat_dim] -> per-query ranked matches (best first)."""
-        if reranking:
-            raise NotImplementedError("k-reciprocal re-ranking is not ported yet")
+        """qf: [Q, feat_dim] -> per-query ranked matches (best first).
+        ``reranking``: k-reciprocal re-ranking over the queries and the
+        gallery, with k1 = min(50, G), k2 = min(15, G), lambda 0.3 (the JAX
+        index's call)."""
         gf = self._gallery()
         if len(gf) == 0:
             return [[] for _ in range(len(qf))]
         qf = np.asarray(qf, np.float32)
         if self.feat_norm:
             qf, gf = self._norm(qf), self._norm(gf)
-        dist = (np.square(qf).sum(1)[:, None] + np.square(gf).sum(1)[None, :]
-                - 2.0 * (qf @ gf.T))
+        if reranking:
+            dist = k_reciprocal_rerank(qf, gf, k1=min(50, len(gf)), k2=min(15, len(gf)),
+                                       lambda_value=0.3)
+        else:
+            dist = (np.square(qf).sum(1)[:, None] + np.square(gf).sum(1)[None, :]
+                    - 2.0 * (qf @ gf.T))
         k = min(int(topk), len(gf))
         order = np.argsort(dist, axis=1)[:, :k]
         return [[{"pid": self._pids[gi], "camid": self._camids[gi],

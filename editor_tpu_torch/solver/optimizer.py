@@ -68,6 +68,28 @@ class Optimizer:
     def params(self) -> List[torch.Tensor]:
         return [p for g in self.groups for p in g["params"]]
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The step count (AdamW's bias correction) and every slot, per group
+        in group order: what a run needs to resume exactly."""
+        return {"name": self.name, "count": self.count,
+                "state": [{k: list(v) for k, v in st.items()} for st in self.state]}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Copies a :meth:`state_dict` into this optimizer's slots (on their
+        device); the optimizer and its groups must be the same."""
+        if sd["name"] != self.name or len(sd["state"]) != len(self.state):
+            raise ValueError(f"optimizer state of {sd['name']} with {len(sd['state'])} "
+                             f"groups into {self.name} with {len(self.state)}")
+        for st, saved in zip(self.state, sd["state"]):
+            for k, slots in st.items():
+                if len(saved[k]) != len(slots) or any(
+                        a.shape != b.shape for a, b in zip(slots, saved[k])):
+                    raise ValueError(f"optimizer slot '{k}' does not match this model")
+                for a, b in zip(slots, saved[k]):
+                    a.copy_(b)
+        self.count = int(sd["count"])
+
     @torch.no_grad()
     def step(self, lr: float) -> None:
         self.count += 1

@@ -1,7 +1,9 @@
-"""The port imports neither JAX nor the JAX package (nor yaml, which the
-card's machine is not promised), and its kernel wrappers import without nvcc
-or triton (they build and load the CUDA library only when handed a CUDA
-tensor): a tiny eval forward and a tiny train step run in a subprocess, and
+"""The port imports neither JAX nor the JAX package (nor yaml or PIL, which
+the card's machine is not promised), and its kernel wrappers import without
+nvcc or triton (they build and load the CUDA library only when handed a CUDA
+tensor): a tiny eval forward, a tiny train step, a tiny training loop (with
+its evaluation, log and checkpoints) and the parameter count run in a
+subprocess that imports every module of the port's entry points, and
 a static scan of every import statement of the port and of chip_smoke.py
 (which imports the port inside its functions) finds neither package."""
 
@@ -36,6 +38,12 @@ from editor_tpu_torch.engine.train import build_train_step
 from editor_tpu_torch.losses import make_loss
 from editor_tpu_torch.models import ocfr
 from editor_tpu_torch.solver import make_optimizer, make_scheduler
+from editor_tpu_torch.cli import params as cli_params, test as cli_test, train as cli_train
+from editor_tpu_torch.data import datasets, loader, sampler
+from editor_tpu_torch.engine import loop
+from editor_tpu_torch.engine.evaluate import do_inference
+from editor_tpu_torch.evals import metrics, reranking
+from editor_tpu_torch.utils import checkpoint, logger, meter, torch_convert
 
 vit = vit_tiny_test_config(img_size=(64, 32), patch_size=16, stride_size=(16, 16), camera=4)
 cfg = EditorConfig(num_classes=10, vit=vit, head_keep=2, frequency_keep=3)
@@ -53,9 +61,25 @@ u8 = {m: torch.randint(0, 256, (4, 64, 32, 3), generator=gen, dtype=torch.uint8)
       for m in ("RGB", "NI", "TI")}
 u8["pid"], u8["camid"] = torch.tensor([0, 0, 1, 1]), torch.tensor([0, 1, 2, 3])
 loss = float(train(u8, 1)["loss"])
+# the training loop on in-memory splits through a numpy decode_fn, with its
+# log, metrics and checkpoints: no PIL, no yaml
+import tempfile
+import numpy as np
+items = [(i, i // 4, i % 2, -1) for i in range(16)]
+splits = datasets.DatasetSplits(items, items[:8:4], items, 4, 2)
+decode = lambda it: [np.full((64, 32, 3), 10 * it[1], np.uint8)] * 3
+lcfg = load_config(None, ["MODEL.TRANSFORMER_TYPE", "vit_tiny_test", "MODEL.PRETRAIN_CHOICE",
+                          "random", "INPUT.SIZE_TRAIN", "[64, 32]", "INPUT.SIZE_TEST", "[64, 32]",
+                          "MODEL.FREQUENCY_KEEP", "3", "DATALOADER.NUM_INSTANCE", "2",
+                          "SOLVER.IMS_PER_BATCH", "4", "SOLVER.MAX_EPOCHS", "1",
+                          "TPU.COMPUTE_DTYPE", "float32", "OUTPUT_DIR", tempfile.mkdtemp()])
+best = loop.do_train(lcfg, dm=loader.ReIDDataModule(lcfg, splits=splits, decode_fn=decode),
+                     max_steps_per_epoch=2, device="cpu")["best"]
+n_params = cli_params.main(["MODEL.TRANSFORMER_TYPE", "vit_tiny_test"])
 new = sorted(set(sys.modules) - before)
 print(json.dumps({"shape": list(feats.shape), "finite": bool(torch.isfinite(feats).all()),
                   "loss_finite": loss == loss and abs(loss) < float("inf"),
+                  "loop_map": best["mAP"], "n_params": n_params,
                   "new": new,
                   "launches": [fn.launches for fn in ops.KERNEL_WRAPPERS]}))
 """
@@ -69,8 +93,9 @@ def test_port_imports_no_jax_and_runs_tiny_forward(tmp_path):
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["shape"] == [2, 288] and out["finite"] and out["loss_finite"]
-    bad = [m for m in out["new"]
-           if m.split(".")[0] in ("jax", "jaxlib", "editor_tpu", "triton", "yaml")]
+    assert 0.0 < out["loop_map"] <= 1.0 and out["n_params"] > 0
+    bad = [m for m in out["new"] if m.split(".")[0] in ("jax", "jaxlib", "editor_tpu", "triton",
+                                                        "yaml", "PIL", "tensorboard")]
     assert not bad, bad
     # the build module (ctypes + nvcc) stays unloaded on the CPU path
     assert "editor_tpu_torch.ops._build" not in out["new"]

@@ -73,7 +73,7 @@ def test_extractor_empty_request(extractors):
         got_ex({})
 
 
-def test_gallery_search_matches_jax(extractors, tmp_path):
+def test_gallery_search_matches_jax(extractors, tmp_path, monkeypatch):
     got_ex, _ = extractors
     imgs, cams = _requests(8, seed=11)
     feats = got_ex(imgs, cams)
@@ -92,7 +92,14 @@ def test_gallery_search_matches_jax(extractors, tmp_path):
     for cls in (GalleryIndex, JaxGalleryIndex):
         back = cls.load(path)
         assert len(back) == 8 and back.search(queries, topk=4) == got
-    with pytest.raises(NotImplementedError):
-        got_idx.search(queries, reranking=True)
+    # k-reciprocal re-ranking: JAX's call pinned to its numpy implementation
+    # (rerank_auto may take the native C++ one); the same float32 numpy
+    # algorithm on the same features gives the same distances and ranking
+    import editor_tpu.native
+    from editor_tpu.evals.reranking import k_reciprocal_rerank
+    monkeypatch.setattr(editor_tpu.native, "rerank_auto", k_reciprocal_rerank)
+    reranked = got_idx.search(queries, topk=4, reranking=True)
+    assert reranked == ref_idx.search(queries, topk=4, reranking=True)
+    assert [m[0]["pid"] for m in reranked] == [2, 7, 0]
     with pytest.raises(ValueError):
         got_idx.add(feats[:, :-1], pids)
