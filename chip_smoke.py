@@ -4,7 +4,8 @@
 
 Phases, each printing its lines and its seconds:
   0. card check: CUDA present, card name and power limit (nvidia-smi); TF32
-     is switched off so the fp32 reference runs are true fp32;
+     is switched off so the fp32 reference runs are true fp32; whether PIL
+     and the libjpeg headers are present;
   1. build: nvcc compiles editor_tpu_torch/csrc/*.cu for sm_90a, one
      process per source, all started together;
   2. kernels: each hand-written kernel (K1-K3 and K6 forward, K4, K5 and K7
@@ -118,23 +119,47 @@ Phases, each printing its lines and its seconds:
      written and the losses are finite; (d) a third epoch resumed from the
      epoch-2 checkpoint against three uninterrupted epochs: losses within
      1e-5 relative, the largest parameter difference and whether it is bit
-     for bit printed; (e) cli.test on the best epoch's checkpoint (alone in
+     for bit printed (the first run saves with TPU.ASYNC_CHECKPOINT at its
+     default, True, the resumed one with it off: the loop's stall per save
+     both ways, each save call's wall ms); (e) cli.test on the best epoch's checkpoint (alone in
      a directory) gives the mAP the loop logged for that epoch (within
      1e-6); (c) over the features that do_inference handed the evaluator in
      (e), the card's distances within 1e-5 of the CPU evaluator's, and the
      card's CMC equal to and its mAP within 1e-6 of the CPU metric's on the
      card's distances (the CPU evaluator's end to end printed). Printed:
      eval images/s through ``evaluate`` (twice), the metric's ms, a
-     checkpoint's save ms and bytes, and from a run of 2 epochs over 171 ids
+     checkpoint's save ms and bytes (synchronous; then the same payload saved
+     asynchronously, the model and its optimizer slots changed as soon as
+     the call returns, the file required equal to the synchronous one), and
+     from a run of 2 epochs over 171 ids
      x 3951 items (21 steps an epoch, logging every 10, no evaluation) the
      loop's ms per step (CUDA events between step starts within an epoch,
      the run's first two steps left out: median, mean, p10, p90), the gap
      from a step's last launch to the next one's start (the next batch's
      copy and any idle), the idle share (gaps over intervals) and the loop
-     step against phase 5's bare step.
+     step against phase 5's bare step;
+  9. serve: (a) the native C++ re-ranking builds (g++) and matches the numpy
+     copy within 1e-5 at 30 x 120; the device re-ranking's core on the card
+     matches it within 1e-5 at 836 x 836 (RGBNT201's test split, k1 50, k2
+     15) on the same distance matrix; both times, and the device version end
+     to end (its own distances) against it, printed; (b) cli.export turns a
+     checkpoint of the flagship into a .pth (equal to the checkpoint's
+     state_dict), cli.serve.build_service on it indexes RGBNT201's test split
+     in size from in-memory data (836 items, each its own random images), and
+     a RetrievalServer on 127.0.0.1 answers /healthz, 32 batch-1 /query
+     requests for gallery items (each retrieves itself at rank 1, its
+     features bit for bit the in-process call's on the decoded images, the 32
+     launching K1 12, K2 1 and K3 2 times each), a re-ranked /query (top pid
+     its own), /gallery/add and a malformed request (400); HTTP batch-1 p50
+     and p99 printed; (c) dump_eval_visualizations on 8 flagship images
+     launches K1 12 and K2 1 per modality, and its rollouts (rel-L2 <= 0.05)
+     and union token mask (agreement >= 0.9) match the plain fp32 run;
+     (d) whether PIL and the libjpeg codec were available. Without PIL the
+     requests carry .npy bytes through a swapped decoder and the
+     visualisation's overlay arrays are held in place of its PNG files.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
-(K1-K8, T1-T6; launches by path: compact, uncompacted, loop), and last the result line {"ok": true, "device": {...}}. Any failed check
+(K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve), and last the result line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero without the result line; it does the
 same without a CUDA device.
 """
@@ -211,9 +236,13 @@ def card_check() -> str:
     torch.backends.cudnn.allow_tf32 = False
     card = smi.splitlines()[0]
     print(card, flush=True)
+    import importlib.util
+
     say("0 card", name=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda, tf32="off")
+        cuda=torch.version.cuda, tf32="off",
+        pil=importlib.util.find_spec("PIL") is not None,
+        jpeglib_h=os.path.exists("/usr/include/jpeglib.h"))
     return card
 
 
@@ -1960,6 +1989,38 @@ class _ComputeProbe:
         R1mAPEvaluator.compute = self._saved
 
 
+class _SaveProbe:
+    """Wraps ``CheckpointManager.save``: the wall ms of each call (what the
+    loop waits for: with ``use_async`` the host copy, and any wait for the
+    write before it) and whether it wrote."""
+
+    def __enter__(self):
+        from editor_tpu_torch.utils.checkpoint import CheckpointManager
+
+        self.calls = []
+        self._saved = save = CheckpointManager.save
+
+        def probe(mgr, step, payload):
+            t0 = time.perf_counter()
+            wrote = save(mgr, step, payload)
+            self.calls.append(((time.perf_counter() - t0) * 1e3, wrote, mgr.use_async))
+            return wrote
+
+        CheckpointManager.save = probe
+        return self
+
+    def __exit__(self, *exc):
+        from editor_tpu_torch.utils.checkpoint import CheckpointManager
+
+        CheckpointManager.save = self._saved
+
+    def summary(self) -> str:
+        """ms of the calls that wrote, then of those that found the step saved."""
+        wrote = [round(ms, 1) for ms, w, _ in self.calls if w]
+        found = [round(ms, 1) for ms, w, _ in self.calls if not w]
+        return json.dumps({"wrote": wrote, "step_already_saved": found})
+
+
 def _train_cli(opts, splits, decode, read_loss=True):
     """cli.train on the in-memory data; (result, probe)."""
     from editor_tpu_torch.cli import train
@@ -1972,6 +2033,17 @@ def _train_cli(opts, splits, decode, read_loss=True):
 def _metrics_records(out: str) -> list:
     with open(os.path.join(out, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
+
+
+def _payload_equal(a, b) -> bool:
+    """Two loaded checkpoint payloads equal: tensors by torch.equal."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_payload_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_payload_equal(x, y) for x, y in zip(a, b))
+    return a == b
 
 
 def loop_phase(card: str, bare_step_ms: float) -> dict:
@@ -2011,9 +2083,13 @@ def loop_phase(card: str, bare_step_ms: float) -> dict:
         # (a), (b): two epochs with checkpoints, counted from zero
         x = os.path.join(tmp, "run")
         reset_counts()
-        a, probe_a = _train_cli(base + ["SOLVER.MAX_EPOCHS", "2", "OUTPUT_DIR", x], splits,
-                                decode)
+        with _SaveProbe() as saves_a:  # TPU.ASYNC_CHECKPOINT at its default, True
+            a, probe_a = _train_cli(base + ["SOLVER.MAX_EPOCHS", "2", "OUTPUT_DIR", x], splits,
+                                    decode)
         run_launches = launch_counts()
+        if not (cfg.TPU.ASYNC_CHECKPOINT and saves_a.calls
+                and all(use_async for *_, use_async in saves_a.calls)):
+            raise AssertionError(f"the loop's saves {saves_a.calls} were not asynchronous")
         sampler = PKSampler(splits.train, 128, 16, seed=cfg.SOLVER.SEED)
         ends = np.cumsum([len(sampler.epoch_indices(e)) // 128 for e in (1, 2, 3)])
         if len(probe_a.steps) != ends[1] or len(probe_a.evals) != 2 * n_eval:
@@ -2044,8 +2120,12 @@ def loop_phase(card: str, bare_step_ms: float) -> dict:
 
         # (d): a third epoch resumed from the epoch-2 checkpoint, and three
         # uninterrupted epochs (no output directory: no checkpoints)
-        b, probe_b = _train_cli(base + ["SOLVER.MAX_EPOCHS", "3", "OUTPUT_DIR", x], splits,
-                                decode)
+        # the resumed epoch saves synchronously: the loop's stall per save off
+        with _SaveProbe() as saves_b:
+            b, probe_b = _train_cli(base + ["SOLVER.MAX_EPOCHS", "3", "OUTPUT_DIR", x,
+                                            "TPU.ASYNC_CHECKPOINT", "False"], splits, decode)
+        if not saves_b.calls or any(use_async for *_, use_async in saves_b.calls):
+            raise AssertionError(f"the resumed run's saves {saves_b.calls} were not synchronous")
         c, probe_c = _train_cli(base + ["SOLVER.MAX_EPOCHS", "3", "OUTPUT_DIR", ""], splits,
                                 decode)
         with open(os.path.join(x, "train_log.txt")) as f:
@@ -2060,7 +2140,10 @@ def loop_phase(card: str, bare_step_ms: float) -> dict:
         say("8d resume", resumed_at_step=ends[1], epoch3_losses=json.dumps(probe_b.losses),
             uninterrupted=json.dumps(ref[ends[1]:]), max_rel_dloss=f"{max(rel):.3e}",
             limit="1e-5",
-            max_abs_param_diff=f"{max_param:.3e}", bit_for_bit=bitwise)
+            max_abs_param_diff=f"{max_param:.3e}", bit_for_bit=bitwise,
+            written_by="async saves (TPU.ASYNC_CHECKPOINT True)")
+        say("8 save stall", async_on_ms=saves_a.summary(), async_off_ms=saves_b.summary(),
+            card=repr(card))
         del c
         torch.cuda.empty_cache()
 
@@ -2134,14 +2217,39 @@ def loop_phase(card: str, bare_step_ms: float) -> dict:
             idle_share=f"{sum(gaps) / (sum(gaps) + sum(fwd)):.4f}",
             gaps_ms=json.dumps(per_pass), card=repr(card))
 
-        # checkpoint save: time and bytes
-        mgr = CheckpointManager(os.path.join(tmp, "save"))
+        # checkpoint save: time and bytes, synchronous; then the same payload
+        # saved asynchronously, the model and its slots changed as soon as
+        # save returns, and the file held against the synchronous one
+        step_n, gen = int(ends[2]), b["step"].generator
+        mgr = CheckpointManager(os.path.join(tmp, "save"), use_async=False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mgr.save(int(ends[2]), train_state(model, b["optimizer"], b["step"].generator, 3))
+        mgr.save(step_n, train_state(model, b["optimizer"], gen, 3))
         save_ms = (time.perf_counter() - t0) * 1e3
-        nbytes = os.path.getsize(mgr.path(int(ends[2])))
-        del b, model
+        nbytes = os.path.getsize(mgr.path(step_n))
+        amgr = CheckpointManager(os.path.join(tmp, "save_async"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        amgr.save(step_n, train_state(model, b["optimizer"], gen, 3))
+        async_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+            for st in b["optimizer"].state:
+                for slots in st.values():
+                    torch._foreach_add_(slots, 1.0)
+        t0 = time.perf_counter()
+        amgr.wait()
+        write_ms = (time.perf_counter() - t0) * 1e3
+        got = torch.load(amgr.path(step_n), map_location="cpu", weights_only=True)
+        want = torch.load(mgr.path(step_n), map_location="cpu", weights_only=True)
+        same = _payload_equal(got, want)
+        if not same:
+            raise AssertionError("the asynchronous checkpoint differs from the synchronous one")
+        say("8 async save", sync_save_ms=f"{save_ms:.1f}", async_save_call_ms=f"{async_ms:.1f}",
+            write_after_call_ms=f"{write_ms:.1f}", bytes=nbytes,
+            equal_to_sync_after_mutation=same, card=repr(card))
+        del b, model, got, want
         torch.cuda.empty_cache()
 
         # time: two epochs of RGBNT201's train split in size, logging every
@@ -2169,6 +2277,343 @@ def loop_phase(card: str, bare_step_ms: float) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The serving phase (phase 9): RGBNT201's test split in size (30 ids, 836
+# items in 4 cameras; query = gallery), each item its own random images
+SERVE_QUERIES = 32
+VIS_IMAGES = 8
+
+
+def _clustered(n: int, dim: int, n_ids: int, seed: int) -> np.ndarray:
+    """[n, dim] float32 L2-normalised features around ``n_ids`` centres."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_ids, dim))
+    f = centers[np.arange(n) % n_ids] + 0.5 * rng.standard_normal((n, dim))
+    return (f / np.linalg.norm(f, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _rerank_check(card: str) -> None:
+    """(a) The C++ re-ranking loads and matches the numpy copy (30 x 120,
+    the JAX package's test size); the device re-ranking's core on the card
+    matches it at 836 x 836 on the same distance matrix (k1 50, k2 15,
+    lambda 0.3: the evaluator's). End to end, the card computes the
+    distances itself, in another summation order: a near tie at a k-th
+    neighbour may flip a k-reciprocal set, so that reading is printed."""
+    from editor_tpu_torch import native
+    from editor_tpu_torch.evals.reranking import k_reciprocal_rerank
+    from editor_tpu_torch.evals.reranking_device import _rerank_core, k_reciprocal_rerank_device
+
+    if native.load_native() is None:
+        raise AssertionError("the native re-ranking library did not build or load")
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((10, 16)) * 5
+    q = (centers[rng.integers(0, 10, 30)] + 0.5 * rng.standard_normal((30, 16))).astype(np.float32)
+    g = (centers[rng.integers(0, 10, 120)] + 0.5 * rng.standard_normal((120, 16))).astype(
+        np.float32)
+    small = float(np.abs(native.k_reciprocal_rerank_native(q, g, 10, 4, 0.3)
+                         - k_reciprocal_rerank(q, g, 10, 4, 0.3)).max())
+    _require("native re-ranking vs numpy", small, 1e-5)
+
+    qf = _clustered(TEST_ITEMS, 3 * C, TEST_IDS, seed=1)
+    gf = _clustered(TEST_ITEMS, 3 * C, TEST_IDS, seed=2)
+    t0 = time.perf_counter()
+    ref = native.k_reciprocal_rerank_native(qf, gf, 50, 15, 0.3)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    original = torch.from_numpy(native.original_dist(qf, gf)).cuda()
+    with torch.inference_mode():
+        _rerank_core(original, TEST_ITEMS, 50, 15, 0.3)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core = _rerank_core(original, TEST_ITEMS, 50, 15, 0.3).cpu().numpy()
+        core_ms = (time.perf_counter() - t0) * 1e3
+    core_err = float(np.abs(core - ref).max())
+    _require("device re-ranking core vs native, 836 x 836", core_err, 1e-5)
+    qd, gd = torch.from_numpy(qf).cuda(), torch.from_numpy(gf).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e2e = k_reciprocal_rerank_device(qd, gd, 50, 15, 0.3)
+    e2e_ms = (time.perf_counter() - t0) * 1e3
+    off = np.abs(e2e - ref)
+    say("9a rerank", small_native_vs_numpy=f"{small:.3e}", n=f"{TEST_ITEMS}x{TEST_ITEMS}",
+        native_ms=f"{native_ms:.1f}", device_core_ms=f"{core_ms:.1f}",
+        device_core_vs_native=f"{core_err:.3e}", limit="1e-5",
+        device_end_to_end_ms=f"{e2e_ms:.1f}", end_to_end_max_diff=f"{float(off.max()):.3e}",
+        end_to_end_share_over_limit=f"{float((off > 1e-5).mean()):.6f}", card=repr(card))
+
+
+def _serve_data(size_hw):
+    """(splits, decode_fn, images [items, 3, H, W, 3] uint8) of phase 9: the
+    timed run's train split (171 ids, for the class count) and RGBNT201's test
+    split in size, each test item its own uniform random images (so each
+    query has one right answer), made in bulk."""
+    from editor_tpu_torch.data.datasets import DatasetSplits
+
+    train = [(("train", i), pid, cam, -1) for i, pid, cam in _spread(TRAIN_ITEMS, TRAIN_IDS)]
+    test = [(("test", i), pid, cam, -1)
+            for i, pid, cam in _spread(TEST_ITEMS, TEST_IDS, first_pid=1000)]
+    images = np.random.default_rng(3).integers(0, 256, (TEST_ITEMS, 3, *size_hw, 3),
+                                               dtype=np.uint8)
+
+    def decode(item):
+        return list(images[item[0][1]]) if item[0][0] == "test" else list(images[0])
+
+    return DatasetSplits(train, test, test, TRAIN_IDS, CAMS), decode, images
+
+
+class _Recorder:
+    """Stands in for the server's extractor: records each call's images,
+    camids, features and wall ms."""
+
+    def __init__(self, ex):
+        self.ex, self.size_hw, self.calls = ex, ex.size_hw, []
+
+    def __call__(self, images, camids=None):
+        t0 = time.perf_counter()
+        out = self.ex(images, camids)
+        self.calls.append((images, camids, out, (time.perf_counter() - t0) * 1e3))
+        return out
+
+
+def _timed_calls(fn, log: list):
+    """``fn`` wrapped to append each call's wall ms to ``log``."""
+    def wrapped(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapped
+
+
+def _http(addr, path, payload=None):
+    """(status, body, ms) of a GET (no payload) or a POST to ``addr``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://{addr[0]}:{addr[1]}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            code, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.loads(e.read())
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def serve_phase(card: str) -> dict:
+    """Phase 9: (a) native and device re-ranking; (b) cli.export of a
+    flagship checkpoint, cli.serve.build_service on the .pth over RGBNT201's
+    test split in size, a RetrievalServer on 127.0.0.1 answering /healthz,
+    SERVE_QUERIES batch-1 /query requests (each retrieving itself at rank 1,
+    its features bit for bit the in-process call's, K1 12, K2 1 and K3 2
+    launches each), a re-ranked /query, /gallery/add and a malformed request;
+    (c) dump_eval_visualizations on VIS_IMAGES images, its launches, its
+    rollouts and union mask against the plain fp32 run; (d) whether PIL and
+    the JPEG codec were available. Without PIL the requests carry .npy bytes
+    (the module's decoder swapped for this phase) and the visualisation's
+    overlay arrays are held in place of its files."""
+    import base64
+    import importlib.util
+    import io
+    import logging
+    import shutil
+    import tempfile
+
+    from editor_tpu_torch import native
+    from editor_tpu_torch import serve as serve_mod
+    from editor_tpu_torch.cli import export as cli_export
+    from editor_tpu_torch.cli import serve as cli_serve
+    from editor_tpu_torch.config import RGBNT201_PRESET, load_config
+    from editor_tpu_torch.data.transforms import make_eval_transform
+    from editor_tpu_torch.models.editor import Editor, editor_config_from
+    from editor_tpu_torch.models.init import editor_init
+    from editor_tpu_torch.utils import visualize
+    from editor_tpu_torch.utils.checkpoint import CheckpointManager
+
+    _rerank_check(card)
+    has_pil = importlib.util.find_spec("PIL") is not None
+    warned = []
+    handler = logging.Handler()
+    handler.emit = lambda record: warned.append(record.getMessage())
+    logging.getLogger("editor_tpu_torch.native").addHandler(handler)
+    try:
+        codec = native.load_imagecodec() is not None
+    finally:
+        logging.getLogger("editor_tpu_torch.native").removeHandler(handler)
+    codec_note = "available" if codec else "unavailable: " + next(
+        (line for msg in warned for line in msg.splitlines() if "error" in line),
+        warned[0].splitlines()[0] if warned else "no message")
+
+    opts = RGBNT201_PRESET + ["MODEL.PRETRAIN_CHOICE", "random", "OUTPUT_DIR", ""]
+    cfg = load_config(None, opts)
+    splits, decode, images = _serve_data(tuple(cfg.INPUT.SIZE_TEST))
+    ecfg = editor_config_from(cfg, splits.num_train_pids, splits.num_train_cams)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    saved_decoder, saved_save = serve_mod._decode_b64_image, visualize._save
+    server = None
+    try:
+        # (b) a checkpoint of the flagship, exported, served
+        model = editor_init(ecfg, seed=cfg.SOLVER.SEED)
+        ckpt = os.path.join(tmp, "ckpt")
+        mgr = CheckpointManager(ckpt)
+        mgr.save(1, {"model": model.state_dict(), "epoch": 1})
+        mgr.close()
+        pth = os.path.join(tmp, "EDITOR.pth")
+        exported = cli_export.main(["--out", pth] + opts + ["TEST.WEIGHT", ckpt], splits=splits)
+        own = model.state_dict()
+        if not (exported.keys() == own.keys()
+                and all(torch.equal(exported[k], own[k].cpu()) for k in own)):
+            raise AssertionError("cli.export's state_dict differs from the checkpoint's")
+        del model, own, exported
+        t0 = time.perf_counter()
+        ex, index = cli_serve.build_service(cfg, weight=pth, batch_size=32, splits=splits,
+                                            decode_fn=decode)
+        index_s = time.perf_counter() - t0
+        if len(index) != TEST_ITEMS or index.feat_dim != 3 * C:
+            raise AssertionError(f"gallery of {len(index)} x {index.feat_dim}")
+
+        if has_pil:
+            from PIL import Image
+
+            def encode(arr):
+                buf = io.BytesIO()
+                Image.fromarray(arr).save(buf, format="PNG")
+                return base64.b64encode(buf.getvalue()).decode()
+        else:
+            def encode(arr):
+                buf = io.BytesIO()
+                np.save(buf, arr)
+                return base64.b64encode(buf.getvalue()).decode()
+
+            def npy_decode(data, size_hw):
+                arr = np.load(io.BytesIO(base64.b64decode(data)))
+                if arr.shape[:2] != tuple(size_hw):
+                    raise ValueError(f"image {arr.shape} is not {size_hw}")
+                return arr
+
+            serve_mod._decode_b64_image = npy_decode
+        decode_ms, query_ms = [], []
+        serve_mod._decode_b64_image = _timed_calls(serve_mod._decode_b64_image, decode_ms)
+        rec = _Recorder(ex)
+        server = serve_mod.RetrievalServer(rec, index, "127.0.0.1", 0)
+        server._query = _timed_calls(server._query, query_ms)
+        server.start()
+        addr = server.address
+        code, health, _ = _http(addr, "/healthz")
+        if code != 200 or health != {"status": "ok", "gallery_size": TEST_ITEMS,
+                                     "feat_dim": 3 * C}:
+            raise AssertionError(f"/healthz {code} {health}")
+
+        def request(i, **extra):
+            item = splits.gallery[i]
+            return item, {"images": {m: encode(images[i, k]) for k, m in
+                                     enumerate(("RGB", "NI", "TI"))}, "topk": 5,
+                          "camid": int(item[2]), **extra}
+
+        for i in (0, 1):  # warm-up
+            _http(addr, "/query", request(i)[1])
+        picks = np.random.default_rng(4).choice(TEST_ITEMS, SERVE_QUERIES, replace=False)
+        reqs = [request(int(i)) for i in picks]
+        health_ms = [_http(addr, "/healthz")[2] for _ in range(8)]
+        rec.calls.clear()
+        del decode_ms[:], query_ms[:]
+        torch.cuda.synchronize()
+        reset_counts()
+        lat = []
+        for item, req in reqs:
+            code, body, ms = _http(addr, "/query", req)
+            lat.append(ms)
+            if code != 200 or body["matches"][0]["path"] != str(item[0]):
+                raise AssertionError(f"/query for {item}: {code} {body}")
+        counts = launch_counts()
+        want = expected(attention_qkv=12 * SERVE_QUERIES, rollout_chain=SERVE_QUERIES,
+                        masked_attention_qkv=2 * SERVE_QUERIES)
+        if counts != want:
+            raise AssertionError(f"{SERVE_QUERIES} queries launched {counts} != {want}")
+        per_query = {k: v // SERVE_QUERIES for k, v in counts.items()}
+        # where a request's time goes: the handler's _query (three image
+        # decodes, the extractor, the search) and the rest (HTTP, JSON, the
+        # client); client and server threads share this process
+        extract_ms = [c[3] for c in rec.calls]
+        decodes = np.asarray(decode_ms).reshape(SERVE_QUERIES, 3).sum(1)
+        parts = {"query_handler": query_ms, "decode_3_images": decodes, "extract": extract_ms,
+                 "search_and_rest": np.subtract(query_ms, decodes) - extract_ms,
+                 "http_json_client": np.subtract(lat, query_ms), "healthz": health_ms}
+        breakdown = {k: round(float(np.median(v)), 2) for k, v in parts.items()}
+        # the server's features against the in-process call, bit for bit
+        for (item, _), i, (imgs, cams, feat, _) in zip(reqs, picks, rec.calls):
+            if not all(np.array_equal(imgs[m][0], images[i, k])
+                       for k, m in enumerate(("RGB", "NI", "TI"))):
+                raise AssertionError(f"decoded images of {item} differ from the sent ones")
+            if not np.array_equal(feat, ex(imgs, cams)):
+                raise AssertionError(f"features of {item} over HTTP != in process")
+        item, req = request(int(picks[0]), reranking=True)
+        code, body, rr_ms = _http(addr, "/query", req)
+        if code != 200 or body["matches"][0]["pid"] != item[1]:
+            raise AssertionError(f"re-ranked /query: {code} {body}")
+        code, added, _ = _http(addr, "/gallery/add", {**request(5)[1], "pid": 9999,
+                                                      "path": "added"})
+        if code != 200 or added != {"ok": True, "gallery_size": TEST_ITEMS + 1}:
+            raise AssertionError(f"/gallery/add {code} {added}")
+        code, bad, _ = _http(addr, "/query", {"images": {}})
+        if code != 400 or "error" not in bad:
+            raise AssertionError(f"malformed /query: {code} {bad}")
+        server.shutdown()
+        server = None
+        say("9b serve", gallery=TEST_ITEMS, index_s=f"{index_s:.2f}", queries=SERVE_QUERIES,
+            rank1="self", features="bit for bit",
+            per_query=json.dumps({k: v for k, v in per_query.items() if v}),
+            http_b1_p50_ms=f"{np.percentile(lat, 50):.2f}",
+            http_b1_p99_ms=f"{np.percentile(lat, 99):.2f}",
+            median_ms_parts=json.dumps(breakdown), rerank_query_ms=f"{rr_ms:.1f}",
+            rerank_top1_pid="same", add="ok", malformed=400,
+            decoder="PIL (PNG)" if has_pil else ".npy bytes (no PIL)", card=repr(card))
+
+        # (c) the visualisation on VIS_IMAGES gallery images
+        transform = make_eval_transform(tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD))
+        vis = {m: transform(torch.from_numpy(images[:VIS_IMAGES, k]).cuda())
+               for k, m in enumerate(("RGB", "NI", "TI"))}
+        cams = torch.tensor([it[2] for it in splits.gallery[:VIS_IMAGES]], device="cuda")
+        held = {}
+        if not has_pil:
+            visualize._save = lambda path, arr: held.__setitem__(os.path.basename(path), arr)
+        torch.cuda.synchronize()
+        reset_counts()
+        paths = visualize.dump_eval_visualizations(os.path.join(tmp, "vis"), ex.model, vis,
+                                                   cam_ids=cams, compute_dtype=torch.bfloat16)
+        vis_counts = launch_counts()
+        want_vis = expected(attention_qkv=3 * 12, rollout_chain=3)
+        if vis_counts != want_vis:
+            raise AssertionError(f"visualisation launched {vis_counts} != {want_vis}")
+        n_files = 3 * VIS_IMAGES * 2 + VIS_IMAGES
+        shapes = {a.shape for a in held.values()}
+        if len(held if not has_pil else paths) != n_files or (
+                held and shapes != {(*cfg.INPUT.SIZE_TEST, 3)}):
+            raise AssertionError(f"{len(paths)} files, {len(held)} arrays {shapes}")
+        plain = Editor(dataclasses.replace(ecfg, use_pallas=False))
+        plain.load_state_dict(ex.model.state_dict(), strict=True)
+        rolls, union = visualize.eval_visualization_maps(ex.model, vis, cams, torch.bfloat16)
+        rolls_p, union_p = visualize.eval_visualization_maps(plain, vis, cams, torch.float32)
+        rel = {m: float((rolls[m] - rolls_p[m]).norm() / rolls_p[m].norm()) for m in rolls}
+        agree = float((union == union_p).float().mean())
+        if not (max(rel.values()) <= 0.05 and agree >= 0.9):
+            raise AssertionError(f"visualisation vs plain fp32: rollout rel-L2 {rel}, "
+                                 f"union mask agreement {agree}")
+        say("9c visualize", images=VIS_IMAGES,
+            launches=json.dumps({k: v for k, v in vis_counts.items() if v}),
+            outputs=f"{n_files} {'PNG files' if has_pil else 'overlay arrays (no PIL)'}",
+            rollout_rel_l2=json.dumps({m: round(v, 5) for m, v in rel.items()}),
+            rel_l2_limit=0.05, union_agreement=f"{agree:.4f}", agreement_limit=0.9,
+            union_kept=f"{float(union.float().mean()):.4f}")
+        say("9d host", pil=has_pil, codec=repr(codec_note))
+        return {"query": per_query, "visualize": vis_counts}
+    finally:
+        if server is not None:
+            server.shutdown()
+        serve_mod._decode_b64_image, visualize._save = saved_decoder, saved_save
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2192,6 +2637,8 @@ def main() -> None:
     kernels.update(timed("7 variants", variant_phase, gen))
     torch.cuda.empty_cache()
     looped = timed("8 loop", loop_phase, card, bare_step_ms)
+    torch.cuda.empty_cache()
+    served = timed("9 serve", serve_phase, card)
     # launches, launches_eval: per train step and per eval forward (loop: eval
     # batch), summed over the three paths (compact: phases 3 and 5;
     # uncompacted: phase 6; the loop: phase 8, with its run's total), each
@@ -2200,7 +2647,8 @@ def main() -> None:
     for name, spec in {**KERNELS, **VARIANTS}.items():
         by_path = {"compact": {"train": launches[name], "eval": eval_launches[name]},
                    "uncompacted": {"train": un_train[name], "eval": un_eval[name]},
-                   "loop": {k: looped[k][name] for k in ("train", "eval", "run")}}
+                   "loop": {k: looped[k][name] for k in ("train", "eval", "run")},
+                   "serve": {k: served[k][name] for k in ("query", "visualize")}}
         info = {k: v for k, v in spec.items() if k != "tool"}
         rows.append(dict(name=name, route="cuda", **info,
                          launches=launches[name] + un_train[name] + looped["train"][name],

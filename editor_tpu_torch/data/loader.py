@@ -8,11 +8,14 @@ hands out uint8 numpy batches that a background thread keeps one batch ahead;
 the training loop makes the pinned host-to-device copy, and the augmentation
 runs on the device inside the train step (``data/transforms.py``).
 
-PIL is imported where an image is read: the card's machine is not promised
-it. Without PIL and without a ``decode_fn`` the first decode raises. The
-JAX package's native libjpeg codec (``editor_tpu/native/imagecodec.cpp``) is
-not ported: ``DATALOADER.NATIVE_DECODE`` logs one warning and the loader
-decodes with PIL, as the JAX loader does where the codec is unavailable.
+With ``DATALOADER.NATIVE_DECODE`` (and no ``decode_fn``) one call of the
+native libjpeg codec (``native/imagecodec.cpp``, OpenMP) decodes and resizes
+a whole batch; it needs no PIL. Where the codec is unavailable the loader
+logs one warning and decodes with PIL; a batch whose decode fails goes
+through PIL alone, and three such batches in a row turn the codec off, as in
+the JAX loader. PIL is imported where an image is read: the card's machine
+is not promised it. Without PIL, the codec and a ``decode_fn``, the first
+decode raises.
 """
 
 from __future__ import annotations
@@ -78,6 +81,28 @@ def decode_item(paths, size_hw: Tuple[int, int], wide_jpeg: bool,
     return out
 
 
+def decode_batch_native(items, size_hw: Tuple[int, int], wide_jpeg: bool,
+                        num_modalities: int) -> List[List[np.ndarray]]:
+    """Decode and bicubic-resize a batch of items in one native call: per
+    item, one uint8 [H, W, 3] array a modality (2-modal items repeat NI as
+    TI). ``RuntimeError`` if the codec is unavailable or a decode fails."""
+    from editor_tpu_torch.native import decode_resize_batch, decode_resize_multicrop
+    h, w = size_hw
+    n = len(items)
+    if wide_jpeg:  # decode each wide JPEG once, one crop a modality tile
+        crops = [[t * WIDE_TILE_W for t in range(num_modalities)] for _ in items]
+        arr = decode_resize_multicrop([it[0] for it in items], (h, w), crops,
+                                      crop_w=WIDE_TILE_W, crop_h=WIDE_TILE_H)
+    else:
+        arr = decode_resize_batch([p for it in items for p in it[0][:num_modalities]], (h, w))
+    arr = arr.reshape(n, num_modalities, h, w, 3)
+    out = [[arr[i, m] for m in range(num_modalities)] for i in range(n)]
+    for mods in out:
+        while len(mods) < 3:  # 2-modal: duplicate NI as TI
+            mods.append(mods[-1])
+    return out
+
+
 class BatchLoader:
     """Assembles index lists into uint8 numpy batches with prefetch."""
 
@@ -97,17 +122,39 @@ class BatchLoader:
         self.prefetch = prefetch
         self.decode_fn = decode_fn or (lambda item: decode_item(
             item[0], self.size_hw, self.wide_jpeg, self.num_modalities))
-        # the native codec would apply to the default path only
+        # the native batch decode applies to the default path only (a
+        # decode_fn keeps its per-item semantics)
         self.native_decode = native_decode and decode_fn is None
+        self._native_fail_streak = 0
+
+    def _decode_native(self, items) -> Optional[List[List[np.ndarray]]]:
+        """The batch through the codec, or None (PIL decodes it): the codec
+        unavailable turns the native path off with one warning; a failed
+        decode falls back for this batch, and three in a row turn it off."""
+        try:
+            decoded = decode_batch_native(items, self.size_hw, self.wide_jpeg,
+                                          self.num_modalities)
+        except RuntimeError as e:
+            log = logging.getLogger("editor_tpu_torch.data")
+            if "unavailable" in str(e):
+                self.native_decode = False
+                log.warning("native decode unavailable (%s); using the PIL path", e)
+            else:
+                self._native_fail_streak += 1
+                if self._native_fail_streak >= 3:
+                    self.native_decode = False
+                log.warning("native batch decode failed (%s); PIL fallback for this batch%s", e,
+                            "" if self.native_decode else
+                            " — disabling native decode after 3 consecutive failures")
+            return None
+        self._native_fail_streak = 0
+        return decoded
 
     def _assemble(self, idxs: np.ndarray) -> Dict[str, np.ndarray]:
-        if self.native_decode:
-            self.native_decode = False
-            logging.getLogger("editor_tpu_torch.data").warning(
-                "native decode unavailable (the libjpeg codec is not ported); "
-                "using the PIL path")
         items = [self.items[i] for i in idxs]
-        decoded = list(self.pool.map(self.decode_fn, items))
+        decoded = self._decode_native(items) if self.native_decode else None
+        if decoded is None:
+            decoded = list(self.pool.map(self.decode_fn, items))
         batch: Dict[str, np.ndarray] = {}
         for m, key in enumerate(MODALITY_KEYS):
             batch[key] = np.stack([d[m] for d in decoded]).astype(np.uint8)

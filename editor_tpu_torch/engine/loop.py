@@ -4,8 +4,10 @@ Counterpart of ``editor_tpu/engine/loop.py`` (reference:
 engine/processor.py ``do_train``): epochs of P x K batches from the data
 module through ``build_train_step``, logging every ``SOLVER.LOG_PERIOD``
 steps, full-state checkpoints every ``SOLVER.CHECKPOINT_PERIOD`` epochs and
-on each new best mAP, evaluation every ``SOLVER.EVAL_PERIOD`` epochs, and
-auto-resume from the latest checkpoint in ``OUTPUT_DIR/ckpt``.
+on each new best mAP (written by a thread under ``TPU.ASYNC_CHECKPOINT``; the
+loop waits for the last write at its end), evaluation every
+``SOLVER.EVAL_PERIOD`` epochs, and auto-resume from the latest checkpoint in
+``OUTPUT_DIR/ckpt``.
 
 The step returns its loss and accuracy as device tensors; the loop reads
 them (a host sync) only on the steps it logs. Batches arrive as uint8 numpy
@@ -125,7 +127,8 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
     ckpt_mgr = None
     start_epoch = 1
     if cfg.OUTPUT_DIR:
-        ckpt_mgr = CheckpointManager(os.path.join(cfg.OUTPUT_DIR, "ckpt"))
+        ckpt_mgr = CheckpointManager(os.path.join(cfg.OUTPUT_DIR, "ckpt"),
+                                     use_async=cfg.TPU.ASYNC_CHECKPOINT)
         latest = ckpt_mgr.latest_step()
         if latest is not None:  # the full train state: an exact resume
             start_epoch = load_train_state(ckpt_mgr.restore(latest), model, opt,
@@ -176,5 +179,7 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
                 if ckpt_mgr:
                     ckpt_mgr.save(opt.count, train_state(model, opt, step.generator, epoch))
             logger.info("Best mAP so far: %.2f%%", best["mAP"] * 100)
+    if ckpt_mgr:
+        ckpt_mgr.wait()
     writer.close()
     return {"model": model, "optimizer": opt, "step": step, "best": best, "ecfg": ecfg}

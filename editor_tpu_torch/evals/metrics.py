@@ -132,7 +132,8 @@ class R1mAPEvaluator:
 
     ``rank_list_path``: with the MSVR310 protocol, write the rank-list file
     there. ``reranking``: k-reciprocal re-ranking (k1=50, k2=15, lambda 0.3)
-    of the host copies of the features."""
+    of the host copies of the features through ``native.rerank_auto`` (C++
+    if its library builds, else numpy), as the JAX evaluator."""
 
     def __init__(self, num_query: int, max_rank: int = 50, feat_norm: bool = True,
                  reranking: bool = False, msvr_protocol: bool = False,
@@ -173,9 +174,9 @@ class R1mAPEvaluator:
         q_pids, g_pids = pids[:nq], pids[nq:]
         q_camids, g_camids = camids[:nq], camids[nq:]
         if self.reranking:
-            from editor_tpu_torch.evals.reranking import k_reciprocal_rerank
+            from editor_tpu_torch.native import rerank_auto
             distmat = torch.as_tensor(
-                k_reciprocal_rerank(_numpy(qf), _numpy(gf), k1=50, k2=15, lambda_value=0.3),
+                rerank_auto(_numpy(qf), _numpy(gf), k1=50, k2=15, lambda_value=0.3),
                 device=feats.device)
         else:
             distmat = euclidean_distmat(qf, gf)

@@ -8,12 +8,13 @@ the constant Haar filter buffers are added. Arrays keep their dtype. A
 ``(params, state)`` taken after JAX train steps maps the same way, so the
 tests compare the two packages' parameters, BN running stats and OCFR
 centers after a step through it (``num_batches_tracked``, which JAX does not
-keep, comes out 0).
+keep, comes out 0). ``jax_tree_from_state_dict`` maps back, for the JAX
+package's ``.npz`` weight files (``utils/checkpoint.save_params_npz``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -116,3 +117,88 @@ def state_dict_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
     # is a scalar buffer in torch; the JAX exporter's ascontiguousarray makes
     # it shape [1], which torch's loader also accepts)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def _t(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _vit_tree(sd: Mapping[str, torch.Tensor], pre: str) -> Dict[str, Any]:
+    def lin(name):
+        out = {"w": _t(sd[f"{name}.weight"]).T}
+        if f"{name}.bias" in sd:
+            out["b"] = _t(sd[f"{name}.bias"])
+        return out
+
+    def ln(name):
+        return {"w": _t(sd[f"{name}.weight"]), "b": _t(sd[f"{name}.bias"])}
+
+    p: Dict[str, Any] = {
+        "cls_token": _t(sd[pre + "cls_token"]),
+        "pos_embed": _t(sd[pre + "pos_embed"]),
+        "patch_embed": {"proj": {"w": _t(sd[pre + "patch_embed.proj.weight"]).transpose(2, 3, 1, 0),
+                                 "b": _t(sd[pre + "patch_embed.proj.bias"])}},
+        "norm": ln(pre + "norm"),
+        "fc": lin(pre + "fc"),
+    }
+    if pre + "sie_embed" in sd:
+        p["sie_embed"] = _t(sd[pre + "sie_embed"])
+    depth = 1 + max(int(k[len(pre) + 7:].split(".")[0]) for k in sd if k.startswith(pre + "blocks."))
+    blocks = [{"norm1": ln(f"{pre}blocks.{i}.norm1"), "norm2": ln(f"{pre}blocks.{i}.norm2"),
+               "attn": {n: lin(f"{pre}blocks.{i}.attn.{n}") for n in ("qkv", "proj")},
+               "mlp": {n: lin(f"{pre}blocks.{i}.mlp.{n}") for n in ("fc1", "fc2")}}
+              for i in range(depth)]
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+        return np.stack(leaves)
+
+    p["blocks"] = stack(*blocks)
+    return p
+
+
+def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor], ecfg) -> Tuple[dict, dict]:
+    """The inverse of :func:`state_dict_from_jax`: the port's state_dict ->
+    JAX ``editor_init``-layout (params, state) as nested dicts of numpy
+    arrays (``num_batches_tracked`` and the constant Haar buffers, which JAX
+    does not keep, are dropped)."""
+    params: Dict[str, Any] = {"BACKBONE": _vit_tree(sd, "BACKBONE.base.")}
+
+    def ln(name):
+        return {"w": _t(sd[f"{name}.weight"]), "b": _t(sd[f"{name}.bias"])}
+
+    def nobias(name, subs):
+        return {sub: {"w": _t(sd[f"{name}.{sub}.weight"]).T} for sub in subs}
+
+    fb: Dict[str, Any] = {}
+    for mod in ("R", "N", "T"):
+        fb[f"norm{mod}"] = ln(f"FUSE_block.norm{mod}")
+        fb[f"norm{mod}_"] = ln(f"FUSE_block.norm{mod}_")
+        fb[f"attn{mod}"] = nobias(f"FUSE_block.attn{mod}", ("qkv", "proj"))
+        fb[f"mlp{mod}"] = nobias(f"FUSE_block.mlp{mod}", ("fc1", "fc2"))
+    fb["norm1"] = ln("FUSE_block.norm1")
+    fb["attn1"] = nobias("FUSE_block.attn1", ("qkv", "proj"))
+    fb["norm2"] = ln("FUSE_block.norm2")
+    fb["mlp"] = nobias("FUSE_block.mlp", ("fc1", "fc2"))
+    fb["out_norm"] = ln("FUSE_block.out_norm")
+    params["FUSE_block"] = fb
+
+    for name in ("RGB_REDUCE", "NIR_REDUCE", "TIR_REDUCE"):
+        params[name] = {"w": _t(sd[f"{name}.weight"]).T}
+        if f"{name}.bias" in sd:
+            params[name]["b"] = _t(sd[f"{name}.bias"])
+    heads, bns = ["FUSE_HEAD", "BACKBONE_HEAD"], ["FUSE_BN", "BACKBONE_BN"]
+    if getattr(ecfg, "al", False) and "AL_HEAD.weight" in sd:
+        heads.append("AL_HEAD")
+        bns.append("AL_BN")
+    for name in heads:
+        params[name] = {"w": _t(sd[f"{name}.weight"]).T}
+    bn_state = {}
+    for name in bns:
+        params[name] = ln(name)
+        bn_state[name] = {"mean": _t(sd[f"{name}.running_mean"]),
+                          "var": _t(sd[f"{name}.running_var"])}
+    ocfr = {ours: _t(sd[f"FUSE_block.memory_cls.{theirs}_centers"])
+            for ours, theirs in (("rgb", "RGB"), ("nir", "NIR"), ("tir", "TIR"))}
+    return params, {"ocfr": ocfr, "bn": bn_state}

@@ -9,8 +9,8 @@
   (per-modality files and wide-JPEG tiles) and through a ``decode_fn``; the
   validation tail padded alike.
 * Without PIL and without a ``decode_fn`` the first batch raises an error
-  that names both; ``DATALOADER.NATIVE_DECODE`` logs one warning and decodes
-  with PIL.
+  that names both; ``DATALOADER.NATIVE_DECODE`` without the codec logs one
+  warning and decodes with PIL.
 """
 
 import logging
@@ -131,7 +131,12 @@ def test_decode_without_pil_or_decode_fn_raises(tiny_root, monkeypatch):  # noqa
     assert next(ok.batches(np.arange(8), 4))["RGB"].shape == (4, 16, 8, 3)
 
 
-def test_native_decode_warns_once_and_uses_pil(tiny_root, caplog):  # noqa: F811
+def test_native_decode_warns_once_and_uses_pil(tiny_root, caplog, monkeypatch):  # noqa: F811
+    """With the codec unavailable (its loader returns None, as where g++ or
+    libjpeg is missing), NATIVE_DECODE logs one warning and PIL decodes; the
+    codec's own batches are held in tests/test_torch_native.py."""
+    from editor_tpu_torch import native
+    monkeypatch.setattr(native, "load_imagecodec", lambda: None)
     ds = datasets.load_dataset("RGBNT201", tiny_root)
     got = loader.BatchLoader(ds.train, (64, 32), False, 3, num_workers=2, native_decode=True)
     ref = jax_loader.BatchLoader(ds.train, (64, 32), False, 3, num_workers=2)

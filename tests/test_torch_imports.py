@@ -44,6 +44,12 @@ from editor_tpu_torch.engine import loop
 from editor_tpu_torch.engine.evaluate import do_inference
 from editor_tpu_torch.evals import metrics, reranking
 from editor_tpu_torch.utils import checkpoint, logger, meter, torch_convert
+from editor_tpu_torch import native
+from editor_tpu_torch.cli import export as cli_export, serve as cli_serve
+from editor_tpu_torch.cli import visualize as cli_visualize
+from editor_tpu_torch.evals import reranking_device
+from editor_tpu_torch.serve import RetrievalServer
+from editor_tpu_torch.utils import jax_weights, visualize
 
 vit = vit_tiny_test_config(img_size=(64, 32), patch_size=16, stride_size=(16, 16), camera=4)
 cfg = EditorConfig(num_classes=10, vit=vit, head_keep=2, frequency_keep=3)

@@ -8,9 +8,10 @@ entries) gives JAX's numbers only through a stable sort; the same matrix
 ranked with ties in reverse index order (what an unstable sort may do) gives
 other numbers. The MSVR310 rank-list file is compared byte for byte.
 Re-ranking: the port's numpy ``k_reciprocal_rerank`` against JAX's numpy one
-to 1e-10, and the evaluator with ``reranking=True`` against JAX's with its
-``rerank_auto`` pinned to that numpy implementation (it may take the native
-C++ one).
+to 1e-10, and the evaluator with ``reranking=True`` against JAX's with both
+packages' ``rerank_auto`` pinned to their numpy implementations (either may
+take its native C++ one; native against numpy is held in
+``tests/test_torch_native.py``).
 """
 
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 import editor_tpu.native
+import editor_tpu_torch.native
 from editor_tpu.evals import metrics as jax_metrics
 from editor_tpu.evals.reranking import k_reciprocal_rerank as jax_rerank
 from editor_tpu_torch.evals import metrics
@@ -141,6 +143,7 @@ def test_rerank_matches_jax_numpy(k1, k2):
 
 def test_evaluator_reranking_matches_jax(x64, monkeypatch):
     monkeypatch.setattr(editor_tpu.native, "rerank_auto", jax_rerank)
+    monkeypatch.setattr(editor_tpu_torch.native, "rerank_auto", k_reciprocal_rerank)
     rng = np.random.RandomState(6)
     nq, ng = 8, 40
     feats = rng.randn(nq + ng, 24).astype(np.float32)

@@ -92,12 +92,16 @@ def test_gallery_search_matches_jax(extractors, tmp_path, monkeypatch):
     for cls in (GalleryIndex, JaxGalleryIndex):
         back = cls.load(path)
         assert len(back) == 8 and back.search(queries, topk=4) == got
-    # k-reciprocal re-ranking: JAX's call pinned to its numpy implementation
-    # (rerank_auto may take the native C++ one); the same float32 numpy
-    # algorithm on the same features gives the same distances and ranking
+    # k-reciprocal re-ranking: both packages' calls pinned to their numpy
+    # implementations (rerank_auto may take the native C++ one); the same
+    # float32 numpy algorithm on the same features gives the same distances
+    # and ranking
     import editor_tpu.native
+    import editor_tpu_torch.native
     from editor_tpu.evals.reranking import k_reciprocal_rerank
+    from editor_tpu_torch.evals.reranking import k_reciprocal_rerank as port_rerank
     monkeypatch.setattr(editor_tpu.native, "rerank_auto", k_reciprocal_rerank)
+    monkeypatch.setattr(editor_tpu_torch.native, "rerank_auto", port_rerank)
     reranked = got_idx.search(queries, topk=4, reranking=True)
     assert reranked == ref_idx.search(queries, topk=4, reranking=True)
     assert [m[0]["pid"] for m in reranked] == [2, 7, 0]

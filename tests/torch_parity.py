@@ -85,3 +85,20 @@ def bf16_pair(a):
 def assert_close(got, ref, dtype=np.float64, **tol):
     got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(ref), **(tol or tolerances(dtype)))
+
+
+@pytest.fixture(scope="module")
+def jax_native_private(tmp_path_factory):
+    """The JAX package's native libraries built anew into a directory of this
+    module's own (``EDITOR_TPU_NATIVE_CACHE``): its loader compiles straight
+    into the shared package directory, where another test process building
+    at the same moment could hand this one a half-written file."""
+    import editor_tpu.native as jax_native
+
+    mp = pytest.MonkeyPatch()
+    mp.setenv("EDITOR_TPU_NATIVE_CACHE", str(tmp_path_factory.mktemp("jax_native")))
+    for name, value in (("_LIB", None), ("_BUILD_FAILED", False), ("_CODEC_LIB", None),
+                        ("_CODEC_FAILED", False)):
+        mp.setattr(jax_native, name, value)
+    yield jax_native
+    mp.undo()
