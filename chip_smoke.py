@@ -156,10 +156,37 @@ Phases, each printing its lines and its seconds:
      and union token mask (agreement >= 0.9) match the plain fp32 run;
      (d) whether PIL and the libjpeg codec were available. Without PIL the
      requests carry .npy bytes through a swapped decoder and the
-     visualisation's overlay arrays are held in place of its PNG files.
+     visualisation's overlay arrays are held in place of its PNG files;
+ 10. dp: data parallelism on an NCCL group of one rank made in this process
+     (a FileStore in a temporary directory; the collectives are called and
+     counted): (a) the flagship's global-batch step through
+     build_train_step(mesh=make_mesh()) for 3 steps equals the single-device
+     step from the same weights, batch and generator bit for bit (losses,
+     every parameter, BN stats, OCFR centers), each step launching K1 12,
+     K2 1, K3 2, K4 12 and K5 2 times; (b) ZeRO-1 equals (a) bit for bit;
+     (c) the local-batch step with each of the fp16, bf16, int8 and
+     PowerSGD reducers for 3 steps: finite losses, the reducer's output on
+     the flagship's first gradients equal to its formula applied without
+     communication (fp16, bf16, int8 exactly; PowerSGD within 1e-6 of each
+     leaf's largest value), each one's step ms; (d) do_inference(mesh=)
+     over RGBNT201's test split in size (as phase 8) equals the
+     single-device path (features, CMC, mAP), K1 12, K2 1 and K3 2 launches
+     an eval batch, and sharded_cmc_map is within 1e-6 of the evaluator;
+     (e) on every machine, two one-card steps (drop path 0, no augmentation,
+     identity-like images) as the reference, a probe of bf16 reduction-order
+     noise (each identity's instances reversed) whose error must stay under
+     a quarter of the limit, and a planted 2x-gradient control that must
+     exceed it (the error: | ||dW|| - ||dW_ref|| | / ||dW_ref|| per parameter
+     tensor, limit 0.1; the direction ||dW - dW_ref|| / ||dW_ref|| printed);
+     with two cards or more, two NCCL ranks (processes of this script,
+     ``--dp-rank``) run the global-batch step, their losses within 1% and
+     every tensor's error within the limit, and time it; with one card the
+     phase says so; (f) the DP step's
+     ms against the single-device step's (same call) and phase 5's, the
+     gradient all-reduce's ms, peak memory.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
-(K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve), and last the result line {"ok": true, "device": {...}}. Any failed check
+(K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve, dp), and last the result line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero without the result line; it does the
 same without a CUDA device.
 """
@@ -2614,6 +2641,467 @@ def serve_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Data parallelism (phase 10): the flagship's train step and evaluation on a
+# ('data', 'model') mesh over an NCCL group. One card: a group of one rank in
+# this process (a FileStore in a temporary directory), which runs the DP code
+# and calls the collectives; with two cards or more, also two ranks spawned as
+# processes of this script (``--dp-rank``).
+DP_REDUCERS = ("fp16", "bf16", "int8", "powersgd")
+
+
+def _dp_batch(gen: torch.Generator, cfg, h: int, w: int) -> dict:
+    B, K = cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_INSTANCE
+    batch = {m: torch.randint(0, 256, (B, h, w, 3), generator=gen, device="cuda",
+                              dtype=torch.uint8) for m in ("RGB", "NI", "TI")}
+    batch["pid"] = torch.arange(B, device="cuda") // K  # 8 ids x 16 instances
+    batch["camid"] = torch.arange(B, device="cuda") % 6
+    return batch
+
+
+def _dp_id_batch(gen: torch.Generator, batch: dict) -> dict:
+    """``batch``'s identities and cameras with images in [0, 1] that look
+    like their identity: a uint8 prototype per identity and modality plus
+    noise in [-25, 25]. On uniform noise images every row's feature is
+    nearly the same, the BN necks scale rounding noise up, and the heads'
+    gradients are rounding noise: (e) needs features that differ by
+    identity."""
+    pid = batch["pid"]
+    out = {"pid": pid, "camid": batch["camid"]}
+    for m in ("RGB", "NI", "TI"):
+        shape = tuple(batch[m].shape)
+        proto = torch.randint(0, 256, (int(pid.max()) + 1,) + shape[1:], generator=gen,
+                              device="cuda", dtype=torch.int16)
+        noise = torch.randint(-25, 26, shape, generator=gen, device="cuda",
+                              dtype=torch.int16)
+        out[m] = (proto[pid] + noise).clamp(0, 255).float() / 255.0
+    return out
+
+
+def _dp_step(kind: str, cfg, ecfg, sd, mesh, augment: bool = True, reducer=None,
+             grad_scale: float = 1.0):
+    """(model, step) of ``kind``: 'single' (no mesh), 'global' (the
+    global-batch step on ``mesh``), 'zero1' (that with ZeRO-1) or 'ddp' (the
+    local-batch step with ``reducer``), from the weights ``sd``.
+    ``grad_scale``: every gradient multiplied by it before the optimizer
+    steps (a planted fault for (e)'s control)."""
+    from editor_tpu_torch.data.transforms import make_train_augment
+    from editor_tpu_torch.engine.train import build_train_step
+    from editor_tpu_torch.losses import make_loss
+    from editor_tpu_torch.models.editor import Editor
+    from editor_tpu_torch.parallel.ddp import build_ddp_train_step
+    from editor_tpu_torch.parallel.zero import zero1_state_shardings
+    from editor_tpu_torch.solver import make_optimizer, make_scheduler
+
+    model = Editor(ecfg)
+    model.load_state_dict(sd, strict=True)
+    opt = make_optimizer(cfg, model)
+    if grad_scale != 1.0:
+        inner = opt.step
+
+        def scaled_step(lr):
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(grad_scale)
+            inner(lr)
+
+        opt.step = scaled_step
+    args = (model, opt, make_loss(cfg, ecfg.num_classes), make_scheduler(cfg),
+            cfg.SOLVER.BASE_LR)
+    aug = make_train_augment(cfg.INPUT) if augment else None
+    if kind == "ddp":
+        return model, build_ddp_train_step(*args, mesh, reducer=reducer,
+                                           compute_dtype=torch.bfloat16, augment=aug, seed=1)
+    zero = zero1_state_shardings(opt, mesh) if kind == "zero1" else None
+    return model, build_train_step(*args, torch.bfloat16, augment=aug, seed=1,
+                                   mesh=None if kind == "single" else mesh,
+                                   state_shardings=zero)
+
+
+def _dp_run(kind, cfg, ecfg, sd, mesh, batch, want: dict, reducer=None):
+    """3 steps of ``kind``: (losses, state_dict, per-step launches, per-step
+    collective calls, model, step)."""
+    from editor_tpu_torch.parallel import collectives as C
+
+    model, step = _dp_step(kind, cfg, ecfg, sd, mesh, reducer=reducer)
+    losses, colls = [], []
+    for epoch in (1, 2, 3):
+        reset_counts()
+        C.reset_collective_counts()
+        losses.append(float(step(batch, epoch)["loss"]))
+        launches = launch_counts()
+        colls.append(C.collective_counts())
+        if launches != want:
+            raise AssertionError(f"{kind}: kernel launches {launches} != {want} in a step")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{kind}: non-finite losses {losses}")
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return [losses, state, launches, colls, model, step]
+
+
+def _same_state(name: str, a: dict, b: dict) -> None:
+    """Every entry of two state_dicts equal bit for bit."""
+    diff = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a
+            if not torch.equal(a[k], b[k])}
+    if diff:
+        worst = sorted(diff.items(), key=lambda kv: -kv[1])[:3]
+        raise AssertionError(f"{name}: {len(diff)} of {len(a)} tensors differ, largest "
+                             f"{worst}")
+
+
+class _ReduceProbe:
+    """Keeps the first call's gradients (the JAX-layout leaves), the
+    reducer's state before it and its output."""
+
+    def __init__(self, reducer):
+        self.reducer, self.calls = reducer, []
+        inner = reducer.reduce
+
+        def reduce(grads, state, group):
+            out, new = inner(grads, state, group)
+            if not self.calls:
+                keep = lambda t: {k: (v.clone() if isinstance(v, torch.Tensor) else keep(v))
+                                  for k, v in t.items()}
+                self.calls.append((keep(grads), keep(state) if state else {}, keep(out)))
+            return out, new
+
+        reducer.reduce = reduce
+
+
+def _reducer_formula(name: str, grads: dict, state: dict, out: dict) -> float:
+    """The largest difference between the reducer's output on one rank and
+    its formula applied without communication (fp16/bf16: the cast there
+    and back; int8: the dequantised values; PowerSGD: P Q^T from the warm
+    Q and the error feedback), relative to the leaf's largest value."""
+    from editor_tpu_torch.parallel.compression import _orthogonalize, int8_quantize
+
+    worst = 0.0
+    for k, g in grads.items():
+        if name in ("fp16", "bf16"):
+            want = g.to(torch.float16 if name == "fp16" else torch.bfloat16).to(g.dtype)
+        elif name == "int8":
+            q, s = int8_quantize(g)
+            want = q.to(g.dtype) * s.to(g.dtype)
+        elif k in state:
+            last = g.shape[-1]
+            mtx = g.float().reshape(-1, last) + state[k]["error"].reshape(-1, last)
+            p = _orthogonalize(mtx @ state[k]["q"])
+            want = (p @ (mtx.T @ p).T).reshape(g.shape).to(g.dtype)
+        else:
+            want = g
+        d = float((out[k].double() - want.double()).abs().max())
+        worst = max(worst, d / max(float(want.abs().max()), 1e-30))
+    return worst
+
+
+# (e): per parameter tensor, how far the size of W ranks' change from the
+# weights strays from the one-card change's. A doubled W factor (a 2x
+# gradient) or no update gives ~1 on the tensors the gradient moves, a
+# halved one ~0.5; bf16 rounding in another order moves the sizes by far less
+# (the reversed-instances probe measures it on every run). The direction of
+# the change is printed too, not gated: the classifier heads' gradients at
+# initialisation are ill-conditioned (the absent classes' rows cancel to
+# rounding residue; a CPU float64 probe shows them the most sensitive
+# tensors), and their direction moves by ~0.1 under bf16 rounding.
+DP_W_LIMIT = 0.1
+
+
+def _dp_deltas(model, sd0: dict) -> dict:
+    """Each trainable parameter's change from ``sd0``, in float32."""
+    return {n: p.detach().float() - sd0[n].float() for n, p in model.named_parameters()
+            if p.requires_grad}
+
+
+def _delta_err(got: dict, ref: dict, direction: bool = False) -> dict:
+    """Per tensor, | ||got|| - ||ref|| | (``direction``: ||got - ref||) over
+    max(||ref||, 1e-3 of the largest ||ref||): the floor keeps the tensors
+    the gradient leaves still (rounding noise) from dividing by ~0."""
+    floor = 1e-3 * max(float(d.norm()) for d in ref.values())
+    out = {}
+    for n, d in ref.items():
+        g = got[n].to(d.device)
+        num = float((g - d).norm()) if direction else abs(float(g.norm()) - float(d.norm()))
+        out[n] = num / max(float(d.norm()), floor)
+    return out
+
+
+def _worst(err: dict, k: int = 3) -> str:
+    return json.dumps(sorted(((round(v, 6), n) for n, v in err.items()), reverse=True)[:k])
+
+
+def _dp_one_card(cfg, ecfg, sd0, batch, grad_scale: float = 1.0):
+    """2 one-card steps (no augmentation) from ``sd0``: (losses, changes, step)."""
+    model, step = _dp_step("single", cfg, ecfg, sd0, None, augment=False,
+                           grad_scale=grad_scale)
+    losses = [float(step(batch, e)["loss"]) for e in (1, 2)]
+    return losses, _dp_deltas(model, sd0), step
+
+
+def _dp_world_check(tmp: str, world: int, cfg, ecfg, sd0, batch, ref_losses,
+                    ref_deltas) -> dict:
+    """``world`` NCCL ranks (``--dp-rank``) run 2 global-batch steps on their
+    rows of ``batch``; their losses must be the same on every rank and within
+    1% of the one-card losses, and every tensor's change within
+    ``DP_W_LIMIT`` of the one-card change (:func:`_delta_err`)."""
+    torch.save({"cfg": cfg, "ecfg": ecfg, "sd": {k: v.cpu() for k, v in sd0.items()},
+                "batch": {k: v.cpu() for k, v in batch.items()}},
+               os.path.join(tmp, "inputs.pt"))
+    _dp_children(tmp, world)
+    outs = [torch.load(os.path.join(tmp, f"out_{r}.pt")) for r in range(world)]
+    sd = outs[0]["sd"]
+    deltas = {n: sd[n].float() - sd0[n].float().cpu() for n in ref_deltas}
+    err = _delta_err(deltas, ref_deltas)
+    dl = max(abs(a - b) / abs(b) for a, b in zip(outs[0]["losses"], ref_losses))
+    if not (all(o["losses"] == outs[0]["losses"] for o in outs) and dl <= 0.01
+            and max(err.values()) <= DP_W_LIMIT):
+        raise AssertionError(f"W = {world}: losses {[o['losses'] for o in outs]} vs "
+                             f"{ref_losses}; worst tensors {_worst(err)} (limit {DP_W_LIMIT})")
+    return {"losses": outs[0]["losses"], "max_rel_dloss": dl, "max_err": max(err.values()),
+            "worst": _worst(err), "direction": _worst(_delta_err(deltas, ref_deltas, True)),
+            "step_ms": outs[0]["step_ms"],
+            "allreduce_ms": outs[0]["allreduce_ms"]}
+
+
+def _dp_children(tmp: str, world: int) -> None:
+    """Spawn ``world`` NCCL ranks of this script (``--dp-rank``) on cards
+    0..world-1 over ``tmp``'s inputs; each writes its losses and rank 0 its
+    state_dict."""
+    import sys
+
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank",
+                               str(r), str(world), tmp]) for r in range(world)]
+    try:
+        codes = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(codes):
+        raise AssertionError(f"the {world} DP ranks exited {codes}")
+
+
+def dp_child(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 10 (e): the global-batch step on its rows of the
+    saved batch for 2 steps, drop path 0 and no augmentation."""
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.parallel.mesh import make_mesh, shard_batch
+
+    from editor_tpu_torch.engine.train import mean_all_reduce_grads, trainable
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    multihost.initialize(init_method="file://" + os.path.join(tmp, f"store_{world}"),
+                         world_size=world, rank=rank, local_rank=rank, timeout_s=240)
+    mesh = make_mesh()
+    cfg, ecfg = inp["cfg"], inp["ecfg"]
+    sd = {k: v.cuda() for k, v in inp["sd"].items()}
+    model, step = _dp_step("global", cfg, ecfg, sd, mesh, augment=False)
+    batch = shard_batch(mesh, {k: v.cuda() for k, v in inp["batch"].items()})
+    losses = [float(step(batch, e)["loss"]) for e in (1, 2)]
+    out = {"losses": losses}
+    if rank == 0:
+        out["sd"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    params = trainable(model)
+    out["step_ms"] = cuda_ms(lambda: step(batch, cfg.SOLVER.WARMUP_ITERS + 1), iters=5)
+    out["allreduce_ms"] = cuda_ms(lambda: mean_all_reduce_grads(params, mesh), iters=10)
+    torch.save(out, os.path.join(tmp, f"out_{rank}.pt"))
+    multihost.shutdown()
+
+
+def dp_phase(card: str, bare_step_ms: float) -> dict:
+    """Phase 10: the flagship data-parallel on an NCCL group. (a) the
+    global-batch step (build_train_step(mesh=make_mesh())) equals the
+    single-device step from the same weights, batch and generator bit for
+    bit over 3 steps (losses, every parameter, BN stats, OCFR centers), each
+    step launching K1 12, K2 1, K3 2, K4 12, K5 2 and calling the
+    collectives; (b) ZeRO-1 equals (a) bit for bit; (c) the local-batch step
+    with each of fp16, bf16, int8 and PowerSGD: finite losses, the reducer's
+    output on the flagship's gradients equal to its formula without
+    communication (exactly for fp16, bf16 and int8; PowerSGD within 1e-6 of
+    the leaf's largest value), its step time; (d) do_inference(mesh=) over
+    RGBNT201's test split in size equals the single-device path (features,
+    CMC, mAP) and sharded_cmc_map is within 1e-6 of the evaluator; (e) the
+    one-card reference, the noise probe and the 2x-gradient control that
+    show DP_W_LIMIT can fail, and with two cards or more two NCCL ranks'
+    global-batch step held to it tensor by tensor; (f) the DP step's ms against the single-device step's
+    and phase 5's, the gradient all-reduce's ms, peak memory."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from editor_tpu_torch.data.loader import ReIDDataModule
+    from editor_tpu_torch.engine.evaluate import do_inference
+    from editor_tpu_torch.engine.loop import eval_batches
+    from editor_tpu_torch.engine.train import mean_all_reduce_grads, trainable
+    from editor_tpu_torch.evals.metrics import sharded_cmc_map
+    from editor_tpu_torch.models.init import editor_init
+    from editor_tpu_torch.parallel import collectives as C
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.parallel.compression import make_reducer
+    from editor_tpu_torch.parallel.mesh import make_mesh
+    from editor_tpu_torch.parallel.zero import state_memory_bytes
+
+    cfg, ecfg = flagship()
+    L = ecfg.vit.depth
+    want = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2,
+                    attention_qkv_bwd=L, masked_attention_qkv_bwd=2)
+    want_eval = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        if not multihost.initialize(init_method="file://" + os.path.join(tmp, "store"),
+                                    world_size=1, rank=0,
+                                    local_rank=torch.cuda.current_device()):
+            raise AssertionError("no process group was made")
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"{dist.get_backend()} group of {dist.get_world_size()}")
+        mesh = make_mesh()
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        h, w = ecfg.vit.img_size
+        batch = _dp_batch(gen, cfg, h, w)
+        sd0 = {k: v.clone() for k, v in editor_init(ecfg, seed=0).state_dict().items()}
+
+        # (a) the global-batch step against the single-device step
+        single = _dp_run("single", cfg, ecfg, sd0, None, batch, want)
+        ref_ms = cuda_ms(lambda: single[5](batch, cfg.SOLVER.WARMUP_ITERS + 1), iters=5)
+        del single[4:]
+        torch.cuda.empty_cache()
+        glob = _dp_run("global", cfg, ecfg, sd0, mesh, batch, want)
+        if glob[0] != single[0]:
+            raise AssertionError(f"global-batch losses {glob[0]} != single {single[0]}")
+        _same_state("global-batch step vs single-device step", glob[1], single[1])
+        if not all(c.get("all_gather", 0) and c.get("reduce_scatter", 0)
+                   and c.get("all_reduce", 0) for c in glob[3]):
+            raise AssertionError(f"collectives not called: {glob[3]}")
+        say("10a dp global step", world=1, backend="nccl", steps=3, bit_for_bit=True,
+            losses=json.dumps(glob[0]), launches=json.dumps(glob[2]),
+            collectives=json.dumps(glob[3][-1]))
+        # (f) times: the DP step and the single one, the gradient all-reduce
+        model, step = glob[4], glob[5]
+        epoch = cfg.SOLVER.WARMUP_ITERS + 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dp_ms = cuda_ms(lambda: step(batch, epoch), iters=5)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        params = trainable(model)
+        ar_ms = cuda_ms(lambda: mean_all_reduce_grads(params, mesh), iters=10)
+        grad_mb = sum(p.numel() * p.element_size() for p in params) / 1e6
+        say("10f dp timing", dp_step_ms=f"{dp_ms:.2f}", single_step_ms=f"{ref_ms:.2f}",
+            phase5_bare_step_ms=f"{bare_step_ms:.2f}", dp_over_single=f"{dp_ms / ref_ms:.4f}",
+            grad_allreduce_ms=f"{ar_ms:.3f}", grad_mb=f"{grad_mb:.1f}",
+            peak_gb=f"{peak_gb:.2f}", card=repr(card))
+        del glob[4:], model, step, params
+        torch.cuda.empty_cache()
+
+        # (b) ZeRO-1 against (a)
+        zero = _dp_run("zero1", cfg, ecfg, sd0, mesh, batch, want)
+        if zero[0] != glob[0]:
+            raise AssertionError(f"ZeRO-1 losses {zero[0]} != {glob[0]}")
+        _same_state("ZeRO-1 vs the global-batch step", zero[1], glob[1])
+        slots = state_memory_bytes(zero[5].optimizer)
+        say("10b dp zero1", bit_for_bit=True, slot_bytes=slots,
+            slot_bytes_total=state_memory_bytes(zero[5].optimizer, per_device=False))
+        del zero, single
+        torch.cuda.empty_cache()
+
+        # (c) the local-batch step with each reducer
+        for name in DP_REDUCERS:
+            red = make_reducer(name, rank=cfg.TPU.POWERSGD_RANK)
+            probe = _ReduceProbe(red)
+            losses, _, _, colls, model, step = _dp_run("ddp", cfg, ecfg, sd0, mesh, batch,
+                                                       want, reducer=red)
+            grads, state, out = probe.calls[0]
+            err = _reducer_formula(name, grads, state, out)
+            if not (err <= (1e-6 if name == "powersgd" else 0.0)):
+                raise AssertionError(f"{name}: reducer output {err} off its formula")
+            ms = cuda_ms(lambda: step(batch, epoch), iters=3)
+            say(f"10c dp reducer {name}", losses=json.dumps(losses), formula_err=f"{err:.3e}",
+                leaves=len(grads), step_ms=f"{ms:.2f}", collectives=json.dumps(colls[-1]))
+            del probe, model, step, grads, state, out
+            torch.cuda.empty_cache()
+
+        # (d) sharded evaluation against the single-device path
+        splits, _, decode = _loop_data(cfg.INPUT.SIZE_TRAIN)
+        dm = ReIDDataModule(cfg, splits=splits, decode_fn=decode)
+        model = editor_init(ecfg, seed=0)
+        ref = do_inference(model, eval_batches(cfg, dm, torch.device("cuda")), dm.num_query)
+        reset_counts()
+        C.reset_collective_counts()
+        got = do_inference(model, eval_batches(cfg, dm, torch.device("cuda")), dm.num_query,
+                           mesh=mesh)
+        n_batches = -(-len(dm.val_items) // cfg.TEST.IMS_PER_BATCH)
+        eval_launches = {k: v // n_batches for k, v in launch_counts().items()}
+        if {k: v * n_batches for k, v in eval_launches.items()} != launch_counts() \
+                or eval_launches != want_eval:
+            raise AssertionError(f"eval launches {launch_counts()} over {n_batches} batches")
+        if not (torch.equal(got[5], ref[5]) and torch.equal(got[6], ref[6])
+                and np.array_equal(got[0], ref[0]) and got[1] == ref[1]):
+            raise AssertionError(f"do_inference(mesh=) != single device: mAP {got[1]} vs "
+                                 f"{ref[1]}")
+        q_pids = torch.as_tensor(got[3][:dm.num_query], device="cuda")
+        g_pids = torch.as_tensor(got[3][dm.num_query:], device="cuda")
+        q_cams = torch.as_tensor(got[4][:dm.num_query], device="cuda")
+        g_cams = torch.as_tensor(got[4][dm.num_query:], device="cuda")
+        remove = (g_pids[None] == q_pids[:, None]) & (g_cams[None] == q_cams[:, None])
+        cmc_s, map_s = sharded_cmc_map(got[5], got[6], q_pids, g_pids, remove, mesh)
+        d_cmc = float(np.abs(cmc_s - got[0]).max())
+        if not (d_cmc <= 1e-6 and abs(map_s - got[1]) <= 1e-6):
+            raise AssertionError(f"sharded_cmc_map {map_s} vs {got[1]} (cmc {d_cmc})")
+        say("10d dp eval", rows=len(dm.val_items), batches=n_batches, map=f"{got[1]:.7f}",
+            sharded_map=f"{map_s:.7f}", rank1=f"{got[0][0]:.6f}", equal_to_single=True,
+            collectives=json.dumps(C.collective_counts()))
+        del model, ref, got, dm
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+
+        # (e) more than one card: W NCCL ranks against the one-card step. On
+        # every machine first the one-card reference, a probe of bf16
+        # reduction-order noise (the same rows, each identity's instances in
+        # reverse order) and a planted 2x-gradient control, which must fail
+        # the limit that the W ranks must meet
+        ecfg2 = dataclasses.replace(ecfg, vit=dataclasses.replace(ecfg.vit,
+                                                                  drop_path_rate=0.0))
+        norm = _dp_id_batch(gen, batch)
+        K = cfg.DATALOADER.NUM_INSTANCE
+        perm = (torch.arange(len(batch["pid"]), device="cuda").view(-1, K).flip(1)
+                .reshape(-1))
+        ref_losses, ref_d, step = _dp_one_card(cfg, ecfg2, sd0, norm)
+        ref_ms = cuda_ms(lambda: step(norm, cfg.SOLVER.WARMUP_ITERS + 1), iters=5)
+        del step
+        noise_d = _dp_one_card(cfg, ecfg2, sd0, {k: v[perm] for k, v in norm.items()})[1]
+        noise = _delta_err(noise_d, ref_d)
+        ctrl = _delta_err(_dp_one_card(cfg, ecfg2, sd0, norm, grad_scale=2.0)[1], ref_d)
+        torch.cuda.empty_cache()
+        if not (max(noise.values()) <= DP_W_LIMIT / 4 and max(ctrl.values()) > DP_W_LIMIT):
+            raise AssertionError(f"(e) cannot tell: noise {_worst(noise)}, 2x-gradient "
+                                 f"control {_worst(ctrl)}, limit {DP_W_LIMIT}")
+        gate = dict(limit=DP_W_LIMIT, noise_max_err=f"{max(noise.values()):.3e}",
+                    noise_worst=_worst(noise),
+                    noise_direction=_worst(_delta_err(noise_d, ref_d, True)),
+                    control_max_err=f"{max(ctrl.values()):.3e}",
+                    control_over_limit=sum(v > DP_W_LIMIT for v in ctrl.values()),
+                    tensors=len(ref_d))
+        del noise_d
+        n = torch.cuda.device_count()
+        if n < 2:
+            say("10e dp ranks", world_sizes="1", **gate,
+                note="one card: the W = 2 check needs two")
+        else:
+            w2 = _dp_world_check(tmp, 2, cfg, ecfg2, sd0, norm, ref_losses, ref_d)
+            say("10e dp ranks", world_sizes="1,2", **gate, losses=json.dumps(w2["losses"]),
+                ref_losses=json.dumps(ref_losses), max_rel_dloss=f"{w2['max_rel_dloss']:.2e}",
+                w2_max_err=f"{w2['max_err']:.3e}", w2_worst=w2["worst"],
+                w2_direction=w2["direction"],
+                w2_step_ms=f"{w2['step_ms']:.2f}", one_card_step_ms=f"{ref_ms:.2f}",
+                w2_grad_allreduce_ms=f"{w2['allreduce_ms']:.3f}",
+                note="W = 2: 64 rows a card; drop path 0, no augmentation")
+        return {"train": glob[2], "eval": eval_launches}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2639,6 +3127,8 @@ def main() -> None:
     looped = timed("8 loop", loop_phase, card, bare_step_ms)
     torch.cuda.empty_cache()
     served = timed("9 serve", serve_phase, card)
+    torch.cuda.empty_cache()
+    dp = timed("10 dp", dp_phase, card, bare_step_ms)
     # launches, launches_eval: per train step and per eval forward (loop: eval
     # batch), summed over the three paths (compact: phases 3 and 5;
     # uncompacted: phase 6; the loop: phase 8, with its run's total), each
@@ -2648,12 +3138,14 @@ def main() -> None:
         by_path = {"compact": {"train": launches[name], "eval": eval_launches[name]},
                    "uncompacted": {"train": un_train[name], "eval": un_eval[name]},
                    "loop": {k: looped[k][name] for k in ("train", "eval", "run")},
-                   "serve": {k: served[k][name] for k in ("query", "visualize")}}
+                   "serve": {k: served[k][name] for k in ("query", "visualize")},
+                   "dp": {k: dp[k][name] for k in ("train", "eval")}}
         info = {k: v for k, v in spec.items() if k != "tool"}
         rows.append(dict(name=name, route="cuda", **info,
-                         launches=launches[name] + un_train[name] + looped["train"][name],
+                         launches=(launches[name] + un_train[name] + looped["train"][name]
+                                   + dp["train"][name]),
                          launches_eval=(eval_launches[name] + un_eval[name]
-                                        + looped["eval"][name]),
+                                        + looped["eval"][name] + dp["eval"][name]),
                          launches_by_path=by_path, **kernels[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2662,4 +3154,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 10 (e)
+        dp_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

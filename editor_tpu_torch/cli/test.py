@@ -6,7 +6,10 @@
 ``TEST.WEIGHT``: a checkpoint directory of the port's training loop (its
 latest checkpoint), a ``.pth`` state_dict in the reference layout (loaded
 strictly), or empty (seeded random weights, a smoke run). ``--device cpu``
-evaluates on the CPU; by default the current CUDA device.
+evaluates on the CPU; by default the current CUDA device. Under a launcher
+(``torchrun --nproc_per_node N -m editor_tpu_torch.cli.test ...``) each rank
+extracts its rows of every batch and every rank scores all of them, the
+same metric on every rank; rank 0 alone logs.
 """
 
 from __future__ import annotations
@@ -23,20 +26,38 @@ def main(argv=None, splits=None, decode_fn=None):
     parser.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE config overrides")
     args = parser.parse_args(argv)
 
-    import torch
-
     from editor_tpu_torch.config import load_config
-    from editor_tpu_torch.data.loader import ReIDDataModule
-    from editor_tpu_torch.engine.loop import evaluate
-    from editor_tpu_torch.models.editor import editor_config_from
-    from editor_tpu_torch.models.init import editor_init
-    from editor_tpu_torch.utils.logger import setup_logger
+    from editor_tpu_torch.parallel import multihost
 
     cfg = load_config(args.config_file or None, args.opts or None)
-    logger = setup_logger("editor_tpu_torch.test", cfg.OUTPUT_DIR, "test_log.txt")
+    owned = multihost.initialize(device=args.device)
+    try:
+        result = _test(cfg, args.device, splits, decode_fn)
+    except BaseException as e:
+        multihost.leave_on_error(e)
+        raise
+    if owned:
+        multihost.shutdown()
+    return result
+
+
+def _test(cfg, device, splits, decode_fn):
+    import torch
+
+    from editor_tpu_torch.data.loader import ReIDDataModule
+    from editor_tpu_torch.engine.loop import evaluate, resolve_mesh
+    from editor_tpu_torch.models.editor import default_device, editor_config_from
+    from editor_tpu_torch.models.init import editor_init
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.utils.logger import setup_logger
+
+    device = default_device(device)
+    mesh = resolve_mesh(cfg, device, train=False)
+    logger = setup_logger("editor_tpu_torch.test", cfg.OUTPUT_DIR, "test_log.txt",
+                          distributed_rank=multihost.process_index())
     dm = ReIDDataModule(cfg, splits=splits, decode_fn=decode_fn)
     ecfg = editor_config_from(cfg, dm.num_classes, dm.cam_num)
-    model = editor_init(ecfg, seed=cfg.SOLVER.SEED, device=args.device)
+    model = editor_init(ecfg, seed=cfg.SOLVER.SEED, device=device)
 
     weight = cfg.TEST.WEIGHT
     if weight.endswith(".pth"):
@@ -48,7 +69,7 @@ def main(argv=None, splits=None, decode_fn=None):
         model.load_state_dict(restore_eval_state(weight), strict=True)
         logger.info("Loaded checkpoint %s", weight)
 
-    cmc, mAP = evaluate(cfg, model, dm, getattr(torch, cfg.TPU.COMPUTE_DTYPE))
+    cmc, mAP = evaluate(cfg, model, dm, getattr(torch, cfg.TPU.COMPUTE_DTYPE), mesh=mesh)
     logger.info("Validation Results")
     logger.info("mAP: %.2f%%", mAP * 100)
     for r in (1, 5, 10):

@@ -1,11 +1,20 @@
-"""Training entry point (reference: train_net.py), on one CUDA device.
+"""Training entry point (reference: train_net.py), on one CUDA device or
+data-parallel over one process per device.
 
     python -m editor_tpu_torch.cli.train --config_file configs/RGBNT201.yaml \\
         SOLVER.BASE_LR 0.001 MODEL.AL 1
+    torchrun --nproc_per_node 4 -m editor_tpu_torch.cli.train \\
+        --config_file configs/RGBNT201.yaml
 
-``--device cpu`` trains on the CPU (the tests do); by default the current
-CUDA device. Writes ``OUTPUT_DIR/config.yaml`` (``Config.dump``) and runs
-``do_train``.
+``--device cpu`` trains on the CPU (the tests do; under a launcher, a gloo
+group); by default the current CUDA device, ``cuda:LOCAL_RANK`` under a
+launcher (an NCCL group). Joins the process group of the launcher's
+environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``; or ``DIST_INIT_METHOD`` for the first two), writes
+``OUTPUT_DIR/config.yaml`` (``Config.dump``) from rank 0 and runs
+``do_train``. A rank that fails ends at once with a non-zero exit code
+(``multihost.leave_on_error``), so that its peers' collectives fail too
+rather than wait.
 """
 
 from __future__ import annotations
@@ -40,15 +49,23 @@ def main(argv=None, splits=None, decode_fn=None):
     from editor_tpu_torch.config import load_config
     from editor_tpu_torch.data.loader import ReIDDataModule
     from editor_tpu_torch.engine.loop import do_train
+    from editor_tpu_torch.parallel import multihost
 
     cfg = load_config(args.config_file or None, args.opts or None)
     set_seed(cfg.SOLVER.SEED)
-    if cfg.OUTPUT_DIR:
-        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-            f.write(cfg.dump())
-    dm = ReIDDataModule(cfg, splits=splits, decode_fn=decode_fn)
-    result = do_train(cfg, dm=dm, device=args.device)
+    owned = multihost.initialize(device=args.device)
+    try:
+        if cfg.OUTPUT_DIR and multihost.is_primary():
+            os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+            with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+                f.write(cfg.dump())
+        dm = ReIDDataModule(cfg, splits=splits, decode_fn=decode_fn)
+        result = do_train(cfg, dm=dm, device=args.device)
+    except BaseException as e:
+        multihost.leave_on_error(e)
+        raise
+    if owned:
+        multihost.shutdown()
     print("Best:", result["best"])
     return result
 

@@ -178,7 +178,7 @@ class TPUConfig:
     # mathematically exact, ~30% less tail work (models/editor.py)
     COMPACT_TAIL: bool = True
     ASYNC_CHECKPOINT: bool = True
-    GRAD_COMPRESSION: str = "none"  # 'none' | 'fp16' | 'bf16' | 'powersgd'
+    GRAD_COMPRESSION: str = "none"  # 'none' | 'fp16' | 'bf16' | 'int8' | 'powersgd'
     POWERSGD_RANK: int = 4
     DONATE: bool = True
     # also mirror metrics into TensorBoard event files under OUTPUT_DIR/tb

@@ -240,9 +240,20 @@ class ReIDDataModule:
                                           seed=cfg.SOLVER.SEED)
         self.val_pad = 0
 
-    def train_epoch(self, epoch: int):
-        return self.train_loader.batches(self.sampler.epoch_indices(epoch),
-                                         self.cfg.SOLVER.IMS_PER_BATCH)
+    def train_epoch(self, epoch: int, host_id: int = 0, num_hosts: int = 1,
+                    grad_accum: int = 1):
+        """The epoch's batches; with ``num_hosts`` > 1 host ``host_id``'s
+        disjoint rows of each global batch (``sampler.host_shard``,
+        IMS_PER_BATCH / num_hosts rows; the reference DDP sampler's split):
+        one contiguous block, or with ``grad_accum`` A > 1 one block of each
+        of the A microbatches, so that the global-batch step sees the
+        single-process run's microbatches."""
+        bs = self.cfg.SOLVER.IMS_PER_BATCH
+        if num_hosts > 1:  # host_rows raises when IMS_PER_BATCH does not split
+            return self.train_loader.batches(
+                self.sampler.host_shard(epoch, host_id, num_hosts, grad_accum),
+                bs // num_hosts)
+        return self.train_loader.batches(self.sampler.epoch_indices(epoch), bs)
 
     def val_batches(self, batch_size: Optional[int] = None):
         """Query then gallery items; the tail batch is padded by repeating the

@@ -5,7 +5,8 @@ RandomIdentitySampler, sampler_ddp.py).
 A deterministic host-side index generator seeded by (seed, epoch): numpy's
 ``RandomState((seed * 1_000_003 + epoch) % 2**31)``, the JAX package's
 formula, so both packages draw the same index arrays. ``host_shard`` slices
-each global batch into contiguous per-host blocks (sampler_ddp.py:159-168).
+each global batch into contiguous per-host blocks (sampler_ddp.py:159-168),
+one in each microbatch under gradient accumulation.
 """
 
 from __future__ import annotations
@@ -20,12 +21,25 @@ def _epoch_rng(seed: int, epoch: int) -> np.random.RandomState:
     return np.random.RandomState((seed * 1_000_003 + epoch) % (2**31))
 
 
-def _host_shard(full: np.ndarray, batch_size: int, host_id: int,
-                num_hosts: int) -> np.ndarray:
-    """Host ``host_id``'s contiguous block of each global batch of ``full``."""
-    per_host = batch_size // num_hosts
-    out = [full[b * batch_size + host_id * per_host:b * batch_size + (host_id + 1) * per_host]
-           for b in range(len(full) // batch_size)]
+def host_rows(batch_size: int, host_id: int, num_hosts: int,
+              grad_accum: int = 1) -> np.ndarray:
+    """The rows of a global batch that host ``host_id`` of ``num_hosts``
+    holds: its contiguous block of each of the ``grad_accum`` microbatches
+    (of the whole batch when 1), so that its local microbatch i is its part
+    of global microbatch i."""
+    if batch_size % (num_hosts * grad_accum):
+        raise ValueError(f"batch of {batch_size} rows does not split over {num_hosts} "
+                         f"hosts x {grad_accum} microbatches")
+    mb, per = batch_size // grad_accum, batch_size // (grad_accum * num_hosts)
+    return np.concatenate([np.arange(i * mb + host_id * per, i * mb + (host_id + 1) * per)
+                           for i in range(grad_accum)])
+
+
+def _host_shard(full: np.ndarray, batch_size: int, host_id: int, num_hosts: int,
+                grad_accum: int = 1) -> np.ndarray:
+    """Host ``host_id``'s rows (:func:`host_rows`) of each global batch of ``full``."""
+    rows = host_rows(batch_size, host_id, num_hosts, grad_accum)
+    out = [full[b * batch_size + rows] for b in range(len(full) // batch_size)]
     return np.concatenate(out) if out else np.empty((0,), dtype=np.int64)
 
 
@@ -76,8 +90,10 @@ class PKSampler:
             return np.empty((0,), dtype=np.int64)
         return np.concatenate(out).astype(np.int64)
 
-    def host_shard(self, epoch: int, host_id: int, num_hosts: int) -> np.ndarray:
-        return _host_shard(self.epoch_indices(epoch), self.batch_size, host_id, num_hosts)
+    def host_shard(self, epoch: int, host_id: int, num_hosts: int,
+                   grad_accum: int = 1) -> np.ndarray:
+        return _host_shard(self.epoch_indices(epoch), self.batch_size, host_id, num_hosts,
+                           grad_accum)
 
 
 class SoftmaxSampler:
@@ -93,5 +109,7 @@ class SoftmaxSampler:
         n = (len(idx) // self.batch_size) * self.batch_size
         return idx[:n].astype(np.int64)
 
-    def host_shard(self, epoch: int, host_id: int, num_hosts: int) -> np.ndarray:
-        return _host_shard(self.epoch_indices(epoch), self.batch_size, host_id, num_hosts)
+    def host_shard(self, epoch: int, host_id: int, num_hosts: int,
+                   grad_accum: int = 1) -> np.ndarray:
+        return _host_shard(self.epoch_indices(epoch), self.batch_size, host_id, num_hosts,
+                           grad_accum)

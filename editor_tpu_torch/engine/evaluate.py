@@ -17,19 +17,42 @@ from editor_tpu_torch.evals.metrics import R1mAPEvaluator
 from editor_tpu_torch.models.editor import MODALITIES, Editor
 
 
-def build_eval_step(model: Editor, compute_dtype: torch.dtype = torch.bfloat16
+def build_eval_step(model: Editor, compute_dtype: torch.dtype = torch.bfloat16, mesh=None
                     ) -> Callable[[Dict[str, torch.Tensor]], torch.Tensor]:
     """Returns extract(batch) -> [B, M*dim] float32 features.
 
     ``batch`` holds normalised NHWC images under 'RGB', 'NI' and optionally
     'TI' (on the model's device), and optionally 'camid' [B]. The images are
-    cast to ``compute_dtype`` and the model runs in inference mode."""
+    cast to ``compute_dtype`` and the model runs in inference mode.
 
-    def extract(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    ``mesh`` (a ``DeviceMesh``): every rank passes the same batch, runs its
+    block of the rows (the batch padded to a multiple of W by repeating its
+    last row) and gets every rank's features, all-gathered, with the
+    padding trimmed (the JAX step's data-sharded batch)."""
+
+    def run(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         images = {k: batch[k].to(compute_dtype) for k in MODALITIES if k in batch}
         with torch.inference_mode():
             feat = model(images, cam_ids=batch.get("camid"), training=False)
         return feat.to(torch.float32)
+
+    if mesh is None:
+        return run
+    from editor_tpu_torch.parallel import collectives as C
+    from editor_tpu_torch.parallel.mesh import data_size, shard_batch
+
+    W = data_size(mesh)
+
+    def extract(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        n = len(next(iter(batch.values())))
+        pad = (-n) % W
+        if pad:
+            batch = {k: torch.cat([v, v[-1:].expand((pad,) + v.shape[1:])])
+                     for k, v in batch.items()}
+        feat = run(shard_batch(mesh, {k: v for k, v in batch.items()
+                                      if k in MODALITIES or k == "camid"}))
+        with torch.inference_mode():
+            return C.all_gather(feat, mesh)[:n]
 
     return extract
 
@@ -38,17 +61,20 @@ def do_inference(model: Editor, val_loader: Iterable, num_query: int,
                  feat_norm: bool = True, reranking: bool = False,
                  msvr_protocol: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 rank_list_path: Optional[str] = None):
+                 rank_list_path: Optional[str] = None, mesh=None):
     """Extract the features of the query + gallery set and compute CMC and
     mAP: ``R1mAPEvaluator.compute``'s (cmc, mAP, distmat, pids, camids, qf, gf).
 
     ``val_loader`` yields batches of normalised images under 'RGB', 'NI',
     'TI' (tensors on the model's device) with 'pid', 'camid' and, for
     MSVR310, 'sceneid'; the first ``num_query`` rows are the queries.
-    ``rank_list_path``: where the MSVR310 protocol writes its rank list."""
+    ``rank_list_path``: where the MSVR310 protocol writes its rank list.
+    ``mesh``: every rank iterates the same batches, extracts its rows of
+    each (``build_eval_step(mesh=)``) and scores all of them, so every rank
+    returns the same metric."""
     evaluator = R1mAPEvaluator(num_query, feat_norm=feat_norm, reranking=reranking,
                                msvr_protocol=msvr_protocol, rank_list_path=rank_list_path)
-    step = build_eval_step(model, compute_dtype)
+    step = build_eval_step(model, compute_dtype, mesh)
     for batch in val_loader:
         evaluator.update(step(batch), batch["pid"], batch["camid"], batch.get("sceneid"))
     return evaluator.compute()

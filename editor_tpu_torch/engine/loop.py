@@ -1,4 +1,5 @@
-"""The training loop (``do_train``) and its evaluation pass, on one device.
+"""The training loop (``do_train``) and its evaluation pass, on one device
+or data-parallel over a process group.
 
 Counterpart of ``editor_tpu/engine/loop.py`` (reference:
 engine/processor.py ``do_train``): epochs of P x K batches from the data
@@ -12,10 +13,19 @@ loop waits for the last write at its end), evaluation every
 The step returns its loss and accuracy as device tensors; the loop reads
 them (a host sync) only on the steps it logs. Batches arrive as uint8 numpy
 from the loader's prefetch thread and go to the device through pinned host
-memory without blocking. Distribution is not ported: a mesh, a
-``TPU.MESH_DATA`` or ``TPU.MESH_MODEL`` above 1, ``TPU.ZERO_STAGE`` other
-than 0 or gradient compression raise ``NotImplementedError``; the default
-``MESH_DATA`` -1 ("all local devices") trains on the one device.
+memory without blocking.
+
+Data parallelism (one process per device; ``parallel.multihost.initialize``
+first, as ``cli.train`` does): under a process group the loop builds the
+('data', 'model') mesh as the JAX loop does (``TPU.MESH_DATA`` -1 or 1: every
+rank), each rank loads its host shard of every global batch, and the step is
+the global-batch step (``TPU.ZERO_STAGE`` 1: with the optimizer's slots
+partitioned) or, with ``TPU.GRAD_COMPRESSION``, the local-batch step with
+that reducer. Rank 0 alone writes the log, the metrics and the checkpoints;
+the others wait at a barrier after each save. Without a group the loop runs
+on one device, and the settings that need a mesh (``TPU.MESH_DATA`` above 1,
+``ZERO_STAGE`` 1, a ``GRAD_COMPRESSION``) raise. ``TPU.MESH_MODEL`` above 1
+and ``ZERO_STAGE`` 3 (model parallelism, FSDP) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from editor_tpu_torch.data.loader import ReIDDataModule
 from editor_tpu_torch.data.transforms import make_eval_transform, make_train_augment
@@ -34,22 +45,55 @@ from editor_tpu_torch.engine.train import build_train_step
 from editor_tpu_torch.losses import make_loss
 from editor_tpu_torch.models.editor import MODALITIES, default_device, editor_config_from
 from editor_tpu_torch.models.init import editor_init
+from editor_tpu_torch.parallel import multihost
 from editor_tpu_torch.solver import make_optimizer, make_scheduler
 from editor_tpu_torch.utils.checkpoint import CheckpointManager, load_train_state, train_state
 from editor_tpu_torch.utils.logger import MetricWriter, setup_logger
 from editor_tpu_torch.utils.meter import AverageMeter
 
 
-def _check_single_device(cfg, mesh=None) -> None:
-    """Raise for the distribution settings that are not ported."""
+def _compression(cfg) -> bool:
+    return cfg.TPU.GRAD_COMPRESSION not in ("none", "")
+
+
+def resolve_mesh(cfg, device: torch.device, mesh=None, train: bool = True):
+    """The data-parallel mesh of a run on ``device``, as the JAX loop builds
+    it: ``mesh`` when given; under a process group of W ranks
+    ``make_mesh(MESH_DATA)`` (-1 or, with W > 1, 1: all ranks) unless W is 1
+    and ``MESH_DATA`` is 1; else None (one device). Raises for what is not
+    ported (``MESH_MODEL`` above 1, ``ZERO_STAGE`` 3), for the settings that
+    need a mesh without one (for an evaluation, ``train`` False, only
+    ``MESH_DATA``), and for a group whose backend does not fit ``device``
+    (NCCL on CUDA, gloo on the CPU)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from editor_tpu_torch.parallel.mesh import make_mesh
+
     t = cfg.TPU
-    for name, asks in (("mesh=", mesh is not None), ("TPU.MESH_DATA > 1", t.MESH_DATA > 1),
-                       ("TPU.MESH_MODEL > 1", t.MESH_MODEL > 1),
-                       ("TPU.ZERO_STAGE != 0", t.ZERO_STAGE != 0),
-                       ("TPU.GRAD_COMPRESSION", t.GRAD_COMPRESSION not in ("none", ""))):
-        if asks:
-            raise NotImplementedError(f"{name}: distributed training is not ported; "
-                                      "the loop runs on one device")
+    if t.MESH_MODEL > 1:
+        raise NotImplementedError("TPU.MESH_MODEL > 1: model parallelism is not ported")
+    if train and t.ZERO_STAGE not in (0, 1):
+        raise NotImplementedError(f"TPU.ZERO_STAGE {t.ZERO_STAGE}: FSDP is not ported "
+                                  "(ZeRO-1 is: ZERO_STAGE 1)")
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh= takes a DeviceMesh (parallel.mesh.make_mesh), not {mesh!r}")
+    if mesh is None and dist.is_initialized():
+        world = dist.get_world_size()
+        if world > 1 or t.MESH_DATA != 1:
+            mesh = make_mesh(-1 if t.MESH_DATA in (-1, 1) else t.MESH_DATA)
+    if mesh is None:
+        for name, asks in (("TPU.MESH_DATA > 1", t.MESH_DATA > 1),
+                           ("TPU.ZERO_STAGE 1", train and t.ZERO_STAGE == 1),
+                           ("TPU.GRAD_COMPRESSION", train and _compression(cfg))):
+            if asks:
+                raise ValueError(f"{name} needs a data-parallel mesh: launch one process "
+                                 "per device (torchrun, or parallel.multihost.initialize)")
+        return None
+    backend = dist.get_backend()
+    if (backend == "nccl") != (device.type == "cuda"):
+        raise RuntimeError(f"a {backend} process group cannot run on {device}: NCCL on "
+                           "CUDA, gloo on the CPU")
+    return mesh
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -64,51 +108,58 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
     return out
 
 
+def eval_batches(cfg, dm: ReIDDataModule, device: torch.device):
+    """The query + gallery batches on ``device``, normalised, with the
+    loader's padded tail trimmed (each item once)."""
+    transform = make_eval_transform(tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD))
+    total, seen = len(dm.val_items), 0
+    for batch in dm.val_batches():
+        take = min(len(batch["pid"]), total - seen)
+        seen += take
+        feed = to_device({k: v[:take] for k, v in batch.items()}, device)
+        yield {k: transform(v) if k in MODALITIES else v for k, v in feed.items()}
+
+
 def evaluate(cfg, model, dm: ReIDDataModule,
-             compute_dtype: torch.dtype = torch.bfloat16):
+             compute_dtype: torch.dtype = torch.bfloat16, mesh=None):
     """Feature extraction over the query + gallery items through
     ``do_inference`` -> (cmc, mAP). The padded tail batch is trimmed before
     the model, so the evaluator sees each item once; with the MSVR310
-    protocol the rank list goes to ``OUTPUT_DIR/re.txt``."""
-    device = next(model.parameters()).device
-    transform = make_eval_transform(tuple(cfg.INPUT.PIXEL_MEAN), tuple(cfg.INPUT.PIXEL_STD))
-    total = len(dm.val_items)
-
-    def batches():
-        seen = 0
-        for batch in dm.val_batches():
-            take = min(len(batch["pid"]), total - seen)
-            seen += take
-            feed = to_device({k: v[:take] for k, v in batch.items()}, device)
-            yield {k: transform(v) if k in MODALITIES else v for k, v in feed.items()}
-
+    protocol the rank list goes to ``OUTPUT_DIR/re.txt`` (from rank 0 only).
+    With ``mesh`` every rank extracts its rows of each batch and scores all
+    of them: the same metric on every rank."""
     has_scene = dm.splits.has_sceneid
     cmc, mAP, *_ = do_inference(
-        model, batches(), dm.num_query, feat_norm=cfg.TEST.FEAT_NORM == "yes",
+        model, eval_batches(cfg, dm, next(model.parameters()).device), dm.num_query,
+        feat_norm=cfg.TEST.FEAT_NORM == "yes",
         reranking=cfg.TEST.RE_RANKING == "yes", msvr_protocol=has_scene,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, mesh=mesh,
         rank_list_path=(os.path.join(cfg.OUTPUT_DIR, "re.txt")
-                        if has_scene and cfg.OUTPUT_DIR else None))
+                        if has_scene and cfg.OUTPUT_DIR and multihost.is_primary() else None))
     return cmc, mAP
 
 
 def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None,
              max_steps_per_epoch: Optional[int] = None, device=None) -> Dict[str, Any]:
     """Train EDITOR per ``cfg`` on ``device`` (by default the current CUDA
-    device); returns {'model', 'optimizer', 'step', 'best', 'ecfg'}.
+    device); returns {'model', 'optimizer', 'step', 'best', 'ecfg', 'mesh'}.
 
     ``dm``: the data module (by default ``ReIDDataModule(cfg,
     decode_fn=decode_fn)``). ``max_steps_per_epoch`` cuts each epoch short.
     With ``OUTPUT_DIR`` set, the log (``train_log.txt``), the metrics
     (``metrics.jsonl``) and the checkpoints (``ckpt/``) go there, and a run
-    resumes from the latest checkpoint it finds."""
-    _check_single_device(cfg, mesh)
+    resumes from the latest checkpoint it finds. ``mesh``: a data-parallel
+    ``DeviceMesh``; by default the one :func:`resolve_mesh` builds."""
     device = default_device(device)
-    logger = setup_logger("editor_tpu_torch.train", cfg.OUTPUT_DIR, "train_log.txt")
-    if cfg.TPU.MESH_DATA == -1:
+    mesh = resolve_mesh(cfg, device, mesh)
+    rank, world = multihost.process_index(), multihost.process_count()
+    primary = rank == 0
+    logger = setup_logger("editor_tpu_torch.train", cfg.OUTPUT_DIR, "train_log.txt",
+                          distributed_rank=rank)
+    if mesh is None and cfg.TPU.MESH_DATA == -1:
         logger.info("TPU.MESH_DATA -1 (all local devices): training on the one device %s",
                     device)
-    writer = MetricWriter(cfg.OUTPUT_DIR, tensorboard=cfg.TPU.TENSORBOARD)
+    writer = MetricWriter(cfg.OUTPUT_DIR if primary else None, tensorboard=cfg.TPU.TENSORBOARD)
     dm = dm or ReIDDataModule(cfg, decode_fn=decode_fn)
     ecfg = editor_config_from(cfg, dm.num_classes, dm.cam_num)
     compute_dtype = getattr(torch, cfg.TPU.COMPUTE_DTYPE)
@@ -119,10 +170,36 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
         load_imagenet_vit(cfg.MODEL.PRETRAIN_PATH_T, model)
         logger.info("Loaded ImageNet backbone from %s", cfg.MODEL.PRETRAIN_PATH_T)
     opt = make_optimizer(cfg, model)
-    step = build_train_step(model, opt, make_loss(cfg, dm.num_classes), make_scheduler(cfg),
-                            cfg.SOLVER.BASE_LR, compute_dtype,
-                            augment=make_train_augment(cfg.INPUT),
-                            grad_accum=cfg.TPU.GRAD_ACCUM, seed=cfg.SOLVER.SEED)
+    loss_func, lr_fn = make_loss(cfg, dm.num_classes), make_scheduler(cfg)
+    augment = make_train_augment(cfg.INPUT)
+    if mesh is not None and _compression(cfg):
+        from editor_tpu_torch.parallel.compression import make_reducer
+        from editor_tpu_torch.parallel.ddp import build_ddp_train_step
+        step = build_ddp_train_step(
+            model, opt, loss_func, lr_fn, cfg.SOLVER.BASE_LR, mesh,
+            reducer=make_reducer(cfg.TPU.GRAD_COMPRESSION, rank=cfg.TPU.POWERSGD_RANK),
+            compute_dtype=compute_dtype, augment=augment, seed=cfg.SOLVER.SEED)
+        logger.info("Data parallel over %d ranks: local-batch step, %s gradient reducer",
+                    world, step.reducer.name)
+    else:
+        zero = None
+        if mesh is not None and cfg.TPU.ZERO_STAGE == 1:
+            from editor_tpu_torch.parallel.zero import zero1_state_shardings
+            zero = zero1_state_shardings(opt, mesh)
+            logger.info("ZeRO-1: optimizer slots partitioned over the %d data ranks", world)
+        step = build_train_step(model, opt, loss_func, lr_fn, cfg.SOLVER.BASE_LR,
+                                compute_dtype, augment=augment, grad_accum=cfg.TPU.GRAD_ACCUM,
+                                seed=cfg.SOLVER.SEED, mesh=mesh, state_shardings=zero)
+        opt = zero or opt
+        if mesh is not None:
+            logger.info("Data parallel over %d ranks: global-batch step", world)
+
+    def save(epoch: int) -> None:  # collective; the reducer's state is the step's latest
+        payload = train_state(model, opt, step.generator, epoch,
+                              comm=getattr(step, "comm", None))
+        if primary:
+            ckpt_mgr.save(opt.count, payload)
+        multihost.barrier()
 
     ckpt_mgr = None
     start_epoch = 1
@@ -132,23 +209,27 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
         latest = ckpt_mgr.latest_step()
         if latest is not None:  # the full train state: an exact resume
             start_epoch = load_train_state(ckpt_mgr.restore(latest), model, opt,
-                                           step.generator) + 1
+                                           step.generator, comm=getattr(step, "comm", None)) + 1
             logger.info("Resumed from checkpoint step %d (epoch %d)", latest, start_epoch - 1)
 
     loss_meter, acc_meter = AverageMeter(), AverageMeter()
     best = {"mAP": 0.0, "Rank-1": 0.0, "Rank-5": 0.0, "Rank-10": 0.0}
     log_period = cfg.SOLVER.LOG_PERIOD
+    shard = {}
+    if mesh is not None:  # the global-batch step takes its microbatches' rows
+        shard = {"host_id": rank, "num_hosts": world,
+                 "grad_accum": 1 if _compression(cfg) else cfg.TPU.GRAD_ACCUM}
     for epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCHS + 1):
         t0 = time.time()
         loss_meter.reset()
         acc_meter.reset()
         n_iter = 0
-        for batch in dm.train_epoch(epoch):
+        for batch in dm.train_epoch(epoch, **shard):
             metrics = step(to_device(batch, device), epoch)
             n_iter += 1
             if n_iter % log_period == 0:
                 loss, acc = float(metrics["loss"]), float(metrics["acc"])
-                loss_meter.update(loss, batch["pid"].shape[0])
+                loss_meter.update(loss, batch["pid"].shape[0] * world)
                 acc_meter.update(acc)
                 logger.info("Epoch[%d] Iteration[%d] Loss: %.3f, Acc: %.3f, Base Lr: %.2e",
                             epoch, n_iter, loss_meter.avg, acc_meter.avg, metrics["lr"])
@@ -162,10 +243,10 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
                         n_iter * cfg.SOLVER.IMS_PER_BATCH / dt)
 
         if ckpt_mgr and epoch % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
-            ckpt_mgr.save(opt.count, train_state(model, opt, step.generator, epoch))
+            save(epoch)
 
         if epoch % cfg.SOLVER.EVAL_PERIOD == 0 and dm.num_query > 0:
-            cmc, mAP = evaluate(cfg, model, dm, compute_dtype)
+            cmc, mAP = evaluate(cfg, model, dm, compute_dtype, mesh=mesh)
             logger.info("Validation Results - Epoch: %d", epoch)
             logger.info("mAP: %.2f%%", mAP * 100)
             for r in (1, 5, 10):
@@ -177,9 +258,11 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
                         "Rank-5": float(cmc[4]) if len(cmc) > 4 else 0.0,
                         "Rank-10": float(cmc[9]) if len(cmc) > 9 else 0.0}
                 if ckpt_mgr:
-                    ckpt_mgr.save(opt.count, train_state(model, opt, step.generator, epoch))
+                    save(epoch)
             logger.info("Best mAP so far: %.2f%%", best["mAP"] * 100)
     if ckpt_mgr:
         ckpt_mgr.wait()
+        multihost.barrier()
     writer.close()
-    return {"model": model, "optimizer": opt, "step": step, "best": best, "ecfg": ecfg}
+    return {"model": model, "optimizer": opt, "step": step, "best": best, "ecfg": ecfg,
+            "mesh": mesh}

@@ -12,16 +12,86 @@ Mixed precision as in JAX: fp32 master weights, images and activations in
 ``compute_dtype`` (weights are cast at each use), losses in fp32, fp32
 gradients into the optimizer. No loss scaling: bf16 has fp32's exponent
 range.
+
+On a mesh (``mesh=``, one process per device) the step is the JAX step on
+a mesh: the single-device step over the global batch, each rank holding its
+rows (see ``parallel.mesh.shard_batch``). The model gathers the rows where
+the batch couples them (``Editor.forward(batch_group=)``), so the BN stats,
+OCFR centers, losses and accuracy are the global batch's and the same on
+every rank; the gradients are mean-all-reduced in one flat buffer. The
+explicit local-batch step with gradient compression is
+``parallel.ddp.build_ddp_train_step``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from editor_tpu_torch.models.editor import MODALITIES, Editor
+from editor_tpu_torch.parallel import collectives as C
 from editor_tpu_torch.solver.optimizer import Optimizer
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of data rank ``rank``'s generator: ``seed + rank * 2**32``,
+    so rank 0 draws what the single-device step draws and no two ranks of
+    runs with seeds below 2**32 share a stream."""
+    return int(seed) + (int(rank) << 32)
+
+
+def step_images(batch: Dict[str, torch.Tensor], augment: Optional[Callable],
+                gen: torch.Generator, compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    mods = [k for k in MODALITIES if k in batch]
+    if augment is not None:
+        return {k: augment(batch[k], gen).to(compute_dtype) for k in mods}
+    return {k: batch[k].to(compute_dtype) for k in mods}
+
+
+def make_loss_of(model: Editor, loss_func: Callable, gen: torch.Generator,
+                 batch_group=None) -> Callable:
+    """loss_of(images, labels, cams) -> (total, acc): the forward and the
+    output-tuple loss (every (score, feat) pair, plus the aux loss). With
+    ``batch_group`` the labels are gathered and the model sees the global
+    batch."""
+    device = next(model.parameters()).device
+
+    def loss_of(images, labels, cams):
+        if batch_group is not None:
+            labels = C.all_gather(labels, batch_group)
+        out = model(images, cam_ids=cams, training=True, labels=labels, generator=gen,
+                    batch_group=batch_group)
+        total = torch.zeros((), dtype=torch.float32, device=device)
+        for score, feat in out.pairs:
+            total = total + loss_func(score, feat, labels)
+        total = total + out.aux_loss
+        acc = (out.pairs[0][0].argmax(dim=1) == labels).to(torch.float32).mean()
+        return total, acc
+
+    return loss_of
+
+
+def trainable(model: torch.nn.Module) -> List[torch.Tensor]:
+    return [p for p in model.parameters() if p.requires_grad]
+
+
+@torch.no_grad()
+def mean_all_reduce_grads(params: List[torch.Tensor], group) -> None:
+    """Every parameter's gradient replaced by its mean over the group (a
+    missing one counts as zero), through one flat buffer a dtype."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        by_dtype.setdefault(p.grad.dtype, []).append(p)
+    for ps in by_dtype.values():
+        flat = torch.cat([p.grad.reshape(-1) for p in ps])
+        flat = C.all_reduce(flat, group, "mean")
+        off = 0
+        for p in ps:
+            p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+            off += p.numel()
 
 
 def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
@@ -44,34 +114,38 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
     ``grad_accum > 1`` splits the batch into that many microbatches, sums
     their gradients, averages them and steps the optimizer once; the BN stats
     and OCFR centers advance per microbatch in order and the triplet mining
-    sees each microbatch, as in the JAX step. The distribution arguments of
-    the JAX step (``mesh``, ``state_shardings``, ``backbone``,
-    ``gather_params_compute``) are not ported and raise."""
-    for name, value in (("mesh", mesh), ("state_shardings", state_shardings),
-                        ("backbone", backbone)):
-        if value is not None:
-            raise NotImplementedError(f"{name}= is not ported")
-    if gather_params_compute:
-        raise NotImplementedError("gather_params_compute is not ported")
-    device = next(model.parameters()).device
-    gen = torch.Generator(device=device).manual_seed(seed)
+    sees each microbatch, as in the JAX step.
 
-    def loss_of(images, labels, cams):
-        out = model(images, cam_ids=cams, training=True, labels=labels, generator=gen)
-        # output-tuple protocol: every (score, feat) pair, plus the aux loss
-        total = torch.zeros((), dtype=torch.float32, device=device)
-        for score, feat in out.pairs:
-            total = total + loss_func(score, feat, labels)
-        total = total + out.aux_loss
-        acc = (out.pairs[0][0].argmax(dim=1) == labels).to(torch.float32).mean()
-        return total, acc
+    ``mesh`` (a ``DeviceMesh`` from ``parallel.mesh.make_mesh``): ``batch``
+    is this rank's B/W rows of the global batch, and the step is the JAX
+    step on a mesh over the global batch (module docstring). Rank r's
+    generator is seeded with ``rank_seed(seed, r)``. With ``grad_accum`` A
+    the global microbatch i is the ranks' local microbatches i in rank
+    order. ``state_shardings``: the ZeRO-1 layout of ``optimizer``
+    (``parallel.zero.zero1_state_shardings``), which then steps in its
+    place. ``backbone`` and ``gather_params_compute`` (pipeline and FSDP)
+    are not ported and raise."""
+    if backbone is not None:
+        raise NotImplementedError("backbone= is not ported")
+    if gather_params_compute:
+        raise NotImplementedError("gather_params_compute (FSDP) is not ported")
+    if state_shardings is not None:
+        from editor_tpu_torch.parallel.zero import Zero1Optimizer
+        if mesh is None or not isinstance(state_shardings, Zero1Optimizer):
+            raise ValueError("state_shardings= takes the ZeRO-1 layout of the optimizer "
+                             "(parallel.zero.zero1_state_shardings) on a mesh")
+        optimizer = state_shardings
+    rank = 0
+    if mesh is not None:
+        from editor_tpu_torch.parallel.mesh import data_rank
+        rank = data_rank(mesh)
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(rank_seed(seed, rank))
+    loss_of = make_loss_of(model, loss_func, gen, batch_group=mesh)
+    params = trainable(model)
 
     def step(batch: Dict[str, torch.Tensor], epoch) -> Dict[str, Any]:
-        mods = [k for k in MODALITIES if k in batch]
-        if augment is not None:
-            images = {k: augment(batch[k], gen).to(compute_dtype) for k in mods}
-        else:
-            images = {k: batch[k].to(compute_dtype) for k in mods}
+        images = step_images(batch, augment, gen, compute_dtype)
         labels, cams = batch["pid"], batch.get("camid")
         B = labels.shape[0]
         if B % grad_accum:
@@ -85,6 +159,8 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
                                None if cams is None else cams[sl])
             total.backward()
             loss, acc = loss + total.detach(), acc + a
+        if mesh is not None:
+            mean_all_reduce_grads(params, mesh)
         if grad_accum > 1:
             inv = 1.0 / grad_accum
             grads = [p.grad for p in optimizer.params() if p.grad is not None]
@@ -95,4 +171,5 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
         return {"loss": loss, "acc": acc, "lr": lr}
 
     step.generator = gen
+    step.optimizer = optimizer
     return step

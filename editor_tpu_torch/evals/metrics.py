@@ -49,10 +49,11 @@ def rank_order(distmat: torch.Tensor) -> torch.Tensor:
     return torch.argsort(distmat, dim=1, stable=True)
 
 
-def _cmc_map_core(distmat: torch.Tensor, q_pids: torch.Tensor, g_pids: torch.Tensor,
+def _cmc_map_sums(distmat: torch.Tensor, q_pids: torch.Tensor, g_pids: torch.Tensor,
                   remove_mask: torch.Tensor, max_rank: int = 50):
-    """(cmc [max_rank] fp32, mAP, number of valid queries), on distmat's
-    device. ``remove_mask`` [Q, G]: gallery entries to discard per query."""
+    """(the CMC hits [max_rank] and AP summed over the valid queries, the
+    number of valid queries), fp32 on distmat's device. ``remove_mask``
+    [Q, G]: gallery entries to discard per query."""
     Q, G = distmat.shape
     order = rank_order(distmat)
     sorted_match = g_pids[order] == q_pids[:, None]
@@ -74,8 +75,46 @@ def _cmc_map_core(distmat: torch.Tensor, q_pids: torch.Tensor, g_pids: torch.Ten
     prec = cum_match / eff_rank.to(torch.float32).clamp_min(1.0)
     ap = (torch.where(match_valid, prec, 0.0).sum(dim=1)
           / num_rel.to(torch.float32).clamp_min(1.0))
-    n_valid = valid_q.to(torch.float32).sum()
-    return cmc / n_valid, torch.where(valid_q, ap, 0.0).sum() / n_valid, n_valid
+    return cmc, torch.where(valid_q, ap, 0.0).sum(), valid_q.to(torch.float32).sum()
+
+
+def _cmc_map_core(distmat: torch.Tensor, q_pids: torch.Tensor, g_pids: torch.Tensor,
+                  remove_mask: torch.Tensor, max_rank: int = 50):
+    """(cmc [max_rank] fp32, mAP, number of valid queries), on distmat's
+    device. ``remove_mask`` [Q, G]: gallery entries to discard per query."""
+    cmc, ap, n_valid = _cmc_map_sums(distmat, q_pids, g_pids, remove_mask, max_rank)
+    return cmc / n_valid, ap / n_valid, n_valid
+
+
+def sharded_cmc_map(qf, gf, q_pids, g_pids, remove_mask, mesh, max_rank: int = 50):
+    """CMC and mAP with the queries sharded over ``mesh``'s data axis and the
+    gallery replicated (the JAX ``sharded_cmc_map``, for galleries whose
+    [Q, G] distances are the large tensor). Every rank passes the same
+    arguments; Q is padded to a multiple of W with queries that never match
+    (pid -1, every gallery entry removed), each rank scores its block of
+    rows, and the CMC hits, AP sums and valid counts are all-reduced. Returns
+    (numpy cmc, float mAP) on every rank."""
+    from editor_tpu_torch.parallel import collectives as C
+    from editor_tpu_torch.parallel.mesh import data_rank, data_size
+
+    W, r = data_size(mesh), data_rank(mesh)
+    dev = qf.device if isinstance(qf, torch.Tensor) else torch.device("cpu")
+    qf, gf = _tensor(qf, dev), _tensor(gf, dev)
+    q_pids, g_pids = _tensor(q_pids, dev), _tensor(g_pids, dev)
+    remove_mask = _tensor(remove_mask, dev)
+    pad = (-qf.shape[0]) % W
+    if pad:
+        qf = torch.cat([qf, qf.new_zeros((pad, qf.shape[1]))])
+        q_pids = torch.cat([q_pids, q_pids.new_full((pad,), -1)])
+        remove_mask = torch.cat([remove_mask, remove_mask.new_ones((pad, remove_mask.shape[1]))])
+    rows = slice(r * (qf.shape[0] // W), (r + 1) * (qf.shape[0] // W))
+    cmc, ap, n_valid = _cmc_map_sums(euclidean_distmat(qf[rows], gf), q_pids[rows], g_pids,
+                                     remove_mask[rows], max_rank)
+    sums = C.all_reduce(torch.cat([cmc, ap[None], n_valid[None]]), mesh, "sum")
+    n_valid = sums[-1]
+    if float(n_valid) == 0:
+        raise RuntimeError("all query identities absent from gallery")
+    return _numpy(sums[:max_rank] / n_valid), float(sums[max_rank] / n_valid)
 
 
 def _protocol(distmat, q_pids, g_pids, q_other, g_other, max_rank: int):

@@ -32,6 +32,7 @@ from editor_tpu_torch.models.layers import BatchNorm1d, Linear
 from editor_tpu_torch.models.sfts import bcc_loss, sfts_select
 from editor_tpu_torch.models.vit import (ViTConfig, VisionTransformer, deit_small_config,
                                          vit_base_config, vit_small_config)
+from editor_tpu_torch.parallel.collectives import all_gather, all_reduce
 
 if TYPE_CHECKING:
     from editor_tpu_torch.config import Config
@@ -240,13 +241,25 @@ class Editor(nn.Module):
                 view_ids: Optional[torch.Tensor] = None,
                 training: bool = False, tp_mesh=None, seq_mesh=None,
                 backbone=None, labels: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, batch_group=None
                 ) -> Union[torch.Tensor, EditorTrainOutput]:
         """images: {'RGB', 'NI', 'TI'} NHWC float tensors ('TI' optional).
         Eval: returns cls4t [B, M*dim] in the images' dtype. Training
         (``labels`` [B] required, drop path and dropout drawn from
         ``generator``): returns an :class:`EditorTrainOutput` and advances
         the BN running stats and OCFR centers in place.
+
+        ``batch_group`` (training; a ``DeviceMesh`` or process group): the
+        images are this rank's rows of a global batch, and ``labels`` are
+        the global batch's [W*B]. Every site that couples the rows of a
+        batch sees all W*B of them, as the JAX step on a mesh does: the BN
+        heads (batch stats, the n of the running variance), the OCFR class
+        means, the BCC mean and, through the returned pairs, the losses and
+        accuracy. Their inputs are all-gathered with autograd (the BCC loss
+        is all-reduced), so the output is the global batch's, the same on
+        every rank, and a rank's backward gives W times its rows' share of
+        the gradient; the step's mean all-reduce of the gradients cancels
+        the W.
 
         ``tp_mesh``, ``seq_mesh`` and ``backbone`` are the JAX
         ``editor_apply`` options that are not ported: each raises."""
@@ -276,6 +289,8 @@ class Editor(nn.Module):
         head_pairs = []
         if training:
             cls4tri = [t[:, 0] for t in toks]
+            if batch_group is not None:
+                cls4tri = list(all_gather(torch.stack(cls4tri, dim=1), batch_group).unbind(1))
             if cfg.al:  # AL supervision on the joint raw cls tokens
                 ori = torch.cat(cls4tri, dim=-1)
                 head_pairs.append((self.AL_HEAD(self.AL_BN(ori, True)), ori))
@@ -286,6 +301,8 @@ class Editor(nn.Module):
 
         feats, index = sfts_select(toks, rolls, mask_fre, cfg.head_keep)
         bcc = bcc_loss(toks, index) if training else None
+        if training and batch_group is not None:  # the mean over equal shards
+            bcc = all_reduce(bcc, batch_group, "mean")
         seg_len = cfg.num_patches + 1
         if cfg.compact_tail:
             keep = _tail_keep_count(cfg, M)
@@ -295,7 +312,7 @@ class Editor(nn.Module):
 
         fused = self.FUSE_block(feats, index, use_kernels,
                                 labels=labels if training else None,
-                                ocfr_momentum=cfg.ocfr_momentum)
+                                ocfr_momentum=cfg.ocfr_momentum, batch_group=batch_group)
         if training:
             fused, ocfr_loss = fused
         pooled = _masked_mean_pool(fused, index, seg_len, M)
@@ -304,6 +321,8 @@ class Editor(nn.Module):
                            for head, (cls, pool) in zip(heads, pooled)], dim=-1)
         if not training:
             return cls4t
+        if batch_group is not None:
+            cls4t = all_gather(cls4t, batch_group)
         score = self.FUSE_HEAD(self.FUSE_BN(cls4t, True))
         # the JAX function holds the aux loss in fp32 (so an fp64 run rounds here)
         return EditorTrainOutput(score=score, cls4t=cls4t,

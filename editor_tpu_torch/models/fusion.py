@@ -27,6 +27,7 @@ from torch import nn
 from editor_tpu_torch import ops
 from editor_tpu_torch.models.layers import LayerNorm, Linear, gelu
 from editor_tpu_torch.models.ocfr import ocfr_update_and_loss
+from editor_tpu_torch.parallel.collectives import all_gather
 from editor_tpu_torch.ops._checks import compute_dtype
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default (BlockMask uses the default)
@@ -137,12 +138,14 @@ class BlockMask(nn.Module):
 
     def forward(self, modal_feats: List[torch.Tensor], mask_patches: torch.Tensor,
                 use_kernels: bool = True, labels: Optional[torch.Tensor] = None,
-                ocfr_momentum: float = 0.8
+                ocfr_momentum: float = 0.8, batch_group=None
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """modal_feats: 2-3 per-modality [B, 1+P, C]; mask_patches: [B, P, 1]
         float union mask (no cls entry). Returns fused [B, M(1+P), C]; in
         training (``labels`` [B] given) returns (fused, OCFR loss) and moves
-        the class centers."""
+        the class centers. With ``batch_group`` the OCFR sees the global
+        batch: the refined cls tokens are all-gathered with autograd, and
+        ``labels`` are the global batch's."""
         B = modal_feats[0].shape[0]
         dtype = modal_feats[0].dtype
         ones = torch.ones((B, 1, 1), dtype=mask_patches.dtype, device=mask_patches.device)
@@ -151,9 +154,12 @@ class BlockMask(nn.Module):
         ocfr_loss = None
         if labels is not None:
             mem = self.memory_cls
+            cls = [f[:, 0] for f in refined]
+            if batch_group is not None:
+                cls = list(all_gather(torch.stack(cls, dim=1), batch_group).unbind(1))
             ocfr_loss = ocfr_update_and_loss(
                 [mem.RGB_centers, mem.NIR_centers, mem.TIR_centers][:len(refined)],
-                [f[:, 0] for f in refined], labels, momentum=ocfr_momentum)
+                cls, labels, momentum=ocfr_momentum)
 
         x = torch.cat(refined, dim=1)
         m = _tile_mask(mask, x.shape[1]).to(dtype)

@@ -95,6 +95,8 @@ class Optimizer:
         self.count += 1
         for g, st in zip(self.groups, self.state):
             params = g["params"]
+            if not params:  # a ZeRO-1 rank may own none of a group
+                continue
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
             glr, wd = lr * g["lr_factor"], g["weight_decay"]
             if self.name == "SGD":

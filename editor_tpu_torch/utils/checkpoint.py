@@ -151,19 +151,86 @@ class CheckpointManager:
         return torch.load(self.path(step), map_location="cpu", weights_only=True)
 
 
+def _group() -> tuple:
+    """(rank, world size) of the default process group, (0, 1) without one."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _comm_payload(comm: Any) -> Any:
+    """A reducer state consolidated: each leaf's ``q`` (the same on every
+    rank) and every rank's ``error`` in rank order, on the host."""
+    from editor_tpu_torch.parallel import collectives as C
+    if not isinstance(comm, dict) or not comm:
+        return {}
+    out = {}
+    for name, st in comm.items():
+        errors = C.all_gather(st["error"], None, tiled=False)
+        out[name] = {"q": st["q"].detach().cpu(), "errors": list(errors.cpu().unbind(0))}
+    return out
+
+
 def train_state(model: torch.nn.Module, optimizer, generator: torch.Generator,
-                epoch: int) -> Dict[str, Any]:
-    """The checkpoint payload of a run after ``epoch``."""
-    return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-            "generator": generator.get_state(), "step": optimizer.count, "epoch": epoch}
+                epoch: int, comm: Any = None) -> Optional[Dict[str, Any]]:
+    """The checkpoint payload of a run after ``epoch``.
+
+    Under a process group the call is collective (every rank makes it) and
+    the payload comes back on rank 0 only (None elsewhere): the model is the
+    same on every rank; a ZeRO-1 optimizer gathers its slots into the
+    single-device format; ``generators`` holds every rank's generator state
+    in rank order (``generator`` stays rank 0's); ``comm``, a data-parallel
+    step's reducer state, is saved with each rank's PowerSGD error feedback
+    (``errors``). The file loads into a single-device run."""
+    import torch.distributed as dist
+    rank, world = _group()
+    opt = optimizer.state_dict()
+    gens = [generator.get_state()]
+    if dist.is_initialized():
+        gens = [None] * world
+        dist.all_gather_object(gens, generator.get_state())
+    comm_state = _comm_payload(comm) if comm is not None else None
+    if rank != 0:
+        return None
+    payload = {"model": model.state_dict(), "optimizer": opt, "generator": gens[0],
+               "step": optimizer.count, "epoch": epoch}
+    if dist.is_initialized():
+        payload["generators"] = gens
+    if comm_state is not None:
+        payload["comm"] = comm_state
+    return payload
 
 
+@torch.no_grad()
 def load_train_state(payload: Dict[str, Any], model: torch.nn.Module, optimizer,
-                     generator: torch.Generator) -> int:
-    """Restores a :func:`train_state` payload in place; returns its epoch."""
+                     generator: torch.Generator, comm: Any = None) -> int:
+    """Restores a :func:`train_state` payload in place; returns its epoch.
+
+    Every rank loads the same file: a ZeRO-1 optimizer takes its own slots.
+    A rank takes its own generator state and PowerSGD error when the file
+    was saved at this world size; otherwise rank 0 takes the saved rank 0's
+    generator, the other ranks keep their fresh ones, and the error
+    feedback restarts from zero (``q`` is kept)."""
+    rank, world = _group()
     model.load_state_dict(payload["model"], strict=True)
     optimizer.load_state_dict(payload["optimizer"])
-    generator.set_state(payload["generator"])
+    gens = payload.get("generators")
+    if gens is not None and len(gens) == world:
+        generator.set_state(gens[rank])
+    elif rank == 0:
+        generator.set_state(payload["generator"])
+    if isinstance(comm, dict) and comm:
+        saved = payload.get("comm", {})
+        for name, st in comm.items():
+            if name not in saved:
+                continue
+            st["q"].copy_(saved[name]["q"])
+            errors = saved[name]["errors"]
+            if len(errors) == world:
+                st["error"].copy_(errors[rank])
+            else:
+                st["error"].zero_()
     return int(payload["epoch"])
 
 

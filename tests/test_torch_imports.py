@@ -3,7 +3,9 @@ the card's machine is not promised), and its kernel wrappers import without
 nvcc or triton (they build and load the CUDA library only when handed a CUDA
 tensor): a tiny eval forward, a tiny train step, a tiny training loop (with
 its evaluation, log and checkpoints) and the parameter count run in a
-subprocess that imports every module of the port's entry points, and
+subprocess that imports every module of the port's entry points and of its
+data parallelism (``parallel/``: importing it needs no NCCL and makes no
+process group), and
 a static scan of every import statement of the port and of chip_smoke.py
 (which imports the port inside its functions) finds neither package."""
 
@@ -50,6 +52,10 @@ from editor_tpu_torch.cli import visualize as cli_visualize
 from editor_tpu_torch.evals import reranking_device
 from editor_tpu_torch.serve import RetrievalServer
 from editor_tpu_torch.utils import jax_weights, visualize
+from editor_tpu_torch import parallel
+from editor_tpu_torch.parallel import collectives, compression, ddp, mesh, multihost, zero
+import torch.distributed as dist
+group_after_import = dist.is_initialized()  # importing the data-parallel modules makes no group
 
 vit = vit_tiny_test_config(img_size=(64, 32), patch_size=16, stride_size=(16, 16), camera=4)
 cfg = EditorConfig(num_classes=10, vit=vit, head_keep=2, frequency_keep=3)
@@ -86,7 +92,8 @@ new = sorted(set(sys.modules) - before)
 print(json.dumps({"shape": list(feats.shape), "finite": bool(torch.isfinite(feats).all()),
                   "loss_finite": loss == loss and abs(loss) < float("inf"),
                   "loop_map": best["mAP"], "n_params": n_params,
-                  "new": new,
+                  "new": new, "group": group_after_import or dist.is_initialized(),
+                  "parallel": sorted(parallel.__all__),
                   "launches": [fn.launches for fn in ops.KERNEL_WRAPPERS]}))
 """
 
@@ -106,6 +113,11 @@ def test_port_imports_no_jax_and_runs_tiny_forward(tmp_path):
     # the build module (ctypes + nvcc) stays unloaded on the CPU path
     assert "editor_tpu_torch.ops._build" not in out["new"]
     assert out["launches"] == [0] * 8
+    # the data-parallel modules import without NCCL (a CPU-only torch has
+    # none) and make no process group (the loop above ran on one device)
+    assert out["group"] is False
+    assert {"make_mesh", "build_ddp_train_step", "make_reducer", "zero1_state_shardings",
+            "all_gather", "reduce_scatter", "send_recv"} <= set(out["parallel"])
 
 
 def _imported_roots(path: Path) -> set:

@@ -21,7 +21,8 @@ on the CPU at float64 (JAX x64 on, the compute dtype float64).
   parameter and buffer (BN running stats, ``num_batches_tracked``, OCFR
   centers), the optimizer's slots and count, the generator and the logged
   losses.
-* The checkpoint manager, and the distribution settings that raise.
+* The checkpoint manager, and the distribution settings that raise without a
+  process group.
 """
 
 import json
@@ -240,11 +241,20 @@ def test_checkpoint_manager(tmp_path):
 
 @pytest.mark.parametrize("opt", [["TPU.MESH_DATA", "2"], ["TPU.MESH_MODEL", "2"],
                                  ["TPU.ZERO_STAGE", "1"], ["TPU.GRAD_COMPRESSION", "fp16"],
-                                 "mesh"])
+                                 "mesh", ["TPU.ZERO_STAGE", "3"]])
 def test_distribution_settings_raise(opt, tmp_path):
+    """Without a process group: model parallelism and FSDP are not ported;
+    the data-parallel settings need a mesh (one process per device, see
+    tests/test_torch_dp_*.py); a mesh must be a DeviceMesh."""
     cfg = load_config(None, TINY + ["OUTPUT_DIR", str(tmp_path)]
                       + (opt if isinstance(opt, list) else []))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    if opt == "mesh":
+        err, match = TypeError, "DeviceMesh"
+    elif opt[0] in ("TPU.MESH_MODEL", ) or opt == ["TPU.ZERO_STAGE", "3"]:
+        err, match = NotImplementedError, "not ported"
+    else:
+        err, match = ValueError, "needs a data-parallel mesh"
+    with pytest.raises(err, match=match):
         loop.do_train(cfg, mesh=object() if opt == "mesh" else None, device="cpu")
     assert not os.listdir(tmp_path)  # raised before anything was written
 

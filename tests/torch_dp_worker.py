@@ -1,0 +1,285 @@
+"""One rank of the port's data-parallel CPU tests (gloo), run as
+
+    python tests/torch_dp_worker.py <scenario> <rank> <world> <dir>
+
+by ``tests/torch_dp.py::run_ranks``. It reads ``<dir>/inputs.pt``, joins the
+group through ``file://<dir>/rendezvous``, runs the scenario and writes
+``<dir>/out_<rank>.pt``. It imports torch and the port only (no JAX): the
+JAX oracles run in the pytest process.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from editor_tpu_torch.parallel import collectives as C  # noqa: E402
+from editor_tpu_torch.parallel import multihost  # noqa: E402
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+# ---------------------------------------------------------------------------
+# collectives and reducers
+# ---------------------------------------------------------------------------
+
+def collectives(inp, rank, world, out_dir):
+    """Each collective on this rank's x (float64), its value and, for the
+    differentiable ones, the gradient of sum(y * w) on this rank."""
+    out = {}
+    for name, spec in inp["cases"].items():
+        x = _t(spec["x"][rank]).clone().requires_grad_(True)
+        fn = getattr(C, spec["fn"])
+        y = fn(x, **spec.get("kw", {}))
+        out[name] = {"y": y.detach().numpy()}
+        if spec.get("grad"):
+            (y * _t(spec["w"][rank])).sum().backward()
+            out[name]["grad"] = x.grad.numpy()
+    out["barrier"] = int(C.barrier())
+    return out
+
+
+def reducers(inp, rank, world, out_dir):
+    from editor_tpu_torch.parallel.compression import (_orthogonalize, int8_quantize,
+                                                       make_reducer, powersgd_reducer)
+    grads = {k: _t(v[rank]) for k, v in inp["grads"].items()}
+    out = {}
+    for name in ("allreduce", "fp16", "bf16", "int8"):
+        red = make_reducer(name)
+        got, _ = red.reduce(grads, red.init(grads), None)
+        out[name] = {k: v.numpy() for k, v in got.items()}
+    out["int8_local"] = {k: tuple(t.numpy() for t in int8_quantize(v)) for k, v in grads.items()}
+    ps = powersgd_reducer(rank=inp["powersgd_rank"], min_compression_rate=1.0)
+    state = ps.init(grads)
+    for k, q in inp["q0"].items():
+        state[k]["q"] = _t(q)
+    rounds = []
+    for _ in range(2):
+        got, state = ps.reduce(grads, state, None)
+        rounds.append({"out": {k: v.numpy() for k, v in got.items()},
+                       "state": {k: {s: t.numpy() for s, t in v.items()}
+                                 for k, v in state.items()}})
+    out["powersgd"] = rounds
+    out["orthogonalize"] = _orthogonalize(_t(inp["ortho"])).numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train steps
+# ---------------------------------------------------------------------------
+
+def _model(inp):
+    from editor_tpu_torch.models.editor import Editor
+    model = Editor(inp["ecfg"], device="cpu").to(inp.get("dtype", torch.float64))
+    model.load_state_dict(inp["sd"], strict=True)
+    return model
+
+
+def _solver(model, inp):
+    from editor_tpu_torch.config import Config
+    from editor_tpu_torch.losses import make_loss
+    from editor_tpu_torch.solver import make_optimizer, make_scheduler
+    cfg = Config()
+    if inp.get("optimizer"):
+        cfg.SOLVER.OPTIMIZER_NAME = inp["optimizer"]
+    return (make_optimizer(cfg, model), make_loss(cfg, inp["ecfg"].num_classes),
+            make_scheduler(cfg), cfg.SOLVER.BASE_LR)
+
+
+def _state(model):
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def _build(kind, model, inp, mesh):
+    from editor_tpu_torch.engine.train import build_train_step
+    from editor_tpu_torch.parallel.compression import make_reducer
+    from editor_tpu_torch.parallel.ddp import build_ddp_train_step
+    from editor_tpu_torch.parallel.zero import zero1_state_shardings
+    opt, loss, lr_fn, base_lr = _solver(model, inp)
+    dtype = inp.get("dtype", torch.float64)
+    if kind == "ddp":
+        step = build_ddp_train_step(model, opt, loss, lr_fn, base_lr, mesh,
+                                    reducer=make_reducer(inp["reducer"], rank=4),
+                                    compute_dtype=dtype)
+        for k, q in inp.get("q0", {}).items():
+            step.comm[k]["q"] = _t(q).to(step.comm[k]["q"].dtype)
+        return step, opt
+    zero = zero1_state_shardings(opt, mesh) if kind == "zero1" else None
+    step = build_train_step(model, opt, loss, lr_fn, base_lr, compute_dtype=dtype,
+                            grad_accum=inp.get("grad_accum", 1), mesh=mesh,
+                            state_shardings=zero)
+    return step, step.optimizer
+
+
+_MESH = []
+
+
+def _mesh():
+    from editor_tpu_torch.parallel.mesh import make_mesh
+    if not _MESH:
+        _MESH.append(make_mesh())
+    return _MESH[0]
+
+
+def _train_run(spec, rank, world):
+    """One run: ``kind`` 'global' | 'zero1' | 'ddp' | 'single' for ``steps``
+    steps on the global ``batch`` (each rank its rows); optionally resumed
+    from the checkpoint ``resume`` and saving one (``train_state``, rank 0
+    writes) at ``save_path`` after ``save_after`` steps. Returns losses,
+    accs, lrs and the final state_dict."""
+    from editor_tpu_torch.parallel.mesh import shard_batch
+    from editor_tpu_torch.utils.checkpoint import load_train_state, train_state
+    kind = spec["kind"]
+    mesh = None if kind == "single" else _mesh()
+    model = _model(spec)
+    step, opt = _build(kind, model, spec, mesh)
+    first = 1
+    if spec.get("resume"):
+        first = load_train_state(torch.load(spec["resume"], weights_only=False), model, opt,
+                                 step.generator, comm=getattr(step, "comm", None)) + 1
+    batch = {k: _t(v) for k, v in spec["batch"].items()}
+    if mesh is not None:
+        batch = shard_batch(mesh, batch, 1 if kind == "ddp" else spec.get("grad_accum", 1))
+    out = {"loss": [], "acc": [], "lr": [], "sds": []}
+    for epoch in range(first, first + spec["steps"]):
+        m = step(batch, epoch)
+        out["loss"].append(float(m["loss"]))
+        out["acc"].append(float(m["acc"]))
+        out["lr"].append(float(m["lr"]))
+        out["sds"].append(_state(model))
+        if spec.get("save_after") == epoch:
+            payload = train_state(model, opt, step.generator, epoch,
+                                  comm=getattr(step, "comm", None))
+            if rank == 0:
+                torch.save(payload, spec["save_path"])
+    out["sd"] = _state(model)
+    if kind == "ddp" and step.comm:
+        out["comm"] = {k: {s: t.clone() for s, t in v.items()} for k, v in step.comm.items()}
+    if kind == "zero1":
+        from editor_tpu_torch.parallel.zero import state_memory_bytes
+        out["slot_bytes"] = state_memory_bytes(opt, per_device=True)
+        out["slot_bytes_total"] = state_memory_bytes(opt, per_device=False)
+    return out
+
+
+def train(inp, rank, world, out_dir):
+    """Each of ``inp["runs"]`` (the shared fields of ``inp`` under each)."""
+    shared = {k: v for k, v in inp.items() if k != "runs"}
+    return [_train_run({**shared, **run}, rank, world) for run in inp["runs"]]
+
+
+# ---------------------------------------------------------------------------
+# evaluation, the CLI, failures
+# ---------------------------------------------------------------------------
+
+def cmc(inp, rank, world, out_dir):
+    from editor_tpu_torch.evals.metrics import sharded_cmc_map
+    cmc_, mAP = sharded_cmc_map(*(_t(inp[k]) for k in ("qf", "gf", "q_pids", "g_pids",
+                                                       "remove")), _mesh())
+    return {"cmc": cmc_, "mAP": mAP}
+
+
+def cli_train(inp, rank, world, out_dir):
+    """``cli.train.main`` in a group made from the launcher's environment
+    variables, on the in-memory splits: records the files this rank opened
+    for writing and the item indices each ``train_epoch`` loaded."""
+    import builtins
+
+    from editor_tpu_torch.cli import train as cli
+    from editor_tpu_torch.data import loader
+    from editor_tpu_torch.data.datasets import DatasetSplits
+    from tests.torch_dp import decode, items
+
+    opened, loads = [], []
+    real_open = builtins.open
+
+    def spy_open(file, mode="r", *a, **k):
+        if any(c in mode for c in "wax+"):
+            opened.append(os.path.abspath(str(file)))
+        return real_open(file, mode, *a, **k)
+
+    real_epoch = loader.ReIDDataModule.train_epoch
+
+    def train_epoch(self, epoch, host_id=0, num_hosts=1, grad_accum=1):
+        real = self.train_loader.batches
+
+        def batches(idxs, bs):
+            loads.append({"epoch": epoch, "host_id": host_id, "num_hosts": num_hosts,
+                          "grad_accum": grad_accum, "idxs": np.asarray(idxs).copy(),
+                          "bs": bs})
+            return real(idxs, bs)
+
+        self.train_loader.batches = batches
+        try:
+            return real_epoch(self, epoch, host_id, num_hosts, grad_accum)
+        finally:
+            del self.train_loader.batches
+
+    real_save = torch.save
+
+    def spy_save(obj, f, *a, **k):  # a path goes to torch's C++ writer, not open()
+        if isinstance(f, (str, os.PathLike)):
+            opened.append(os.path.abspath(str(f)))
+        return real_save(obj, f, *a, **k)
+
+    builtins.open, loader.ReIDDataModule.train_epoch = spy_open, train_epoch
+    torch.save = spy_save
+    try:
+        train, query, gallery = items()
+        result = cli.main(inp["argv"], splits=DatasetSplits(train, query, gallery, 4, 2),
+                          decode_fn=decode)
+    finally:
+        builtins.open, loader.ReIDDataModule.train_epoch = real_open, real_epoch
+        torch.save = real_save
+    return {"opened": opened, "loads": loads, "best": result["best"]}
+
+
+def cli_test(inp, rank, world, out_dir):
+    """``cli.test.main`` in a group made from the launcher's environment."""
+    from editor_tpu_torch.cli import test as cli
+    from editor_tpu_torch.data.datasets import DatasetSplits
+    from tests.torch_dp import decode, items
+
+    train, query, gallery = items()
+    cmc_, mAP = cli.main(inp["argv"], splits=DatasetSplits(train, query, gallery, 4, 2),
+                         decode_fn=decode)
+    return {"cmc": cmc_, "mAP": mAP}
+
+
+def fail(inp, rank, world, out_dir):
+    """Rank 1 raises while rank 0 waits in a collective."""
+    if rank == 1:
+        raise RuntimeError("rank 1 fails")
+    C.all_reduce(torch.ones(4))
+    return {}
+
+
+TASKS = {"collectives": collectives, "reducers": reducers, "train": train, "cmc": cmc,
+         "cli_train": cli_train, "cli_test": cli_test, "fail": fail}
+SELF_INIT = ("cli_train", "cli_test")  # the group comes from the environment (the CLIs)
+
+
+def main():
+    scenario, rank, world, out_dir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    torch.set_num_threads(1)
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    if scenario not in SELF_INIT:
+        multihost.initialize(init_method="file://" + os.path.join(out_dir, "rendezvous"),
+                             world_size=world, rank=rank, device="cpu",
+                             timeout_s=inp.get("timeout_s", 60))
+    try:
+        out = TASKS[scenario](inp, rank, world, out_dir)
+        torch.save(out, os.path.join(out_dir, f"out_{rank}.pt"))
+    except BaseException as e:  # noqa: BLE001 - every rank must leave
+        multihost.fail_fast(e)
+    multihost.shutdown()
+
+
+if __name__ == "__main__":
+    main()
