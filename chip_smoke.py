@@ -184,9 +184,33 @@ Phases, each printing its lines and its seconds:
      phase says so; (f) the DP step's
      ms against the single-device step's (same call) and phase 5's, the
      gradient all-reduce's ms, peak memory.
+ 11. fsdp: FSDP (TPU.ZERO_STAGE 3) and the launcher. (a) On an NCCL group
+     of one rank in this process, 3 flagship steps through
+     build_train_step(state_shardings=fsdp_state_shardings(...),
+     gather_params_compute=True) equal the single-device step bit for bit,
+     each launching K1 12, K2 1, K3 2, K4 12, K5 2 and calling one
+     all-gather and one reduce-scatter more than the global-batch step;
+     do_inference(mesh=) inside gathered() equals the single-device model's
+     features and mAP; (b) the FSDP step's ms against the global-batch and
+     single-device steps', the parameter and slot bytes between steps
+     against param_memory_bytes, its MB per device at W = 1, 2, 4, peak
+     memory; (c) `python -m editor_tpu_torch.cli.launch --nproc_per_node 1
+     --max_restarts 1 -- python chip_smoke.py --launch-worker <dir> 1`
+     trains the flagship with FSDP through cli.train on phase 8's data for 2
+     epochs; incarnation 0's data fails as epoch 2 starts, after the epoch-1
+     checkpoint is committed; the launcher exits 0 with "restarts used: 1",
+     incarnation 0's error file names the RuntimeError, and the resumed
+     epoch's losses are within 1e-5 relative of an uninterrupted launch's
+     run beside it; (d) with two cards or more, two NCCL ranks of this
+     script (``--fsdp-rank``) through cli.launch --nproc_per_node 2: the
+     FSDP step against the global-batch step tensor by tensor (bit for bit,
+     else phase 10 (e)'s gate) and each rank's parameter storage between
+     steps equal to param_memory_bytes at W = 2; with one card the phase
+     says so.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
-(K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve, dp), and last the result line {"ok": true, "device": {...}}. Any failed check
+(K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve, dp,
+fsdp), and last the result line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero without the result line; it does the
 same without a CUDA device.
 """
@@ -2680,12 +2704,13 @@ def _dp_id_batch(gen: torch.Generator, batch: dict) -> dict:
 def _dp_step(kind: str, cfg, ecfg, sd, mesh, augment: bool = True, reducer=None,
              grad_scale: float = 1.0):
     """(model, step) of ``kind``: 'single' (no mesh), 'global' (the
-    global-batch step on ``mesh``), 'zero1' (that with ZeRO-1) or 'ddp' (the
-    local-batch step with ``reducer``), from the weights ``sd``.
+    global-batch step on ``mesh``), 'zero1' (that with ZeRO-1), 'fsdp' (that
+    with FSDP) or 'ddp' (the local-batch step with ``reducer``), from the
+    weights ``sd``.
     ``grad_scale``: every gradient multiplied by it before the optimizer
     steps (a planted fault for (e)'s control)."""
     from editor_tpu_torch.data.transforms import make_train_augment
-    from editor_tpu_torch.engine.train import build_train_step
+    from editor_tpu_torch.engine.train import build_train_step, fsdp_state_shardings
     from editor_tpu_torch.losses import make_loss
     from editor_tpu_torch.models.editor import Editor
     from editor_tpu_torch.parallel.ddp import build_ddp_train_step
@@ -2711,10 +2736,11 @@ def _dp_step(kind: str, cfg, ecfg, sd, mesh, augment: bool = True, reducer=None,
     if kind == "ddp":
         return model, build_ddp_train_step(*args, mesh, reducer=reducer,
                                            compute_dtype=torch.bfloat16, augment=aug, seed=1)
-    zero = zero1_state_shardings(opt, mesh) if kind == "zero1" else None
+    zero = (zero1_state_shardings(opt, mesh) if kind == "zero1" else
+            fsdp_state_shardings(model, opt, mesh) if kind == "fsdp" else None)
     return model, build_train_step(*args, torch.bfloat16, augment=aug, seed=1,
                                    mesh=None if kind == "single" else mesh,
-                                   state_shardings=zero)
+                                   state_shardings=zero, gather_params_compute=kind == "fsdp")
 
 
 def _dp_run(kind, cfg, ecfg, sd, mesh, batch, want: dict, reducer=None):
@@ -2734,8 +2760,18 @@ def _dp_run(kind, cfg, ecfg, sd, mesh, batch, want: dict, reducer=None):
             raise AssertionError(f"{kind}: kernel launches {launches} != {want} in a step")
     if not np.isfinite(losses).all():
         raise AssertionError(f"{kind}: non-finite losses {losses}")
-    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    state = _model_state(model, step)
     return [losses, state, launches, colls, model, step]
+
+
+def _model_state(model, step) -> dict:
+    """The model's state_dict, cloned; under FSDP on the gathered
+    parameters (a collective)."""
+    import contextlib
+
+    opt = getattr(step, "optimizer", None)
+    with opt.gathered() if hasattr(opt, "gathered") else contextlib.nullcontext():
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
 def _same_state(name: str, a: dict, b: dict) -> None:
@@ -3102,6 +3138,364 @@ def dp_phase(card: str, bare_step_ms: float) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# FSDP and the launcher (phase 11): the flagship's FSDP step on an NCCL group
+# of one rank in this process (a FileStore in a temporary directory), the
+# launcher cli.launch restarting a failed flagship trainer on the card, and
+# with two cards or more two NCCL ranks of this script (``--fsdp-rank``)
+# started through the launcher.
+FSDP_LAUNCH_TIMEOUT_S = 420
+
+
+def _fsdp_memory(ecfg) -> dict:
+    """param_memory_bytes per device at W = 1, 2, 4 (MB) for ``ecfg`` and
+    for the flagship at RGBNT201's 171 ids and 15 cameras (shapes only, on
+    the meta device)."""
+    from editor_tpu_torch.config import Config
+    from editor_tpu_torch.models.editor import Editor, editor_config_from
+    from editor_tpu_torch.parallel.fsdp import param_memory_bytes
+
+    out = {}
+    for name, cfg in (("run", ecfg), ("ids171", editor_config_from(Config(), 171, 15))):
+        model = Editor(cfg, device="meta")
+        out[name] = {W: param_memory_bytes(model, True, W) / 1e6 for W in (1, 2, 4)}
+        out[name]["total"] = param_memory_bytes(model, False, 1) / 1e6
+    return out
+
+
+def _popen_launch(args: list, log_path: str) -> subprocess.Popen:
+    """``python -m editor_tpu_torch.cli.launch <args>`` from this checkout, in
+    a session of its own (so that a time-out stops its workers too)."""
+    import sys
+
+    with open(log_path, "w") as log:
+        return subprocess.Popen([sys.executable, "-m", "editor_tpu_torch.cli.launch", *args],
+                                stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _wait_launch(proc: subprocess.Popen, log_path: str, timeout: float) -> str:
+    """The launcher's exit code checked to be 0 within ``timeout`` s; its
+    log. A launcher still running is killed with its workers."""
+    import signal
+
+    try:
+        code = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        code = "timeout"
+    with open(log_path) as f:
+        text = f.read()
+    if code != 0:
+        raise AssertionError(f"cli.launch exited {code}:\n{text[-4000:]}")
+    return text
+
+
+def _launch_argv(out: str) -> list:
+    """cli.train's options for (c): the flagship with FSDP on phase 8's
+    checked data (3 steps an epoch), 2 epochs, a checkpoint each, no
+    evaluation."""
+    from editor_tpu_torch.config import RGBNT201_PRESET
+
+    return RGBNT201_PRESET + ["MODEL.PRETRAIN_CHOICE", "random", "SOLVER.LOG_PERIOD", "1",
+                              "SOLVER.EVAL_PERIOD", "10", "SOLVER.CHECKPOINT_PERIOD", "1",
+                              "SOLVER.MAX_EPOCHS", "2", "TPU.ZERO_STAGE", "3", "OUTPUT_DIR", out]
+
+
+def launch_worker(d: str, fail: bool) -> None:
+    """The worker of (c), under cli.launch: cli.train.main on phase 8's
+    checked data with FSDP. With ``fail``, incarnation 0's data raises as
+    epoch 2 starts, once the epoch-1 checkpoint is committed."""
+    import re
+
+    from editor_tpu_torch.cli import train
+    from editor_tpu_torch.config import load_config
+    from editor_tpu_torch.data import loader
+
+    out = os.path.join(d, "run")
+    argv = _launch_argv(out)
+    splits, _, decode = _loop_data(load_config(None, argv).INPUT.SIZE_TRAIN)
+    if fail and os.environ["EDITOR_TPU_RESTART_COUNT"] == "0":
+        real = loader.ReIDDataModule.train_epoch
+
+        def train_epoch(self, epoch, *a, **k):
+            if epoch == 2:
+                ckpt, end = os.path.join(out, "ckpt"), time.monotonic() + 120
+                while not (os.path.isdir(ckpt) and any(re.match(r"step_\d+\.pt$", n)
+                                                       for n in os.listdir(ckpt))):
+                    if time.monotonic() > end:
+                        raise TimeoutError("the epoch-1 checkpoint was never committed")
+                    time.sleep(0.05)
+                raise RuntimeError("planted data failure in epoch 2")
+            return real(self, epoch, *a, **k)
+
+        loader.ReIDDataModule.train_epoch = train_epoch
+    train.main(argv, splits=splits, decode_fn=decode)
+
+
+def _launcher_check(tmp: str) -> dict:
+    """(c): a failing and an uninterrupted FSDP trainer, each under its own
+    cli.launch on this card, side by side."""
+    import glob
+    import sys
+
+    runs = {}
+    for name, fail in (("failing", True), ("uninterrupted", False)):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        log = os.path.join(d, "launch.txt")
+        runs[name] = (d, log, _popen_launch(
+            ["--nproc_per_node", "1", "--max_restarts", "1" if fail else "0",
+             "--master_port", "0", "--monitor_interval", "0.5",
+             "--error_dir", os.path.join(d, "err"), "--", sys.executable,
+             os.path.abspath(__file__), "--launch-worker", d, str(int(fail))], log))
+    texts = {name: _wait_launch(proc, log, FSDP_LAUNCH_TIMEOUT_S)
+             for name, (d, log, proc) in runs.items()}
+    if "restarts used: 1" not in texts["failing"] or \
+            "restarts used: 0" not in texts["uninterrupted"]:
+        raise AssertionError(f"restarts: {texts['failing'][-2000:]}")
+    errors = glob.glob(os.path.join(runs["failing"][0], "err", "agent_*", "error_0_0.json"))
+    if not errors:
+        raise AssertionError("incarnation 0 left no error file")
+    with open(errors[0]) as f:
+        error = json.load(f)
+    if error["exc_type"] != "RuntimeError" or "planted" not in error["message"]:
+        raise AssertionError(f"error file {error}")
+    recs = {name: _metrics_records(os.path.join(d, "run")) for name, (d, _, _) in runs.items()}
+    got = [r["loss"] for r in recs["failing"] if "loss" in r and r["epoch"] == 2]
+    ref = [r["loss"] for r in recs["uninterrupted"] if "loss" in r and r["epoch"] == 2]
+    first = [r["loss"] for r in recs["failing"] if "loss" in r and r["epoch"] == 1]
+    with open(os.path.join(runs["failing"][0], "run", "train_log.txt")) as f:
+        log = f.read()
+    if not ("FSDP/ZeRO-3" in log and "Resumed from checkpoint" in log and got
+            and len(got) == len(ref) and first):
+        raise AssertionError(f"the restarted run: {len(first)} + {len(got)} logged steps")
+    rel = max(abs(g - r) / abs(r) for g, r in zip(got, ref))
+    if not rel <= 1e-5:
+        raise AssertionError(f"resumed epoch-2 losses {got} vs {ref}: {rel}")
+    return {"error_exc_type": error["exc_type"], "epoch2_losses": json.dumps(got),
+            "uninterrupted": json.dumps(ref), "max_rel_dloss": f"{rel:.3e}",
+            "bit_for_bit": got == ref, "restarts_used": 1}
+
+
+def fsdp_rank(d: str) -> None:
+    """One rank of (d) under cli.launch: the global-batch step and the FSDP
+    step, 2 steps each from the saved weights on this rank's rows; the
+    parameter storage between the FSDP steps."""
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.parallel.fsdp import param_memory_bytes
+    from editor_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from editor_tpu_torch.parallel.zero import state_memory_bytes
+
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    multihost.initialize(timeout_s=240)
+    rank = multihost.process_index()
+    mesh = make_mesh()
+    cfg, ecfg = inp["cfg"], inp["ecfg"]
+    sd = {k: v.cuda() for k, v in inp["sd"].items()}
+    batch = shard_batch(mesh, {k: v.cuda() for k, v in inp["batch"].items()})
+    out = {}
+    for kind in ("global", "fsdp"):
+        model, step = _dp_step(kind, cfg, ecfg, sd, mesh)
+        out[kind] = {"losses": [float(step(batch, e)["loss"]) for e in (1, 2)],
+                     "sd": {k: v.cpu() for k, v in _model_state(model, step).items()}}
+        if kind == "fsdp":
+            opt = step.optimizer
+            out["param_bytes"] = opt.param_bytes()
+            out["want_bytes"] = param_memory_bytes(model, True, mesh.size(0))
+            out["slot_bytes"] = state_memory_bytes(opt)
+        out[kind]["ms"] = cuda_ms(lambda: step(batch, cfg.SOLVER.WARMUP_ITERS + 1), iters=3)
+        del model, step
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(d, f"out_{rank}.pt"))
+    multihost.shutdown()
+
+
+def fsdp_multi(card: str, cfg, ecfg, sd0: dict, batch: dict, world: int = 2) -> None:
+    """(d) with two cards or more: ``world`` NCCL ranks through ``cli.launch
+    --nproc_per_node world``, the FSDP step against the global-batch step
+    tensor by tensor (bit for bit, or phase 10 (e)'s per-tensor gate), and
+    each rank's parameter storage between steps against param_memory_bytes
+    at that world size. ``world`` 1 runs the same path on one card (a dry
+    run)."""
+    import shutil
+    import sys
+    import tempfile
+
+    if torch.cuda.device_count() < world:
+        say("11d fsdp ranks", world_sizes="1", note="one card: the W = 2 check needs two")
+        return
+    d = tempfile.mkdtemp(prefix="chip_smoke_fsdp2_")
+    try:
+        torch.save({"cfg": cfg, "ecfg": ecfg, "sd": {k: v.cpu() for k, v in sd0.items()},
+                    "batch": {k: v.cpu() for k, v in batch.items()}},
+                   os.path.join(d, "inputs.pt"))
+        log = os.path.join(d, "launch.txt")
+        _wait_launch(_popen_launch(["--nproc_per_node", str(world), "--max_restarts", "0",
+                                    "--master_port", "0", "--error_dir", os.path.join(d, "err"),
+                                    "--", sys.executable, os.path.abspath(__file__),
+                                    "--fsdp-rank", d],
+                                   log), log, FSDP_LAUNCH_TIMEOUT_S)
+        outs = [torch.load(os.path.join(d, f"out_{r}.pt")) for r in range(world)]
+        g, f = outs[0]["global"], outs[0]["fsdp"]
+        same = g["losses"] == f["losses"] and all(torch.equal(g["sd"][k], f["sd"][k])
+                                                  for k in g["sd"])
+        diff = max(float((g["sd"][k].double() - f["sd"][k].double()).abs().max())
+                   for k in g["sd"] if g["sd"][k].is_floating_point())
+        gate = {}
+        if not same:
+            sd0c = {k: v.cpu() for k, v in sd0.items()}
+            names = [k for k in g["sd"] if g["sd"][k].is_floating_point()
+                     and not k.endswith(("running_mean", "running_var", "_centers"))]
+            err = _delta_err({k: f["sd"][k].float() - sd0c[k].float() for k in names},
+                             {k: g["sd"][k].float() - sd0c[k].float() for k in names})
+            if max(err.values()) > DP_W_LIMIT:
+                raise AssertionError(f"FSDP vs global at W = 2: worst {_worst(err)}")
+            gate = {"gate_max_err": f"{max(err.values()):.3e}", "gate_limit": DP_W_LIMIT}
+        for r, o in enumerate(outs):
+            if o["param_bytes"] != o["want_bytes"]:
+                raise AssertionError(f"rank {r}: {o['param_bytes']} parameter bytes between "
+                                     f"steps, param_memory_bytes {o['want_bytes']}")
+        say("11d fsdp ranks", world_sizes=f"1,{world}", bit_for_bit=same,
+            max_abs_diff=f"{diff:.3e}",
+            **gate, losses=json.dumps(f["losses"]), global_losses=json.dumps(g["losses"]),
+            param_mb_per_rank=json.dumps([o["param_bytes"] / 1e6 for o in outs]),
+            slot_mb_per_rank=json.dumps([o["slot_bytes"] / 1e6 for o in outs]),
+            fsdp_step_ms=f"{f['ms']:.2f}", global_step_ms=f"{g['ms']:.2f}", card=repr(card))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def fsdp_phase(card: str) -> dict:
+    """Phase 11: FSDP (TPU.ZERO_STAGE 3) and the launcher. (a) on an NCCL
+    group of one rank, 3 flagship FSDP steps equal the single-device step bit
+    for bit (losses, every parameter, BN stats, OCFR centers), each step
+    launching K1 12, K2 1, K3 2, K4 12, K5 2 and calling one all-gather and
+    one reduce-scatter more than the global-batch step (the same
+    all-reduces); do_inference(mesh=) inside gathered() equals the
+    single-device model's; (b) the FSDP step's ms against the global-batch
+    and single-device steps', the parameter and slot bytes between steps
+    against param_memory_bytes, the per-device MB at W = 1, 2, 4, peak
+    memory; (c) cli.launch restarts a flagship FSDP trainer whose data fails
+    in epoch 2 after the epoch-1 checkpoint is committed: exit code 0,
+    "restarts used: 1", the error file, the resumed epoch's losses within
+    1e-5 relative of an uninterrupted run's; (d) with two cards or more
+    (:func:`fsdp_multi`)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from editor_tpu_torch.data.loader import ReIDDataModule
+    from editor_tpu_torch.engine.evaluate import do_inference
+    from editor_tpu_torch.engine.loop import eval_batches
+    from editor_tpu_torch.models.editor import Editor
+    from editor_tpu_torch.models.init import editor_init
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.parallel.fsdp import param_memory_bytes
+    from editor_tpu_torch.parallel.mesh import make_mesh
+    from editor_tpu_torch.parallel.zero import state_memory_bytes
+
+    cfg, ecfg = flagship()
+    L = ecfg.vit.depth
+    want = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2,
+                    attention_qkv_bwd=L, masked_attention_qkv_bwd=2)
+    want_eval = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    try:
+        if not multihost.initialize(init_method="file://" + os.path.join(tmp, "store"),
+                                    world_size=1, rank=0,
+                                    local_rank=torch.cuda.current_device()):
+            raise AssertionError("no process group was made")
+        mesh = make_mesh()
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        h, w = ecfg.vit.img_size
+        batch = _dp_batch(gen, cfg, h, w)
+        sd0 = {k: v.clone() for k, v in editor_init(ecfg, seed=0).state_dict().items()}
+        epoch = cfg.SOLVER.WARMUP_ITERS + 1
+
+        # (a) the FSDP step against the single-device and global-batch steps
+        single = _dp_run("single", cfg, ecfg, sd0, None, batch, want)
+        single_ms = cuda_ms(lambda: single[5](batch, epoch), iters=5)
+        del single[4:]
+        glob = _dp_run("global", cfg, ecfg, sd0, mesh, batch, want)
+        glob_ms = cuda_ms(lambda: glob[5](batch, epoch), iters=5)
+        del glob[4:]
+        torch.cuda.empty_cache()
+        fs = _dp_run("fsdp", cfg, ecfg, sd0, mesh, batch, want)
+        if fs[0] != single[0]:
+            raise AssertionError(f"FSDP losses {fs[0]} != single {single[0]}")
+        _same_state("FSDP step vs single-device step", fs[1], single[1])
+        for f, g in zip(fs[3], glob[3]):
+            if f != dict(g, all_gather=g["all_gather"] + 1,
+                         reduce_scatter=g["reduce_scatter"] + 1):
+                raise AssertionError(f"FSDP collectives {f}, global-batch step's {g}")
+        model, step = fs[4], fs[5]
+        opt = step.optimizer
+        say("11a fsdp step", world=1, backend="nccl", steps=3, bit_for_bit=True,
+            losses=json.dumps(fs[0]), launches=json.dumps(fs[2]),
+            collectives=json.dumps(fs[3][-1]), global_collectives=json.dumps(glob[3][-1]),
+            sharded_leaves=len(opt.leaves))
+
+        # (a) evaluation on the gathered parameters against the single model
+        splits, _, decode = _loop_data(cfg.INPUT.SIZE_TRAIN)
+        dm = ReIDDataModule(cfg, splits=splits, decode_fn=decode)
+        ref_model = Editor(ecfg)
+        ref_model.load_state_dict(single[1], strict=True)
+        ref = do_inference(ref_model, eval_batches(cfg, dm, torch.device("cuda")), dm.num_query)
+        del ref_model
+        reset_counts()
+        with opt.gathered():
+            got = do_inference(model, eval_batches(cfg, dm, torch.device("cuda")),
+                               dm.num_query, mesh=mesh)
+        n_batches = -(-len(dm.val_items) // cfg.TEST.IMS_PER_BATCH)
+        eval_launches = {k: v // n_batches for k, v in launch_counts().items()}
+        if eval_launches != want_eval or {k: v * n_batches for k, v in eval_launches.items()} \
+                != launch_counts():
+            raise AssertionError(f"eval launches {launch_counts()} over {n_batches} batches")
+        if not (torch.equal(got[5], ref[5]) and torch.equal(got[6], ref[6]) and got[1] == ref[1]):
+            raise AssertionError(f"FSDP eval != single device: mAP {got[1]} vs {ref[1]}")
+        say("11a fsdp eval", batches=n_batches, map=f"{got[1]:.7f}", equal_to_single=True)
+        # (b) times and memory
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fsdp_ms = cuda_ms(lambda: step(batch, epoch), iters=5)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        between_gb = torch.cuda.memory_allocated() / 1e9
+        pbytes, sbytes = opt.param_bytes(), state_memory_bytes(opt)
+        if pbytes != param_memory_bytes(model, True, 1) or sbytes != pbytes - sum(
+                p.numel() * p.element_size() for p in model.parameters() if not p.requires_grad):
+            raise AssertionError(f"between steps {pbytes} parameter and {sbytes} slot bytes, "
+                                 f"param_memory_bytes {param_memory_bytes(model, True, 1)}")
+        mem = _fsdp_memory(ecfg)
+        say("11b fsdp timing", fsdp_step_ms=f"{fsdp_ms:.2f}", global_step_ms=f"{glob_ms:.2f}",
+            single_step_ms=f"{single_ms:.2f}", fsdp_over_global=f"{fsdp_ms / glob_ms:.4f}",
+            param_mb=f"{pbytes / 1e6:.1f}", slot_mb=f"{sbytes / 1e6:.1f}",
+            per_device_mb=json.dumps({k: {str(w): round(v, 1) for w, v in m.items()}
+                                      for k, m in mem.items()}),
+            allocated_between_steps_gb=f"{between_gb:.2f}", peak_gb=f"{peak_gb:.2f}",
+            card=repr(card))
+
+        train_launches = fs[2]
+        del fs, glob, single, model, step, opt, got, ref, dm
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+
+        # (c) the launcher restarting a failed trainer
+        say("11c fsdp launcher", **_launcher_check(tmp),
+            command="cli.launch --nproc_per_node 1 --max_restarts 1 -- python chip_smoke.py "
+                    "--launch-worker")
+        torch.cuda.empty_cache()
+
+        # (d) two cards or more
+        fsdp_multi(card, cfg, ecfg, sd0, batch)
+        return {"train": train_launches, "eval": eval_launches}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3129,6 +3523,8 @@ def main() -> None:
     served = timed("9 serve", serve_phase, card)
     torch.cuda.empty_cache()
     dp = timed("10 dp", dp_phase, card, bare_step_ms)
+    torch.cuda.empty_cache()
+    fsdp = timed("11 fsdp", fsdp_phase, card)
     # launches, launches_eval: per train step and per eval forward (loop: eval
     # batch), summed over the three paths (compact: phases 3 and 5;
     # uncompacted: phase 6; the loop: phase 8, with its run's total), each
@@ -3139,13 +3535,15 @@ def main() -> None:
                    "uncompacted": {"train": un_train[name], "eval": un_eval[name]},
                    "loop": {k: looped[k][name] for k in ("train", "eval", "run")},
                    "serve": {k: served[k][name] for k in ("query", "visualize")},
-                   "dp": {k: dp[k][name] for k in ("train", "eval")}}
+                   "dp": {k: dp[k][name] for k in ("train", "eval")},
+                   "fsdp": {k: fsdp[k][name] for k in ("train", "eval")}}
         info = {k: v for k, v in spec.items() if k != "tool"}
         rows.append(dict(name=name, route="cuda", **info,
                          launches=(launches[name] + un_train[name] + looped["train"][name]
-                                   + dp["train"][name]),
+                                   + dp["train"][name] + fsdp["train"][name]),
                          launches_eval=(eval_launches[name] + un_eval[name]
-                                        + looped["eval"][name] + dp["eval"][name]),
+                                        + looped["eval"][name] + dp["eval"][name]
+                                        + fsdp["eval"][name]),
                          launches_by_path=by_path, **kernels[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3158,5 +3556,9 @@ if __name__ == "__main__":
 
     if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 10 (e)
         dp_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--launch-worker"]:  # the trainer of phase 11 (c)
+        launch_worker(sys.argv[2], sys.argv[3] == "1")
+    elif sys.argv[1:2] == ["--fsdp-rank"]:  # one rank of phase 11 (d)
+        fsdp_rank(sys.argv[2])
     else:
         main()

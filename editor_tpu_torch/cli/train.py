@@ -5,6 +5,8 @@ data-parallel over one process per device.
         SOLVER.BASE_LR 0.001 MODEL.AL 1
     torchrun --nproc_per_node 4 -m editor_tpu_torch.cli.train \\
         --config_file configs/RGBNT201.yaml
+    python -m editor_tpu_torch.cli.launch --nproc_per_node 4 --max_restarts 3 \\
+        -- python -m editor_tpu_torch.cli.train --config_file configs/RGBNT201.yaml
 
 ``--device cpu`` trains on the CPU (the tests do; under a launcher, a gloo
 group); by default the current CUDA device, ``cuda:LOCAL_RANK`` under a
@@ -14,7 +16,10 @@ environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 ``OUTPUT_DIR/config.yaml`` (``Config.dump``) from rank 0 and runs
 ``do_train``. A rank that fails ends at once with a non-zero exit code
 (``multihost.leave_on_error``), so that its peers' collectives fail too
-rather than wait.
+rather than wait, and writes ``cli.launch``'s error file; a deliberate exit
+(``SystemExit``, Ctrl-C) writes none, so the launcher spends no restart on
+it. Under ``cli.launch`` a restarted run resumes from its latest
+checkpoint.
 """
 
 from __future__ import annotations

@@ -20,16 +20,20 @@ first, as ``cli.train`` does): under a process group the loop builds the
 ('data', 'model') mesh as the JAX loop does (``TPU.MESH_DATA`` -1 or 1: every
 rank), each rank loads its host shard of every global batch, and the step is
 the global-batch step (``TPU.ZERO_STAGE`` 1: with the optimizer's slots
-partitioned) or, with ``TPU.GRAD_COMPRESSION``, the local-batch step with
-that reducer. Rank 0 alone writes the log, the metrics and the checkpoints;
-the others wait at a barrier after each save. Without a group the loop runs
-on one device, and the settings that need a mesh (``TPU.MESH_DATA`` above 1,
-``ZERO_STAGE`` 1, a ``GRAD_COMPRESSION``) raise. ``TPU.MESH_MODEL`` above 1
-and ``ZERO_STAGE`` 3 (model parallelism, FSDP) are not ported and raise.
+partitioned; ``ZERO_STAGE`` 3: FSDP, with the parameters, gradients and
+slots sharded, evaluation and checkpoints on the gathered parameters) or,
+with ``TPU.GRAD_COMPRESSION`` (which takes precedence, as in JAX), the
+local-batch step with that reducer. Rank 0 alone writes the log, the
+metrics and the checkpoints; the others wait at a barrier after each save.
+Without a group the loop runs on one device, and the settings that need a
+mesh (``TPU.MESH_DATA`` above 1, ``ZERO_STAGE`` 1 or 3, a
+``GRAD_COMPRESSION``) raise. ``TPU.MESH_MODEL`` above 1 (model
+parallelism) is not ported and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any, Dict, Optional
@@ -61,10 +65,11 @@ def resolve_mesh(cfg, device: torch.device, mesh=None, train: bool = True):
     it: ``mesh`` when given; under a process group of W ranks
     ``make_mesh(MESH_DATA)`` (-1 or, with W > 1, 1: all ranks) unless W is 1
     and ``MESH_DATA`` is 1; else None (one device). Raises for what is not
-    ported (``MESH_MODEL`` above 1, ``ZERO_STAGE`` 3), for the settings that
-    need a mesh without one (for an evaluation, ``train`` False, only
-    ``MESH_DATA``), and for a group whose backend does not fit ``device``
-    (NCCL on CUDA, gloo on the CPU)."""
+    ported (``MESH_MODEL`` above 1, a ``ZERO_STAGE`` other than 0, 1 and
+    3), for the settings that need a mesh without one (``ZERO_STAGE`` 1 and
+    3 among them; for an evaluation, ``train`` False, only ``MESH_DATA``),
+    and for a group whose backend does not fit ``device`` (NCCL on CUDA,
+    gloo on the CPU)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from editor_tpu_torch.parallel.mesh import make_mesh
@@ -72,9 +77,9 @@ def resolve_mesh(cfg, device: torch.device, mesh=None, train: bool = True):
     t = cfg.TPU
     if t.MESH_MODEL > 1:
         raise NotImplementedError("TPU.MESH_MODEL > 1: model parallelism is not ported")
-    if train and t.ZERO_STAGE not in (0, 1):
-        raise NotImplementedError(f"TPU.ZERO_STAGE {t.ZERO_STAGE}: FSDP is not ported "
-                                  "(ZeRO-1 is: ZERO_STAGE 1)")
+    if train and t.ZERO_STAGE not in (0, 1, 3):
+        raise NotImplementedError(f"TPU.ZERO_STAGE {t.ZERO_STAGE} is not ported "
+                                  "(ZeRO-1 and FSDP are: ZERO_STAGE 1 and 3)")
     if mesh is not None and not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh= takes a DeviceMesh (parallel.mesh.make_mesh), not {mesh!r}")
     if mesh is None and dist.is_initialized():
@@ -84,6 +89,7 @@ def resolve_mesh(cfg, device: torch.device, mesh=None, train: bool = True):
     if mesh is None:
         for name, asks in (("TPU.MESH_DATA > 1", t.MESH_DATA > 1),
                            ("TPU.ZERO_STAGE 1", train and t.ZERO_STAGE == 1),
+                           ("TPU.ZERO_STAGE 3", train and t.ZERO_STAGE == 3),
                            ("TPU.GRAD_COMPRESSION", train and _compression(cfg))):
             if asks:
                 raise ValueError(f"{name} needs a data-parallel mesh: launch one process "
@@ -187,9 +193,16 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
             from editor_tpu_torch.parallel.zero import zero1_state_shardings
             zero = zero1_state_shardings(opt, mesh)
             logger.info("ZeRO-1: optimizer slots partitioned over the %d data ranks", world)
+        elif mesh is not None and cfg.TPU.ZERO_STAGE == 3:
+            from editor_tpu_torch.engine.train import fsdp_state_shardings
+            zero = fsdp_state_shardings(model, opt, mesh)
+            logger.info("FSDP/ZeRO-3: params + optimizer state sharded over the data axis "
+                        "(%d ranks)", world)
         step = build_train_step(model, opt, loss_func, lr_fn, cfg.SOLVER.BASE_LR,
                                 compute_dtype, augment=augment, grad_accum=cfg.TPU.GRAD_ACCUM,
-                                seed=cfg.SOLVER.SEED, mesh=mesh, state_shardings=zero)
+                                seed=cfg.SOLVER.SEED, mesh=mesh, state_shardings=zero,
+                                gather_params_compute=mesh is not None
+                                and cfg.TPU.ZERO_STAGE == 3)
         opt = zero or opt
         if mesh is not None:
             logger.info("Data parallel over %d ranks: global-batch step", world)
@@ -200,6 +213,9 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
         if primary:
             ckpt_mgr.save(opt.count, payload)
         multihost.barrier()
+
+    def gathered():  # FSDP: the model's full parameters, else the model as it is
+        return opt.gathered() if hasattr(opt, "gathered") else contextlib.nullcontext()
 
     ckpt_mgr = None
     start_epoch = 1
@@ -246,7 +262,8 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
             save(epoch)
 
         if epoch % cfg.SOLVER.EVAL_PERIOD == 0 and dm.num_query > 0:
-            cmc, mAP = evaluate(cfg, model, dm, compute_dtype, mesh=mesh)
+            with gathered():
+                cmc, mAP = evaluate(cfg, model, dm, compute_dtype, mesh=mesh)
             logger.info("Validation Results - Epoch: %d", epoch)
             logger.info("mAP: %.2f%%", mAP * 100)
             for r in (1, 5, 10):
@@ -263,6 +280,8 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
     if ckpt_mgr:
         ckpt_mgr.wait()
         multihost.barrier()
+    if hasattr(opt, "gather"):  # FSDP: hand back the model with its full parameters
+        opt.gather()
     writer.close()
     return {"model": model, "optimizer": opt, "step": step, "best": best, "ecfg": ecfg,
             "mesh": mesh}

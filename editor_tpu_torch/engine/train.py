@@ -122,18 +122,28 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
     generator is seeded with ``rank_seed(seed, r)``. With ``grad_accum`` A
     the global microbatch i is the ranks' local microbatches i in rank
     order. ``state_shardings``: the ZeRO-1 layout of ``optimizer``
-    (``parallel.zero.zero1_state_shardings``), which then steps in its
-    place. ``backbone`` and ``gather_params_compute`` (pipeline and FSDP)
-    are not ported and raise."""
+    (``parallel.zero.zero1_state_shardings``) or, with
+    ``gather_params_compute``, the FSDP layout (:func:`fsdp_state_shardings`),
+    which then steps in its place. FSDP: one all-gather of the sharded
+    leaves at the top of the step; after the microbatch loop one mean
+    reduce-scatter of their gradients into this rank's blocks and the mean
+    all-reduce of the replicated leaves'; the full parameters freed; the
+    update on the blocks. ``backbone`` (pipeline) is not ported and
+    raises."""
+    from editor_tpu_torch.parallel.fsdp import FsdpOptimizer
+    from editor_tpu_torch.parallel.zero import Zero1Optimizer
+
     if backbone is not None:
         raise NotImplementedError("backbone= is not ported")
-    if gather_params_compute:
-        raise NotImplementedError("gather_params_compute (FSDP) is not ported")
+    fsdp = isinstance(state_shardings, FsdpOptimizer)
+    if gather_params_compute != fsdp or (fsdp and mesh is None):
+        raise ValueError("gather_params_compute=True takes the FSDP layout "
+                         "(engine.train.fsdp_state_shardings) as state_shardings, on a mesh")
     if state_shardings is not None:
-        from editor_tpu_torch.parallel.zero import Zero1Optimizer
-        if mesh is None or not isinstance(state_shardings, Zero1Optimizer):
+        if mesh is None or not isinstance(state_shardings, (Zero1Optimizer, FsdpOptimizer)):
             raise ValueError("state_shardings= takes the ZeRO-1 layout of the optimizer "
-                             "(parallel.zero.zero1_state_shardings) on a mesh")
+                             "(parallel.zero.zero1_state_shardings) or the FSDP layout "
+                             "(fsdp_state_shardings) on a mesh")
         optimizer = state_shardings
     rank = 0
     if mesh is not None:
@@ -151,6 +161,8 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
         if B % grad_accum:
             raise ValueError(f"batch size {B} is not divisible by grad_accum={grad_accum}")
         mb = B // grad_accum
+        if fsdp:
+            optimizer.gather()
         optimizer.zero_grad()
         loss = acc = 0.0
         for i in range(grad_accum):
@@ -159,7 +171,10 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
                                None if cams is None else cams[sl])
             total.backward()
             loss, acc = loss + total.detach(), acc + a
-        if mesh is not None:
+        if fsdp:
+            optimizer.reduce_grads()
+            optimizer.free()
+        elif mesh is not None:
             mean_all_reduce_grads(params, mesh)
         if grad_accum > 1:
             inv = 1.0 / grad_accum
@@ -173,3 +188,16 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
     step.generator = gen
     step.optimizer = optimizer
     return step
+
+
+def fsdp_state_shardings(model: Editor, optimizer: Optimizer, mesh):
+    """The FSDP / ZeRO-3 layout of ``model`` and ``optimizer`` over
+    ``mesh``'s data axis (JAX's ``fsdp_state_shardings``): each large
+    parameter leaf and its slots sharded, the rest, the BN stats, OCFR
+    centers and generator replicated (``parallel.fsdp``). From here on the
+    model holds its sharded parameters at full size only inside a step and
+    inside ``gathered()``. Pass it to ``build_train_step`` as
+    ``state_shardings`` with ``gather_params_compute=True`` and use it as the
+    run's optimizer."""
+    from editor_tpu_torch.parallel.fsdp import FsdpOptimizer
+    return FsdpOptimizer(model, optimizer, mesh)

@@ -10,11 +10,15 @@ NCCL on CUDA, gloo on the CPU).
 * :mod:`.compression` - the gradient reducers (mean, fp16, bf16, int8,
   PowerSGD);
 * :mod:`.ddp` - the explicit local-batch step with a reducer;
-* :mod:`.zero` - ZeRO-1 (optimizer slots partitioned over the ranks).
+* :mod:`.zero` - ZeRO-1 (optimizer slots partitioned over the ranks);
+* :mod:`.fsdp` - FSDP / ZeRO-3 (parameters, gradients and slots sharded);
+* :mod:`.localsgd` - LocalSGD (periodic parameter averaging);
+* :mod:`.elastic`, :mod:`.rendezvous`, :mod:`.etcd` - the launcher's
+  supervisor, rendezvous stores and backends (``cli.launch``).
 
-The global-batch step on a mesh is ``engine.train.build_train_step(mesh=)``.
-FSDP, LocalSGD, the launcher's rendezvous modules and model parallelism are
-not ported.
+The global-batch step on a mesh is ``engine.train.build_train_step(mesh=)``,
+with FSDP ``engine.train.fsdp_state_shardings``. Model parallelism, ``rpc``
+and ``sharded_tensor`` are not ported.
 """
 
 from editor_tpu_torch.parallel.collectives import (all_gather, all_reduce, all_to_all,
@@ -23,12 +27,25 @@ from editor_tpu_torch.parallel.collectives import (all_gather, all_reduce, all_t
                                                    scatter, send_recv)
 from editor_tpu_torch.parallel.compression import Reducer, make_reducer
 from editor_tpu_torch.parallel.ddp import LeafLayout, build_ddp_train_step
+from editor_tpu_torch.parallel.etcd import EtcdServer, EtcdStore
+from editor_tpu_torch.parallel.fsdp import fsdp_shardings, param_memory_bytes, shard_params
 from editor_tpu_torch.parallel.mesh import make_mesh, replicated, shard_batch, shard_host_batch
+from editor_tpu_torch.parallel.rendezvous import (DynamicRendezvous, FileStore,
+                                                  RendezvousClosedError, RendezvousHandler,
+                                                  RendezvousHandlerRegistry,
+                                                  RendezvousParameters, TCPStore,
+                                                  all_gather_object, broadcast_object,
+                                                  monitored_barrier, rendezvous_registry)
 from editor_tpu_torch.parallel.zero import (Zero1Optimizer, state_memory_bytes,
                                             zero1_state_shardings)
 
-__all__ = ["LeafLayout", "Reducer", "Zero1Optimizer", "all_gather", "all_reduce",
-           "all_to_all", "barrier", "broadcast", "build_ddp_train_step", "gather",
-           "make_mesh", "make_reducer", "ppermute_shift", "reduce", "reduce_scatter",
-           "replicated", "scatter", "send_recv", "shard_batch", "shard_host_batch",
-           "state_memory_bytes", "zero1_state_shardings"]
+__all__ = ["DynamicRendezvous", "EtcdServer", "EtcdStore", "FileStore", "LeafLayout",
+           "Reducer", "RendezvousClosedError", "RendezvousHandler",
+           "RendezvousHandlerRegistry", "RendezvousParameters", "TCPStore",
+           "Zero1Optimizer", "all_gather", "all_gather_object", "all_reduce", "all_to_all",
+           "barrier", "broadcast", "broadcast_object", "build_ddp_train_step",
+           "fsdp_shardings", "gather", "make_mesh", "make_reducer", "monitored_barrier",
+           "param_memory_bytes", "ppermute_shift", "reduce", "reduce_scatter",
+           "rendezvous_registry", "replicated", "scatter", "send_recv", "shard_batch",
+           "shard_host_batch", "shard_params", "state_memory_bytes",
+           "zero1_state_shardings"]

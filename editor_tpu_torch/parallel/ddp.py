@@ -41,13 +41,14 @@ class LeafLayout:
     (sorted) leaf order, each in the JAX layout: Linear weights [in, out],
     the patch conv HWIO, the backbone blocks stacked over depth [depth, ...].
     ``leaves`` maps ``{param name: tensor}`` (gradients) to ``{leaf:
-    tensor}``, ``params`` maps back."""
+    tensor}``, ``params`` maps back. ``trainable_only`` False keeps the
+    frozen parameters too (the JAX parameter tree has every leaf)."""
 
-    def __init__(self, model: torch.nn.Module):
+    def __init__(self, model: torch.nn.Module, trainable_only: bool = True):
         specs: Dict[Tuple[str, ...], List[Tuple[int, str]]] = {}
         self.kind: Dict[str, str] = {}
         for name, p in model.named_parameters():
-            if not p.requires_grad:
+            if trainable_only and not p.requires_grad:
                 continue
             m = _BLOCK.match(name)
             if m:
@@ -63,6 +64,16 @@ class LeafLayout:
         self.specs = {_keystr(path): [n for _, n in sorted(v)] for path, v in sorted(specs.items())}
         self.stacked = {_keystr(path) for path, v in specs.items() if v[0][0] >= 0}
 
+    def jax_shape(self, name: str, shape) -> Tuple[int, ...]:
+        """The JAX layout's shape of parameter ``name`` of torch ``shape``."""
+        shape = tuple(shape)
+        kind = self.kind[name]
+        if kind == "linear":
+            return shape[::-1]
+        if kind == "conv":
+            return (shape[2], shape[3], shape[1], shape[0])
+        return shape
+
     def _to_jax(self, name: str, t: torch.Tensor) -> torch.Tensor:
         kind = self.kind[name]
         if kind == "linear":
@@ -71,7 +82,7 @@ class LeafLayout:
             return t.permute(2, 3, 1, 0)
         return t
 
-    def _from_jax(self, name: str, t: torch.Tensor) -> torch.Tensor:
+    def from_jax(self, name: str, t: torch.Tensor) -> torch.Tensor:
         kind = self.kind[name]
         if kind == "linear":
             return t.t()
@@ -79,9 +90,11 @@ class LeafLayout:
             return t.permute(3, 2, 0, 1)
         return t
 
-    def leaves(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def leaves(self, tensors: Dict[str, torch.Tensor], keys=None) -> Dict[str, torch.Tensor]:
+        """``{leaf: tensor}`` of the leaves ``keys`` (default: all)."""
         out = {}
-        for key, names in self.specs.items():
+        for key in self.specs if keys is None else keys:
+            names = self.specs[key]
             parts = [self._to_jax(n, tensors[n]) for n in names]
             out[key] = (torch.stack(parts) if key in self.stacked else parts[0]).contiguous()
         return out
@@ -92,7 +105,7 @@ class LeafLayout:
             leaf = leaves[key]
             parts = leaf.unbind(0) if key in self.stacked else [leaf]
             for n, t in zip(names, parts):
-                out[n] = self._from_jax(n, t)
+                out[n] = self.from_jax(n, t)
         return out
 
 

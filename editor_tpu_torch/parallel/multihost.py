@@ -6,7 +6,8 @@ One process per device, as torch runs data parallelism: ``initialize``
 joins the default ``torch.distributed`` group of its arguments or of the
 launcher's environment (``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``: what ``torchrun``
-sets; or ``DIST_INIT_METHOD`` in place of the first two), with NCCL on CUDA and gloo on the CPU, and a timeout, so that a
+and ``cli.launch`` set; or ``DIST_INIT_METHOD`` in place of the first two),
+with NCCL on CUDA and gloo on the CPU, and a timeout, so that a
 collective whose peer has died raises instead of waiting for ever. On CUDA
 each rank's device is ``cuda:LOCAL_RANK``, made current before anything is
 built. Without a group every function here answers for one process.
@@ -35,7 +36,9 @@ def initialize(init_method: Optional[str] = None, world_size: Optional[int] = No
     Arguments fall back to the launcher's environment: ``init_method`` to
     ``DIST_INIT_METHOD`` (a ``file://`` rendezvous, say) or else to
     ``env://`` when ``MASTER_ADDR`` is set, ``world_size`` to ``WORLD_SIZE``,
-    ``rank`` to ``RANK``, ``local_rank`` to ``LOCAL_RANK`` (else ``rank``).
+    ``rank`` to ``RANK`` or else, as the JAX package derives it,
+    ``NODE_RANK * NPROC_PER_NODE + LOCAL_RANK``, ``local_rank`` to
+    ``LOCAL_RANK`` (else ``rank``).
     With none of the three this is a single-process run and no group is
     made (False). ``device`` 'cpu' makes
     a gloo group; otherwise the group is NCCL on ``cuda:local_rank``, which
@@ -50,7 +53,14 @@ def initialize(init_method: Optional[str] = None, world_size: Optional[int] = No
         if init_method is None:
             return False
     world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None else world_size
-    rank = int(env.get("RANK", 0)) if rank is None else rank
+    if rank is None:
+        if "RANK" in env:
+            rank = int(env["RANK"])
+        elif "LOCAL_RANK" in env:
+            rank = (int(env.get("NODE_RANK", "0")) * int(env.get("NPROC_PER_NODE", "1"))
+                    + int(env["LOCAL_RANK"]))
+        else:
+            rank = 0
     if local_rank is None:
         local_rank = int(env.get("LOCAL_RANK", rank))
     cpu = device is not None and torch.device(device).type == "cpu"
@@ -94,8 +104,12 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def fail_fast(exc: BaseException, exit_code: int = 1) -> None:
-    """End a failing rank at once: print the traceback and ``os._exit``.
+def fail_fast(exc: BaseException, exit_code: int = 1, write_error: bool = True) -> None:
+    """End a failing rank at once: write the elastic error file
+    (``parallel.elastic.write_error_file``: ``EDITOR_TPU_ERROR_FILE``, which
+    ``cli.launch`` sets), print the traceback and ``os._exit``.
+    ``write_error`` False is for a deliberate exit (``sys.exit``, Ctrl-C):
+    no error file, so the launcher spends no restart on it.
 
     Every clean way out of a group is collective (the shutdown barrier,
     ``destroy_process_group``, interpreter teardown), and would wait for
@@ -103,7 +117,10 @@ def fail_fast(exc: BaseException, exit_code: int = 1) -> None:
     closes its connections: a gloo peer's collective then raises at once,
     an NCCL peer's when the group's timeout runs out, and each peer leaves
     through this function too."""
+    from editor_tpu_torch.parallel.elastic import write_error_file
     try:
+        if write_error:
+            write_error_file(exc)
         traceback.print_exception(exc)
     finally:
         sys.stderr.flush()
@@ -114,9 +131,15 @@ def fail_fast(exc: BaseException, exit_code: int = 1) -> None:
 def leave_on_error(exc: BaseException) -> None:
     """An entry point's handler for an exception that ends its run: a rank
     of a multi-process run leaves at once through :func:`fail_fast` (the
-    exit code of a ``SystemExit``, 130 for Ctrl-C, else 1); one process
-    returns, and the caller re-raises as usual."""
+    exit code of a ``SystemExit``, 130 for Ctrl-C, else 1), with the error
+    file for a fault and none for a deliberate exit; one process writes the
+    error file of a fault (a launcher's single worker) and returns, and the
+    caller re-raises as usual."""
+    deliberate = isinstance(exc, (SystemExit, KeyboardInterrupt))
     if process_count() <= 1:
+        if not deliberate:
+            from editor_tpu_torch.parallel.elastic import write_error_file
+            write_error_file(exc)
         return
     if isinstance(exc, KeyboardInterrupt):
         code = 130
@@ -124,7 +147,7 @@ def leave_on_error(exc: BaseException) -> None:
         code = exc.code if isinstance(exc.code, int) else (0 if exc.code is None else 1)
     else:
         code = 1
-    fail_fast(exc, exit_code=code)
+    fail_fast(exc, exit_code=code, write_error=not deliberate)
 
 
 def broadcast_host_value(value: int) -> int:

@@ -165,11 +165,12 @@ def zero1_state_shardings(optimizer: Optimizer, mesh) -> Zero1Optimizer:
 def state_memory_bytes(optimizer, per_device: bool = True) -> int:
     """Bytes of optimizer slots on this rank (``per_device``) or in all (the
     replicated optimizer's); for a plain :class:`Optimizer` both are the
-    whole."""
-    if isinstance(optimizer, Zero1Optimizer):
+    whole. Takes the FSDP optimizer too (``parallel.fsdp``)."""
+    from editor_tpu_torch.parallel.fsdp import FsdpOptimizer
+    if isinstance(optimizer, (Zero1Optimizer, FsdpOptimizer)):
         if not per_device:
             nslots = 1 if optimizer.name == "SGD" else 2
-            return nslots * sum(p.numel() * p.element_size() for p in optimizer.params())
+            return nslots * sum(p.numel() * p.element_size() for p in optimizer.full.params())
         optimizer = optimizer.local
     return sum(t.numel() * t.element_size()
                for st in optimizer.state for ts in st.values() for t in ts)

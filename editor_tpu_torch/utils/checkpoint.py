@@ -179,12 +179,21 @@ def train_state(model: torch.nn.Module, optimizer, generator: torch.Generator,
     Under a process group the call is collective (every rank makes it) and
     the payload comes back on rank 0 only (None elsewhere): the model is the
     same on every rank; a ZeRO-1 optimizer gathers its slots into the
-    single-device format; ``generators`` holds every rank's generator state
+    single-device format; an FSDP optimizer (``parallel.fsdp``) gathers the
+    parameters and the slots into it (the model's state copied to the host
+    inside ``gathered()``); ``generators`` holds every rank's generator state
     in rank order (``generator`` stays rank 0's); ``comm``, a data-parallel
     step's reducer state, is saved with each rank's PowerSGD error feedback
     (``errors``). The file loads into a single-device run."""
     import torch.distributed as dist
     rank, world = _group()
+    model_state = None
+    if hasattr(optimizer, "gathered"):  # FSDP: the full parameters exist only here
+        with optimizer.gathered():
+            if rank == 0:
+                model_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    elif rank == 0:
+        model_state = model.state_dict()
     opt = optimizer.state_dict()
     gens = [generator.get_state()]
     if dist.is_initialized():
@@ -193,7 +202,7 @@ def train_state(model: torch.nn.Module, optimizer, generator: torch.Generator,
     comm_state = _comm_payload(comm) if comm is not None else None
     if rank != 0:
         return None
-    payload = {"model": model.state_dict(), "optimizer": opt, "generator": gens[0],
+    payload = {"model": model_state, "optimizer": opt, "generator": gens[0],
                "step": optimizer.count, "epoch": epoch}
     if dist.is_initialized():
         payload["generators"] = gens
@@ -207,13 +216,18 @@ def load_train_state(payload: Dict[str, Any], model: torch.nn.Module, optimizer,
                      generator: torch.Generator, comm: Any = None) -> int:
     """Restores a :func:`train_state` payload in place; returns its epoch.
 
-    Every rank loads the same file: a ZeRO-1 optimizer takes its own slots.
+    Every rank loads the same file: a ZeRO-1 optimizer takes its own slots,
+    an FSDP one its blocks of the parameters and the slots (a collective).
     A rank takes its own generator state and PowerSGD error when the file
     was saved at this world size; otherwise rank 0 takes the saved rank 0's
     generator, the other ranks keep their fresh ones, and the error
     feedback restarts from zero (``q`` is kept)."""
     rank, world = _group()
-    model.load_state_dict(payload["model"], strict=True)
+    if hasattr(optimizer, "gathered"):
+        with optimizer.gathered():
+            model.load_state_dict(payload["model"], strict=True)
+    else:
+        model.load_state_dict(payload["model"], strict=True)
     optimizer.load_state_dict(payload["optimizer"])
     gens = payload.get("generators")
     if gens is not None and len(gens) == world:

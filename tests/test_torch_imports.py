@@ -3,9 +3,11 @@ the card's machine is not promised), and its kernel wrappers import without
 nvcc or triton (they build and load the CUDA library only when handed a CUDA
 tensor): a tiny eval forward, a tiny train step, a tiny training loop (with
 its evaluation, log and checkpoints) and the parameter count run in a
-subprocess that imports every module of the port's entry points and of its
-data parallelism (``parallel/``: importing it needs no NCCL and makes no
-process group), and
+subprocess that imports every module of the port's entry points (the
+launcher ``cli.launch`` among them) and of its data parallelism
+(``parallel/``, FSDP, LocalSGD and the launcher's supervisor, rendezvous and
+etcd modules included: importing it needs no NCCL and makes no process
+group), and
 a static scan of every import statement of the port and of chip_smoke.py
 (which imports the port inside its functions) finds neither package."""
 
@@ -54,6 +56,8 @@ from editor_tpu_torch.serve import RetrievalServer
 from editor_tpu_torch.utils import jax_weights, visualize
 from editor_tpu_torch import parallel
 from editor_tpu_torch.parallel import collectives, compression, ddp, mesh, multihost, zero
+from editor_tpu_torch.parallel import elastic, etcd, fsdp, localsgd, rendezvous
+from editor_tpu_torch.cli import launch as cli_launch
 import torch.distributed as dist
 group_after_import = dist.is_initialized()  # importing the data-parallel modules makes no group
 
@@ -118,6 +122,15 @@ def test_port_imports_no_jax_and_runs_tiny_forward(tmp_path):
     assert out["group"] is False
     assert {"make_mesh", "build_ddp_train_step", "make_reducer", "zero1_state_shardings",
             "all_gather", "reduce_scatter", "send_recv"} <= set(out["parallel"])
+    # FSDP, the rendezvous stores and backends, etcd (what the JAX package's
+    # parallel/__init__ exports of the ported modules)
+    assert {"fsdp_shardings", "param_memory_bytes", "shard_params", "DynamicRendezvous",
+            "FileStore", "TCPStore", "RendezvousHandlerRegistry", "rendezvous_registry",
+            "monitored_barrier", "all_gather_object", "broadcast_object", "EtcdServer",
+            "EtcdStore"} <= set(out["parallel"])
+    for name in ("fsdp", "localsgd", "elastic", "rendezvous", "etcd"):
+        assert f"editor_tpu_torch.parallel.{name}" in out["new"], name
+    assert "editor_tpu_torch.cli.launch" in out["new"]
 
 
 def _imported_roots(path: Path) -> set:

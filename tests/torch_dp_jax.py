@@ -18,6 +18,7 @@ from jax import lax
 from editor_tpu.config import Config as JaxConfig
 from editor_tpu.engine import build_train_step as jax_build_train_step
 from editor_tpu.engine import make_train_state
+from editor_tpu.engine.train import fsdp_state_shardings as jax_fsdp_state_shardings
 from editor_tpu.losses import make_loss as jax_make_loss
 from editor_tpu.models.editor import EditorConfig as JaxEditorConfig
 from editor_tpu.models.editor import editor_init as jax_editor_init
@@ -36,15 +37,20 @@ B = 8
 REDUCERS = ("allreduce", "fp16", "bf16", "int8", "powersgd")
 
 
+def tiny_jax_config():
+    """The JAX EditorConfig of these tests (depth 2, width 96, drop path 0)."""
+    vit = JaxViTConfig(img_size=(64, 32), patch_size=16, stride_size=(16, 16),
+                       embed_dim=96, depth=2, num_heads=4, mlp_ratio=2.0, camera=4,
+                       drop_path_rate=0.0)
+    return JaxEditorConfig(num_classes=4, vit=vit, head_keep=2, frequency_keep=3,
+                           use_pallas=False)
+
+
 @functools.lru_cache(maxsize=None)
 def jax_setup():
     """(JAX EditorConfig, Config, optimizer, float64 train state), made once
     a process."""
-    vit = JaxViTConfig(img_size=(64, 32), patch_size=16, stride_size=(16, 16),
-                       embed_dim=96, depth=2, num_heads=4, mlp_ratio=2.0, camera=4,
-                       drop_path_rate=0.0)
-    jcfg = JaxEditorConfig(num_classes=4, vit=vit, head_keep=2, frequency_keep=3,
-                           use_pallas=False)
+    jcfg = tiny_jax_config()
     cfg = JaxConfig()
     params, _ = jax_editor_init(jax.random.PRNGKey(0), jcfg)
     opt = jax_make_optimizer(cfg, params)
@@ -74,6 +80,42 @@ def jax_global_step(W, grad_accum):
                                       jax_make_scheduler(cfg), cfg.SOLVER.BASE_LR,
                                       compute_dtype=jnp.float64, mesh=mesh, donate=False,
                                       grad_accum=grad_accum)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fsdp_step(W, grad_accum):
+    """JAX's FSDP step (``state_shardings=fsdp_state_shardings``,
+    ``gather_params_compute=True``) and its state layout, built once a
+    module."""
+    jcfg, cfg, opt, state = jax_setup()
+    mesh = jax_make_mesh(data=W, model=1, devices=jax.devices()[:W])
+    shardings = jax_fsdp_state_shardings(state, mesh)
+    return mesh, shardings, jax_build_train_step(
+        jcfg, opt, jax_make_loss(cfg, 4), jax_make_scheduler(cfg), cfg.SOLVER.BASE_LR,
+        compute_dtype=jnp.float64, mesh=mesh, donate=False, grad_accum=grad_accum,
+        state_shardings=shardings, gather_params_compute=True)
+
+
+def jax_fsdp(state, batch, W, grad_accum=1, steps=2):
+    """JAX's FSDP run: (losses, the sharded train state after it, mesh)."""
+    mesh, shardings, step = jax_fsdp_step(W, grad_accum)
+    state = jax.tree_util.tree_map(jax.device_put, state, shardings)
+    feed = jax_shard_batch(mesh, {k: jnp.asarray(v) for k, v in batch.items()})
+    losses = []
+    for epoch in range(1, steps + 1):
+        state, m = step(state, feed, jnp.asarray(epoch))
+        losses.append(float(m["loss"]))
+    return losses, state, mesh
+
+
+def device_shards(leaf, mesh):
+    """A JAX array's block on each device of the mesh's data axis, in
+    order."""
+    order = {d: i for i, d in enumerate(mesh.devices.flat)}
+    out = [None] * len(order)
+    for sh in leaf.addressable_shards:
+        out[order[sh.device]] = np.asarray(sh.data)
+    return out
 
 
 def switch_reducer():

@@ -4,8 +4,14 @@
 
 by ``tests/torch_dp.py::run_ranks``. It reads ``<dir>/inputs.pt``, joins the
 group through ``file://<dir>/rendezvous``, runs the scenario and writes
-``<dir>/out_<rank>.pt``. It imports torch and the port only (no JAX): the
-JAX oracles run in the pytest process.
+``<dir>/out_<rank>.pt``. Under ``cli.launch`` it runs as
+
+    python tests/torch_dp_worker.py --launched <scenario> <dir>
+
+takes its rank from the launcher's environment, joins the group there
+(the CLIs do) and writes ``<dir>/out_<rank>_<incarnation>.pt``. It imports
+torch and the port only (no JAX): the JAX oracles run in the pytest
+process.
 """
 
 from __future__ import annotations
@@ -92,7 +98,11 @@ def _solver(model, inp):
             make_scheduler(cfg), cfg.SOLVER.BASE_LR)
 
 
-def _state(model):
+def _state(model, opt=None):
+    """The model's state_dict, cloned; under FSDP gathered (a collective)."""
+    if hasattr(opt, "gathered"):
+        with opt.gathered():
+            return _state(model)
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
@@ -110,10 +120,12 @@ def _build(kind, model, inp, mesh):
         for k, q in inp.get("q0", {}).items():
             step.comm[k]["q"] = _t(q).to(step.comm[k]["q"].dtype)
         return step, opt
-    zero = zero1_state_shardings(opt, mesh) if kind == "zero1" else None
+    from editor_tpu_torch.engine.train import fsdp_state_shardings
+    zero = (zero1_state_shardings(opt, mesh) if kind == "zero1" else
+            fsdp_state_shardings(model, opt, mesh) if kind == "fsdp" else None)
     step = build_train_step(model, opt, loss, lr_fn, base_lr, compute_dtype=dtype,
                             grad_accum=inp.get("grad_accum", 1), mesh=mesh,
-                            state_shardings=zero)
+                            state_shardings=zero, gather_params_compute=kind == "fsdp")
     return step, step.optimizer
 
 
@@ -128,7 +140,7 @@ def _mesh():
 
 
 def _train_run(spec, rank, world):
-    """One run: ``kind`` 'global' | 'zero1' | 'ddp' | 'single' for ``steps``
+    """One run: ``kind`` 'global' | 'zero1' | 'fsdp' | 'ddp' | 'single' for ``steps``
     steps on the global ``batch`` (each rank its rows); optionally resumed
     from the checkpoint ``resume`` and saving one (``train_state``, rank 0
     writes) at ``save_path`` after ``save_after`` steps. Returns losses,
@@ -146,25 +158,72 @@ def _train_run(spec, rank, world):
     batch = {k: _t(v) for k, v in spec["batch"].items()}
     if mesh is not None:
         batch = shard_batch(mesh, batch, 1 if kind == "ddp" else spec.get("grad_accum", 1))
-    out = {"loss": [], "acc": [], "lr": [], "sds": []}
+    out = {"loss": [], "acc": [], "lr": [], "sds": [], "collectives": []}
     for epoch in range(first, first + spec["steps"]):
+        C.reset_collective_counts()
         m = step(batch, epoch)
+        out["collectives"].append(C.collective_counts())
         out["loss"].append(float(m["loss"]))
         out["acc"].append(float(m["acc"]))
         out["lr"].append(float(m["lr"]))
-        out["sds"].append(_state(model))
+        if kind == "fsdp":  # between steps: this rank's storage and blocks
+            from editor_tpu_torch.parallel.zero import state_memory_bytes
+            out.setdefault("param_bytes", []).append(opt.param_bytes())
+            out.setdefault("slot_bytes", []).append(state_memory_bytes(opt))
+            out.setdefault("shards", []).append(
+                {leaf.key: leaf.shard.clone() for leaf in opt.leaves})
+        out["sds"].append(_state(model, opt))
         if spec.get("save_after") == epoch:
             payload = train_state(model, opt, step.generator, epoch,
                                   comm=getattr(step, "comm", None))
             if rank == 0:
                 torch.save(payload, spec["save_path"])
-    out["sd"] = _state(model)
+    out["sd"] = _state(model, opt)
+    if kind == "fsdp":  # shard_params of the gathered model = the blocks held
+        from editor_tpu_torch.parallel.fsdp import shard_params
+        with opt.gathered():
+            out["shard_params"] = shard_params(model, mesh)
     if kind == "ddp" and step.comm:
         out["comm"] = {k: {s: t.clone() for s, t in v.items()} for k, v in step.comm.items()}
     if kind == "zero1":
         from editor_tpu_torch.parallel.zero import state_memory_bytes
         out["slot_bytes"] = state_memory_bytes(opt, per_device=True)
         out["slot_bytes_total"] = state_memory_bytes(opt, per_device=False)
+    return out
+
+
+def localsgd(inp, rank, world, out_dir):
+    """LocalSGD (``period`` 2) for ``steps`` steps: ``toy`` the JAX test's
+    update (w <- w - 0.5 (w - mean(batch)), this rank's row of
+    ``arange(W)``), else the single-device train step on this rank's rows
+    of the global batch. Each step's metrics and state."""
+    from editor_tpu_torch.parallel.localsgd import build_localsgd_train_step
+    from editor_tpu_torch.parallel.mesh import shard_batch
+    mesh = _mesh()
+    if inp.get("toy"):
+        w = torch.zeros((), dtype=torch.float64)
+
+        def local_update(batch, epoch):
+            target = batch.mean()
+            w.copy_(w - 0.5 * (w - target))
+            return {"loss": ((w - target) ** 2).mean()}
+
+        step = build_localsgd_train_step(local_update, mesh, period=2, model=[w])
+        batch = torch.arange(float(world), dtype=torch.float64).reshape(world, 1)[rank]
+        out = []
+        for i in range(inp["steps"]):
+            m = step(batch, 1, i)
+            out.append({"w": float(w), **{k: float(v) for k, v in m.items()}})
+        return out
+    model = _model(inp)
+    local, _ = _build("single", model, inp, None)
+    step = build_localsgd_train_step(local, mesh, period=2, model=model)
+    batch = shard_batch(mesh, {k: _t(v) for k, v in inp["batch"].items()})
+    out = []
+    for i in range(inp["steps"]):
+        m = step(batch, i + 1, i)
+        out.append({"loss": float(m["loss"]), "averaged": float(m["averaged"]),
+                    "sd": _state(model)})
     return out
 
 
@@ -252,6 +311,88 @@ def cli_test(inp, rank, world, out_dir):
     return {"cmc": cmc_, "mAP": mAP}
 
 
+def _committed(ckpt_dir: str, timeout: float = 60.0) -> None:
+    """Waits until a checkpoint file is committed (renamed into place) in
+    ``ckpt_dir``: an asynchronous save may still be writing."""
+    import re
+    import time
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if os.path.isdir(ckpt_dir) and any(re.match(r"step_\d+\.pt$", n)
+                                           for n in os.listdir(ckpt_dir)):
+            return
+        time.sleep(0.05)
+    raise TimeoutError(f"no committed checkpoint in {ckpt_dir}")
+
+
+def launch_train(inp, rank, world, out_dir):
+    """``cli.train.main`` under ``cli.launch`` on the in-memory splits. In
+    incarnation 0 rank ``fail_rank``'s data raises as epoch ``fail_epoch``
+    starts, once the checkpoint before it is committed. Records the epoch
+    and step each rank resumed from."""
+    from editor_tpu_torch.cli import train as cli
+    from editor_tpu_torch.data import loader
+    from editor_tpu_torch.data.datasets import DatasetSplits
+    from editor_tpu_torch.engine import loop
+    from tests.torch_dp import decode, items
+
+    incarnation = int(os.environ["EDITOR_TPU_RESTART_COUNT"])
+    argv = inp["argv"]
+    out = argv[argv.index("OUTPUT_DIR") + 1]
+    real_epoch, real_load = loader.ReIDDataModule.train_epoch, loop.load_train_state
+    resumed = []
+
+    def train_epoch(self, epoch, *a, **k):
+        if incarnation == 0 and rank == inp["fail_rank"] and epoch == inp["fail_epoch"]:
+            _committed(os.path.join(out, "ckpt"))
+            raise RuntimeError(f"planted data failure in epoch {epoch}")
+        return real_epoch(self, epoch, *a, **k)
+
+    def load_train_state(payload, model, optimizer, *a, **k):
+        epoch = real_load(payload, model, optimizer, *a, **k)
+        resumed.append({"epoch": epoch, "count": optimizer.count})
+        return epoch
+
+    loader.ReIDDataModule.train_epoch, loop.load_train_state = train_epoch, load_train_state
+    try:
+        train, query, gallery = items()
+        result = cli.main(argv, splits=DatasetSplits(train, query, gallery, 4, 2),
+                          decode_fn=decode)
+    finally:
+        loader.ReIDDataModule.train_epoch, loop.load_train_state = real_epoch, real_load
+    return {"resumed": resumed, "best": result["best"]}
+
+
+def launch_group(inp, rank, world, out_dir):
+    """Joins the group from the launcher's environment with ``RANK`` unset
+    (the rank derived from ``NODE_RANK``, ``NPROC_PER_NODE`` and
+    ``LOCAL_RANK``) and all-gathers every rank's view."""
+    import torch.distributed as dist
+    env = {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE",
+                                          "LOCAL_WORLD_SIZE", "NODE_RANK", "NPROC_PER_NODE",
+                                          "MASTER_ADDR", "MASTER_PORT")}
+    os.environ.pop("RANK")
+    multihost.initialize(device="cpu", timeout_s=60)
+    mine = torch.tensor([dist.get_rank(), dist.get_world_size(), int(env["RANK"])])
+    views = C.all_gather(mine, None, tiled=False)
+    multihost.shutdown()
+    return {"env": env, "views": views.tolist()}
+
+
+def deliberate_exit(inp, rank, world, out_dir):
+    """Rank 1 leaves by ``SystemExit(3)`` while rank 0 waits in a
+    collective (the CLIs' handler)."""
+    multihost.initialize(device="cpu", timeout_s=60)
+    try:
+        if rank == 1:
+            raise SystemExit(3)
+        C.all_reduce(torch.ones(4))
+    except BaseException as e:  # noqa: BLE001
+        multihost.leave_on_error(e)
+        raise
+    return {}
+
+
 def fail(inp, rank, world, out_dir):
     """Rank 1 raises while rank 0 waits in a collective."""
     if rank == 1:
@@ -260,12 +401,28 @@ def fail(inp, rank, world, out_dir):
     return {}
 
 
-TASKS = {"collectives": collectives, "reducers": reducers, "train": train, "cmc": cmc,
-         "cli_train": cli_train, "cli_test": cli_test, "fail": fail}
+TASKS = {"collectives": collectives, "reducers": reducers, "train": train,
+         "localsgd": localsgd, "cmc": cmc,
+         "cli_train": cli_train, "cli_test": cli_test, "fail": fail,
+         "launch_train": launch_train, "launch_group": launch_group,
+         "deliberate_exit": deliberate_exit}
 SELF_INIT = ("cli_train", "cli_test")  # the group comes from the environment (the CLIs)
 
 
+def launched():
+    """A worker of ``cli.launch``: the scenario joins the group itself."""
+    scenario, out_dir = sys.argv[2], sys.argv[3]
+    torch.set_num_threads(1)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    out = TASKS[scenario](inp, rank, world, out_dir)
+    torch.save(out, os.path.join(
+        out_dir, f"out_{rank}_{os.environ['EDITOR_TPU_RESTART_COUNT']}.pt"))
+
+
 def main():
+    if sys.argv[1] == "--launched":
+        return launched()
     scenario, rank, world, out_dir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     torch.set_num_threads(1)
     inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
