@@ -1735,14 +1735,16 @@ def _grads_finite(model) -> bool:
 
 
 def train_check(cfg, ecfg, gen: torch.Generator, label: str, want: dict,
-                learn: bool) -> dict:
+                learn: bool, before_reference=None) -> dict:
     """The train step of ``ecfg`` with the solver of ``cfg`` (B=128 as 8 ids x
     16, uint8 images through the augmentation, bf16) through
     build_train_step: the launch counts of each of 3 steps; losses within 3%
     and the parameter norm within 2% of the same model run with the plain
     ops in fp32 (same weights, batch and random draws); finite losses and
     gradients; BN stats and OCFR centers move; step time, img/s and peak
-    memory; with ``learn``, 20 steps on one fixed batch lower the loss."""
+    memory; with ``learn``, 20 steps on one fixed batch lower the loss.
+    ``before_reference`` is called between the kernel steps and the plain
+    fp32 steps (phase 12 (b): the MoE's routing replayed)."""
     from editor_tpu_torch.data.transforms import make_eval_transform, make_train_augment
     from editor_tpu_torch.engine.train import build_train_step
     from editor_tpu_torch import ops
@@ -1789,6 +1791,8 @@ def train_check(cfg, ecfg, gen: torch.Generator, label: str, want: dict,
     norm = _param_norm(model)
 
     # the same weights, batch and random draws through the plain ops in fp32
+    if before_reference is not None:
+        before_reference()
     ref_step = make_step(ref_model, torch.float32)
     ref_losses = [float(ref_step(batch, epoch)["loss"]) for epoch in (1, 2, 3)]
     ref_norm = _param_norm(ref_model)
@@ -2719,6 +2723,11 @@ def _dp_step(kind: str, cfg, ecfg, sd, mesh, augment: bool = True, reducer=None,
 
     model = Editor(ecfg)
     model.load_state_dict(sd, strict=True)
+    if mesh is not None:
+        from editor_tpu_torch.parallel.mesh import model_size
+        from editor_tpu_torch.parallel.tp import shard_editor
+        if model_size(mesh) > 1:  # tensor parallelism: this rank's shards
+            shard_editor(model, mesh)
     opt = make_optimizer(cfg, model)
     if grad_scale != 1.0:
         inner = opt.step
@@ -2858,6 +2867,14 @@ def _delta_err(got: dict, ref: dict, direction: bool = False) -> dict:
         num = float((g - d).norm()) if direction else abs(float(g.norm()) - float(d.norm()))
         out[n] = num / max(float(d.norm()), floor)
     return out
+
+
+def _grad_err(got: dict, ref: dict) -> dict:
+    """Per tensor, max |got - ref| over max(max |ref|, 1e-3 of the largest
+    max |ref| of any tensor): :func:`_delta_err`'s floor, elementwise."""
+    floor = 1e-3 * max(float(g.abs().max()) for g in ref.values())
+    return {k: float((got[k] - g).abs().max()) / max(float(g.abs().max()), floor)
+            for k, g in ref.items()}
 
 
 def _worst(err: dict, k: int = 3) -> str:
@@ -3496,10 +3513,596 @@ def fsdp_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Model parallelism (phase 12): (a) K1, K4 and K2 on one card at the shapes a
+# tensor-parallel rank gives them (H / 2 heads of the shard-major qkv), held
+# to the full 12-head launch bit for bit; (b) the flagship with the MoE joint
+# MLP (MODEL.MOE_EXPERTS 8) on one card; with two cards or more (c) the
+# tensor-parallel train step and evaluation through cli.launch and (d) expert
+# and sequence parallelism on the flagship fusion block, each rank a process
+# of this script (``--tp-rank``, ``--mp-rank``).
+MP_LAUNCH_TIMEOUT_S = 420
+MP_TOL = 2e-2  # (d): scaled error of bf16 results against the one-card block
+MP_F32_TOL = 1e-4  # (d): the ring's fp32 gradients against the plain block's
+# (c): the TP step's losses against one card's, relative. bf16 rounds
+# differently in the two (each rank's partial product rounds before the
+# all-reduce, as JAX's); two-step readings of sound runs on H100s were
+# 5.6e-4 to 1.09e-3 (PERF.md, §5)
+TP_LOSS_TOL = 2e-3
+
+
+def _tp_shard_kernels(gen: torch.Generator) -> dict:
+    """(a): K1 with probs and K4 on each model rank's [384, 129, 1152] block
+    of the shard-major qkv (tp 2, H = 6), and K2 on each rank's [12, 384, 6,
+    129, 129] probs, against the same heads of the full 12-head launches:
+    ``torch.equal`` (each head's rows read only that head's q, k and v), or,
+    failing that, phase 2's checks against the plain versions (a finding).
+    Their times at H = 6 and the bounds of those shapes."""
+    from editor_tpu_torch import ops
+    from editor_tpu_torch.parallel.tp import qkv_tp_permutation
+
+    tp, Hs, Cs = 2, H // 2, C // 2
+    Bk, N, L = 3 * B_EVAL, 129, 12
+    dev = "cuda"
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    qkv = randn(Bk, N, 3 * C)
+    perm = torch.from_numpy(qkv_tp_permutation(H, D, tp)).to(dev)
+    probs = torch.empty(Bk, H, N, N, dtype=torch.bfloat16, device=dev)
+    out, _ = ops.attention_qkv(qkv, H, SCALE, probs_out=probs)
+    g = randn(Bk, N, C)
+    dq = ops.attention_qkv_bwd(qkv, g, H, SCALE)[..., perm]  # shard-major columns
+    sq = qkv[..., perm]
+    equal, fallback, shards = {}, {}, []
+    for s in range(tp):
+        cols, heads = slice(s * 3 * Cs, (s + 1) * 3 * Cs), slice(s * Hs, (s + 1) * Hs)
+        q_s, g_s = sq[..., cols].contiguous(), g[..., s * Cs:(s + 1) * Cs].contiguous()
+        p_s = torch.empty(Bk, Hs, N, N, dtype=torch.bfloat16, device=dev)
+        o_s, _ = ops.attention_qkv(q_s, Hs, SCALE, probs_out=p_s)
+        d_s = ops.attention_qkv_bwd(q_s, g_s, Hs, SCALE)
+        torch.cuda.synchronize()
+        equal[f"attention_qkv{s}"] = bool(torch.equal(o_s, out[..., s * Cs:(s + 1) * Cs])
+                                          and torch.equal(p_s, probs[:, heads]))
+        equal[f"attention_qkv_bwd{s}"] = bool(torch.equal(d_s, dq[..., cols]))
+        if not equal[f"attention_qkv{s}"]:
+            fallback[f"attention_qkv{s}"] = _k1_errors(
+                f"attention_qkv shard {s}", o_s, p_s,
+                ops.attention_qkv_tpu_plain(q_s, Hs, SCALE, True))
+        if not equal[f"attention_qkv_bwd{s}"]:
+            fallback[f"attention_qkv_bwd{s}"] = _bwd_shares(
+                f"attention_qkv_bwd shard {s}", d_s,
+                ops.attention_qkv_bwd_plain(q_s, g_s, Hs, SCALE), N, Cs)
+        shards.append((q_s, g_s, p_s))
+    q_s, g_s, p_s = shards[0]
+    res = {"attention_qkv": dict(
+               ms=cuda_ms(lambda: ops.attention_qkv(q_s, Hs, SCALE, probs_out=p_s)),
+               **bound(4.0 * Bk * Hs * N * N * D,
+                       2.0 * (Bk * N * 3 * Cs + Bk * N * Cs + Bk * Hs * N * N))),
+           "attention_qkv_bwd": dict(
+               ms=cuda_ms(lambda: ops.attention_qkv_bwd(q_s, g_s, Hs, SCALE)),
+               **bound(10.0 * Bk * Hs * N * N * D, 2.0 * Bk * N * (3 * Cs + Cs + 3 * Cs)))}
+    del out, dq, sq, shards, q_s, g_s, p_s, probs, g
+    torch.cuda.empty_cache()
+    # K2 over 12 layers of peaked maps (phase 2's), the full and each rank's heads
+    maps = torch.empty(L, Bk, H, N, N, dtype=torch.bfloat16, device=dev)
+    for l in range(L):
+        maps[l] = torch.softmax(4.0 * torch.randn(Bk, H, N, N, generator=gen, device=dev),
+                                dim=-1).to(torch.bfloat16)
+    roll = ops.rollout_chain(maps)
+    for s in range(tp):
+        m_s = maps[:, :, s * Hs:(s + 1) * Hs].contiguous()
+        r_s = ops.rollout_chain(m_s)
+        torch.cuda.synchronize()
+        equal[f"rollout_chain{s}"] = bool(torch.equal(r_s, roll[:, s * Hs:(s + 1) * Hs]))
+        if not equal[f"rollout_chain{s}"]:
+            e = _max_err(r_s, ops.rollout_from_probs_plain(m_s))
+            _require(f"rollout_chain shard {s}", e, 1e-5)
+            fallback[f"rollout_chain{s}"] = {"err": e}
+        if s == 0:
+            Z = Bk * Hs
+            res["rollout_chain"] = dict(
+                ms=cuda_ms(lambda: ops.rollout_chain(m_s)),
+                **bound(2.0 * (L - 1) * Z * N * N, 2.0 * L * Z * N * N + 4.0 * Z * (N - 1)))
+        del m_s, r_s
+    del maps, roll
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        r.update(shape={"attention_qkv": [Bk, N, 3 * Cs, Hs],
+                        "attention_qkv_bwd": [Bk, N, 3 * Cs, Hs],
+                        "rollout_chain": [L, Bk * Hs, N]}[name],
+                 equal=all(equal[f"{name}{s}"] for s in range(tp)))
+    say("12a tp shard kernels", tp=tp, heads=Hs, equal=json.dumps(equal),
+        fallback=json.dumps(fallback) if fallback else "none",
+        times=json.dumps({k: {"ms": round(v["ms"], 4), "bound_ms": round(v["bound_ms"], 4),
+                              "bound_by": v["bound_by"]} for k, v in res.items()}))
+    return res
+
+
+class _Routes:
+    """Inside ``with``: every MoE routing (``parallel.moe.route``) keeps its
+    top-k experts in ``log``; after ``replay(logged)`` each routing takes the
+    next logged experts instead of its own (the gates renormalised from its
+    own probabilities at them) until they run out, so that a second run
+    dispatches every token where the first did. The aux losses of
+    ``moe_ffn_dense`` go to ``aux``."""
+
+    def __init__(self):
+        from editor_tpu_torch.parallel import moe as moe_mod
+        self.mod, self.log, self.aux, self.queue = moe_mod, [], [], None
+
+    def replay(self, logged: list) -> "_Routes":
+        self.queue = list(logged)
+        return self
+
+    def __enter__(self):
+        mod, real_route, real_ffn = self.mod, self.mod.route, self.mod.moe_ffn_dense
+        self.real = (real_route, real_ffn)
+
+        def route(router, x, k):
+            gates, idx, probs = real_route(router, x, k)
+            if self.queue:
+                idx = self.queue.pop(0)
+                gates = probs.gather(1, idx)
+                gates = gates / gates.sum(dim=-1, keepdim=True)
+            self.log.append(idx)
+            return gates, idx, probs
+
+        def ffn(*a, **kw):
+            y, aux = real_ffn(*a, **kw)
+            self.aux.append(aux.detach())
+            return y, aux
+
+        mod.route, mod.moe_ffn_dense = route, ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route, self.mod.moe_ffn_dense = self.real
+
+
+def _moe_eval(ecfg, gen: torch.Generator, want: dict) -> dict:
+    """(b)'s eval forward (B = 128, bf16, build_eval_step): the launches of
+    one forward; the features against the plain fp32 run dispatching every
+    token to the experts the bf16 run chose, under phase 3's gates (the
+    routing is discontinuous: bf16 rounding before the router flips the
+    top-2 choice of tokens whose scores nearly tie, and a flipped token
+    takes another expert's output whole); the plain fp32 run that routes
+    for itself, its share of flipped choices and its agreement, printed;
+    the forward's ms and peak memory."""
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.models.editor import Editor
+    from editor_tpu_torch.models.init import editor_init
+
+    model = editor_init(ecfg, seed=0)
+    ref_model = Editor(dataclasses.replace(ecfg, use_pallas=False))
+    ref_model.load_state_dict(model.state_dict(), strict=True)
+    batch = _eval_batch(gen, B_EVAL)
+    step, ref_step = build_eval_step(model, torch.bfloat16), build_eval_step(ref_model,
+                                                                            torch.float32)
+    step(batch)
+    torch.cuda.synchronize()
+    with _Routes() as routes:
+        reset_counts()
+        feats = step(batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    if launches != want:
+        raise AssertionError(f"MoE forward launches {launches} != {want}")
+    if feats.shape != (B_EVAL, 3 * C) or not torch.isfinite(feats).all():
+        raise AssertionError(f"MoE features {tuple(feats.shape)}, finite "
+                             f"{bool(torch.isfinite(feats).all())}")
+    with _Routes().replay(routes.log):
+        same = ref_step(batch)
+    with _Routes() as own:
+        free = ref_step(batch)
+    min_cos, max_rel = _feature_agreement(feats, same)
+    if not (min_cos >= 0.99 and max_rel <= 0.08):
+        raise AssertionError(f"MoE bf16 kernels vs fp32 plain (same routing): min cos "
+                             f"{min_cos}, max rel-L2 {max_rel}")
+    free_cos, free_rel = _feature_agreement(feats, free)
+    flips = float((routes.log[0] != own.log[0]).any(dim=1).float().mean())
+    first = float((routes.log[0][:, 0] != own.log[0][:, 0]).float().mean())
+    del model, ref_model, same, free, routes, own, ref_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = cuda_ms(lambda: step(batch), iters=5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say("12b moe forward", B=B_EVAL, launches=json.dumps(launches),
+        min_cos=f"{min_cos:.6f}", max_rel_l2=f"{max_rel:.6f}",
+        own_routing_min_cos=f"{free_cos:.6f}", own_routing_max_rel_l2=f"{free_rel:.6f}",
+        tokens_with_a_flipped_choice=f"{flips:.5f}", flipped_first_choice=f"{first:.5f}",
+        fwd_ms=f"{fwd_ms:.2f}", peak_gb=f"{peak:.2f}")
+    return launches
+
+
+def _moe_check(gen: torch.Generator, card: str) -> dict:
+    """(b): the flagship with MODEL.MOE_EXPERTS 8 (compact tail, B = 128,
+    bf16): the eval forward (:func:`_moe_eval`) and phase 5's train check (3
+    steps against the plain fp32 run with the kernel steps' routing, as the
+    eval's), launches as phases 3 and 5; every aux
+    loss the MoE returned finite and positive; the train step's peak memory,
+    which a [T, K, E, C] one-hot (36 GB at T = 33,792) would exceed."""
+    from editor_tpu_torch.parallel import moe as moe_mod
+
+    cfg, ecfg = flagship(["MODEL.MOE_EXPERTS", "8"])
+    L = ecfg.vit.depth
+    want_eval = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2)
+    want = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2,
+                    attention_qkv_bwd=L, masked_attention_qkv_bwd=2)
+    eval_launches = _moe_eval(ecfg, gen, want_eval)
+    with _Routes() as routes:  # the plain fp32 steps take the kernel steps' routing
+        launches, step_ms = train_check(
+            cfg, ecfg, gen, "12b moe train", want, learn=False,
+            before_reference=lambda: routes.replay(routes.log[:3]))
+    aux = [float(a) for a in routes.aux]
+    if not (aux and all(np.isfinite(a) and a > 0 for a in aux)):
+        raise AssertionError(f"MoE aux losses {aux[:8]}")
+    T = B_EVAL * 3 * 88
+    cap = moe_mod.capacity_of(T, ecfg.moe_experts)
+    say("12b moe", experts=ecfg.moe_experts, tokens=T, capacity=cap,
+        one_hot_gb=f"{T * 2 * ecfg.moe_experts * cap * 4 / 1e9:.1f}", aux_calls=len(aux),
+        aux_first=f"{aux[0]:.6f}", aux_range=f"{min(aux):.6f}-{max(aux):.6f}",
+        step_ms=f"{step_ms:.2f}", card=repr(card))
+    return {"train": launches, "eval": eval_launches, "step_ms": step_ms}
+
+
+def _launch_ranks(world: int, flag: str, d: str) -> None:
+    """``world`` ranks of this script (``flag d``) through ``cli.launch
+    --nproc_per_node world``, one card each."""
+    import sys
+
+    log = os.path.join(d, "launch.txt")
+    _wait_launch(_popen_launch(["--nproc_per_node", str(world), "--max_restarts", "0",
+                                "--master_port", "0", "--error_dir", os.path.join(d, "err"),
+                                "--", sys.executable, os.path.abspath(__file__), flag, d],
+                               log), log, MP_LAUNCH_TIMEOUT_S)
+
+
+def tp_rank(d: str) -> None:
+    """One rank of (c) under cli.launch: the mesh from TPU.MESH_MODEL 2
+    (``resolve_mesh``), the model cut by ``shard_editor``; the eval step's
+    features of the saved eval batch from the saved weights, then 2 global
+    batch steps on this rank's rows (each step's launches and collectives),
+    the canonical checkpoint (rank 0 writes) and the gathered state, and the
+    step's time."""
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.engine.loop import resolve_mesh
+    from editor_tpu_torch.parallel import collectives as Coll
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.parallel.mesh import model_group, shard_batch
+    from editor_tpu_torch.parallel.tp import gather_editor_state
+    from editor_tpu_torch.utils.checkpoint import train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    multihost.initialize(timeout_s=240)
+    rank = multihost.process_index()
+    cfg, ecfg = inp["cfg"], inp["ecfg"]
+    mesh = resolve_mesh(cfg, torch.device("cuda", torch.cuda.current_device()))
+    sd = {k: v.cuda() for k, v in inp["sd"].items()}
+    model, step = _dp_step("global", cfg, ecfg, sd, mesh, augment=False)
+    reset_counts()
+    feats = build_eval_step(model, torch.bfloat16, mesh)(
+        {k: v.cuda() for k, v in inp["eval"].items()})
+    out = {"feats": feats.cpu(), "eval_launches": launch_counts(), "mesh": list(mesh.shape)}
+    batch = shard_batch(mesh, {k: v.cuda() for k, v in inp["batch"].items()})
+    out.update(losses=[], launches=[], collectives=[])
+    for e in (1, 2):
+        reset_counts()
+        Coll.reset_collective_counts()
+        out["losses"].append(float(step(batch, e)["loss"]))
+        out["launches"].append(launch_counts())
+        out["collectives"].append(Coll.collective_counts())
+    payload = train_state(model, step.optimizer, step.generator, 2, tp_mesh=mesh)
+    state = {k: v.cpu() for k, v in gather_editor_state(model, model_group(mesh)).items()}
+    if rank == 0:
+        torch.save(payload, os.path.join(d, "ckpt.pt"))
+        out["sd"] = state
+    out["ms"] = cuda_ms(lambda: step(batch, cfg.SOLVER.WARMUP_ITERS + 1), iters=3)
+    torch.save(out, os.path.join(d, f"out_{rank}.pt"))
+    multihost.shutdown()
+
+
+def _tp_multi(card: str, gen: torch.Generator) -> dict:
+    """(c) with two cards or more: TPU.MESH_MODEL 2 through cli.launch on 2
+    ranks (data 1 x model 2) and, with four cards, 4 (2 x 2), against one
+    card from the same weights and batch (drop path 0, no augmentation,
+    phase 10 (e)'s identity-like images): losses within TP_LOSS_TOL and
+    every tensor's change within phase 10 (e)'s DP_W_LIMIT; the TP eval
+    features against one card's under phase 3's gates; the canonical
+    checkpoint loaded strictly into a one-card model equal to the gathered
+    TP state bit for bit; K1 and K4 (at H = 6), K2, K3 and K5 counted a step
+    on each rank; the TP step's ms against one card's."""
+    import shutil
+    import tempfile
+
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.models.editor import Editor
+    from editor_tpu_torch.models.init import editor_init
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say("12c tp ranks", world_sizes="1", note="one card: the TP check needs two")
+        return {}
+    cfg, ecfg = flagship(["TPU.MESH_MODEL", "2"])
+    ecfg = dataclasses.replace(ecfg, vit=dataclasses.replace(ecfg.vit, drop_path_rate=0.0))
+    L = ecfg.vit.depth
+    want = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2,
+                    attention_qkv_bwd=L, masked_attention_qkv_bwd=2)
+    want_eval = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2)
+    h, w = ecfg.vit.img_size
+    sd0 = {k: v.clone() for k, v in editor_init(ecfg, seed=0).state_dict().items()}
+    batch = _dp_id_batch(gen, _dp_batch(gen, cfg, h, w))
+    eval_batch = _eval_batch(gen, 64)
+    model = Editor(ecfg)
+    model.load_state_dict(sd0, strict=True)
+    ref_feats = build_eval_step(model, torch.bfloat16)(eval_batch)
+    del model
+    ref_losses, ref_d, step = _dp_one_card(cfg, ecfg, sd0, batch)
+    one_ms = cuda_ms(lambda: step(batch, cfg.SOLVER.WARMUP_ITERS + 1), iters=3)
+    del step
+    torch.cuda.empty_cache()
+    worlds = [2] + ([4] if n >= 4 else [])
+    result = {}
+    for world in worlds:
+        d = tempfile.mkdtemp(prefix=f"chip_smoke_tp{world}_")
+        try:
+            torch.save({"cfg": cfg, "ecfg": ecfg, "sd": {k: v.cpu() for k, v in sd0.items()},
+                        "batch": {k: v.cpu() for k, v in batch.items()},
+                        "eval": {k: v.cpu() for k, v in eval_batch.items()}},
+                       os.path.join(d, "inputs.pt"))
+            _launch_ranks(world, "--tp-rank", d)
+            outs = [torch.load(os.path.join(d, f"out_{r}.pt"), weights_only=False)
+                    for r in range(world)]
+            sd = outs[0]["sd"]
+            deltas = {k: sd[k].float() - sd0[k].float().cpu() for k in ref_d}
+            err = _delta_err(deltas, ref_d)
+            dl = max(abs(a - b) / abs(b) for a, b in zip(outs[0]["losses"], ref_losses))
+            if not (all(o["losses"] == outs[0]["losses"] for o in outs) and dl <= TP_LOSS_TOL
+                    and max(err.values()) <= DP_W_LIMIT):
+                raise AssertionError(f"TP W = {world}: losses {outs[0]['losses']} vs "
+                                     f"{ref_losses}; worst {_worst(err)}")
+            for r, o in enumerate(outs):
+                if any(lc != want for lc in o["launches"]) or o["eval_launches"] != want_eval:
+                    raise AssertionError(f"TP rank {r}: launches {o['launches']}, eval "
+                                         f"{o['eval_launches']}")
+                min_cos, max_rel = _feature_agreement(o["feats"].cuda(), ref_feats)
+                if not (min_cos >= 0.99 and max_rel <= 0.08):
+                    raise AssertionError(f"TP rank {r} eval: cos {min_cos}, rel {max_rel}")
+            payload = torch.load(os.path.join(d, "ckpt.pt"), weights_only=False)
+            one = Editor(ecfg)
+            one.load_state_dict(payload["model"], strict=True)
+            loaded = one.state_dict()
+            if not all(torch.equal(loaded[k].cpu(), sd[k]) for k in sd):
+                raise AssertionError("the canonical checkpoint != the gathered TP state")
+            del one, loaded, payload
+            colls = outs[0]["collectives"][-1]
+            result[world] = outs[0]["ms"]
+            say("12c tp ranks", world=world, mesh=outs[0]["mesh"],
+                losses=json.dumps(outs[0]["losses"]), ref_losses=json.dumps(ref_losses),
+                max_rel_dloss=f"{dl:.2e}", loss_limit=TP_LOSS_TOL,
+                max_err=f"{max(err.values()):.3e}",
+                worst=_worst(err), limit=DP_W_LIMIT, launches_per_step=json.dumps(want),
+                eval_equal_gate=True, checkpoint_canonical=True,
+                collectives_per_step=json.dumps(colls),
+                tp_step_ms=f"{outs[0]['ms']:.2f}", one_card_step_ms=f"{one_ms:.2f}",
+                card=repr(card))
+            last = outs[0]["launches"][-1]
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    return {"train": last, "step_ms": result}
+
+
+def _mp_inputs(gen: torch.Generator) -> dict:
+    """(d)'s inputs: the flagship fusion block's weights (dense and with 8
+    experts; seeded), bf16 per-modality features [128, 88, 768] with a
+    union mask keeping half the patches, labels, and the joint attention's
+    bf16 qkv [128, 264, 2304], mask and output cotangent, and the fixed
+    fp32 projection [128, 264, 768] of the fused tokens that the block's
+    loss takes."""
+    from editor_tpu_torch.models.fusion import BlockMask
+    from editor_tpu_torch.parallel.moe import moe_init
+
+    B, n, E = B_EVAL, 88, 8
+    blocks = {}
+    for name, experts in (("seq", 0), ("moe", E)):
+        block = BlockMask(C, 171, num_heads=H, num_experts=experts, device="cpu")
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for pname, p in block.named_parameters():
+                if pname.endswith("weight") and p.dim() == 2:
+                    p.copy_(torch.nn.init.trunc_normal_(torch.empty(p.shape), std=0.02,
+                                                        generator=g))
+                elif pname.endswith("weight"):
+                    p.fill_(1.0)
+                elif pname.endswith("bias"):
+                    p.zero_()
+            if experts:
+                for k, v in moe_init(C, 4 * C, E, g)._asdict().items():
+                    getattr(block.moe_mlp, k).copy_(v)
+        blocks[name] = {k: v.clone() for k, v in block.state_dict().items()}
+    cuda = lambda t: t.to("cuda")
+    feats = [cuda(torch.randn(B, n, C, generator=torch.Generator().manual_seed(10 + i))
+                  .to(torch.bfloat16)) for i in range(3)]
+    mask = cuda((torch.rand(B, n - 1, 1, generator=torch.Generator().manual_seed(20)) < 0.5)
+                .float())
+    qkv = torch.randn(B, 3 * n, 3 * C, generator=gen, device="cuda").to(torch.bfloat16)
+    jmask = (torch.rand(B, 3 * n, generator=gen, device="cuda") < 0.6).float()
+    jmask[:, ::n] = 1.0  # the cls tokens
+    return {"blocks": blocks, "feats": feats, "mask": mask,
+            "labels": cuda(torch.arange(B) // 16),
+            "qkv": qkv, "jmask": jmask,
+            "proj": cuda(torch.randn(B, 3 * n, C, generator=torch.Generator().manual_seed(30))),
+            "g": torch.randn(B, 3 * n, C, generator=gen, device="cuda").to(torch.bfloat16)}
+
+
+def _mp_block_run(inp: dict, name: str, use_kernels: bool = True,
+                  dtype: torch.dtype = torch.bfloat16, **kw) -> dict:
+    """The fusion block ``name`` ('seq' dense, 'moe' with 8 experts) in
+    training on the card, its features in ``dtype``: the loss mean(fused *
+    proj) + OCFR (+ 0.01 aux), the fused tokens, every parameter's gradient
+    and the launches. (Not mean(fused^2): the output LayerNorm makes that
+    nearly constant, so the gradients before it would be rounding noise.)"""
+    from editor_tpu_torch.models.fusion import BlockMask
+
+    block = BlockMask(C, 171, num_heads=H, num_experts=8 if name == "moe" else 0,
+                      device="cuda")
+    block.load_state_dict({k: v.cuda() for k, v in inp["blocks"][name].items()}, strict=True)
+    reset_counts()
+    fused, ocfr, aux = block([f.to("cuda", dtype) for f in inp["feats"]], inp["mask"].cuda(),
+                             use_kernels, labels=inp["labels"].cuda(), **kw)
+    loss = (fused.float() * inp["proj"].cuda()).mean() + ocfr
+    loss = loss + (0.0 if aux is None else 0.01 * aux)
+    loss.backward()
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "fused": fused.detach().float().cpu(),
+            "grads": {k: p.grad.float().cpu() for k, p in block.named_parameters()},
+            "launches": launch_counts()}
+
+
+def _ulysses_run(inp: dict, mesh=None) -> dict:
+    """Ulysses masked attention over ``mesh``'s 'seq' group (or K3 on the
+    whole joint sequence without one): the output and dqkv."""
+    from editor_tpu_torch import ops
+    from editor_tpu_torch.parallel.ring import ulysses_masked_attention
+
+    qkv = inp["qkv"].detach().to("cuda", copy=True).requires_grad_(True)  # a leaf of its own
+    reset_counts()
+    if mesh is None:
+        out = ops.masked_attention_qkv_fn(qkv, inp["jmask"].cuda(), H, SCALE, FILL)
+    else:
+        B, N, _ = qkv.shape
+        q, k, v = (t.transpose(1, 2) for t in qkv.view(B, N, 3, H, D).unbind(2))
+        out = ulysses_masked_attention(q, k, v, inp["jmask"].cuda(), mesh, SCALE, FILL)
+        out = out.transpose(1, 2).reshape(B, N, C)
+    out.backward(inp["g"].cuda())
+    torch.cuda.synchronize()
+    return {"out": out.detach().float().cpu(), "dqkv": qkv.grad.float().cpu(),
+            "launches": launch_counts()}
+
+
+def mp_rank(d: str) -> None:
+    """One rank of (d) under cli.launch: the fusion block with ``moe_mesh``
+    and with ``seq_mesh`` over every rank, and Ulysses at the joint block's
+    attention."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from editor_tpu_torch.parallel import multihost
+
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    multihost.initialize(timeout_s=240)
+    rank, world = multihost.process_index(), multihost.process_count()
+    meshes = {a: init_device_mesh("cuda", (world,), mesh_dim_names=(a,))
+              for a in ("seq", "expert")}
+    out = {"moe": _mp_block_run(inp, "moe", moe_mesh=meshes["expert"]),
+           "seq": _mp_block_run(inp, "seq", seq_mesh=meshes["seq"]),
+           "seq32": _mp_block_run(inp, "seq", dtype=torch.float32, seq_mesh=meshes["seq"]),
+           "ulysses": _ulysses_run(inp, meshes["seq"])}
+    torch.save(out, os.path.join(d, f"out_{rank}.pt"))
+    multihost.shutdown()
+
+
+def _mp_multi(card: str, gen: torch.Generator) -> dict:
+    """(d) with two cards or more: 2 ranks (``--mp-rank`` through cli.launch)
+    run the flagship fusion block with ``moe_mesh`` against the
+    ``moe_shards`` = 2 block on one card, with ``seq_mesh`` (the masked
+    ring) against the local block with the plain attention, and Ulysses at
+    the joint block's attention against K3 on the whole sequence: losses,
+    outputs and the mean of the ranks' gradients (each tensor on its own
+    scale, floored at 1e-3 of the block's largest, :func:`_grad_err`)
+    within MP_TOL; the ring's block and the plain one again in fp32, their
+    gradients within MP_F32_TOL the same way; Ulysses' local attention
+    counted as K3 (and K5 in its backward)."""
+    import shutil
+    import tempfile
+
+    if torch.cuda.device_count() < 2:
+        say("12d mp ranks", world_sizes="1", note="one card: expert and sequence "
+            "parallelism need two")
+        return {}
+    inp = _mp_inputs(gen)
+    # the masked ring is the plain (XLA-form) masked attention's math, spread
+    # over the ranks: its one-card block is the plain one; the block with
+    # K3/K5 ("seq_k3") is printed beside it, not gated
+    ref = {"moe": _mp_block_run(inp, "moe", moe_shards=2),
+           "seq": _mp_block_run(inp, "seq", use_kernels=False),
+           "seq32": _mp_block_run(inp, "seq", use_kernels=False, dtype=torch.float32),
+           "seq_k3": _mp_block_run(inp, "seq"),
+           "ulysses": _ulysses_run(inp)}
+    d = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    world = 2
+    try:
+        torch.save({k: ({n: {p: t.cpu() for p, t in b.items()} for n, b in v.items()}
+                        if k == "blocks" else
+                        [t.cpu() for t in v] if isinstance(v, list) else v.cpu())
+                    for k, v in inp.items()}, os.path.join(d, "inputs.pt"))
+        _launch_ranks(world, "--mp-rank", d)
+        outs = [torch.load(os.path.join(d, f"out_{r}.pt"), weights_only=False)
+                for r in range(world)]
+        errs, worst_tensors = {}, {}
+        for name in ("moe", "seq", "seq32", "seq_k3"):
+            r0, run = ref[name], "seq" if name == "seq_k3" else name
+            grads = _grad_err({k: sum(o[run]["grads"][k] for o in outs) / world
+                               for k in r0["grads"]}, r0["grads"])
+            errs[name] = {
+                "loss": max(abs(o[run]["loss"] - r0["loss"]) / abs(r0["loss"]) for o in outs),
+                "fused": max(_scaled(o[run]["fused"], r0["fused"]) for o in outs),
+                "grads": max(grads.values())}
+            worst_tensors[name] = _worst(grads)
+        errs["ulysses"] = {"out": max(_scaled(o["ulysses"]["out"], ref["ulysses"]["out"])
+                                      for o in outs),
+                           "dqkv": _scaled(sum(o["ulysses"]["dqkv"] for o in outs) / world,
+                                           ref["ulysses"]["dqkv"])}
+        worst = max(v for n, e in errs.items() if n in ("moe", "seq", "ulysses")
+                    for v in e.values())
+        if not (worst <= MP_TOL and max(errs["seq32"].values()) <= MP_F32_TOL):
+            raise AssertionError(f"(d) against one card: {errs}, worst tensors "
+                                 f"{worst_tensors} (limits {MP_TOL}, fp32 {MP_F32_TOL})")
+        uly = outs[0]["ulysses"]["launches"]
+        if uly["masked_attention_qkv"] != 1 or uly["masked_attention_qkv_bwd"] != 1:
+            raise AssertionError(f"Ulysses launches {uly}")
+        say("12d mp ranks", world=world, limit=MP_TOL, fp32_limit=MP_F32_TOL,
+            errors=json.dumps({k: {n: f"{v:.3e}" for n, v in e.items()}
+                               for k, e in errs.items()}),
+            worst_tensors=json.dumps(worst_tensors),
+            ulysses_launches=json.dumps({k: v for k, v in uly.items() if v}),
+            seq_launches=json.dumps({k: v for k, v in outs[0]["seq"]["launches"].items()
+                                     if v}), card=repr(card))
+        return {"ulysses": uly, "seq": outs[0]["seq"]["launches"],
+                "moe": outs[0]["moe"]["launches"]}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def mp_phase(card: str, gen: torch.Generator) -> dict:
+    """Phase 12: model parallelism. (a) TP shard shapes of K1, K4 and K2 on
+    one card; (b) the MoE flagship on one card; (c) TP through cli.launch
+    and (d) expert and sequence parallelism on the fusion block, each with
+    two cards or more (on one card they say so)."""
+    shard = _tp_shard_kernels(gen)
+    moe = _moe_check(gen, card)
+    torch.cuda.empty_cache()
+    tp = _tp_multi(card, gen)
+    torch.cuda.empty_cache()
+    mp = _mp_multi(card, gen)
+    return {"shard": shard, "moe": moe, "tp": tp, "mp": mp}
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
     say(f"{name} time", seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
+def _mp_launches(mp: dict, name: str) -> dict:
+    """Phase 12's launches of one kernel row: the MoE flagship's train step
+    and eval forward (b) and, where two cards ran them, a TP rank's train
+    step (c) and a rank's Ulysses forward + backward and seq-sharded fusion
+    block (d)."""
+    out = {"moe_train": mp["moe"]["train"][name], "moe_eval": mp["moe"]["eval"][name]}
+    if mp["tp"]:
+        out["tp_train"] = mp["tp"]["train"][name]
+    if mp["mp"]:
+        out.update(ulysses=mp["mp"]["ulysses"][name], seq_block=mp["mp"]["seq"][name])
     return out
 
 
@@ -3525,6 +4128,8 @@ def main() -> None:
     dp = timed("10 dp", dp_phase, card, bare_step_ms)
     torch.cuda.empty_cache()
     fsdp = timed("11 fsdp", fsdp_phase, card)
+    torch.cuda.empty_cache()
+    mp = timed("12 mp", mp_phase, card, gen)
     # launches, launches_eval: per train step and per eval forward (loop: eval
     # batch), summed over the three paths (compact: phases 3 and 5;
     # uncompacted: phase 6; the loop: phase 8, with its run's total), each
@@ -3536,15 +4141,18 @@ def main() -> None:
                    "loop": {k: looped[k][name] for k in ("train", "eval", "run")},
                    "serve": {k: served[k][name] for k in ("query", "visualize")},
                    "dp": {k: dp[k][name] for k in ("train", "eval")},
-                   "fsdp": {k: fsdp[k][name] for k in ("train", "eval")}}
+                   "fsdp": {k: fsdp[k][name] for k in ("train", "eval")},
+                   "mp": _mp_launches(mp, name)}
         info = {k: v for k, v in spec.items() if k != "tool"}
+        extra = {"tp_shard": mp["shard"][name]} if name in mp["shard"] else {}
         rows.append(dict(name=name, route="cuda", **info,
                          launches=(launches[name] + un_train[name] + looped["train"][name]
-                                   + dp["train"][name] + fsdp["train"][name]),
+                                   + dp["train"][name] + fsdp["train"][name]
+                                   + mp["moe"]["train"][name]),
                          launches_eval=(eval_launches[name] + un_eval[name]
                                         + looped["eval"][name] + dp["eval"][name]
-                                        + fsdp["eval"][name]),
-                         launches_by_path=by_path, **kernels[name]))
+                                        + fsdp["eval"][name] + mp["moe"]["eval"][name]),
+                         launches_by_path=by_path, **kernels[name], **extra))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3560,5 +4168,13 @@ if __name__ == "__main__":
         launch_worker(sys.argv[2], sys.argv[3] == "1")
     elif sys.argv[1:2] == ["--fsdp-rank"]:  # one rank of phase 11 (d)
         fsdp_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase 12 (c)
+        tp_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--mp-rank"]:  # one rank of phase 12 (d)
+        mp_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--phase-12"]:  # phase 12 alone, after the build
+        card = card_check()
+        timed("1 build", build_phase)
+        timed("12 mp", mp_phase, card, torch.Generator(device="cuda").manual_seed(0))
     else:
         main()

@@ -52,11 +52,14 @@ def main(argv=None, splits=None):
             from editor_tpu_torch.data.datasets import load_dataset
             splits = load_dataset(cfg.DATASETS.NAMES, cfg.DATASETS.ROOT_DIR)
         num_classes, cam_num = splits.num_train_pids, splits.num_train_cams
-    model = editor_init(editor_config_from(cfg, num_classes, cam_num), seed=cfg.SOLVER.SEED,
-                        device=args.device)
+    ecfg = editor_config_from(cfg, num_classes, cam_num)
+    if ecfg.moe_experts > 0:
+        from editor_tpu_torch.utils.torch_convert import MOE_EXPORT_ERROR
+        raise ValueError(MOE_EXPORT_ERROR)
+    model = editor_init(ecfg, seed=cfg.SOLVER.SEED, device=args.device)
     if weight.endswith(".pth"):
-        from editor_tpu_torch.utils.torch_convert import load_torch_state_dict
-        model.load_state_dict(load_torch_state_dict(weight), strict=True)
+        from editor_tpu_torch.utils.torch_convert import load_editor_pth
+        load_editor_pth(weight, model)
     else:
         from editor_tpu_torch.utils.checkpoint import restore_eval_state
         model.load_state_dict(restore_eval_state(weight), strict=True)

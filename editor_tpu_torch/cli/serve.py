@@ -40,8 +40,8 @@ def build_service(cfg, weight: str = "", index_path: str = "", batch_size: int =
     ecfg = editor_config_from(cfg, dm.num_classes, dm.cam_num)
     model = editor_init(ecfg, seed=cfg.SOLVER.SEED, device=device)
     if weight.endswith(".pth"):
-        from editor_tpu_torch.utils.torch_convert import load_torch_state_dict
-        model.load_state_dict(load_torch_state_dict(weight), strict=True)
+        from editor_tpu_torch.utils.torch_convert import load_editor_pth
+        load_editor_pth(weight, model)
     elif weight:
         from editor_tpu_torch.utils.checkpoint import restore_eval_state
         model.load_state_dict(restore_eval_state(weight), strict=True)

@@ -9,7 +9,9 @@ strictly), or empty (seeded random weights, a smoke run). ``--device cpu``
 evaluates on the CPU; by default the current CUDA device. Under a launcher
 (``torchrun --nproc_per_node N -m editor_tpu_torch.cli.test ...``) each rank
 extracts its rows of every batch and every rank scores all of them, the
-same metric on every rank; rank 0 alone logs.
+same metric on every rank; rank 0 alone logs. With ``TPU.MESH_MODEL`` above 1
+the checkpoint's canonical weights are cut into each rank's tensor-parallel
+shards.
 """
 
 from __future__ import annotations
@@ -61,14 +63,18 @@ def _test(cfg, device, splits, decode_fn):
 
     weight = cfg.TEST.WEIGHT
     if weight.endswith(".pth"):
-        from editor_tpu_torch.utils.torch_convert import load_torch_state_dict
-        model.load_state_dict(load_torch_state_dict(weight), strict=True)
+        from editor_tpu_torch.utils.torch_convert import load_editor_pth
+        load_editor_pth(weight, model)
         logger.info("Loaded torch checkpoint %s", weight)
     elif weight:
         from editor_tpu_torch.utils.checkpoint import restore_eval_state
         model.load_state_dict(restore_eval_state(weight), strict=True)
         logger.info("Loaded checkpoint %s", weight)
 
+    from editor_tpu_torch.parallel.mesh import model_size
+    if model_size(mesh) > 1:  # TPU.MESH_MODEL: cut the canonical weights for this rank
+        from editor_tpu_torch.parallel.tp import shard_editor
+        shard_editor(model, mesh)
     cmc, mAP = evaluate(cfg, model, dm, getattr(torch, cfg.TPU.COMPUTE_DTYPE), mesh=mesh)
     logger.info("Validation Results")
     logger.info("mAP: %.2f%%", mAP * 100)

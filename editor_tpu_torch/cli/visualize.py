@@ -46,8 +46,8 @@ def main(argv=None, splits=None, decode_fn=None):
                         seed=cfg.SOLVER.SEED, device=args.device)
     weight = cfg.TEST.WEIGHT
     if weight.endswith(".pth"):
-        from editor_tpu_torch.utils.torch_convert import load_torch_state_dict
-        model.load_state_dict(load_torch_state_dict(weight), strict=True)
+        from editor_tpu_torch.utils.torch_convert import load_editor_pth
+        load_editor_pth(weight, model)
     elif weight:
         from editor_tpu_torch.utils.checkpoint import restore_eval_state
         model.load_state_dict(restore_eval_state(weight), strict=True)

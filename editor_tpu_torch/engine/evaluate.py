@@ -26,20 +26,24 @@ def build_eval_step(model: Editor, compute_dtype: torch.dtype = torch.bfloat16, 
     cast to ``compute_dtype`` and the model runs in inference mode.
 
     ``mesh`` (a ``DeviceMesh``): every rank passes the same batch, runs its
-    block of the rows (the batch padded to a multiple of W by repeating its
-    last row) and gets every rank's features, all-gathered, with the
-    padding trimmed (the JAX step's data-sharded batch)."""
+    block of the rows (the batch padded to a multiple of W, the data axis's
+    size, by repeating its last row) and gets every rank's features,
+    all-gathered, with the padding trimmed (the JAX step's data-sharded
+    batch). With a model axis above 1 the backbone runs tensor-parallel
+    over it (the model cut by ``parallel.tp.shard_editor``)."""
+    from editor_tpu_torch.parallel.mesh import data_size, model_size, shard_batch
+    tp_mesh = mesh if model_size(mesh) > 1 else None
 
     def run(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         images = {k: batch[k].to(compute_dtype) for k in MODALITIES if k in batch}
         with torch.inference_mode():
-            feat = model(images, cam_ids=batch.get("camid"), training=False)
+            feat = model(images, cam_ids=batch.get("camid"), training=False,
+                         tp_mesh=tp_mesh)
         return feat.to(torch.float32)
 
     if mesh is None:
         return run
     from editor_tpu_torch.parallel import collectives as C
-    from editor_tpu_torch.parallel.mesh import data_size, shard_batch
 
     W = data_size(mesh)
 

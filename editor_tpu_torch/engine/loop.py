@@ -26,9 +26,17 @@ with ``TPU.GRAD_COMPRESSION`` (which takes precedence, as in JAX), the
 local-batch step with that reducer. Rank 0 alone writes the log, the
 metrics and the checkpoints; the others wait at a barrier after each save.
 Without a group the loop runs on one device, and the settings that need a
-mesh (``TPU.MESH_DATA`` above 1, ``ZERO_STAGE`` 1 or 3, a
-``GRAD_COMPRESSION``) raise. ``TPU.MESH_MODEL`` above 1 (model
-parallelism) is not ported and raises.
+mesh (``TPU.MESH_DATA`` above 1, ``TPU.MESH_MODEL`` above 1, ``ZERO_STAGE``
+1 or 3, a ``GRAD_COMPRESSION``) raise.
+
+Tensor parallelism (``TPU.MESH_MODEL`` t above 1): the mesh is (W / t, t),
+the model is cut into its Megatron shards after the init or the ImageNet
+import (``parallel.tp.shard_editor``: the qkv rows permuted shard-major),
+the ranks of a model group load the same host shard, and the checkpoints
+are written in the canonical layout (gathered over the model group,
+un-permuted, with the optimizer's slots), so they load into a one-device
+run, ``cli.test`` and ``cli.export``, and resume at any t. ``ZERO_STAGE`` 1
+or 3 and ``GRAD_COMPRESSION`` with it are not ported and raise.
 """
 
 from __future__ import annotations
@@ -61,22 +69,24 @@ def _compression(cfg) -> bool:
 
 
 def resolve_mesh(cfg, device: torch.device, mesh=None, train: bool = True):
-    """The data-parallel mesh of a run on ``device``, as the JAX loop builds
-    it: ``mesh`` when given; under a process group of W ranks
-    ``make_mesh(MESH_DATA)`` (-1 or, with W > 1, 1: all ranks) unless W is 1
-    and ``MESH_DATA`` is 1; else None (one device). Raises for what is not
-    ported (``MESH_MODEL`` above 1, a ``ZERO_STAGE`` other than 0, 1 and
-    3), for the settings that need a mesh without one (``ZERO_STAGE`` 1 and
-    3 among them; for an evaluation, ``train`` False, only ``MESH_DATA``),
-    and for a group whose backend does not fit ``device`` (NCCL on CUDA,
-    gloo on the CPU)."""
+    """The ('data', 'model') mesh of a run on ``device``, as the JAX loop
+    builds it: ``mesh`` when given; under a process group of W ranks
+    ``make_mesh(MESH_DATA, MESH_MODEL)`` (``MESH_DATA`` -1 or, with W > 1,
+    1: all ranks over the model axis) unless W is 1 and both are 1; else
+    None (one device). Raises for what is not ported (a ``ZERO_STAGE``
+    other than 0, 1 and 3; ``ZERO_STAGE`` 1 or 3 or a ``GRAD_COMPRESSION``
+    with ``MESH_MODEL`` above 1), for the settings that need a mesh without
+    one (``ZERO_STAGE`` 1 and 3 among them; for an evaluation, ``train``
+    False, only ``MESH_DATA`` and ``MESH_MODEL``), and for a group whose
+    backend does not fit ``device`` (NCCL on CUDA, gloo on the CPU)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from editor_tpu_torch.parallel.mesh import make_mesh
 
     t = cfg.TPU
-    if t.MESH_MODEL > 1:
-        raise NotImplementedError("TPU.MESH_MODEL > 1: model parallelism is not ported")
+    if train and t.MESH_MODEL > 1 and (t.ZERO_STAGE in (1, 3) or _compression(cfg)):
+        raise NotImplementedError("TPU.MESH_MODEL > 1 with ZERO_STAGE 1 or 3 or a "
+                                  "GRAD_COMPRESSION is not ported")
     if train and t.ZERO_STAGE not in (0, 1, 3):
         raise NotImplementedError(f"TPU.ZERO_STAGE {t.ZERO_STAGE} is not ported "
                                   "(ZeRO-1 and FSDP are: ZERO_STAGE 1 and 3)")
@@ -84,10 +94,11 @@ def resolve_mesh(cfg, device: torch.device, mesh=None, train: bool = True):
         raise TypeError(f"mesh= takes a DeviceMesh (parallel.mesh.make_mesh), not {mesh!r}")
     if mesh is None and dist.is_initialized():
         world = dist.get_world_size()
-        if world > 1 or t.MESH_DATA != 1:
-            mesh = make_mesh(-1 if t.MESH_DATA in (-1, 1) else t.MESH_DATA)
+        if world > 1 or t.MESH_DATA != 1 or t.MESH_MODEL != 1:
+            mesh = make_mesh(-1 if t.MESH_DATA in (-1, 1) else t.MESH_DATA, t.MESH_MODEL)
     if mesh is None:
         for name, asks in (("TPU.MESH_DATA > 1", t.MESH_DATA > 1),
+                           ("TPU.MESH_MODEL > 1", t.MESH_MODEL > 1),
                            ("TPU.ZERO_STAGE 1", train and t.ZERO_STAGE == 1),
                            ("TPU.ZERO_STAGE 3", train and t.ZERO_STAGE == 3),
                            ("TPU.GRAD_COMPRESSION", train and _compression(cfg))):
@@ -156,10 +167,16 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
     (``metrics.jsonl``) and the checkpoints (``ckpt/``) go there, and a run
     resumes from the latest checkpoint it finds. ``mesh``: a data-parallel
     ``DeviceMesh``; by default the one :func:`resolve_mesh` builds."""
+    from editor_tpu_torch.parallel.mesh import data_rank, data_size, model_size
+
     device = default_device(device)
     mesh = resolve_mesh(cfg, device, mesh)
     rank, world = multihost.process_index(), multihost.process_count()
     primary = rank == 0
+    tp = model_size(mesh)
+    tp_mesh = mesh if tp > 1 else None
+    # the host shards and sample counts go by the data axis
+    d_rank, d_size = (0, 1) if mesh is None else (data_rank(mesh), data_size(mesh))
     logger = setup_logger("editor_tpu_torch.train", cfg.OUTPUT_DIR, "train_log.txt",
                           distributed_rank=rank)
     if mesh is None and cfg.TPU.MESH_DATA == -1:
@@ -175,6 +192,10 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
         from editor_tpu_torch.utils.torch_convert import load_imagenet_vit
         load_imagenet_vit(cfg.MODEL.PRETRAIN_PATH_T, model)
         logger.info("Loaded ImageNet backbone from %s", cfg.MODEL.PRETRAIN_PATH_T)
+    if tp_mesh is not None:
+        from editor_tpu_torch.parallel.tp import shard_editor
+        shard_editor(model, tp_mesh)
+        logger.info("TP: backbone weights Megatron-split over the model axis (%d-way)", tp)
     opt = make_optimizer(cfg, model)
     loss_func, lr_fn = make_loss(cfg, dm.num_classes), make_scheduler(cfg)
     augment = make_train_augment(cfg.INPUT)
@@ -205,11 +226,11 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
                                 and cfg.TPU.ZERO_STAGE == 3)
         opt = zero or opt
         if mesh is not None:
-            logger.info("Data parallel over %d ranks: global-batch step", world)
+            logger.info("Data parallel over %d ranks: global-batch step", d_size)
 
     def save(epoch: int) -> None:  # collective; the reducer's state is the step's latest
         payload = train_state(model, opt, step.generator, epoch,
-                              comm=getattr(step, "comm", None))
+                              comm=getattr(step, "comm", None), tp_mesh=tp_mesh)
         if primary:
             ckpt_mgr.save(opt.count, payload)
         multihost.barrier()
@@ -225,7 +246,8 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
         latest = ckpt_mgr.latest_step()
         if latest is not None:  # the full train state: an exact resume
             start_epoch = load_train_state(ckpt_mgr.restore(latest), model, opt,
-                                           step.generator, comm=getattr(step, "comm", None)) + 1
+                                           step.generator, comm=getattr(step, "comm", None),
+                                           tp_mesh=tp_mesh) + 1
             logger.info("Resumed from checkpoint step %d (epoch %d)", latest, start_epoch - 1)
 
     loss_meter, acc_meter = AverageMeter(), AverageMeter()
@@ -233,7 +255,7 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
     log_period = cfg.SOLVER.LOG_PERIOD
     shard = {}
     if mesh is not None:  # the global-batch step takes its microbatches' rows
-        shard = {"host_id": rank, "num_hosts": world,
+        shard = {"host_id": d_rank, "num_hosts": d_size,
                  "grad_accum": 1 if _compression(cfg) else cfg.TPU.GRAD_ACCUM}
     for epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCHS + 1):
         t0 = time.time()
@@ -245,7 +267,7 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
             n_iter += 1
             if n_iter % log_period == 0:
                 loss, acc = float(metrics["loss"]), float(metrics["acc"])
-                loss_meter.update(loss, batch["pid"].shape[0] * world)
+                loss_meter.update(loss, batch["pid"].shape[0] * d_size)
                 acc_meter.update(acc)
                 logger.info("Epoch[%d] Iteration[%d] Loss: %.3f, Acc: %.3f, Base Lr: %.2e",
                             epoch, n_iter, loss_meter.avg, acc_meter.avg, metrics["lr"])

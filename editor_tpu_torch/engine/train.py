@@ -21,6 +21,13 @@ OCFR centers, losses and accuracy are the global batch's and the same on
 every rank; the gradients are mean-all-reduced in one flat buffer. The
 explicit local-batch step with gradient compression is
 ``parallel.ddp.build_ddp_train_step``.
+
+On a mesh whose 'model' axis is above 1 (tensor parallelism; the model cut
+by ``parallel.tp.shard_editor``) the forward runs the backbone Megatron-split
+over the model group (``Editor.forward(tp_mesh=)``), every rank of a model
+group holding the same rows; the batch, the gathers and the gradients' mean
+all-reduce run over the data group only, and the generator is keyed by the
+data rank, so the ranks of a model group draw the same masks.
 """
 
 from __future__ import annotations
@@ -50,18 +57,18 @@ def step_images(batch: Dict[str, torch.Tensor], augment: Optional[Callable],
 
 
 def make_loss_of(model: Editor, loss_func: Callable, gen: torch.Generator,
-                 batch_group=None) -> Callable:
+                 batch_group=None, tp_mesh=None) -> Callable:
     """loss_of(images, labels, cams) -> (total, acc): the forward and the
     output-tuple loss (every (score, feat) pair, plus the aux loss). With
     ``batch_group`` the labels are gathered and the model sees the global
-    batch."""
+    batch; ``tp_mesh`` is passed to the forward."""
     device = next(model.parameters()).device
 
     def loss_of(images, labels, cams):
         if batch_group is not None:
             labels = C.all_gather(labels, batch_group)
         out = model(images, cam_ids=cams, training=True, labels=labels, generator=gen,
-                    batch_group=batch_group)
+                    batch_group=batch_group, tp_mesh=tp_mesh)
         total = torch.zeros((), dtype=torch.float32, device=device)
         for score, feat in out.pairs:
             total = total + loss_func(score, feat, labels)
@@ -118,7 +125,9 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
 
     ``mesh`` (a ``DeviceMesh`` from ``parallel.mesh.make_mesh``): ``batch``
     is this rank's B/W rows of the global batch, and the step is the JAX
-    step on a mesh over the global batch (module docstring). Rank r's
+    step on a mesh over the global batch (module docstring); W and r are the
+    data axis's size and rank, and with a model axis above 1 the step is
+    tensor-parallel (``ZERO_STAGE`` layouts then raise). Rank r's
     generator is seeded with ``rank_seed(seed, r)``. With ``grad_accum`` A
     the global microbatch i is the ranks' local microbatches i in rank
     order. ``state_shardings``: the ZeRO-1 layout of ``optimizer``
@@ -145,13 +154,15 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
                              "(parallel.zero.zero1_state_shardings) or the FSDP layout "
                              "(fsdp_state_shardings) on a mesh")
         optimizer = state_shardings
-    rank = 0
-    if mesh is not None:
-        from editor_tpu_torch.parallel.mesh import data_rank
-        rank = data_rank(mesh)
+    from editor_tpu_torch.parallel.mesh import data_rank, model_size
+    tp_mesh = mesh if model_size(mesh) > 1 else None
+    if tp_mesh is not None and state_shardings is not None:
+        raise NotImplementedError("ZeRO-1 and FSDP (state_shardings=) with a 'model' mesh "
+                                  "axis above 1 are not ported")
+    rank = 0 if mesh is None else data_rank(mesh)
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(rank_seed(seed, rank))
-    loss_of = make_loss_of(model, loss_func, gen, batch_group=mesh)
+    loss_of = make_loss_of(model, loss_func, gen, batch_group=mesh, tp_mesh=tp_mesh)
     params = trainable(model)
 
     def step(batch: Dict[str, torch.Tensor], epoch) -> Dict[str, Any]:

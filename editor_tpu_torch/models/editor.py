@@ -15,7 +15,17 @@ The ``nn.Module`` tree carries exactly the reference's state_dict keys
 ``editor_tpu.utils.torch_convert.export_editor_to_torch`` or converted by
 :func:`editor_tpu_torch.utils.jax_weights.state_dict_from_jax` load with
 ``load_state_dict(strict=True)``. Weights for a run without JAX come from
-:func:`editor_tpu_torch.models.init.editor_init`.
+:func:`editor_tpu_torch.models.init.editor_init`. With ``moe_experts`` > 0 the
+fusion block's joint MLP is a mixture of experts (``FUSE_block.moe_mlp.*``,
+names of the port's own: the reference has no MoE) and its load-balance loss,
+weighted by ``moe_aux_weight``, joins the aux loss.
+
+Model parallelism (the JAX ``editor_apply`` options): ``tp_mesh`` (tensor
+parallelism of the backbone over a ('data', 'model') mesh, on a model cut
+by ``parallel.tp.shard_editor``; the fusion block, SFTS, the BN heads and
+OCFR run replicated on every model rank), ``seq_mesh`` (the fusion block's
+masked attentions sequence-sharded, ``parallel.ring``) and ``moe_mesh`` /
+``moe_shards`` (the MoE's experts sharded, ``parallel.moe``).
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ from editor_tpu_torch.models.fusion import BlockMask
 from editor_tpu_torch.models.layers import BatchNorm1d, Linear
 from editor_tpu_torch.models.sfts import bcc_loss, sfts_select
 from editor_tpu_torch.models.vit import (ViTConfig, VisionTransformer, deit_small_config,
-                                         vit_base_config, vit_small_config)
+                                         tp_group, vit_base_config, vit_small_config)
 from editor_tpu_torch.parallel.collectives import all_gather, all_reduce
 
 if TYPE_CHECKING:
@@ -83,7 +93,7 @@ class EditorConfig:
     # transfer.
     use_pallas: bool = True
     compact_tail: bool = True   # TPU.COMPACT_TAIL (exact; see _compact_selected)
-    moe_experts: int = 0        # MODEL.MOE_EXPERTS (not ported: must be 0)
+    moe_experts: int = 0        # MODEL.MOE_EXPERTS (> 0: the MoE joint MLP)
     moe_aux_weight: float = 0.01
 
     @property
@@ -213,15 +223,13 @@ class Editor(nn.Module):
 
     def __init__(self, cfg: EditorConfig, device=None):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError("the MoE fusion MLP (moe_experts > 0) is not "
-                                      "ported: use moe_experts=0")
         device = default_device(device)
         self.cfg = cfg
         d, M = cfg.dim, cfg.num_modalities
         self.BACKBONE = Backbone(cfg.vit, device=device)
         self.FUSE_block = BlockMask(d, cfg.num_classes, mlp_ratio=4.0,
-                                    num_heads=FUSION_HEADS, device=device)
+                                    num_heads=FUSION_HEADS, num_experts=cfg.moe_experts,
+                                    device=device)
         self.RGB_REDUCE = Linear(2 * d, d, device=device)
         self.NIR_REDUCE = Linear(2 * d, d, device=device)
         self.TIR_REDUCE = Linear(2 * d, d, device=device)
@@ -241,7 +249,8 @@ class Editor(nn.Module):
                 view_ids: Optional[torch.Tensor] = None,
                 training: bool = False, tp_mesh=None, seq_mesh=None,
                 backbone=None, labels: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None, batch_group=None
+                generator: Optional[torch.Generator] = None, batch_group=None,
+                moe_mesh=None, moe_shards: int = 1
                 ) -> Union[torch.Tensor, EditorTrainOutput]:
         """images: {'RGB', 'NI', 'TI'} NHWC float tensors ('TI' optional).
         Eval: returns cls4t [B, M*dim] in the images' dtype. Training
@@ -261,14 +270,23 @@ class Editor(nn.Module):
         the gradient; the step's mean all-reduce of the gradients cancels
         the W.
 
-        ``tp_mesh``, ``seq_mesh`` and ``backbone`` are the JAX
-        ``editor_apply`` options that are not ported: each raises."""
+        ``tp_mesh``: a ('data', 'model') ``DeviceMesh`` whose model axis is
+        above 1 (the model cut by ``parallel.tp.shard_editor``; every rank
+        of a model group passes the same rows). ``seq_mesh``: a mesh with a
+        'seq' dimension (or a process group) over which the fusion block's
+        masked attentions run as the masked ring. ``moe_mesh`` (an 'expert'
+        dimension) / ``moe_shards``: the MoE joint MLP's experts sharded /
+        the S-shard routing on one device. The parallel paths' gradients
+        follow ``parallel.collectives`` (the module docstrings of
+        ``parallel.ring`` and ``parallel.moe``). ``backbone`` (the pipeline)
+        is not ported and raises."""
         if training and labels is None:
             raise ValueError("the training forward needs labels")
-        for name, value in (("tp_mesh", tp_mesh), ("seq_mesh", seq_mesh),
-                            ("backbone", backbone)):
-            if value is not None:
-                raise NotImplementedError(f"{name}= is not ported yet")
+        if backbone is not None:
+            raise NotImplementedError("backbone= is not ported yet")
+        if (moe_mesh is not None or moe_shards != 1) and self.cfg.moe_experts == 0:
+            raise ValueError("moe_mesh= and moe_shards= need a MoE model (moe_experts > 0)")
+        tp = tp_group(tp_mesh)
         cfg = self.cfg
         use_kernels = cfg.use_pallas
         mods = [images["RGB"], images["NI"]]
@@ -283,7 +301,7 @@ class Editor(nn.Module):
         cams = cam_ids.repeat(M) if cam_ids is not None else None
         views = view_ids.repeat(M) if view_ids is not None else None
         tokens, rollout = self.BACKBONE.base(torch.cat(mods), cams, views, use_kernels,
-                                             training, generator)
+                                             training, generator, tp)
         toks, rolls = list(tokens.split(B)), list(rollout.split(B))
 
         head_pairs = []
@@ -310,11 +328,10 @@ class Editor(nn.Module):
                 feats, index = _compact_selected(feats, index, keep)
                 seg_len = keep + 1
 
-        fused = self.FUSE_block(feats, index, use_kernels,
-                                labels=labels if training else None,
-                                ocfr_momentum=cfg.ocfr_momentum, batch_group=batch_group)
-        if training:
-            fused, ocfr_loss = fused
+        fused, ocfr_loss, moe_aux = self.FUSE_block(
+            feats, index, use_kernels, labels=labels if training else None,
+            ocfr_momentum=cfg.ocfr_momentum, batch_group=batch_group, seq_mesh=seq_mesh,
+            moe_mesh=moe_mesh, moe_shards=moe_shards)
         pooled = _masked_mean_pool(fused, index, seg_len, M)
         heads = (self.RGB_REDUCE, self.NIR_REDUCE, self.TIR_REDUCE)[:M]
         cls4t = torch.cat([head(torch.cat([cls, pool], dim=-1))
@@ -324,7 +341,10 @@ class Editor(nn.Module):
         if batch_group is not None:
             cls4t = all_gather(cls4t, batch_group)
         score = self.FUSE_HEAD(self.FUSE_BN(cls4t, True))
+        aux = bcc + ocfr_loss
+        if moe_aux is not None:
+            aux = aux + cfg.moe_aux_weight * moe_aux
         # the JAX function holds the aux loss in fp32 (so an fp64 run rounds here)
         return EditorTrainOutput(score=score, cls4t=cls4t,
                                  pairs=[(score, cls4t)] + head_pairs,
-                                 aux_loss=(bcc + ocfr_loss).to(torch.float32))
+                                 aux_loss=aux.to(torch.float32))

@@ -9,7 +9,9 @@ vit.py ``vit_init``, layers.py ``linear_init``):
 * reduce heads: Kaiming normal over fan_out (std sqrt(2 / d_out)), bias 0;
 * classifier heads: normal(0, 0.001);
 * LayerNorm and BN: weight 1, bias 0; BN running mean 0, var 1;
-* OCFR class centers: 0.
+* OCFR class centers: 0;
+* the MoE joint MLP (``moe_experts`` > 0): ``moe_init``'s, router normal *
+  0.02, w1 normal * sqrt(2 / dim), w2 normal * sqrt(2 / hidden), biases 0.
 
 The draws come from one CPU ``torch.Generator`` seeded with ``seed``, in a
 fixed order, so the weights are the same on every machine and device. They
@@ -74,4 +76,10 @@ def editor_init(cfg: EditorConfig, seed: int = 0, device=None) -> Editor:
             if isinstance(module, BatchNorm1d):
                 module.running_mean.zero_()
                 module.running_var.fill_(1.0)
+    if cfg.moe_experts:
+        from editor_tpu_torch.parallel.moe import moe_init
+        moe = model.FUSE_block.moe_mlp
+        drawn = moe_init(moe.w1.shape[1], moe.w1.shape[2], cfg.moe_experts, gen)
+        for name, value in drawn._asdict().items():
+            getattr(moe, name).copy_(value)
     return model

@@ -82,14 +82,20 @@ def drop_path(x: torch.Tensor, rate: float, u: Optional[torch.Tensor]) -> torch.
     return y.to(x.dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
-            ) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            width: Optional[int] = None, offset: int = 0) -> torch.Tensor:
     """Inverted dropout with an explicit generator (identity at rate 0 or
-    without a generator, as ``layers.dropout`` without a key)."""
+    without a generator, as ``layers.dropout`` without a key). ``width``:
+    ``x`` is the columns ``offset:offset + x.shape[-1]`` of a tensor that
+    many wide (a tensor-parallel shard): the draws are the full tensor's,
+    so every shard of it drops what the whole would."""
     if rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    shape = x.shape if width is None else x.shape[:-1] + (width,)
+    u = torch.rand(shape, generator=generator, device=x.device, dtype=torch.float32)
+    if width is not None:
+        u = u[..., offset:offset + x.shape[-1]]
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 

@@ -22,13 +22,25 @@ each block (the JAX ``"block"`` policy; the drop-path draws are made before
 the checkpoint so the recompute sees the same masks, and dropout, whose
 masks would be redrawn, raises with it). Attention dropout
 (``attn_drop_rate > 0`` in training) has no kernel and raises.
+
+Tensor parallelism (``tp`` a :class:`TPGroup`, from ``Editor.forward(
+tp_mesh=)``): the blocks hold this rank's Megatron shards
+(``parallel.tp.shard_editor``): qkv and fc1 column-parallel behind
+``copy_to_group``, proj and fc2 row-parallel before ``reduce_from_group``
+(each partial product rounded to the compute dtype before the sum, as
+JAX's) with their biases added once after it. K1 (with its probs) and K4 run on the
+rank's H/tp heads of the shard-major qkv block, K2 reduces those heads'
+probs, and the rollout rows are all-gathered over the model group into
+``[B, H, P]`` in global head order. Every rank of the group draws the same
+drop-path and dropout values (the same generator; a dropout on the hidden
+shard draws the full width and keeps its columns).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from editor_tpu_torch import ops
 from editor_tpu_torch.models.layers import (LayerNorm, Linear, drop_path, dropout, gelu,
-                                            new_param)
+                                            linear, new_param)
+from editor_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +120,32 @@ def deit_small_config(**kw) -> ViTConfig:
                      qkv_bias=True, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """A model group of tensor parallelism: its process group, size and
+    this rank's index in it."""
+    group: Any
+    size: int
+    rank: int
+
+
+def tp_group(mesh) -> Optional[TPGroup]:
+    """The :class:`TPGroup` of a ('data', 'model') mesh whose model axis is
+    above 1, else None (JAX's ``tp_mesh.shape.get("model", 1) > 1``)."""
+    from editor_tpu_torch.parallel.mesh import model_group, model_rank, model_size
+    if model_size(mesh) <= 1:
+        return None
+    return TPGroup(model_group(mesh), model_size(mesh), model_rank(mesh))
+
+
+def _row_parallel(x: torch.Tensor, lin: Linear, tp: TPGroup) -> torch.Tensor:
+    """A row-parallel Linear: this rank's partial product in x's dtype,
+    summed over the group, then the bias once (JAX's GSPMD form: each
+    partial is rounded to x's dtype before the all-reduce)."""
+    y = reduce_from_group(linear(x, lin.weight), tp.group)
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
 class PatchEmbed(nn.Module):
     def __init__(self, cfg: ViTConfig, device=None):
         super().__init__()
@@ -140,9 +179,15 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hid, cfg.embed_dim, device=device)
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = dropout(gelu(self.fc1(x)), rate, generator)
-        return dropout(self.fc2(y), rate, generator)
+                generator: Optional[torch.Generator] = None,
+                tp: Optional[TPGroup] = None) -> torch.Tensor:
+        if tp is None:
+            y = dropout(gelu(self.fc1(x)), rate, generator)
+            return dropout(self.fc2(y), rate, generator)
+        y = gelu(self.fc1(copy_to_group(x, tp.group)))
+        w = y.shape[-1]
+        y = dropout(y, rate, generator, width=w * tp.size, offset=w * tp.rank)
+        return dropout(_row_parallel(y, self.fc2, tp), rate, generator)
 
 
 class Block(nn.Module):
@@ -156,21 +201,26 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, probs_out: torch.Tensor, use_kernels: bool,
                 rate: float = 0.0, u: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                tp: Optional[TPGroup] = None) -> torch.Tensor:
         """Pre-LN block; writes this layer's attention maps into probs_out.
 
         Training: ``u`` [2, B, 1, 1] holds the drop-path draws of the two
-        branches at this block's ``rate``; ``generator`` feeds dropout."""
+        branches at this block's ``rate``; ``generator`` feeds dropout.
+        ``tp``: the block holds its shards; ``probs_out`` is [B, H/tp, N, N]."""
         cfg = self.cfg
-        qkv = self.attn.qkv(self.norm1(x))
+        heads = cfg.num_heads if tp is None else cfg.num_heads // tp.size
+        h = self.norm1(x)
+        qkv = self.attn.qkv(h if tp is None else copy_to_group(h, tp.group))
         if use_kernels:
-            out, _ = ops.attention_qkv_fn(qkv, cfg.num_heads, cfg.scale, probs_out)
+            out, _ = ops.attention_qkv_fn(qkv, heads, cfg.scale, probs_out)
         else:
-            out, probs = ops.attention_qkv_plain(qkv, cfg.num_heads, cfg.scale, True)
+            out, probs = ops.attention_qkv_plain(qkv, heads, cfg.scale, True)
             probs_out.copy_(probs.detach())  # the rollout stays outside the graph
-        mid = dropout(self.attn.proj(out), cfg.drop_rate, generator)
+        proj = self.attn.proj(out) if tp is None else _row_parallel(out, self.attn.proj, tp)
+        mid = dropout(proj, cfg.drop_rate, generator)
         x = x + drop_path(mid, rate, None if u is None else u[0])
-        mlp = self.mlp(self.norm2(x), cfg.drop_rate, generator)
+        mlp = self.mlp(self.norm2(x), cfg.drop_rate, generator, tp)
         return x + drop_path(mlp, rate, None if u is None else u[1])
 
 
@@ -221,14 +271,28 @@ class VisionTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, camera_id: Optional[torch.Tensor] = None,
                 view_id: Optional[torch.Tensor] = None, use_kernels: bool = True,
-                training: bool = False, generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                training: bool = False, generator: Optional[torch.Generator] = None,
+                tp: Optional[TPGroup] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, H, W, 3] NHWC -> (tokens [B, 1+P, C], rollout [B, H, P]).
 
         The rollout is at least fp32: the patch part of the cls row of
         A_{L-1} @ ... @ A_0 (SFTS's ``last_map[:, :, 0, 1:]``). In training
-        the random draws come from ``generator`` (on x's device)."""
+        the random draws come from ``generator`` (on x's device). ``tp``:
+        the blocks hold this rank's shards (``parallel.tp.shard_editor``)."""
         cfg = self.cfg
+        heads = cfg.num_heads
+        if tp is not None:
+            if training and cfg.attn_drop_rate > 0:
+                raise NotImplementedError("attn_drop_rate > 0 under tensor parallelism")
+            if cfg.num_heads % tp.size:
+                raise ValueError(f"num_heads {cfg.num_heads} not divisible by tp {tp.size}")
+            heads = cfg.num_heads // tp.size
+        qkv_rows = self.blocks[0].attn.qkv.weight.shape[0]
+        if qkv_rows != 3 * heads * cfg.head_dim:
+            raise ValueError(f"the backbone's qkv has {qkv_rows} rows, "
+                             f"{3 * heads * cfg.head_dim} at tp {1 if tp is None else tp.size}: "
+                             "cut a full model with parallel.tp.shard_editor and pass "
+                             "tp_mesh= on every call")
         if training and cfg.attn_drop_rate > 0:
             raise NotImplementedError("attention dropout (attn_drop_rate > 0) is not "
                                       "ported: the attention kernels have none")
@@ -248,12 +312,12 @@ class VisionTransformer(nn.Module):
                                device=tokens.device, dtype=torch.float32)
         n_remat = (max(cfg.depth - cfg.remat_skip_last, 0)
                    if training and cfg.remat else 0)
-        probs = torch.empty((cfg.depth, B, cfg.num_heads, N, N), dtype=tokens.dtype,
+        probs = torch.empty((cfg.depth, B, heads, N, N), dtype=tokens.dtype,
                             device=tokens.device)
         for l, blk in enumerate(self.blocks):
             # the probs slice rides in the closure: the recompute writes it
             # again, which a checkpointed input may not see
-            run = functools.partial(blk, probs_out=probs[l], use_kernels=use_kernels)
+            run = functools.partial(blk, probs_out=probs[l], use_kernels=use_kernels, tp=tp)
             if training:
                 run = functools.partial(run, rate=rates[l], u=draws[l], generator=generator)
             tokens = (checkpoint(run, tokens, use_reentrant=False) if l < n_remat
@@ -261,6 +325,11 @@ class VisionTransformer(nn.Module):
         tokens = self.norm(tokens)
         rollout = (ops.rollout_chain(probs) if use_kernels
                    else ops.rollout_from_probs_plain(probs))
+        if tp is not None:  # heads are independent in the chain: gather them
+            from editor_tpu_torch.parallel.collectives import _all_gather0
+            with torch.no_grad():
+                g = _all_gather0(rollout, tp.group)  # [tp, B, H/tp, P]
+            rollout = g.permute(1, 0, 2, 3).reshape(B, cfg.num_heads, -1)
         return tokens, rollout
 
 

@@ -493,11 +493,24 @@ def masked_attention_route(n_tokens: int, tile: int) -> str:
 
 def masked_attention_from_qkv(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
                               scale: float, mask_fill: float = MASK_FILL,
-                              tile: int = 129, use_kernels: bool = True) -> torch.Tensor:
+                              tile: int = 129, use_kernels: bool = True,
+                              seq_mesh=None) -> torch.Tensor:
     """Masked attention from the raw qkv under autograd, through the kernel
     pair :func:`masked_attention_route` picks (``use_kernels=False``: the
     plain version of the XLA oracle's math, :func:`masked_attention_qkv_plain`,
-    differentiated by autograd). qkv [B, N, 3C], mask [B, N] -> [B, N, C]."""
+    differentiated by autograd). qkv [B, N, 3C], mask [B, N] -> [B, N, C].
+
+    ``seq_mesh`` (a ``DeviceMesh`` with a 'seq' dimension, or a process
+    group) of more than one rank: the masked ring over it
+    (``parallel.ring.ring_masked_attention``: each rank its sequence block
+    of q, k and v, the outputs all-gathered with autograd), as JAX's."""
+    if seq_mesh is not None:
+        from editor_tpu_torch.parallel.mesh import axis_group
+        from editor_tpu_torch.parallel.ring import ring_masked_attention
+        if axis_group(seq_mesh, "seq")[1] > 1:
+            q, k, v = (t.to(qkv.dtype) for t in _heads(qkv, num_heads))
+            out = ring_masked_attention(q, k, v, mask, seq_mesh, scale, mask_fill)
+            return _merge_heads(out)
     route = masked_attention_route(qkv.shape[1], tile) if use_kernels else "plain"
     if route == "tiled":
         return masked_attention_tiled_fn(qkv, mask, num_heads, scale, mask_fill, tile)

@@ -1,6 +1,6 @@
-"""Data parallelism on ``torch.distributed``: counterpart of the
-data-parallel part of ``editor_tpu/parallel`` (one process per device,
-NCCL on CUDA, gloo on the CPU).
+"""Data and model parallelism on ``torch.distributed``: counterpart of
+``editor_tpu/parallel`` but for the pipeline, ``rpc`` and
+``sharded_tensor`` (one process per device, NCCL on CUDA, gloo on the CPU).
 
 * :mod:`.multihost` - ``initialize`` (the default group from the launcher's
   environment), ``barrier``, ``shutdown``, ``fail_fast``, ranks;
@@ -14,11 +14,17 @@ NCCL on CUDA, gloo on the CPU).
 * :mod:`.fsdp` - FSDP / ZeRO-3 (parameters, gradients and slots sharded);
 * :mod:`.localsgd` - LocalSGD (periodic parameter averaging);
 * :mod:`.elastic`, :mod:`.rendezvous`, :mod:`.etcd` - the launcher's
-  supervisor, rendezvous stores and backends (``cli.launch``).
+  supervisor, rendezvous stores and backends (``cli.launch``);
+* :mod:`.tp` - tensor parallelism of the backbone over the 'model' axis
+  (the shard-major qkv permutation, Megatron shards, canonical checkpoints);
+* :mod:`.moe` - the GShard mixture of experts (index dispatch, expert
+  parallelism over an 'expert' group);
+* :mod:`.ring` - ring and Ulysses (masked) attention over a 'seq' group.
 
-The global-batch step on a mesh is ``engine.train.build_train_step(mesh=)``,
-with FSDP ``engine.train.fsdp_state_shardings``. Model parallelism, ``rpc``
-and ``sharded_tensor`` are not ported.
+The global-batch step on a mesh is ``engine.train.build_train_step(mesh=)``
+(tensor-parallel when the mesh's model axis is above 1), with FSDP
+``engine.train.fsdp_state_shardings``. The pipeline, ``rpc`` and
+``sharded_tensor`` are not ported.
 """
 
 from editor_tpu_torch.parallel.collectives import (all_gather, all_reduce, all_to_all,
@@ -30,6 +36,11 @@ from editor_tpu_torch.parallel.ddp import LeafLayout, build_ddp_train_step
 from editor_tpu_torch.parallel.etcd import EtcdServer, EtcdStore
 from editor_tpu_torch.parallel.fsdp import fsdp_shardings, param_memory_bytes, shard_params
 from editor_tpu_torch.parallel.mesh import make_mesh, replicated, shard_batch, shard_host_batch
+from editor_tpu_torch.parallel.moe import MoEParams, moe_ffn, moe_ffn_dense, moe_init
+from editor_tpu_torch.parallel.ring import (ring_attention, ring_masked_attention,
+                                            ulysses_attention, ulysses_masked_attention)
+from editor_tpu_torch.parallel.tp import (permute_qkv_params, qkv_tp_permutation,
+                                          shard_editor, shard_state_dict)
 from editor_tpu_torch.parallel.rendezvous import (DynamicRendezvous, FileStore,
                                                   RendezvousClosedError, RendezvousHandler,
                                                   RendezvousHandlerRegistry,
@@ -40,12 +51,14 @@ from editor_tpu_torch.parallel.zero import (Zero1Optimizer, state_memory_bytes,
                                             zero1_state_shardings)
 
 __all__ = ["DynamicRendezvous", "EtcdServer", "EtcdStore", "FileStore", "LeafLayout",
-           "Reducer", "RendezvousClosedError", "RendezvousHandler",
+           "MoEParams", "Reducer", "RendezvousClosedError", "RendezvousHandler",
            "RendezvousHandlerRegistry", "RendezvousParameters", "TCPStore",
            "Zero1Optimizer", "all_gather", "all_gather_object", "all_reduce", "all_to_all",
            "barrier", "broadcast", "broadcast_object", "build_ddp_train_step",
-           "fsdp_shardings", "gather", "make_mesh", "make_reducer", "monitored_barrier",
-           "param_memory_bytes", "ppermute_shift", "reduce", "reduce_scatter",
-           "rendezvous_registry", "replicated", "scatter", "send_recv", "shard_batch",
-           "shard_host_batch", "shard_params", "state_memory_bytes",
-           "zero1_state_shardings"]
+           "fsdp_shardings", "gather", "make_mesh", "make_reducer", "moe_ffn",
+           "moe_ffn_dense", "moe_init", "monitored_barrier", "param_memory_bytes",
+           "permute_qkv_params", "ppermute_shift", "qkv_tp_permutation", "reduce",
+           "reduce_scatter", "rendezvous_registry", "replicated", "ring_attention",
+           "ring_masked_attention", "scatter", "send_recv", "shard_batch", "shard_editor",
+           "shard_host_batch", "shard_params", "shard_state_dict", "state_memory_bytes",
+           "ulysses_attention", "ulysses_masked_attention", "zero1_state_shardings"]

@@ -18,7 +18,9 @@ collectives (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
 ``all_to_all``, ``batch_isend_irecv``), which NCCL and gloo both run, and
 not on ``torch.distributed.nn.functional``, which newer torch deprecates.
 Each call of a torch collective adds one to its count
-(:func:`collective_counts`), forward and backward alike.
+(:func:`collective_counts`), forward and backward alike. Beside them, the
+two conjugate operations of tensor parallelism (:func:`copy_to_group`,
+:func:`reduce_from_group`), whose gradient is that of one replicated loss.
 """
 
 from __future__ import annotations
@@ -92,9 +94,9 @@ def _permute(x: torch.Tensor, pg, pairs: Sequence[Tuple[int, int]]) -> torch.Ten
     _COUNTS["permute"] += 1
     r = dist.get_rank(pg)
     glob = (lambda q: q) if pg is None else (lambda q: dist.get_global_rank(pg, q))
+    x = x.contiguous()  # a non-contiguous receive buffer is refused
     out = torch.zeros_like(x)
     ops = []
-    x = x.contiguous()
     for src, dst in pairs:
         if src == r and dst == r:
             out.copy_(x)
@@ -162,6 +164,41 @@ class _Permute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _permute(g, ctx.pg, [(d, s) for s, d in ctx.pairs]), None, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.clone(), ctx.pg), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        return _all_reduce_(x.clone(), pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, sum all-reduce over ``group`` backward: the input of
+    a column-parallel layer (Megatron's f), so that a replicated input gets
+    the gradient of every rank's shard."""
+    return _CopyToGroup.apply(x, _pg(group))
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum all-reduce over ``group`` forward, identity backward: the output
+    of a row-parallel layer (Megatron's g), each rank's partial product
+    summed into the replicated result."""
+    return _ReduceFromGroup.apply(x, _pg(group))
 
 
 def _is_root(pg, root: int, device) -> torch.Tensor:

@@ -126,7 +126,10 @@ def build_ddp_train_step(model, optimizer, loss_func: Callable, lr_fn: Callable,
     the JAX layout) is ``step.comm``, the generator ``step.generator``, the
     leaf layout ``step.layout``."""
     from editor_tpu_torch.engine.train import make_loss_of, rank_seed, step_images
-    from editor_tpu_torch.parallel.mesh import data_rank
+    from editor_tpu_torch.parallel.mesh import data_rank, model_size
+    if model_size(mesh) > 1:
+        raise NotImplementedError("gradient compression with a 'model' mesh axis above 1 "
+                                  "is not ported")
 
     reducer = reducer or allreduce_reducer()
     device = next(model.parameters()).device

@@ -2,8 +2,11 @@
 counterpart of ``editor_tpu/parallel/mesh.py``.
 
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the default
-process group (one process per device, see :mod:`.multihost`). Only data
-parallelism is ported: ``model`` must be 1. The JAX module's
+process group (one process per device, see :mod:`.multihost`), laid out as
+JAX's ``mesh_utils.create_device_mesh((data, model))``: rank ``d * model +
+m`` sits at data index d and model index m, so the ranks of one model group
+(tensor parallelism, :mod:`.tp`) are adjacent. The batch is cut by the data
+rank only: every rank of a model group holds the same rows. The JAX module's
 ``batch_sharding`` (a ``NamedSharding`` that lets the compiler split a
 global array) has no torch counterpart and is left out: here each rank holds
 its own rows, either cut from a global batch (:func:`shard_batch`) or loaded
@@ -12,7 +15,7 @@ as its host shard (:func:`shard_host_batch`).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -25,12 +28,10 @@ AXES = ("data", "model")
 
 def make_mesh(data: int = -1, model: int = 1) -> DeviceMesh:
     """A ('data', 'model') mesh over every rank of the default group;
-    ``data=-1`` takes all ranks. Needs an initialised group (NCCL: a CUDA
-    mesh, gloo: a CPU mesh). ``model > 1`` (tensor parallelism) is not
-    ported and raises."""
-    if model != 1:
-        raise NotImplementedError("a 'model' mesh axis above 1 (tensor parallelism) "
-                                  "is not ported")
+    ``data=-1`` takes all ranks over ``model``. Needs an initialised group
+    (NCCL: a CUDA mesh, gloo: a CPU mesh)."""
+    if model < 1:
+        raise ValueError(f"model axis {model} < 1")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(parallel.multihost.initialize)")
@@ -48,6 +49,44 @@ def data_size(mesh: DeviceMesh) -> int:
 
 def data_rank(mesh: DeviceMesh) -> int:
     return mesh.get_local_rank("data")
+
+
+def model_size(mesh: Optional[DeviceMesh]) -> int:
+    """The 'model' axis's size (tensor-parallel degree); 1 without a mesh
+    or without the axis."""
+    if mesh is None:
+        return 1
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"a mesh is a DeviceMesh (parallel.mesh.make_mesh), not {mesh!r}")
+    if "model" not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index("model"))
+
+
+def model_rank(mesh: DeviceMesh) -> int:
+    return mesh.get_local_rank("model")
+
+
+def model_group(mesh: DeviceMesh):
+    """The process group of this rank's model group (the ranks that hold
+    the same rows and one shard each of the backbone)."""
+    return mesh.get_group("model")
+
+
+def axis_group(mesh, axis: str):
+    """(process group, size) of ``mesh``'s dimension ``axis``: a
+    ``DeviceMesh`` with that dimension name, or a process group taken as
+    the axis itself."""
+    if isinstance(mesh, DeviceMesh):
+        names = mesh.mesh_dim_names or ()
+        if axis not in names:
+            raise ValueError(f"the mesh has no '{axis}' dimension (dimensions {names})")
+        pg = mesh.get_group(axis)
+    elif isinstance(mesh, dist.ProcessGroup):
+        pg = mesh
+    else:
+        raise TypeError(f"a '{axis}' mesh is a DeviceMesh or a process group, not {mesh!r}")
+    return pg, dist.get_world_size(pg)
 
 
 def replicated(mesh: DeviceMesh) -> tuple:

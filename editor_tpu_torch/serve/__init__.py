@@ -46,14 +46,22 @@ class FeatureExtractor:
     ``input_cfg``: the INPUT section of a :class:`~editor_tpu_torch.config.Config`
     (as the JAX extractor takes ``cfg.INPUT``): the images are normalised with
     its ``PIXEL_MEAN``/``PIXEL_STD`` and ``size_hw`` is its ``SIZE_TEST``.
-    Without it: mean and std 0.5 and the model's input size."""
+    Without it: mean and std 0.5 and the model's input size.
+
+    ``mesh`` (a ('data', 'model') ``DeviceMesh``, as JAX's extractor takes):
+    each request's rows are cut over the data axis and, with a model axis
+    above 1, the backbone runs tensor-parallel (the model cut by
+    ``parallel.tp.shard_editor``). Every rank must make the same calls; the
+    tail is padded to ``batch_size`` (the power-of-two buckets are the
+    one-device path's). ``cli.serve`` serves on one device."""
 
     def __init__(self, model: Editor, batch_size: int = 32,
-                 compute_dtype: torch.dtype = torch.bfloat16, input_cfg=None):
+                 compute_dtype: torch.dtype = torch.bfloat16, input_cfg=None, mesh=None):
         self.model = model
         self.batch_size = int(batch_size)
         self.device = next(model.parameters()).device
-        self._step = build_eval_step(model, compute_dtype)
+        self._step = build_eval_step(model, compute_dtype, mesh)
+        self._bucketed = mesh is None
         self._lock = threading.Lock()
         if input_cfg is None:
             self._transform = make_eval_transform()
@@ -86,7 +94,7 @@ class FeatureExtractor:
             cam = np.asarray(camids[lo:lo + B], np.int32)
             take = len(cam)
             if take < B:  # pad to the next power-of-two bucket <= B
-                bucket = 1
+                bucket = 1 if self._bucketed else B
                 while bucket < take:
                     bucket *= 2
                 chunk = {m: np.concatenate([v, np.repeat(v[-1:], bucket - take, axis=0)])

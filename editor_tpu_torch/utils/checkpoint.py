@@ -172,8 +172,17 @@ def _comm_payload(comm: Any) -> Any:
     return out
 
 
+def _tp(tp_mesh):
+    """(process group, size, rank) of ``tp_mesh``'s model axis, or None
+    below 2."""
+    from editor_tpu_torch.parallel.mesh import model_group, model_rank, model_size
+    if model_size(tp_mesh) <= 1:
+        return None
+    return model_group(tp_mesh), model_size(tp_mesh), model_rank(tp_mesh)
+
+
 def train_state(model: torch.nn.Module, optimizer, generator: torch.Generator,
-                epoch: int, comm: Any = None) -> Optional[Dict[str, Any]]:
+                epoch: int, comm: Any = None, tp_mesh=None) -> Optional[Dict[str, Any]]:
     """The checkpoint payload of a run after ``epoch``.
 
     Under a process group the call is collective (every rank makes it) and
@@ -184,17 +193,27 @@ def train_state(model: torch.nn.Module, optimizer, generator: torch.Generator,
     inside ``gathered()``); ``generators`` holds every rank's generator state
     in rank order (``generator`` stays rank 0's); ``comm``, a data-parallel
     step's reducer state, is saved with each rank's PowerSGD error feedback
-    (``errors``). The file loads into a single-device run."""
+    (``errors``). ``tp_mesh``: the model is cut over the mesh's model axis
+    (``parallel.tp.shard_editor``); its parameters and their slots are
+    gathered over the model group and un-permuted, the canonical layout.
+    The file loads into a single-device run and into any tp."""
     import torch.distributed as dist
     rank, world = _group()
     model_state = None
-    if hasattr(optimizer, "gathered"):  # FSDP: the full parameters exist only here
+    tp = _tp(tp_mesh)
+    opt = optimizer.state_dict()
+    if tp is not None:
+        from editor_tpu_torch.parallel import tp as tpm
+        canon = tpm.gather_train_state({"model": model.state_dict(), "optimizer": opt},
+                                       tpm.slot_names(model, optimizer),
+                                       model.cfg.vit.num_heads, tp[0])
+        model_state, opt = canon["model"], canon["optimizer"]
+    elif hasattr(optimizer, "gathered"):  # FSDP: the full parameters exist only here
         with optimizer.gathered():
             if rank == 0:
                 model_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     elif rank == 0:
         model_state = model.state_dict()
-    opt = optimizer.state_dict()
     gens = [generator.get_state()]
     if dist.is_initialized():
         gens = [None] * world
@@ -213,7 +232,7 @@ def train_state(model: torch.nn.Module, optimizer, generator: torch.Generator,
 
 @torch.no_grad()
 def load_train_state(payload: Dict[str, Any], model: torch.nn.Module, optimizer,
-                     generator: torch.Generator, comm: Any = None) -> int:
+                     generator: torch.Generator, comm: Any = None, tp_mesh=None) -> int:
     """Restores a :func:`train_state` payload in place; returns its epoch.
 
     Every rank loads the same file: a ZeRO-1 optimizer takes its own slots,
@@ -221,8 +240,15 @@ def load_train_state(payload: Dict[str, Any], model: torch.nn.Module, optimizer,
     A rank takes its own generator state and PowerSGD error when the file
     was saved at this world size; otherwise rank 0 takes the saved rank 0's
     generator, the other ranks keep their fresh ones, and the error
-    feedback restarts from zero (``q`` is kept)."""
+    feedback restarts from zero (``q`` is kept). ``tp_mesh``: the model
+    is cut over its model axis, and takes this rank's blocks of the
+    canonical parameters and slots."""
     rank, world = _group()
+    tp = _tp(tp_mesh)
+    if tp is not None:
+        from editor_tpu_torch.parallel import tp as tpm
+        payload = tpm.shard_train_state(payload, tpm.slot_names(model, optimizer),
+                                        model.cfg.vit.num_heads, tp[1], tp[2])
     if hasattr(optimizer, "gathered"):
         with optimizer.gathered():
             model.load_state_dict(payload["model"], strict=True)

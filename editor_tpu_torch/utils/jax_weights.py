@@ -10,6 +10,12 @@ tests compare the two packages' parameters, BN running stats and OCFR
 centers after a step through it (``num_batches_tracked``, which JAX does not
 keep, comes out 0). ``jax_tree_from_state_dict`` maps back, for the JAX
 package's ``.npz`` weight files (``utils/checkpoint.save_params_npz``).
+
+The MoE joint MLP's leaves (``FUSE_block.moe_mlp.{router, w1, b1, w2, b2}``)
+keep JAX's layout under the port's own names. A tree in JAX's tensor-parallel
+layout (qkv columns permuted shard-major, ``parallel/tp.py``) maps with
+``tp=`` (the permutation inverted); ``parallel.tp.shard_state_dict`` cuts the
+canonical result for a rank.
 """
 
 from __future__ import annotations
@@ -52,13 +58,15 @@ def _vit_entries(p: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return sd
 
 
+MOE_LEAVES = ("router", "w1", "b1", "w2", "b2")
+
+
 def state_dict_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
-                        ecfg) -> Dict[str, torch.Tensor]:
+                        ecfg, tp: int = 1) -> Dict[str, torch.Tensor]:
     """JAX ``editor_init``-layout params and state (nested dicts of arrays)
     -> a state_dict that :class:`~editor_tpu_torch.models.editor.Editor`
-    loads with ``strict=True``."""
-    if "moe_mlp" in params["FUSE_block"]:
-        raise NotImplementedError("the MoE fusion MLP is not ported")
+    loads with ``strict=True``. ``tp``: the params are in JAX's TP layout
+    for that model axis (``permute_qkv_params``); the result is canonical."""
     sd = {f"BACKBONE.base.{k}": v for k, v in _vit_entries(params["BACKBONE"]).items()}
 
     fb = params["FUSE_block"]
@@ -79,7 +87,11 @@ def state_dict_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
     put_ln("norm1")
     put_linears("attn1", ("qkv", "proj"))
     put_ln("norm2")
-    put_linears("mlp", ("fc1", "fc2"))
+    if "moe_mlp" in fb:
+        for leaf in MOE_LEAVES:
+            sd[f"FUSE_block.moe_mlp.{leaf}"] = _a(fb["moe_mlp"][leaf])
+    else:
+        put_linears("mlp", ("fc1", "fc2"))
     put_ln("out_norm")
 
     for name in ("RGB_REDUCE", "NIR_REDUCE", "TIR_REDUCE"):
@@ -116,7 +128,11 @@ def state_dict_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
     # np.array(order="C") copies and keeps 0-d arrays 0-d (num_batches_tracked
     # is a scalar buffer in torch; the JAX exporter's ascontiguousarray makes
     # it shape [1], which torch's loader also accepts)
-    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+    out = {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+    if tp > 1:
+        from editor_tpu_torch.parallel.tp import permute_qkv_params
+        out = permute_qkv_params(out, ecfg.vit.num_heads, tp, inverse=True)
+    return out
 
 
 def _t(x: torch.Tensor) -> np.ndarray:
@@ -180,7 +196,10 @@ def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor], ecfg) -> Tuple[dict
     fb["norm1"] = ln("FUSE_block.norm1")
     fb["attn1"] = nobias("FUSE_block.attn1", ("qkv", "proj"))
     fb["norm2"] = ln("FUSE_block.norm2")
-    fb["mlp"] = nobias("FUSE_block.mlp", ("fc1", "fc2"))
+    if "FUSE_block.moe_mlp.router" in sd:
+        fb["moe_mlp"] = {leaf: _t(sd[f"FUSE_block.moe_mlp.{leaf}"]) for leaf in MOE_LEAVES}
+    else:
+        fb["mlp"] = nobias("FUSE_block.mlp", ("fc1", "fc2"))
     fb["out_norm"] = ln("FUSE_block.out_norm")
     params["FUSE_block"] = fb
 

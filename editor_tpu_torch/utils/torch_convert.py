@@ -29,6 +29,23 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k.replace("module.", ""): v for k, v in sd.items() if isinstance(v, torch.Tensor)}
 
 
+MOE_IMPORT_ERROR = ("cannot load a reference torch checkpoint into a MoE-fusion "
+                    "EDITOR (MODEL.MOE_EXPERTS > 0): the reference has no MoE "
+                    "fusion MLP — set MOE_EXPERTS 0 to import this checkpoint")
+MOE_EXPORT_ERROR = ("cannot export a MoE-fusion EDITOR (MODEL.MOE_EXPERTS > 0) to "
+                    "the reference torch layout: the reference has no MoE — "
+                    "retrain with MOE_EXPERTS 0 or keep Orbax checkpoints")
+
+
+def load_editor_pth(path: str, model: torch.nn.Module) -> None:
+    """Load a reference-layout EDITOR ``.pth`` into ``model`` strictly; a
+    MoE model raises ``ValueError`` (the reference has no MoE), as JAX's
+    ``convert_editor_from_torch``."""
+    if model.cfg.moe_experts > 0:
+        raise ValueError(MOE_IMPORT_ERROR)
+    model.load_state_dict(load_torch_state_dict(path), strict=True)
+
+
 def _bilinear_axis(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     """Bilinear interpolation along one axis, half-pixel centers, no
     antialiasing."""

@@ -7,7 +7,8 @@ subprocess that imports every module of the port's entry points (the
 launcher ``cli.launch`` among them) and of its data parallelism
 (``parallel/``, FSDP, LocalSGD and the launcher's supervisor, rendezvous and
 etcd modules included: importing it needs no NCCL and makes no process
-group), and
+group) and of its model parallelism (``parallel/{tp,moe,ring}``; a tiny MoE
+model's forward, with ``moe_shards`` too, and train step run there), and
 a static scan of every import statement of the port and of chip_smoke.py
 (which imports the port inside its functions) finds neither package."""
 
@@ -58,6 +59,7 @@ from editor_tpu_torch import parallel
 from editor_tpu_torch.parallel import collectives, compression, ddp, mesh, multihost, zero
 from editor_tpu_torch.parallel import elastic, etcd, fsdp, localsgd, rendezvous
 from editor_tpu_torch.cli import launch as cli_launch
+from editor_tpu_torch.parallel import moe, ring, tp
 import torch.distributed as dist
 group_after_import = dist.is_initialized()  # importing the data-parallel modules makes no group
 
@@ -77,6 +79,17 @@ u8 = {m: torch.randint(0, 256, (4, 64, 32, 3), generator=gen, dtype=torch.uint8)
       for m in ("RGB", "NI", "TI")}
 u8["pid"], u8["camid"] = torch.tensor([0, 0, 1, 1]), torch.tensor([0, 1, 2, 3])
 loss = float(train(u8, 1)["loss"])
+# the MoE joint MLP: eval (one routing, and two emulated shards) and a train step
+import dataclasses
+mcfg = dataclasses.replace(cfg, moe_experts=4)
+mmodel = editor_init(mcfg, seed=2, device="cpu")
+with torch.no_grad():
+    moe_feats = [mmodel({k: v for k, v in batch.items() if k != "camid"}, batch["camid"],
+                        moe_shards=s) for s in (1, 2)]
+mtrain = build_train_step(mmodel, make_optimizer(tcfg, mmodel), make_loss(tcfg, 10),
+                          make_scheduler(tcfg), 0.001, torch.float32)
+moe_loss = float(mtrain({k: v.float() if v.dtype == torch.uint8 else v
+                         for k, v in u8.items()}, 1)["loss"])
 # the training loop on in-memory splits through a numpy decode_fn, with its
 # log, metrics and checkpoints: no PIL, no yaml
 import tempfile
@@ -95,6 +108,9 @@ n_params = cli_params.main(["MODEL.TRANSFORMER_TYPE", "vit_tiny_test"])
 new = sorted(set(sys.modules) - before)
 print(json.dumps({"shape": list(feats.shape), "finite": bool(torch.isfinite(feats).all()),
                   "loss_finite": loss == loss and abs(loss) < float("inf"),
+                  "moe": [list(f.shape) for f in moe_feats]
+                  + [bool(all(torch.isfinite(f).all() for f in moe_feats)),
+                     moe_loss == moe_loss and abs(moe_loss) < float("inf")],
                   "loop_map": best["mAP"], "n_params": n_params,
                   "new": new, "group": group_after_import or dist.is_initialized(),
                   "parallel": sorted(parallel.__all__),
@@ -128,7 +144,13 @@ def test_port_imports_no_jax_and_runs_tiny_forward(tmp_path):
             "FileStore", "TCPStore", "RendezvousHandlerRegistry", "rendezvous_registry",
             "monitored_barrier", "all_gather_object", "broadcast_object", "EtcdServer",
             "EtcdStore"} <= set(out["parallel"])
-    for name in ("fsdp", "localsgd", "elastic", "rendezvous", "etcd"):
+    # model parallelism: tensor parallelism, the MoE, ring and Ulysses
+    assert {"shard_editor", "shard_state_dict", "permute_qkv_params", "qkv_tp_permutation",
+            "moe_ffn", "moe_ffn_dense", "moe_init", "MoEParams", "ring_attention",
+            "ring_masked_attention", "ulysses_attention",
+            "ulysses_masked_attention"} <= set(out["parallel"])
+    assert out["moe"] == [[2, 288], [2, 288], True, True]
+    for name in ("fsdp", "localsgd", "elastic", "rendezvous", "etcd", "tp", "moe", "ring"):
         assert f"editor_tpu_torch.parallel.{name}" in out["new"], name
     assert "editor_tpu_torch.cli.launch" in out["new"]
 

@@ -243,16 +243,15 @@ def test_checkpoint_manager(tmp_path):
                                  ["TPU.ZERO_STAGE", "1"], ["TPU.GRAD_COMPRESSION", "fp16"],
                                  "mesh", ["TPU.ZERO_STAGE", "3"]])
 def test_distribution_settings_raise(opt, tmp_path):
-    """Without a process group: model parallelism is not ported; the
-    data-parallel settings, FSDP (``ZERO_STAGE`` 3) among them, need a mesh
-    (one process per device, see tests/test_torch_dp_*.py and
-    tests/test_torch_fsdp.py); a mesh must be a DeviceMesh."""
+    """Without a process group: the data- and model-parallel settings, FSDP
+    (``ZERO_STAGE`` 3) and tensor parallelism (``MESH_MODEL`` 2) among them,
+    need a mesh (one process per device, see tests/test_torch_dp_*.py,
+    tests/test_torch_fsdp.py and tests/test_torch_tp.py); a mesh must be a
+    DeviceMesh."""
     cfg = load_config(None, TINY + ["OUTPUT_DIR", str(tmp_path)]
                       + (opt if isinstance(opt, list) else []))
     if opt == "mesh":
         err, match = TypeError, "DeviceMesh"
-    elif opt[0] == "TPU.MESH_MODEL":
-        err, match = NotImplementedError, "not ported"
     else:
         err, match = ValueError, "needs a data-parallel mesh"
     with pytest.raises(err, match=match):

@@ -117,7 +117,9 @@ def test_blockmask_eval(tiny):
     ref, _, _, _ = blockmask_apply(params["FUSE_block"], [jnp.asarray(f) for f in feats],
                                    jnp.asarray(mask), state["ocfr"], None, num_heads=12,
                                    training=False, use_pallas=False)
-    got = model.FUSE_block([torch.from_numpy(f) for f in feats], torch.from_numpy(mask))
+    got, ocfr, aux = model.FUSE_block([torch.from_numpy(f) for f in feats],
+                                      torch.from_numpy(mask))
+    assert ocfr is None and aux is None
     assert got.shape == (B, 3 * n, C)
     assert_close(got, ref)
 

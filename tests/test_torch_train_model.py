@@ -126,8 +126,9 @@ def test_blockmask_training(tiny):
         params["FUSE_block"], [jnp.asarray(f) for f in feats], jnp.asarray(mask),
         {k: jnp.asarray(v) for k, v in state["ocfr"].items()}, jnp.asarray(labels),
         num_heads=12, training=True, use_pallas=False)
-    got, loss = model.FUSE_block([torch.from_numpy(f) for f in feats], torch.from_numpy(mask),
-                                 labels=torch.from_numpy(labels))
+    got, loss, aux = model.FUSE_block([torch.from_numpy(f) for f in feats],
+                                      torch.from_numpy(mask), labels=torch.from_numpy(labels))
+    assert aux is None
     assert_close(got, ref)
     assert_close(loss, ref_loss, **FP32)
     mem = model.FUSE_block.memory_cls

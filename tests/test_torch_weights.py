@@ -107,23 +107,37 @@ def test_port_init_distributions():
 
 
 def test_unported_options_raise():
+    """The pipeline (``backbone=``) is still not ported. The model-parallel
+    options are (tests/test_torch_tp.py, test_torch_moe.py,
+    test_torch_ring.py): here they refuse what is not a mesh, one expert
+    (JAX's ``blockmask_moe_init`` check) and MoE options on a dense model;
+    a JAX MoE tree maps into a MoE model's state dict."""
     jcfg = _tiny()
     cfg = torch_editor_config(jcfg)
-    with pytest.raises(NotImplementedError):
-        Editor(dataclasses.replace(cfg, moe_experts=4), device="cpu")
+    with pytest.raises(ValueError, match="MOE_EXPERTS must be >= 2"):
+        Editor(dataclasses.replace(cfg, moe_experts=1), device="cpu")
     params, state = jax_editor(jcfg, dtype=None)
     model = Editor(cfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(params, state, jcfg))
     imgs = {m: torch.zeros(1, 64, 32, 3) for m in ("RGB", "NI", "TI")}
     cam = torch.zeros(1, dtype=torch.long)
-    for kw in (dict(tp_mesh=object()), dict(seq_mesh=object()), dict(backbone=object())):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        model(imgs, cam, backbone=object())
+    for kw in (dict(tp_mesh=object()), dict(seq_mesh=object())):
+        with pytest.raises(TypeError, match="mesh"):
+            model(imgs, cam, **kw)
+    for kw in (dict(moe_shards=2), dict(moe_mesh=object())):
+        with pytest.raises(ValueError, match="MoE model"):
             model(imgs, cam, **kw)
     with pytest.raises(ValueError, match="labels"):  # training is ported; it needs labels
         model(imgs, cam, training=True)
-    moe = to_numpy_tree({"FUSE_block": {"moe_mlp": {}}})
-    with pytest.raises(NotImplementedError):
-        state_dict_from_jax(moe, state, jcfg)
+    leaves = {k: np.ones((2,)) for k in ("router", "w1", "b1", "w2", "b2")}
+    moe = dict(params, FUSE_block=dict(
+        {k: v for k, v in params["FUSE_block"].items() if k != "mlp"}, moe_mlp=leaves))
+    sd = state_dict_from_jax(to_numpy_tree(moe), state, jcfg)
+    assert not any(k.startswith("FUSE_block.mlp.") for k in sd)
+    assert all(torch.equal(sd[f"FUSE_block.moe_mlp.{k}"], torch.ones(2, dtype=torch.float64))
+               for k in leaves)
 
 
 def test_configs_mirror_jax():

@@ -5,7 +5,11 @@
 drop path 0, no augmentation) at float64, JAX's mesh and DDP steps on the
 first W of the conftest's 8 virtual CPU devices (each built and compiled
 once a process; the DDP step once for all five reducers), and the comparison at ``test_torch_train_step.py``'s
-tolerances.
+tolerances. The tensor-parallel oracle (``tests/test_torch_tp.py``) is
+JAX's step on a (data, model) mesh with the qkv columns permuted
+shard-major and ``train_state_tp_shardings``, on the tiny config
+(uncompacted: its 8 patches all fit the tail) and on a compact one (128 x 64,
+HEAD_KEEP 1, FREQUENCY_KEEP 2: 32 patches cut to 15).
 """
 
 import functools
@@ -13,6 +17,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 from jax import lax
 
 from editor_tpu.config import Config as JaxConfig
@@ -20,6 +25,7 @@ from editor_tpu.engine import build_train_step as jax_build_train_step
 from editor_tpu.engine import make_train_state
 from editor_tpu.engine.train import fsdp_state_shardings as jax_fsdp_state_shardings
 from editor_tpu.losses import make_loss as jax_make_loss
+from editor_tpu.models.fusion import blockmask_apply, blockmask_init, blockmask_moe_init
 from editor_tpu.models.editor import EditorConfig as JaxEditorConfig
 from editor_tpu.models.editor import editor_init as jax_editor_init
 from editor_tpu.models.vit import ViTConfig as JaxViTConfig
@@ -37,20 +43,22 @@ B = 8
 REDUCERS = ("allreduce", "fp16", "bf16", "int8", "powersgd")
 
 
-def tiny_jax_config():
-    """The JAX EditorConfig of these tests (depth 2, width 96, drop path 0)."""
-    vit = JaxViTConfig(img_size=(64, 32), patch_size=16, stride_size=(16, 16),
+def tiny_jax_config(compact: bool = False, moe_experts: int = 0):
+    """The JAX EditorConfig of these tests (depth 2, width 96, drop path 0);
+    ``compact``: 128 x 64 images whose tail compacts."""
+    size, keep = ((128, 64), (1, 2)) if compact else ((64, 32), (2, 3))
+    vit = JaxViTConfig(img_size=size, patch_size=16, stride_size=(16, 16),
                        embed_dim=96, depth=2, num_heads=4, mlp_ratio=2.0, camera=4,
                        drop_path_rate=0.0)
-    return JaxEditorConfig(num_classes=4, vit=vit, head_keep=2, frequency_keep=3,
-                           use_pallas=False)
+    return JaxEditorConfig(num_classes=4, vit=vit, head_keep=keep[0], frequency_keep=keep[1],
+                           use_pallas=False, moe_experts=moe_experts)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_setup():
+def jax_setup(compact: bool = False, moe_experts: int = 0):
     """(JAX EditorConfig, Config, optimizer, float64 train state), made once
     a process."""
-    jcfg = tiny_jax_config()
+    jcfg = tiny_jax_config(compact, moe_experts)
     cfg = JaxConfig()
     params, _ = jax_editor_init(jax.random.PRNGKey(0), jcfg)
     opt = jax_make_optimizer(cfg, params)
@@ -60,9 +68,9 @@ def jax_setup():
     return jcfg, cfg, opt, state
 
 
-def make_batch(cross_shard: bool = False):
+def make_batch(cross_shard: bool = False, size=(64, 32)):
     rng = np.random.RandomState(1)
-    batch = {m: rng.randn(B, 64, 32, 3) for m in ("RGB", "NI", "TI")}
+    batch = {m: rng.randn(B, *size, 3) for m in ("RGB", "NI", "TI")}
     batch["pid"] = np.array([0, 0, 1, 1, 2, 2, 3, 3])
     batch["camid"] = np.arange(B) % 4
     if cross_shard:  # identity 2 (rank 1's rows) a near copy of identity 0 (rank 0's)
@@ -72,9 +80,9 @@ def make_batch(cross_shard: bool = False):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_global_step(W, grad_accum):
+def jax_global_step(W, grad_accum, moe_experts=0):
     """JAX's mesh step, built (and compiled at its first call) once a module."""
-    jcfg, cfg, opt, _ = jax_setup()
+    jcfg, cfg, opt, _ = jax_setup(moe_experts=moe_experts)
     mesh = jax_make_mesh(data=W, model=1, devices=jax.devices()[:W])
     return mesh, jax_build_train_step(jcfg, opt, jax_make_loss(cfg, 4),
                                       jax_make_scheduler(cfg), cfg.SOLVER.BASE_LR,
@@ -156,8 +164,8 @@ def jax_ddp_step(W):
                                            reducer=red, compute_dtype=jnp.float64)
 
 
-def jax_global(state, batch, W, grad_accum=1, steps=2):
-    mesh, step = jax_global_step(W, grad_accum)
+def jax_global(state, batch, W, grad_accum=1, steps=2, moe_experts=0):
+    mesh, step = jax_global_step(W, grad_accum, moe_experts)
     feed = jax_shard_batch(mesh, {k: jnp.asarray(v) for k, v in batch.items()})
     losses = []
     for epoch in range(1, steps + 1):
@@ -181,6 +189,37 @@ def jax_ddp(state, batch, W, name, steps=2):
     return losses, states, comm0["ps"]
 
 
+@functools.lru_cache(maxsize=None)
+def jax_tp_step(data, model, compact=False, moe_experts=0):
+    """JAX's tensor-parallel step on a (data, model) mesh and its state
+    layout, built once a module."""
+    from editor_tpu.parallel.tp import permute_train_state, train_state_tp_shardings
+    jcfg, cfg, opt, state = jax_setup(compact, moe_experts)
+    mesh = jax_make_mesh(data=data, model=model, devices=jax.devices()[:data * model])
+    shardings = train_state_tp_shardings(
+        permute_train_state(state, jcfg.vit.num_heads, model), mesh)
+    return mesh, shardings, jax_build_train_step(
+        jcfg, opt, jax_make_loss(cfg, 4), jax_make_scheduler(cfg), cfg.SOLVER.BASE_LR,
+        compute_dtype=jnp.float64, mesh=mesh, donate=False, state_shardings=shardings)
+
+
+def jax_tp(state, batch, data, model, compact=False, steps=2, moe_experts=0):
+    """JAX's TP run from the canonical ``state``: (losses, the canonical
+    train state after it)."""
+    from editor_tpu.parallel.tp import permute_train_state
+    jcfg = jax_setup(compact, moe_experts)[0]
+    H = jcfg.vit.num_heads
+    mesh, shardings, step = jax_tp_step(data, model, compact, moe_experts)
+    st = jax.tree_util.tree_map(jax.device_put, permute_train_state(state, H, model),
+                                shardings)
+    feed = jax_shard_batch(mesh, {k: jnp.asarray(v) for k, v in batch.items()})
+    losses = []
+    for epoch in range(1, steps + 1):
+        st, m = step(st, feed, jnp.asarray(epoch))
+        losses.append(float(m["loss"]))
+    return losses, permute_train_state(jax.device_get(st), H, model, inverse=True)
+
+
 def port_inputs(jcfg, state, batch, **kw):
     sd = state_dict_from_jax(to_numpy_tree(state.params), to_numpy_tree(state.model_state),
                              jcfg)
@@ -192,17 +231,19 @@ def jax_state_dict(jcfg, state):
                                jcfg)
 
 
-def close_to_jax(got, ref_losses, ref_sd, sd0, param_tol=1e-7, what="", sd=None):
+def close_to_jax(got, ref_losses, ref_sd, sd0, param_tol=1e-7, what="", sd=None,
+                 stat_tol=(1e-7, 1e-8)):
     """The port's run ``got`` against a JAX run: losses and the final state
-    (or ``sd``), at test_torch_train_step.py's tolerances. Returns whether
-    it held."""
+    (or ``sd``), at test_torch_train_step.py's tolerances (``param_tol``
+    and ``stat_tol``, the BN running stats' rtol and atol, where a test
+    states others). Returns whether it held."""
     try:
         np.testing.assert_allclose(got["loss"], ref_losses, rtol=1e-7)
         sd = got["sd"] if sd is None else sd
         for name, start in sd0.items():
             if name.endswith(("running_mean", "running_var")):
-                np.testing.assert_allclose(sd[name].numpy(), ref_sd[name].numpy(), rtol=1e-7,
-                                           atol=1e-8, err_msg=name)
+                np.testing.assert_allclose(sd[name].numpy(), ref_sd[name].numpy(),
+                                           rtol=stat_tol[0], atol=stat_tol[1], err_msg=name)
             elif name.endswith("_centers"):
                 np.testing.assert_allclose(sd[name].numpy(), ref_sd[name].numpy(), rtol=1e-6,
                                            atol=1e-7, err_msg=name)
@@ -212,6 +253,75 @@ def close_to_jax(got, ref_losses, ref_sd, sd0, param_tol=1e-7, what="", sd=None)
                 np.testing.assert_allclose(
                     d_got, d_ref, rtol=0, err_msg=f"{what} {name}",
                     atol=max(param_tol * np.abs(d_ref).max(), 1e-15))
-    except AssertionError:
+    except AssertionError as e:
+        print(e)  # shown with the failing test's output
         return False
     return True
+
+
+def fusion_state_dict(fb, num_classes: int, dim: int) -> dict:
+    """The port's ``BlockMask`` state dict of JAX ``blockmask_init`` (or
+    ``blockmask_moe_init``) params: LayerNorm w/b -> weight/bias, Linear w
+    [in, out] -> weight [out, in], the MoE leaves as they are, zero OCFR
+    centers."""
+    sd = {}
+    for name, sub in fb.items():
+        if name == "moe_mlp":
+            sd.update({f"moe_mlp.{k}": torch.tensor(np.asarray(v)) for k, v in sub.items()})
+        elif "w" in sub:  # a LayerNorm
+            sd[f"{name}.weight"] = torch.tensor(np.asarray(sub["w"]))
+            sd[f"{name}.bias"] = torch.tensor(np.asarray(sub["b"]))
+        else:
+            for lin, p in sub.items():
+                sd[f"{name}.{lin}.weight"] = torch.tensor(np.asarray(p["w"]).T.copy())
+    for m in ("RGB", "NIR", "TIR"):
+        sd[f"memory_cls.{m}_centers"] = torch.zeros(num_classes, dim, dtype=torch.float64)
+    return sd
+
+
+def fusion_inputs(W, experts=0, seed=3):
+    """A fusion block of width 96 with 12 heads (JAX's init at float64),
+    its state dict in the port's names and inputs whose per-modality length
+    (1 + P = 4W) every W divides, and the fixed projection ``proj`` of the
+    fused tokens that the loss takes (mean(fused^2) would not do: the
+    output LayerNorm makes it nearly constant, and the gradients before it
+    rounding noise)."""
+    key = jax.random.PRNGKey(seed)
+    fb = (blockmask_moe_init(key, dim=96, num_experts=experts) if experts
+          else blockmask_init(key, dim=96))
+    fb = jax.tree_util.tree_map(lambda x: x.astype(jnp.float64), fb)
+    rng = np.random.RandomState(seed)
+    P = 4 * W - 1
+    fusion = {"dim": 96, "num_classes": 4, "mlp_ratio": 4.0, "heads": 12, "experts": experts,
+              "sd": fusion_state_dict(fb, 4, 96),
+              "feats": [rng.randn(2, 1 + P, 96) for _ in range(3)],
+              "mask": (rng.rand(2, P, 1) < 0.5).astype(np.float64),
+              "labels": np.array([0, 1]),
+              "proj": rng.randn(2, 3 * (1 + P), 96)}
+    return fb, fusion
+
+
+def jax_fusion_loss(params, fusion, **kw):
+    """JAX's ``blockmask_apply`` in training (``kw``: its mesh options):
+    mean(fused * proj) + OCFR (+ 0.01 aux), in one compile."""
+    def loss(params, feats, mask, labels):
+        centers = {m: jnp.zeros((4, 96)) for m in ("rgb", "nir", "tir")}
+        fused, ocfr, _, aux = blockmask_apply(params, feats, mask, centers, labels,
+                                              num_heads=12, training=True, use_pallas=False,
+                                              **kw)
+        return (jnp.mean(fused * jnp.asarray(fusion["proj"])) + ocfr
+                + (0.0 if aux is None else 0.01 * aux))
+
+    return float(jax.jit(loss)(params, [jnp.asarray(f) for f in fusion["feats"]],
+                               jnp.asarray(fusion["mask"]), jnp.asarray(fusion["labels"])))
+
+
+def local_fusion(fusion, **kw):
+    """The port's fusion block on one process: (loss, gradients by name)."""
+    from tests.torch_dp_worker import _fusion
+    block, feats, mask, labels = _fusion({"fusion": fusion})
+    fused, ocfr, aux = block(feats, mask, False, labels=labels, **kw)
+    loss = (fused * torch.from_numpy(fusion["proj"])).mean() + ocfr
+    loss = loss + (0.0 if aux is None else 0.01 * aux)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.clone() for k, p in block.named_parameters()}

@@ -98,11 +98,17 @@ def _solver(model, inp):
             make_scheduler(cfg), cfg.SOLVER.BASE_LR)
 
 
-def _state(model, opt=None):
-    """The model's state_dict, cloned; under FSDP gathered (a collective)."""
+def _state(model, opt=None, tp_mesh=None):
+    """The model's state_dict, cloned; under FSDP gathered, under tensor
+    parallelism gathered into the canonical layout (collectives)."""
     if hasattr(opt, "gathered"):
         with opt.gathered():
             return _state(model)
+    if tp_mesh is not None:
+        from editor_tpu_torch.parallel.mesh import model_group
+        from editor_tpu_torch.parallel.tp import gather_editor_state
+        return {k: v.clone() for k, v in gather_editor_state(model,
+                                                             model_group(tp_mesh)).items()}
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
@@ -129,32 +135,41 @@ def _build(kind, model, inp, mesh):
     return step, step.optimizer
 
 
-_MESH = []
+_MESH = {}
 
 
-def _mesh():
+def _mesh(model: int = 1):
+    """The ('data', 'model') mesh over every rank with that model axis,
+    made once a process."""
     from editor_tpu_torch.parallel.mesh import make_mesh
-    if not _MESH:
-        _MESH.append(make_mesh())
-    return _MESH[0]
+    if model not in _MESH:
+        _MESH[model] = make_mesh(-1, model)
+    return _MESH[model]
 
 
 def _train_run(spec, rank, world):
     """One run: ``kind`` 'global' | 'zero1' | 'fsdp' | 'ddp' | 'single' for ``steps``
-    steps on the global ``batch`` (each rank its rows); optionally resumed
-    from the checkpoint ``resume`` and saving one (``train_state``, rank 0
-    writes) at ``save_path`` after ``save_after`` steps. Returns losses,
-    accs, lrs and the final state_dict."""
+    steps on the global ``batch`` (each rank its rows); ``tp`` > 1: the
+    global-batch step on a (W / tp, tp) mesh, the model cut by
+    ``shard_editor``; optionally resumed from the checkpoint ``resume`` and
+    saving one (``train_state``, rank 0 writes) at ``save_path`` after
+    ``save_after`` steps. Returns losses, accs, lrs and the final state_dict
+    (canonical under tp)."""
     from editor_tpu_torch.parallel.mesh import shard_batch
     from editor_tpu_torch.utils.checkpoint import load_train_state, train_state
-    kind = spec["kind"]
-    mesh = None if kind == "single" else _mesh()
+    kind, tp = spec["kind"], spec.get("tp", 1)
+    mesh = None if kind == "single" else _mesh(tp)
+    tp_mesh = mesh if tp > 1 else None
     model = _model(spec)
+    if tp_mesh is not None:
+        from editor_tpu_torch.parallel.tp import shard_editor
+        shard_editor(model, tp_mesh)
     step, opt = _build(kind, model, spec, mesh)
     first = 1
     if spec.get("resume"):
         first = load_train_state(torch.load(spec["resume"], weights_only=False), model, opt,
-                                 step.generator, comm=getattr(step, "comm", None)) + 1
+                                 step.generator, comm=getattr(step, "comm", None),
+                                 tp_mesh=tp_mesh) + 1
     batch = {k: _t(v) for k, v in spec["batch"].items()}
     if mesh is not None:
         batch = shard_batch(mesh, batch, 1 if kind == "ddp" else spec.get("grad_accum", 1))
@@ -172,13 +187,13 @@ def _train_run(spec, rank, world):
             out.setdefault("slot_bytes", []).append(state_memory_bytes(opt))
             out.setdefault("shards", []).append(
                 {leaf.key: leaf.shard.clone() for leaf in opt.leaves})
-        out["sds"].append(_state(model, opt))
+        out["sds"].append(_state(model, opt, tp_mesh))
         if spec.get("save_after") == epoch:
             payload = train_state(model, opt, step.generator, epoch,
-                                  comm=getattr(step, "comm", None))
+                                  comm=getattr(step, "comm", None), tp_mesh=tp_mesh)
             if rank == 0:
                 torch.save(payload, spec["save_path"])
-    out["sd"] = _state(model, opt)
+    out["sd"] = _state(model, opt, tp_mesh)
     if kind == "fsdp":  # shard_params of the gathered model = the blocks held
         from editor_tpu_torch.parallel.fsdp import shard_params
         with opt.gathered():
@@ -225,6 +240,127 @@ def localsgd(inp, rank, world, out_dir):
         out.append({"loss": float(m["loss"]), "averaged": float(m["averaged"]),
                     "sd": _state(model)})
     return out
+
+
+def tp_eval(inp, rank, world, out_dir):
+    """The eval step on a (W / tp, tp) mesh with the model cut (features of
+    ``batch``, every rank), and ``FeatureExtractor(mesh=)`` on the uint8
+    ``request`` against a one-device extractor of the full model."""
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.parallel.tp import shard_editor
+    from editor_tpu_torch.serve import FeatureExtractor
+    mesh = _mesh(inp["tp"])
+    full = _model(inp)
+    model = shard_editor(_model(inp), mesh)
+    batch = {k: _t(v) for k, v in inp["batch"].items() if k != "pid"}
+    feats = build_eval_step(model, torch.float64, mesh)(batch)
+    req = {k: np.asarray(v) for k, v in inp["request"].items()}
+    got = FeatureExtractor(model, batch_size=4, compute_dtype=torch.float64, mesh=mesh)(req)
+    ref = FeatureExtractor(full, batch_size=4, compute_dtype=torch.float64)(req)
+    return {"feats": feats, "served": got, "served_ref": ref}
+
+
+def _axis_mesh(world, name):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", (world,), mesh_dim_names=(name,))
+
+
+def _grads(loss, leaves):
+    """(the loss, the gradient of each of ``leaves``) after one backward."""
+    loss.backward()
+    return float(loss.detach()), {k: v.grad.clone() for k, v in leaves.items()}
+
+
+def row_parallel(inp, rank, world, out_dir):
+    """``vit._row_parallel`` over every rank at bf16 on this rank's input
+    columns of x [.., W*c] and weight [d, W*c] (the bias replicated): the
+    output and the gradients of sum(y * g) for x's block, the weight's
+    block and the bias."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from editor_tpu_torch.models.vit import TPGroup, _row_parallel
+    c = inp["x"].shape[-1] // world
+    x = inp["x"][..., rank * c:(rank + 1) * c].clone().requires_grad_(True)
+    lin = dataclasses.make_dataclass("Lin", ["weight", "bias"])(
+        inp["w"][:, rank * c:(rank + 1) * c].clone().requires_grad_(True),
+        inp["b"].clone().requires_grad_(True))
+    y = _row_parallel(x, lin, TPGroup(dist.group.WORLD, world, rank))
+    (y.float() * inp["g"].float()).sum().backward()
+    return {"y": y.detach(), "dx": x.grad, "dw": lin.weight.grad, "db": lin.bias.grad}
+
+
+def ring(inp, rank, world, out_dir):
+    """Each of ``inp["cases"]`` ({fn: a ``parallel.ring`` function, q, k, v,
+    mask?, w}) over a 'seq' mesh of every rank: the output and the
+    gradients of sum(out * w) with respect to q, k and v; then
+    ``masked_attention_from_qkv(seq_mesh=)`` on an uncompacted length and
+    Ulysses on 3 heads (the divisibility errors)."""
+    from editor_tpu_torch.ops import masked_attention_from_qkv
+    from editor_tpu_torch.parallel import ring as R
+    mesh = _axis_mesh(world, "seq")
+    out = {}
+    for name, case in inp["cases"].items():
+        qkv = {k: _t(case[k]).requires_grad_(True) for k in ("q", "k", "v")}
+        args = [qkv["q"], qkv["k"], qkv["v"]]
+        if "mask" in case:
+            args.append(_t(case["mask"]))
+        y = getattr(R, case["fn"])(*args, mesh)
+        _, g = _grads((y * _t(case["w"])).sum(), qkv)
+        out[name] = {"y": y.detach(), "grads": g}
+    for key, fn in (("divisibility", lambda: masked_attention_from_qkv(
+            torch.zeros(1, 129, 48, dtype=torch.float64),
+            torch.ones(1, 129, dtype=torch.float64), 4, 0.25, use_kernels=False,
+            seq_mesh=mesh)),
+            ("heads", lambda: R.ulysses_attention(*(torch.zeros(1, 3, 8 * world, 4),) * 3,
+                                                  mesh))):
+        try:
+            fn()
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
+    return out
+
+
+def _fusion(inp):
+    """A ``BlockMask`` of ``inp["fusion"]`` (its state dict, width, experts)
+    and its inputs."""
+    from editor_tpu_torch.models.fusion import BlockMask
+    f = inp["fusion"]
+    block = BlockMask(f["dim"], f["num_classes"], mlp_ratio=f["mlp_ratio"],
+                      num_heads=f["heads"], num_experts=f.get("experts", 0),
+                      device="cpu").to(torch.float64)
+    block.load_state_dict(f["sd"], strict=True)
+    feats = [_t(x) for x in f["feats"]]
+    return block, feats, _t(f["mask"]), _t(f["labels"])
+
+
+def fusion_parallel(inp, rank, world, out_dir):
+    """The fusion block in training over a mesh of every rank: ``seq`` (the
+    masked ring) or ``expert`` (``moe_mesh``): the loss mean(fused * proj)
+    + OCFR (+ 0.01 aux) and every parameter's gradient."""
+    block, feats, mask, labels = _fusion(inp)
+    kw = ({"seq_mesh": _axis_mesh(world, "seq")} if inp["axis"] == "seq"
+          else {"moe_mesh": _axis_mesh(world, "expert")})
+    fused, ocfr, aux = block(feats, mask, False, labels=labels, **kw)
+    loss = (fused * _t(inp["fusion"]["proj"])).mean() + ocfr
+    loss = loss + (0.0 if aux is None else 0.01 * aux)
+    value, grads = _grads(loss, dict(block.named_parameters()))
+    return {"loss": value, "grads": grads, "fused": fused.detach()}
+
+
+def moe(inp, rank, world, out_dir):
+    """``moe_ffn`` over an 'expert' mesh of every rank: y, the aux loss and
+    the gradients of sum(y * w) + aux with respect to x and each
+    parameter."""
+    from editor_tpu_torch.parallel.moe import MoEParams, moe_ffn
+    leaves = {k: _t(inp["params"][k]).requires_grad_(True) for k in MoEParams._fields}
+    leaves["x"] = _t(inp["x"]).requires_grad_(True)
+    y, aux = moe_ffn(MoEParams(*(leaves[k] for k in MoEParams._fields)), leaves["x"],
+                     _axis_mesh(world, "expert"))
+    _, grads = _grads((y * _t(inp["w"])).sum() + aux, leaves)
+    return {"y": y.detach(), "aux": float(aux), "grads": grads}
 
 
 def train(inp, rank, world, out_dir):
@@ -402,6 +538,7 @@ def fail(inp, rank, world, out_dir):
 
 
 TASKS = {"collectives": collectives, "reducers": reducers, "train": train,
+         "tp_eval": tp_eval, "row_parallel": row_parallel, "ring": ring, "moe": moe, "fusion_parallel": fusion_parallel,
          "localsgd": localsgd, "cmc": cmc,
          "cli_train": cli_train, "cli_test": cli_test, "fail": fail,
          "launch_train": launch_train, "launch_group": launch_group,
