@@ -207,10 +207,34 @@ Phases, each printing its lines and its seconds:
      else phase 10 (e)'s gate) and each rank's parameter storage between
      steps equal to param_memory_bytes at W = 2; with one card the phase
      says so.
+ 12. mp: model parallelism. (a) K1, K4 and K2 at a tensor-parallel rank's
+     shapes (H = 6) equal to the 12-head launch's heads; (b) the flagship
+     with MODEL.MOE_EXPERTS 8 (phases 3 and 5's checks, the plain fp32 run
+     taking the bf16 run's routing); with two cards or more (c) TPU.MESH_MODEL
+     2 through cli.launch against one card and (d) expert and sequence
+     parallelism on the fusion block (``--tp-rank``, ``--mp-rank``);
+     ``--phase-12`` runs it alone after the build.
+ 13. pp: pipeline parallelism. (a) On an NCCL group of one rank (mesh 1 x
+     stage 1 x 1), 3 flagship steps (phase 5's batch, augmentation, drop
+     path 0.1) through build_train_step(backbone=make_pipeline_backbone(mesh,
+     4)) with remat: losses within 3% and the parameter norm within 2% of
+     the single-device step and of the plain fp32 pipelined run from the
+     same weights, batch and generator; each step launches K1 2 x 12 x 4
+     (forward and recompute), K4 12 x 4, K3 2, K5 2 and no K2; the pipelined
+     eval forward launches K1 48, K3 2 and no K2, and its features meet
+     phase 3's gates against build_eval_step's (the SFTS tokens the two
+     rollouts select differently printed); the step's ms and peak memory
+     beside the single-device step's. With two cards or more (b) 2 stages,
+     and with four (c) 4 stages and 2 stages x 2 model ranks, ranks of this
+     script (``--pp-rank``) through cli.launch on phase 10 (e)'s inputs:
+     losses within 1% and every tensor's change within 10 (e)'s limit of
+     one card's, each rank's launches for its blocks, the step's ms and the
+     P2P bytes; with fewer cards the phase says so. ``--phase-13`` runs it
+     alone after the build.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
 (K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve, dp,
-fsdp), and last the result line {"ok": true, "device": {...}}. Any failed check
+fsdp, mp, pp), and last the result line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero without the result line; it does the
 same without a CUDA device.
 """
@@ -2706,11 +2730,11 @@ def _dp_id_batch(gen: torch.Generator, batch: dict) -> dict:
 
 
 def _dp_step(kind: str, cfg, ecfg, sd, mesh, augment: bool = True, reducer=None,
-             grad_scale: float = 1.0):
+             grad_scale: float = 1.0, backbone=None, dtype=torch.bfloat16):
     """(model, step) of ``kind``: 'single' (no mesh), 'global' (the
-    global-batch step on ``mesh``), 'zero1' (that with ZeRO-1), 'fsdp' (that
-    with FSDP) or 'ddp' (the local-batch step with ``reducer``), from the
-    weights ``sd``.
+    global-batch step on ``mesh``, with ``backbone`` pipelined), 'zero1'
+    (that with ZeRO-1), 'fsdp' (that with FSDP) or 'ddp' (the local-batch
+    step with ``reducer``), from the weights ``sd``, computing in ``dtype``.
     ``grad_scale``: every gradient multiplied by it before the optimizer
     steps (a planted fault for (e)'s control)."""
     from editor_tpu_torch.data.transforms import make_train_augment
@@ -2747,9 +2771,10 @@ def _dp_step(kind: str, cfg, ecfg, sd, mesh, augment: bool = True, reducer=None,
                                            compute_dtype=torch.bfloat16, augment=aug, seed=1)
     zero = (zero1_state_shardings(opt, mesh) if kind == "zero1" else
             fsdp_state_shardings(model, opt, mesh) if kind == "fsdp" else None)
-    return model, build_train_step(*args, torch.bfloat16, augment=aug, seed=1,
+    return model, build_train_step(*args, dtype, augment=aug, seed=1,
                                    mesh=None if kind == "single" else mesh,
-                                   state_shardings=zero, gather_params_compute=kind == "fsdp")
+                                   state_shardings=zero, gather_params_compute=kind == "fsdp",
+                                   backbone=backbone)
 
 
 def _dp_run(kind, cfg, ecfg, sd, mesh, batch, want: dict, reducer=None):
@@ -4086,6 +4111,320 @@ def mp_phase(card: str, gen: torch.Generator) -> dict:
     return {"shard": shard, "moe": moe, "tp": tp, "mp": mp}
 
 
+# Pipeline parallelism (phase 13): (a) the flagship through the pipelined
+# backbone on an NCCL group of one rank in this process (stage 1, M = 4,
+# remat), against the single-device step and the plain fp32 pipelined run;
+# with two cards or more (b) 2 stages and, with four, (c) 4 stages and 2
+# stages x 2 model ranks, each rank a process of this script (``--pp-rank``)
+# through cli.launch, against one card.
+PP_M = 4
+
+
+def _pp_want(L: int, M: int, train: bool) -> dict:
+    """A pipelined step's (or eval forward's) launches on a rank running L
+    blocks: K1 L*M in the forward (and L*M again in the backward's
+    recompute), K4 L*M, no K2, K3 and K5 2 in the replicated tail."""
+    if not train:
+        return expected(attention_qkv=L * M, masked_attention_qkv=2)
+    return expected(attention_qkv=2 * L * M, attention_qkv_bwd=L * M, masked_attention_qkv=2,
+                    masked_attention_qkv_bwd=2)
+
+
+def _pp_hop_bytes(ecfg, B: int, M: int, tp: int = 1) -> dict:
+    """Bytes of one microbatch's stage-to-stage hop at bf16: forward the
+    tokens, the fp32 rollout product on H/tp heads and (drop path) the draws;
+    backward the tokens' gradient."""
+    v = ecfg.vit
+    mb, N = 3 * B // M, v.num_patches + 1
+    tokens = mb * N * v.embed_dim * 2
+    prod = mb * (v.num_heads // tp) * N * N * 4
+    draws = mb * v.depth * 2 * 4 if v.drop_path_rate > 0 else 0
+    return {"tokens": tokens, "prod": prod, "draws": draws, "grad": tokens}
+
+
+def _pp_steps(cfg, ecfg, sd, batch, mesh=None, backbone=None, dtype=torch.bfloat16,
+              augment: bool = True, steps: int = 3):
+    """``steps`` train steps from ``sd`` (seed 1, as phase 5): (model, step,
+    losses, per-step launches)."""
+    model, step = _dp_step("single" if mesh is None else "global", cfg, ecfg, sd, mesh,
+                           augment=augment, backbone=backbone, dtype=dtype)
+    losses, launches = [], []
+    for epoch in range(1, steps + 1):
+        reset_counts()
+        losses.append(float(step(batch, epoch)["loss"]))
+        launches.append(launch_counts())
+    if not (np.isfinite(losses).all() and _grads_finite(model)):
+        raise AssertionError(f"non-finite losses {losses} or gradients")
+    return model, step, losses, launches
+
+
+def _pp_close(label: str, losses, norm, ref_losses, ref_norm) -> dict:
+    """Losses within 3% and the parameter norm within 2% (phase 5's gates)."""
+    dloss = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    dnorm = abs(norm - ref_norm) / ref_norm
+    if not (dloss <= 0.03 and dnorm <= 0.02):
+        raise AssertionError(f"{label}: losses {losses} vs {ref_losses}, norm {norm} vs "
+                             f"{ref_norm}")
+    return {"max_rel_dloss": f"{dloss:.5f}", "rel_dnorm": f"{dnorm:.2e}"}
+
+
+def _pp_eval(model, ecfg, bb, gen: torch.Generator) -> dict:
+    """(a)'s eval: the pipelined forward's launches and features against
+    build_eval_step's (phase 3's gates), and how many SFTS-selected tokens
+    the two rollouts choose differently."""
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.models.frequency import frequency_token_select
+    from editor_tpu_torch.models.sfts import sfts_select
+
+    batch = _eval_batch(gen, B_EVAL)
+    images = {m: batch[m].to(torch.bfloat16) for m in ("RGB", "NI", "TI")}
+    cams = batch["camid"]
+
+    def forward():
+        with torch.inference_mode():
+            return model(images, cam_ids=cams, training=False, backbone=bb).float()
+
+    forward()
+    torch.cuda.synchronize()
+    reset_counts()
+    feats = forward()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = _pp_want(ecfg.vit.depth, PP_M, train=False)
+    if launches != want:
+        raise AssertionError(f"pipelined eval launches {launches} != {want}")
+    ref = build_eval_step(model, torch.bfloat16)(batch)
+    min_cos, max_rel = _feature_agreement(feats, ref)
+    if not (feats.shape == ref.shape and torch.isfinite(feats).all()
+            and min_cos >= 0.99 and max_rel <= 0.08):
+        raise AssertionError(f"pipelined eval vs build_eval_step: cos {min_cos}, rel {max_rel}")
+    with torch.inference_mode():
+        mods = [images[m] for m in ("RGB", "NI", "TI")]
+        v = ecfg.vit
+        mask = frequency_token_select(mods, keep=ecfg.frequency_keep, stride=v.stride_size[0],
+                                      window=v.patch_size)
+        toks, rolls = bb(model, ecfg, mods, cams, None, False, None)
+        tok_s, roll_s = model.BACKBONE.base(torch.cat(mods), cams.repeat(3), None, True, False)
+        idx = sfts_select(toks, rolls, mask, ecfg.head_keep)[1]
+        idx_s = sfts_select(list(tok_s.split(B_EVAL)), list(roll_s.split(B_EVAL)), mask,
+                            ecfg.head_keep)[1]
+        roll_err = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(rolls, roll_s.split(B_EVAL)))
+    fwd_ms = cuda_ms(forward, iters=5)
+    ref_ms = cuda_ms(lambda: build_eval_step(model, torch.bfloat16)(batch), iters=5)
+    return {"launches": launches, "min_cos": f"{min_cos:.6f}", "max_rel_l2": f"{max_rel:.6f}",
+            "selected_differ": int((idx != idx_s).sum()), "selected": int(idx_s.sum()),
+            "rollout_max_abs_diff": f"{roll_err:.3e}", "fwd_ms": f"{fwd_ms:.2f}",
+            "eval_step_ms": f"{ref_ms:.2f}"}
+
+
+def _pp_one_card(card: str, gen: torch.Generator, bare_step_ms) -> dict:
+    """(a): the flagship (B = 128 as 8 ids x 16, uint8 through the
+    augmentation, bf16, drop path 0.1, compact tail) on an NCCL group of one
+    rank, mesh (1, stage 1, 1): 3 steps through build_train_step(backbone=
+    make_pipeline_backbone(mesh, 4)) against phase 5's single-device step
+    and the plain fp32 pipelined run from the same weights, batch and
+    generator (loss 3%, norm 2%); launches as :func:`_pp_want`; the eval
+    forward (:func:`_pp_eval`); the step's ms and peak memory beside the
+    single-device step's."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from editor_tpu_torch.models.init import editor_init
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.parallel.mesh import make_mesh
+    from editor_tpu_torch.parallel.pipeline_vit import make_pipeline_backbone
+
+    cfg, ecfg = flagship()
+    L = ecfg.vit.depth
+    want = _pp_want(L, PP_M, train=True)
+    h, w = ecfg.vit.img_size
+    batch = _dp_batch(gen, cfg, h, w)
+    sd0 = {k: v.clone() for k, v in editor_init(ecfg, seed=0).state_dict().items()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    try:
+        if not multihost.initialize(init_method="file://" + os.path.join(tmp, "store"),
+                                    world_size=1, rank=0,
+                                    local_rank=torch.cuda.current_device()):
+            raise AssertionError("no process group was made")
+        mesh = make_mesh(1, 1, stage=1)
+        bb = make_pipeline_backbone(mesh, PP_M, remat=True)
+        model, step, losses, launches = _pp_steps(cfg, ecfg, sd0, batch, mesh, bb)
+        if any(lc != want for lc in launches):
+            raise AssertionError(f"pipelined step launches {launches} != {want}")
+        norm = _param_norm(model)
+        epoch = cfg.SOLVER.WARMUP_ITERS + 1
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pp_ms = cuda_ms(lambda: step(batch, epoch), iters=5)
+        pp_peak = torch.cuda.max_memory_allocated() / 1e9
+        del step
+        evaluated = _pp_eval(model, ecfg, bb, gen)
+        del model
+        torch.cuda.empty_cache()
+        single, step1, s_losses, _ = _pp_steps(cfg, ecfg, sd0, batch)
+        vs_single = _pp_close("pipelined vs single-device", losses, norm, s_losses,
+                              _param_norm(single))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        one_ms = cuda_ms(lambda: step1(batch, epoch), iters=5)
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        del single, step1
+        torch.cuda.empty_cache()
+        plain_ecfg = dataclasses.replace(ecfg, use_pallas=False)
+        plain, _, p_losses, p_launches = _pp_steps(cfg, plain_ecfg, sd0, batch, mesh, bb,
+                                                   dtype=torch.float32)
+        if any(lc != expected() for lc in p_launches):
+            raise AssertionError(f"the plain fp32 run launched kernels: {p_launches}")
+        vs_plain = _pp_close("pipelined vs plain fp32 pipelined", losses, norm, p_losses,
+                             _param_norm(plain))
+        del plain
+        torch.cuda.empty_cache()
+        hop = _pp_hop_bytes(ecfg, len(batch["pid"]), PP_M)
+        say("13a pp one card", stage=1, microbatches=PP_M, remat=True,
+            launches=json.dumps(launches[-1]), loss=json.dumps([round(x, 5) for x in losses]),
+            single_loss=json.dumps([round(x, 5) for x in s_losses]),
+            plain_fp32_loss=json.dumps([round(x, 5) for x in p_losses]),
+            vs_single=json.dumps(vs_single), vs_plain=json.dumps(vs_plain))
+        say("13a pp eval", **{k: (json.dumps(v) if isinstance(v, dict) else v)
+                              for k, v in evaluated.items()})
+        say("13a pp timing", pp_step_ms=f"{pp_ms:.2f}", single_step_ms=f"{one_ms:.2f}",
+            phase5_bare_step_ms="not run" if bare_step_ms is None else f"{bare_step_ms:.2f}",
+            pp_over_single=f"{pp_ms / one_ms:.4f}", pp_peak_gb=f"{pp_peak:.2f}",
+            single_peak_gb=f"{one_peak:.2f}",
+            hop_mb=json.dumps({k: round(v / 1e6, 2) for k, v in hop.items()}),
+            p2p_bytes_per_step=0, card=repr(card))
+        return {"train": launches[-1], "eval": evaluated["launches"], "step_ms": pp_ms}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def pp_rank(d: str) -> None:
+    """One rank of (b)/(c) under cli.launch: the mesh (1, stage, tp) of the
+    saved layout, the model from the saved weights (cut by shard_editor
+    under tp), 2 pipelined steps on the saved batch (each step's launches
+    and collective calls), the canonical state (rank 0 writes), the step's
+    ms and peak memory."""
+    from editor_tpu_torch.parallel import collectives as Coll
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.parallel.mesh import make_mesh, model_group
+    from editor_tpu_torch.parallel.pipeline_vit import make_pipeline_backbone
+    from editor_tpu_torch.parallel.tp import gather_editor_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    multihost.initialize(timeout_s=240)
+    rank = multihost.process_index()
+    S, tp = inp["stage"], inp["tp"]
+    cfg, ecfg = inp["cfg"], inp["ecfg"]
+    mesh = make_mesh(1, tp, stage=S)
+    sd = {k: v.cuda() for k, v in inp["sd"].items()}
+    batch = {k: v.cuda() for k, v in inp["batch"].items()}
+    bb = make_pipeline_backbone(mesh, PP_M)
+    model, step, losses, launches = _pp_steps(cfg, ecfg, sd, batch, mesh, bb, augment=False,
+                                              steps=1)
+    Coll.reset_collective_counts()
+    reset_counts()
+    losses.append(float(step(batch, 2)["loss"]))
+    launches.append(launch_counts())
+    out = {"losses": losses, "launches": launches, "collectives": Coll.collective_counts()}
+    state = (gather_editor_state(model, model_group(mesh)) if tp > 1
+             else model.state_dict())
+    if rank == 0:
+        out["sd"] = {k: v.detach().cpu() for k, v in state.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["ms"] = cuda_ms(lambda: step(batch, cfg.SOLVER.WARMUP_ITERS + 1), iters=3)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(out, os.path.join(d, f"out_{rank}.pt"))
+    multihost.shutdown()
+
+
+def _pp_multi(card: str, gen: torch.Generator) -> dict:
+    """(b) and (c) with two cards or more: 2 stages on 2 cards and, with
+    four, 4 stages and 2 stages x 2 model ranks, M = 4, phase 10 (e)'s
+    inputs (drop path 0, no augmentation, identity-like images), each rank
+    a process through cli.launch: losses the same on every rank and within
+    1% of one card's, every tensor's change within phase 10 (e)'s
+    DP_W_LIMIT, each rank's launches as :func:`_pp_want` for its blocks; the
+    step's ms against one card's, the P2P calls and bytes a step."""
+    import shutil
+    import tempfile
+
+    from editor_tpu_torch.models.init import editor_init
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say("13b pp ranks", world_sizes="1", note="one card: (b) needs two cards, (c) four")
+        return {}
+    cfg, ecfg = flagship()
+    ecfg = dataclasses.replace(ecfg, vit=dataclasses.replace(ecfg.vit, drop_path_rate=0.0))
+    L = ecfg.vit.depth
+    h, w = ecfg.vit.img_size
+    sd0 = {k: v.clone() for k, v in editor_init(ecfg, seed=0).state_dict().items()}
+    batch = _dp_id_batch(gen, _dp_batch(gen, cfg, h, w))
+    ref_losses, ref_d, step = _dp_one_card(cfg, ecfg, sd0, batch)
+    one_ms = cuda_ms(lambda: step(batch, cfg.SOLVER.WARMUP_ITERS + 1), iters=3)
+    del step
+    torch.cuda.empty_cache()
+    layouts = [("13b", 2, 1)] + ([("13c", 4, 1), ("13c", 2, 2)] if n >= 4 else [])
+    result = {}
+    for label, S, tp in layouts:
+        world = S * tp
+        d = tempfile.mkdtemp(prefix=f"chip_smoke_pp{S}x{tp}_")
+        try:
+            torch.save({"cfg": cfg, "ecfg": ecfg, "stage": S, "tp": tp,
+                        "sd": {k: v.cpu() for k, v in sd0.items()},
+                        "batch": {k: v.cpu() for k, v in batch.items()}},
+                       os.path.join(d, "inputs.pt"))
+            _launch_ranks(world, "--pp-rank", d)
+            outs = [torch.load(os.path.join(d, f"out_{r}.pt"), weights_only=False)
+                    for r in range(world)]
+            sd = outs[0]["sd"]
+            err = _delta_err({k: sd[k].float() - sd0[k].float().cpu() for k in ref_d}, ref_d)
+            dl = max(abs(a - b) / abs(b) for a, b in zip(outs[0]["losses"], ref_losses))
+            if not (all(o["losses"] == outs[0]["losses"] for o in outs) and dl <= 0.01
+                    and max(err.values()) <= DP_W_LIMIT):
+                raise AssertionError(f"pp {S}x{tp}: losses {[o['losses'] for o in outs]} vs "
+                                     f"{ref_losses}; worst {_worst(err)}")
+            want = _pp_want(L // S, PP_M, train=True)
+            for r, o in enumerate(outs):
+                if any(lc != want for lc in o["launches"]):
+                    raise AssertionError(f"pp {S}x{tp} rank {r}: launches {o['launches']} != "
+                                         f"{want}")
+            hop = _pp_hop_bytes(ecfg, len(batch["pid"]), PP_M, tp)
+            fwd = hop["tokens"] + hop["prod"] + hop["draws"]
+            p2p = (S - 1) * PP_M * (fwd + hop["grad"])  # every hop of a stage group
+            result[f"{S}x{tp}"] = {"train": outs[0]["launches"][-1], "ms": outs[0]["ms"]}
+            say(f"{label} pp ranks", stage=S, tp=tp, microbatches=PP_M,
+                losses=json.dumps(outs[0]["losses"]), ref_losses=json.dumps(ref_losses),
+                max_rel_dloss=f"{dl:.2e}", max_err=f"{max(err.values()):.3e}",
+                worst=_worst(err), limit=DP_W_LIMIT, launches_per_step=json.dumps(want),
+                collectives_rank0=json.dumps(outs[0]["collectives"]),
+                collectives_last=json.dumps(outs[-1]["collectives"]),
+                hop_mb=json.dumps({k: round(v / 1e6, 2) for k, v in hop.items()}),
+                p2p_mb_per_step_per_stage_group=f"{p2p / 1e6:.1f}",
+                pp_step_ms=f"{outs[0]['ms']:.2f}", one_card_step_ms=f"{one_ms:.2f}",
+                peak_gb=json.dumps([round(o["peak_gb"], 2) for o in outs]), card=repr(card))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    return result
+
+
+def pp_phase(card: str, gen: torch.Generator, bare_step_ms=None) -> dict:
+    """Phase 13: pipeline parallelism. (a) one card; (b) 2 stages and (c) 4
+    stages and 2 x 2 (pp x tp), with two and four cards (fewer: they say
+    so)."""
+    one = _pp_one_card(card, gen, bare_step_ms)
+    torch.cuda.empty_cache()
+    return {**one, "multi": _pp_multi(card, gen)}
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4130,6 +4469,8 @@ def main() -> None:
     fsdp = timed("11 fsdp", fsdp_phase, card)
     torch.cuda.empty_cache()
     mp = timed("12 mp", mp_phase, card, gen)
+    torch.cuda.empty_cache()
+    pp = timed("13 pp", pp_phase, card, gen, bare_step_ms)
     # launches, launches_eval: per train step and per eval forward (loop: eval
     # batch), summed over the three paths (compact: phases 3 and 5;
     # uncompacted: phase 6; the loop: phase 8, with its run's total), each
@@ -4142,16 +4483,20 @@ def main() -> None:
                    "serve": {k: served[k][name] for k in ("query", "visualize")},
                    "dp": {k: dp[k][name] for k in ("train", "eval")},
                    "fsdp": {k: fsdp[k][name] for k in ("train", "eval")},
-                   "mp": _mp_launches(mp, name)}
+                   "mp": _mp_launches(mp, name),
+                   "pp": {"train": pp["train"][name], "eval": pp["eval"][name],
+                          **{f"ranks_{k}_train": v["train"][name]
+                             for k, v in pp["multi"].items()}}}
         info = {k: v for k, v in spec.items() if k != "tool"}
         extra = {"tp_shard": mp["shard"][name]} if name in mp["shard"] else {}
         rows.append(dict(name=name, route="cuda", **info,
                          launches=(launches[name] + un_train[name] + looped["train"][name]
                                    + dp["train"][name] + fsdp["train"][name]
-                                   + mp["moe"]["train"][name]),
+                                   + mp["moe"]["train"][name] + pp["train"][name]),
                          launches_eval=(eval_launches[name] + un_eval[name]
                                         + looped["eval"][name] + dp["eval"][name]
-                                        + fsdp["eval"][name] + mp["moe"]["eval"][name]),
+                                        + fsdp["eval"][name] + mp["moe"]["eval"][name]
+                                        + pp["eval"][name]),
                          launches_by_path=by_path, **kernels[name], **extra))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4172,9 +4517,15 @@ if __name__ == "__main__":
         tp_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--mp-rank"]:  # one rank of phase 12 (d)
         mp_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--pp-rank"]:  # one rank of phase 13 (b), (c)
+        pp_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--phase-12"]:  # phase 12 alone, after the build
         card = card_check()
         timed("1 build", build_phase)
         timed("12 mp", mp_phase, card, torch.Generator(device="cuda").manual_seed(0))
+    elif sys.argv[1:2] == ["--phase-13"]:  # phase 13 alone, after the build
+        card = card_check()
+        timed("1 build", build_phase)
+        timed("13 pp", pp_phase, card, torch.Generator(device="cuda").manual_seed(0))
     else:
         main()

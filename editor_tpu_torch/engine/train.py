@@ -28,6 +28,15 @@ over the model group (``Editor.forward(tp_mesh=)``), every rank of a model
 group holding the same rows; the batch, the gathers and the gradients' mean
 all-reduce run over the data group only, and the generator is keyed by the
 data rank, so the ranks of a model group draw the same masks.
+
+With ``backbone=`` (``parallel.pipeline_vit.make_pipeline_backbone``; its
+mesh is the step's) the forward's backbone runs through the pipeline over
+the mesh's 'stage' group, every stage of a data row holding the same rows
+and the whole model; a rank computes its stage's blocks only, the gradient
+is made whole over the stage group (one flat sum all-reduce, the blocks and
+the embedding exact zeros off their stage, the replicated tail's taken from
+the last stage) and then averaged over the data group, so every rank takes
+the same step and the ranks' parameters stay equal.
 """
 
 from __future__ import annotations
@@ -57,18 +66,18 @@ def step_images(batch: Dict[str, torch.Tensor], augment: Optional[Callable],
 
 
 def make_loss_of(model: Editor, loss_func: Callable, gen: torch.Generator,
-                 batch_group=None, tp_mesh=None) -> Callable:
+                 batch_group=None, tp_mesh=None, backbone=None) -> Callable:
     """loss_of(images, labels, cams) -> (total, acc): the forward and the
     output-tuple loss (every (score, feat) pair, plus the aux loss). With
     ``batch_group`` the labels are gathered and the model sees the global
-    batch; ``tp_mesh`` is passed to the forward."""
+    batch; ``tp_mesh`` and ``backbone`` are passed to the forward."""
     device = next(model.parameters()).device
 
     def loss_of(images, labels, cams):
         if batch_group is not None:
             labels = C.all_gather(labels, batch_group)
         out = model(images, cam_ids=cams, training=True, labels=labels, generator=gen,
-                    batch_group=batch_group, tp_mesh=tp_mesh)
+                    batch_group=batch_group, tp_mesh=tp_mesh, backbone=backbone)
         total = torch.zeros((), dtype=torch.float32, device=device)
         for score, feat in out.pairs:
             total = total + loss_func(score, feat, labels)
@@ -137,13 +146,20 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
     leaves at the top of the step; after the microbatch loop one mean
     reduce-scatter of their gradients into this rank's blocks and the mean
     all-reduce of the replicated leaves'; the full parameters freed; the
-    update on the blocks. ``backbone`` (pipeline) is not ported and
-    raises."""
+    update on the blocks. ``backbone``: the pipelined backbone
+    (``parallel.pipeline_vit.make_pipeline_backbone``) on ``mesh`` (by
+    default its own), with a 'data' axis dp x pp and a 'model' axis above 1
+    pp x tp (module docstring); not with ``state_shardings``."""
     from editor_tpu_torch.parallel.fsdp import FsdpOptimizer
     from editor_tpu_torch.parallel.zero import Zero1Optimizer
 
     if backbone is not None:
-        raise NotImplementedError("backbone= is not ported")
+        mesh = backbone.mesh if mesh is None else mesh
+        if mesh is not backbone.mesh:
+            raise ValueError("the pipelined backbone's mesh is the step's mesh")
+        if state_shardings is not None:
+            raise NotImplementedError("ZeRO-1 and FSDP (state_shardings=) with a pipelined "
+                                      "backbone are not ported")
     fsdp = isinstance(state_shardings, FsdpOptimizer)
     if gather_params_compute != fsdp or (fsdp and mesh is None):
         raise ValueError("gather_params_compute=True takes the FSDP layout "
@@ -162,7 +178,8 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
     rank = 0 if mesh is None else data_rank(mesh)
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(rank_seed(seed, rank))
-    loss_of = make_loss_of(model, loss_func, gen, batch_group=mesh, tp_mesh=tp_mesh)
+    loss_of = make_loss_of(model, loss_func, gen, batch_group=mesh, tp_mesh=tp_mesh,
+                           backbone=backbone)
     params = trainable(model)
 
     def step(batch: Dict[str, torch.Tensor], epoch) -> Dict[str, Any]:
@@ -186,6 +203,8 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
             optimizer.reduce_grads()
             optimizer.free()
         elif mesh is not None:
+            if backbone is not None:
+                backbone.reduce_grads(model)
             mean_all_reduce_grads(params, mesh)
         if grad_accum > 1:
             inv = 1.0 / grad_accum

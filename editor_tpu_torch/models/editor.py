@@ -24,8 +24,10 @@ Model parallelism (the JAX ``editor_apply`` options): ``tp_mesh`` (tensor
 parallelism of the backbone over a ('data', 'model') mesh, on a model cut
 by ``parallel.tp.shard_editor``; the fusion block, SFTS, the BN heads and
 OCFR run replicated on every model rank), ``seq_mesh`` (the fusion block's
-masked attentions sequence-sharded, ``parallel.ring``) and ``moe_mesh`` /
-``moe_shards`` (the MoE's experts sharded, ``parallel.moe``).
+masked attentions sequence-sharded, ``parallel.ring``), ``moe_mesh`` /
+``moe_shards`` (the MoE's experts sharded, ``parallel.moe``) and
+``backbone`` (the backbone pipelined over a 'stage' mesh,
+``parallel.pipeline_vit``).
 """
 
 from __future__ import annotations
@@ -278,12 +280,14 @@ class Editor(nn.Module):
         dimension) / ``moe_shards``: the MoE joint MLP's experts sharded /
         the S-shard routing on one device. The parallel paths' gradients
         follow ``parallel.collectives`` (the module docstrings of
-        ``parallel.ring`` and ``parallel.moe``). ``backbone`` (the pipeline)
-        is not ported and raises."""
+        ``parallel.ring`` and ``parallel.moe``). ``backbone``: a replacement
+        of the shared backbone pass, ``(model, cfg, mods, cam_ids, view_ids,
+        training, generator) -> (toks, rolls)`` per modality, e.g. the
+        pipelined backbone (``parallel.pipeline_vit.make_pipeline_backbone``,
+        which takes tensor parallelism from its own mesh); everything after
+        it sees the full batch."""
         if training and labels is None:
             raise ValueError("the training forward needs labels")
-        if backbone is not None:
-            raise NotImplementedError("backbone= is not ported yet")
         if (moe_mesh is not None or moe_shards != 1) and self.cfg.moe_experts == 0:
             raise ValueError("moe_mesh= and moe_shards= need a MoE model (moe_experts > 0)")
         tp = tp_group(tp_mesh)
@@ -298,11 +302,14 @@ class Editor(nn.Module):
         mask_fre = frequency_token_select(mods, keep=cfg.frequency_keep,
                                           stride=cfg.vit.stride_size[0],
                                           window=cfg.vit.patch_size)
-        cams = cam_ids.repeat(M) if cam_ids is not None else None
-        views = view_ids.repeat(M) if view_ids is not None else None
-        tokens, rollout = self.BACKBONE.base(torch.cat(mods), cams, views, use_kernels,
-                                             training, generator, tp)
-        toks, rolls = list(tokens.split(B)), list(rollout.split(B))
+        if backbone is not None:
+            toks, rolls = backbone(self, cfg, mods, cam_ids, view_ids, training, generator)
+        else:
+            cams = cam_ids.repeat(M) if cam_ids is not None else None
+            views = view_ids.repeat(M) if view_ids is not None else None
+            tokens, rollout = self.BACKBONE.base(torch.cat(mods), cams, views, use_kernels,
+                                                 training, generator, tp)
+            toks, rolls = list(tokens.split(B)), list(rollout.split(B))
 
         head_pairs = []
         if training:

@@ -269,6 +269,22 @@ class VisionTransformer(nn.Module):
             row = _ids(view_id, "view")
         return tokens + cfg.sie_xishu * self.sie_embed[row].to(tokens.dtype)
 
+    def run_blocks(self, tokens: torch.Tensor, l0: int, l1: int, probs: torch.Tensor,
+                   use_kernels: bool = True, draws: Optional[torch.Tensor] = None,
+                   tp: Optional[TPGroup] = None) -> torch.Tensor:
+        """Blocks ``l0..l1-1`` on ``tokens`` [b, N, C] (one pipeline stage's
+        work on one microbatch), each at its global layer index: block l
+        writes its maps into ``probs[l - l0]`` ([l1 - l0, b, H(/tp), N, N])
+        and, with ``draws`` ([depth, 2, b, 1, 1], these rows of the draws
+        :meth:`forward` makes in training), applies drop path at its rate
+        of ``linspace(0, drop_path_rate, depth)`` with ``draws[l]``."""
+        cfg = self.cfg
+        rates = torch.linspace(0.0, cfg.drop_path_rate, cfg.depth, dtype=torch.float64).tolist()
+        for l in range(l0, l1):
+            kw = {} if draws is None else {"rate": rates[l], "u": draws[l]}
+            tokens = self.blocks[l](tokens, probs[l - l0], use_kernels, tp=tp, **kw)
+        return tokens
+
     def forward(self, x: torch.Tensor, camera_id: Optional[torch.Tensor] = None,
                 view_id: Optional[torch.Tensor] = None, use_kernels: bool = True,
                 training: bool = False, generator: Optional[torch.Generator] = None,

@@ -110,6 +110,27 @@ def _permute(x: torch.Tensor, pg, pairs: Sequence[Tuple[int, int]]) -> torch.Ten
     return out
 
 
+def _exchange(sends: Sequence[torch.Tensor], dst: Optional[int],
+              recvs: Sequence[torch.Tensor], src: Optional[int], pg) -> None:
+    """One batch of point-to-point ops: each of ``sends`` to group rank
+    ``dst``, each of ``recvs`` filled in place from group rank ``src``."""
+    _COUNTS["p2p"] += 1
+    glob = (lambda q: q) if pg is None else (lambda q: dist.get_global_rank(pg, q))
+    sends = [t.contiguous() for t in sends]
+    ops = ([dist.P2POp(dist.isend, t, glob(dst), pg) for t in sends]
+           + [dist.P2POp(dist.irecv, t, glob(src), pg) for t in recvs])
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _broadcast_(x: torch.Tensor, root: int, pg) -> torch.Tensor:
+    """Group rank ``root``'s x into x on every rank, in place."""
+    _COUNTS["broadcast"] += 1
+    dist.broadcast(x, src=root if pg is None else dist.get_global_rank(pg, root), group=pg)
+    return x
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, pg):

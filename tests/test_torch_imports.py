@@ -60,6 +60,7 @@ from editor_tpu_torch.parallel import collectives, compression, ddp, mesh, multi
 from editor_tpu_torch.parallel import elastic, etcd, fsdp, localsgd, rendezvous
 from editor_tpu_torch.cli import launch as cli_launch
 from editor_tpu_torch.parallel import moe, ring, tp
+from editor_tpu_torch.parallel import deferred_bn, pipeline, pipeline_vit
 import torch.distributed as dist
 group_after_import = dist.is_initialized()  # importing the data-parallel modules makes no group
 
@@ -149,8 +150,14 @@ def test_port_imports_no_jax_and_runs_tiny_forward(tmp_path):
             "moe_ffn", "moe_ffn_dense", "moe_init", "MoEParams", "ring_attention",
             "ring_masked_attention", "ulysses_attention",
             "ulysses_masked_attention"} <= set(out["parallel"])
+    # the pipeline: the GPipe schedule, skips, balance, the EDITOR backbone, DeferredBN
+    assert {"pipeline_apply", "pipeline_train_step", "init_skips", "stash", "pop",
+            "balance_stages", "profile_layer_costs", "make_pipeline_backbone",
+            "make_stage_fn", "PipelineBackbone", "bn_params_init", "bn_acc_init",
+            "deferred_bn_apply", "deferred_bn_commit"} <= set(out["parallel"])
     assert out["moe"] == [[2, 288], [2, 288], True, True]
-    for name in ("fsdp", "localsgd", "elastic", "rendezvous", "etcd", "tp", "moe", "ring"):
+    for name in ("fsdp", "localsgd", "elastic", "rendezvous", "etcd", "tp", "moe", "ring",
+                 "pipeline", "pipeline_vit", "deferred_bn"):
         assert f"editor_tpu_torch.parallel.{name}" in out["new"], name
     assert "editor_tpu_torch.cli.launch" in out["new"]
 

@@ -107,11 +107,14 @@ def test_port_init_distributions():
 
 
 def test_unported_options_raise():
-    """The pipeline (``backbone=``) is still not ported. The model-parallel
-    options are (tests/test_torch_tp.py, test_torch_moe.py,
-    test_torch_ring.py): here they refuse what is not a mesh, one expert
-    (JAX's ``blockmask_moe_init`` check) and MoE options on a dense model;
-    a JAX MoE tree maps into a MoE model's state dict."""
+    """The pipeline (``backbone=``) is ported (tests/test_torch_pipeline_vit.py,
+    test_torch_pipeline_step.py): here the hook is called once with the
+    model, its config, the modalities, the ids, the mode and the generator,
+    and a hook that runs the model's own backbone gives the model's own
+    features. The model-parallel options are ported (tests/test_torch_tp.py,
+    test_torch_moe.py, test_torch_ring.py): here they refuse what is not a
+    mesh, one expert (JAX's ``blockmask_moe_init`` check) and MoE options on
+    a dense model; a JAX MoE tree maps into a MoE model's state dict."""
     jcfg = _tiny()
     cfg = torch_editor_config(jcfg)
     with pytest.raises(ValueError, match="MOE_EXPERTS must be >= 2"):
@@ -121,8 +124,17 @@ def test_unported_options_raise():
     model.load_state_dict(state_dict_from_jax(params, state, jcfg))
     imgs = {m: torch.zeros(1, 64, 32, 3) for m in ("RGB", "NI", "TI")}
     cam = torch.zeros(1, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        model(imgs, cam, backbone=object())
+    calls = []
+
+    def backbone(m, c, mods, cam_ids, view_ids, training, generator):
+        calls.append((m, c, len(mods), cam_ids, view_ids, training, generator))
+        tokens, rollout = m.BACKBONE.base(torch.cat(mods), cam_ids.repeat(len(mods)), None,
+                                          c.use_pallas, training, generator)
+        return list(tokens.split(len(cam_ids))), list(rollout.split(len(cam_ids)))
+
+    with torch.no_grad():
+        assert torch.equal(model(imgs, cam, backbone=backbone), model(imgs, cam))
+    assert calls == [(model, model.cfg, 3, cam, None, False, None)]
     for kw in (dict(tp_mesh=object()), dict(seq_mesh=object())):
         with pytest.raises(TypeError, match="mesh"):
             model(imgs, cam, **kw)

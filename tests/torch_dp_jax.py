@@ -325,3 +325,98 @@ def local_fusion(fusion, **kw):
     loss = loss + (0.0 if aux is None else 0.01 * aux)
     loss.backward()
     return float(loss.detach()), {k: p.grad.clone() for k, p in block.named_parameters()}
+
+
+# ---------------------------------------------------------------------------
+# the pipeline (tests/test_torch_pipeline_step.py, test_torch_pipeline_vit.py)
+# ---------------------------------------------------------------------------
+
+PP_B = 4
+
+
+def pp_jax_config():
+    """The JAX EditorConfig of the pipeline tests: ``tests/test_parallel.py``'s
+    pipelined EDITOR (64 x 32, width 96, depth 4, 4 heads, 2 cameras) at
+    drop path 0."""
+    vit = JaxViTConfig(img_size=(64, 32), patch_size=16, stride_size=(16, 16),
+                       embed_dim=96, depth=4, num_heads=4, mlp_ratio=2.0, camera=2,
+                       drop_path_rate=0.0)
+    return JaxEditorConfig(num_classes=4, vit=vit, head_keep=2, frequency_keep=3,
+                           use_pallas=False)
+
+
+@functools.lru_cache(maxsize=None)
+def pp_jax_setup():
+    """(JAX EditorConfig, Config, optimizer, float64 train state) of
+    :func:`pp_jax_config`, made once a process."""
+    jcfg = pp_jax_config()
+    cfg = JaxConfig()
+    params, _ = jax_editor_init(jax.random.PRNGKey(0), jcfg)
+    opt = jax_make_optimizer(cfg, params)
+    state = make_train_state(jax.random.PRNGKey(0), jcfg, opt)
+    state = jax.tree_util.tree_map(
+        lambda x: x.astype(jnp.float64) if x.dtype == jnp.float32 else x, state)
+    return jcfg, cfg, opt, state
+
+
+def make_pp_batch():
+    """B = 4 as 2 ids x 2, 2 cameras (``tests/test_parallel.py``'s pids)."""
+    rng = np.random.RandomState(0)
+    batch = {m: rng.randn(PP_B, 64, 32, 3) for m in ("RGB", "NI", "TI")}
+    batch["pid"] = np.arange(PP_B) % 2
+    batch["camid"] = np.arange(PP_B) % 2
+    return batch
+
+
+def pp_jax_mesh(data, stage, model):
+    """JAX's mesh of the layout: ('stage',), ('data', 'stage') or
+    ('data', 'stage', 'model') over the first devices."""
+    from jax.sharding import Mesh
+    devs = np.asarray(jax.devices()[:data * stage * model])
+    if data == 1 and model == 1:
+        return Mesh(devs, ("stage",))
+    if model == 1:
+        return Mesh(devs.reshape(data, stage), ("data", "stage"))
+    return Mesh(devs.reshape(data, stage, model), ("data", "stage", "model"))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_pp_step(data, stage, model, microbatches):
+    """JAX's train step with ``make_pipeline_backbone`` on that mesh, built
+    once a process."""
+    from editor_tpu.parallel.pipeline_vit import make_pipeline_backbone
+    jcfg, cfg, opt, _ = pp_jax_setup()
+    mesh = pp_jax_mesh(data, stage, model)
+    return mesh, jax_build_train_step(
+        jcfg, opt, jax_make_loss(cfg, 4), jax_make_scheduler(cfg), cfg.SOLVER.BASE_LR,
+        compute_dtype=jnp.float64, mesh=mesh, donate=False,
+        backbone=make_pipeline_backbone(mesh, num_microbatches=microbatches))
+
+
+def jax_pp(batch, data, stage, model, microbatches, steps=2):
+    """JAX's pipelined run from :func:`pp_jax_setup`'s state: (losses, the
+    canonical train state after it); under model > 1 the qkv columns are
+    permuted shard-major for the run and back after it."""
+    import dataclasses
+
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from editor_tpu.parallel.tp import permute_qkv_params
+    jcfg, _, _, state = pp_jax_setup()
+    H = jcfg.vit.num_heads
+    mesh, step = jax_pp_step(data, stage, model, microbatches)
+    if model > 1:
+        state = dataclasses.replace(state, params=permute_qkv_params(state.params, H, model))
+    spec = P("data") if "data" in mesh.axis_names else P()
+    feed = {k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, spec))
+            for k, v in batch.items()}
+    losses = []
+    for epoch in range(1, steps + 1):
+        state, m = step(state, feed, jnp.asarray(epoch))
+        losses.append(float(m["loss"]))
+    state = jax.device_get(state)
+    if model > 1:
+        state = dataclasses.replace(state, params=permute_qkv_params(state.params, H, model,
+                                                                     inverse=True))
+    return losses, state

@@ -112,7 +112,7 @@ def _state(model, opt=None, tp_mesh=None):
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
-def _build(kind, model, inp, mesh):
+def _build(kind, model, inp, mesh, backbone=None):
     from editor_tpu_torch.engine.train import build_train_step
     from editor_tpu_torch.parallel.compression import make_reducer
     from editor_tpu_torch.parallel.ddp import build_ddp_train_step
@@ -131,20 +131,21 @@ def _build(kind, model, inp, mesh):
             fsdp_state_shardings(model, opt, mesh) if kind == "fsdp" else None)
     step = build_train_step(model, opt, loss, lr_fn, base_lr, compute_dtype=dtype,
                             grad_accum=inp.get("grad_accum", 1), mesh=mesh,
-                            state_shardings=zero, gather_params_compute=kind == "fsdp")
+                            state_shardings=zero, gather_params_compute=kind == "fsdp",
+                            backbone=backbone)
     return step, step.optimizer
 
 
 _MESH = {}
 
 
-def _mesh(model: int = 1):
-    """The ('data', 'model') mesh over every rank with that model axis,
-    made once a process."""
+def _mesh(model: int = 1, stage=None):
+    """The ('data', 'model') mesh over every rank with that model axis (with
+    ``stage``, the ('data', 'stage', 'model') mesh), made once a process."""
     from editor_tpu_torch.parallel.mesh import make_mesh
-    if model not in _MESH:
-        _MESH[model] = make_mesh(-1, model)
-    return _MESH[model]
+    if (model, stage) not in _MESH:
+        _MESH[model, stage] = make_mesh(-1, model, stage=stage)
+    return _MESH[model, stage]
 
 
 def _train_run(spec, rank, world):
@@ -153,18 +154,23 @@ def _train_run(spec, rank, world):
     global-batch step on a (W / tp, tp) mesh, the model cut by
     ``shard_editor``; optionally resumed from the checkpoint ``resume`` and
     saving one (``train_state``, rank 0 writes) at ``save_path`` after
-    ``save_after`` steps. Returns losses, accs, lrs and the final state_dict
-    (canonical under tp)."""
+    ``save_after`` steps; ``stage``: the pipelined backbone over that many
+    stages (``microbatches``) on a (W / (stage tp), stage, tp) mesh. Returns
+    losses, accs, lrs and the final state_dict (canonical under tp)."""
     from editor_tpu_torch.parallel.mesh import shard_batch
     from editor_tpu_torch.utils.checkpoint import load_train_state, train_state
-    kind, tp = spec["kind"], spec.get("tp", 1)
-    mesh = None if kind == "single" else _mesh(tp)
+    kind, tp, stage = spec["kind"], spec.get("tp", 1), spec.get("stage")
+    mesh = None if kind == "single" else _mesh(tp, stage)
     tp_mesh = mesh if tp > 1 else None
     model = _model(spec)
     if tp_mesh is not None:
         from editor_tpu_torch.parallel.tp import shard_editor
         shard_editor(model, tp_mesh)
-    step, opt = _build(kind, model, spec, mesh)
+    backbone = None
+    if stage is not None:
+        from editor_tpu_torch.parallel.pipeline_vit import make_pipeline_backbone
+        backbone = make_pipeline_backbone(mesh, spec["microbatches"])
+    step, opt = _build(kind, model, spec, mesh, backbone)
     first = 1
     if spec.get("resume"):
         first = load_train_state(torch.load(spec["resume"], weights_only=False), model, opt,
@@ -363,6 +369,159 @@ def moe(inp, rank, world, out_dir):
     return {"y": y.detach(), "aux": float(aux), "grads": grads}
 
 
+# ---------------------------------------------------------------------------
+# the pipeline
+# ---------------------------------------------------------------------------
+
+def _toy_stage(params, h):
+    w, b = params
+    return torch.tanh(h @ w + b)
+
+
+def pipeline_toy(inp, rank, world, out_dir):
+    """The toy pipeline over a 'stage' mesh of every rank (stage s holds
+    w[s], b[s]): for each of ``cases`` ({M, remat}) the output, the
+    gradients of mean(out^2) with respect to w[s], b[s] and (stage 0) x, and
+    ``is_recomputing()`` at each call of the stage;
+    ``pipeline_train_step``'s loss and gradients; the stateful form's
+    counts of calls and of valid calls; with 4 stages the long skip of
+    ``tests/test_pipeline_skip_bn.py`` (stage 0 stashes its output, stage 3
+    pops it and adds), its output and gradient of mean(out^2)."""
+    from editor_tpu_torch.parallel.pipeline import (init_skips, is_recomputing,
+                                                    pipeline_apply, pipeline_train_step, pop,
+                                                    stash)
+    mesh = _axis_mesh(world, "stage")
+    w, b, x = (_t(inp[k]) for k in ("w", "b", "x"))
+    out = {"cases": []}
+    for case in inp["cases"]:
+        p = (w[rank].clone().requires_grad_(True), b[rank].clone().requires_grad_(True))
+        xg = x.clone().requires_grad_(True)
+        calls = []
+
+        def stage(params, h):
+            calls.append(is_recomputing())
+            return _toy_stage(params, h)
+
+        y = pipeline_apply(stage, p, xg, mesh, case["M"], remat=case["remat"])
+        (y ** 2).mean().backward()
+        out["cases"].append({"y": y.detach(), "gw": p[0].grad, "gb": p[1].grad,
+                             "gx": xg.grad if rank == 0 else None, "recomputing": calls})
+    step = pipeline_train_step(_toy_stage, lambda y: (y ** 2).mean(), mesh, 4)
+    loss, grads = step((w[rank].clone().requires_grad_(True),
+                        b[rank].clone().requires_grad_(True)), x)
+    out["train"] = {"loss": float(loss), "gw": grads[0], "gb": grads[1]}
+
+    def counting(params, h, st, valid):
+        return _toy_stage(params, h), {"ticks": st["ticks"] + 1,
+                                       "valid": st["valid"] + int(valid)}
+
+    y, st = pipeline_apply(counting, (w[rank], b[rank]), x, mesh, 3,
+                           stage_state={"ticks": 0, "valid": 0})
+    out["state"] = {"y": y, **st}
+    if world == 4:
+        def skip_stage(wl, xs):
+            h, skips = xs
+            o = torch.tanh(h @ wl)
+            if rank == 0:
+                skips = stash(skips, "s0to3", o)
+            if rank == world - 1:
+                val, skips = pop(skips, "s0to3")
+                o = o + val
+            return o, skips
+
+        wl = w[rank].clone().requires_grad_(True)
+        xs = (x, init_skips(x.shape[0], {"s0to3": torch.zeros(x.shape[1], dtype=x.dtype)}))
+        y, _ = pipeline_apply(skip_stage, wl, xs, mesh, 4)
+        (y ** 2).mean().backward()
+        out["skip"] = {"y": y.detach(), "gw": wl.grad}
+    return out
+
+
+def pipeline_bn(inp, rank, world, out_dir):
+    """DeferredBN inside each stage (stage s: BN, then tanh(h @ w[s])) with
+    its accumulator as the stage state: the output, this stage's
+    accumulator and the BN parameters it commits."""
+    from editor_tpu_torch.parallel.deferred_bn import (bn_acc_init, bn_params_init,
+                                                       deferred_bn_apply, deferred_bn_commit)
+    from editor_tpu_torch.parallel.pipeline import pipeline_apply
+    mesh = _axis_mesh(world, "stage")
+    w, x = _t(inp["w"]), _t(inp["x"])
+    D = x.shape[1]
+    bn = bn_params_init(D, torch.float64)
+
+    def stage_fn(params, h, acc, valid):
+        wl, bnp = params
+        h, acc = deferred_bn_apply(bnp, h, acc, valid)
+        return torch.tanh(h @ wl), acc
+
+    y, acc = pipeline_apply(stage_fn, (w[rank], bn), x, mesh, inp["M"],
+                            stage_state=bn_acc_init(D, torch.float64))
+    return {"y": y, "acc": acc, "committed": deferred_bn_commit(bn, acc)}
+
+
+def pipeline_vit(inp, rank, world, out_dir):
+    """The pipelined backbone on a (1, W / tp, tp) mesh with ``M``
+    microbatches. ``eval``: the tokens and rollout rows of ``mods``.
+    ``drop_path`` (tp 1): in training from a seeded generator, against the
+    scan backbone from the same generator state, and the backbone's
+    gradients of sum(mean(t^2)) both ways (the pipelined ones made whole by
+    ``reduce_grads``). ``refusals``: the errors of a depth the stages do not
+    divide, of dropout in training and (tp > 1) of heads the model axis does
+    not divide."""
+    import dataclasses
+
+    from editor_tpu_torch.parallel.pipeline_vit import make_pipeline_backbone
+    from editor_tpu_torch.parallel.tp import shard_editor
+    tp = inp.get("tp", 1)
+    mesh = _mesh(tp, world // tp)
+    model = _model(inp)
+    if tp > 1:
+        shard_editor(model, mesh)
+    bb = make_pipeline_backbone(mesh, inp["M"])
+    ecfg = inp["ecfg"]
+    mods = [_t(m) for m in inp["mods"]]
+    cam = _t(inp["cam"])
+    out = {}
+    with torch.no_grad():
+        toks, rolls = bb(model, ecfg, mods, cam, None, False, None)
+    out["eval"] = {"toks": torch.cat(toks), "rolls": torch.cat(rolls)}
+    if inp.get("drop_path"):
+        def loss_of(toks):
+            return sum((t ** 2).mean() for t in toks)
+
+        def backbone_grads():
+            return {n: p.grad.clone() for n, p in model.named_parameters()
+                    if n.startswith("BACKBONE.base.") and p.grad is not None}
+
+        toks, rolls = bb(model, ecfg, mods, cam, None, True, torch.Generator().manual_seed(7))
+        loss_of(toks).backward()
+        bb.reduce_grads(model)
+        grads = backbone_grads()
+        model.zero_grad(set_to_none=True)
+        t_ref, r_ref = model.BACKBONE.base(torch.cat(mods), cam.repeat(len(mods)), None,
+                                           ecfg.use_pallas, True,
+                                           torch.Generator().manual_seed(7))
+        loss_of(t_ref.split(mods[0].shape[0])).backward()
+        out["drop_path"] = {"toks": torch.cat(toks).detach(), "rolls": torch.cat(rolls),
+                            "toks_ref": t_ref.detach(), "rolls_ref": r_ref, "grads": grads,
+                            "grads_ref": backbone_grads()}
+    refusals = {}
+    vc = ecfg.vit
+    cases = [("depth", dataclasses.replace(vc, depth=vc.depth - 1)),
+             ("dropout", dataclasses.replace(vc, drop_rate=0.1))]
+    if tp > 1:
+        cases.append(("heads", dataclasses.replace(vc, num_heads=tp + 1)))
+    for key, vit in cases:
+        try:
+            bb(model, dataclasses.replace(ecfg, vit=vit), mods, cam, None, True,
+               torch.Generator().manual_seed(0))
+            refusals[key] = None
+        except (ValueError, NotImplementedError) as e:
+            refusals[key] = f"{type(e).__name__}: {e}"
+    out["refusals"] = refusals
+    return out
+
+
 def train(inp, rank, world, out_dir):
     """Each of ``inp["runs"]`` (the shared fields of ``inp`` under each)."""
     shared = {k: v for k, v in inp.items() if k != "runs"}
@@ -539,6 +698,7 @@ def fail(inp, rank, world, out_dir):
 
 TASKS = {"collectives": collectives, "reducers": reducers, "train": train,
          "tp_eval": tp_eval, "row_parallel": row_parallel, "ring": ring, "moe": moe, "fusion_parallel": fusion_parallel,
+         "pipeline_toy": pipeline_toy, "pipeline_bn": pipeline_bn, "pipeline_vit": pipeline_vit,
          "localsgd": localsgd, "cmc": cmc,
          "cli_train": cli_train, "cli_test": cli_test, "fail": fail,
          "launch_train": launch_train, "launch_group": launch_group,
