@@ -212,8 +212,14 @@ Phases, each printing its lines and its seconds:
      with MODEL.MOE_EXPERTS 8 (phases 3 and 5's checks, the plain fp32 run
      taking the bf16 run's routing); with two cards or more (c) TPU.MESH_MODEL
      2 through cli.launch against one card and (d) expert and sequence
-     parallelism on the fusion block (``--tp-rank``, ``--mp-rank``);
-     ``--phase-12`` runs it alone after the build.
+     parallelism on the fusion block (``--tp-rank``, ``--mp-rank``); with
+     four cards (e) data 2 x model 2 through cli.launch (``--zero-rank``):
+     (c)'s TP step, ZeRO-1 equal to it bit for bit, FSDP within 10 (e)'s
+     limit of it (its parameter bytes between steps param_memory_bytes of
+     the cut model), PowerSGD on the TP mesh within TP_LOSS_TOL of the
+     data-2 DDP step on two cards, every checkpoint canonical; each rank's
+     launches, parameter and slot bytes, peak memory and step ms. ``--phase-12`` runs it alone after the
+     build, ``--phase-12 e`` only the cases named.
  13. pp: pipeline parallelism. (a) On an NCCL group of one rank (mesh 1 x
      stage 1 x 1), 3 flagship steps (phase 5's batch, augmentation, drop
      path 0.1) through build_train_step(backbone=make_pipeline_backbone(mesh,
@@ -229,8 +235,11 @@ Phases, each printing its lines and its seconds:
      script (``--pp-rank``) through cli.launch on phase 10 (e)'s inputs:
      losses within 1% and every tensor's change within 10 (e)'s limit of
      one card's, each rank's launches for its blocks, the step's ms and the
-     P2P bytes; with fewer cards the phase says so. ``--phase-13`` runs it
-     alone after the build.
+     P2P bytes; with four cards (d) data 2 x stage 2 (``--zero-rank``): the
+     dp x pp step against one card as (b), ZeRO-1 equal to it bit for bit
+     and FSDP within 10 (e)'s limit, with bytes, peak memory and ms; with
+     fewer cards the phase says so. ``--phase-13`` runs it alone after the
+     build, ``--phase-13 d`` only the cases named.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
 (K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve, dp,
@@ -2767,8 +2776,10 @@ def _dp_step(kind: str, cfg, ecfg, sd, mesh, augment: bool = True, reducer=None,
             cfg.SOLVER.BASE_LR)
     aug = make_train_augment(cfg.INPUT) if augment else None
     if kind == "ddp":
-        return model, build_ddp_train_step(*args, mesh, reducer=reducer,
-                                           compute_dtype=torch.bfloat16, augment=aug, seed=1)
+        step = build_ddp_train_step(*args, mesh, reducer=reducer, compute_dtype=torch.bfloat16,
+                                    augment=aug, seed=1)
+        step.optimizer = opt
+        return model, step
     zero = (zero1_state_shardings(opt, mesh) if kind == "zero1" else
             fsdp_state_shardings(model, opt, mesh) if kind == "fsdp" else None)
     return model, build_train_step(*args, dtype, augment=aug, seed=1,
@@ -3916,6 +3927,274 @@ def _tp_multi(card: str, gen: torch.Generator) -> dict:
     return {"train": last, "step_ms": result}
 
 
+def _canonical_state(model, opt, mesh) -> dict:
+    """The model's state_dict on the host: under FSDP on the gathered
+    parameters, under tensor parallelism gathered over the model group and
+    un-permuted (collectives)."""
+    import contextlib
+
+    from editor_tpu_torch.parallel.mesh import model_group, model_size
+    from editor_tpu_torch.parallel.tp import gather_editor_state
+
+    with opt.gathered() if hasattr(opt, "gathered") else contextlib.nullcontext():
+        sd = (gather_editor_state(model, model_group(mesh)) if model_size(mesh) > 1
+              else model.state_dict())
+        return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def _checkpoint_canonical(payload, state: dict, cfg, ecfg, data: int) -> bool:
+    """A ``train_state`` payload in the one-device format: its model equal
+    to the gathered canonical ``state``, every slot shaped as a one-device
+    optimizer's, the reducer's error feedback one a data rank."""
+    from editor_tpu_torch.models.editor import Editor
+    from editor_tpu_torch.solver import make_optimizer
+
+    one = make_optimizer(cfg, Editor(ecfg, device="meta")).state_dict()["state"]
+    shapes = lambda st: [{k: [tuple(t.shape) for t in v] for k, v in g.items()} for g in st]
+    return (payload["model"].keys() == state.keys()
+            and all(torch.equal(payload["model"][k].cpu(), v) for k, v in state.items())
+            and shapes(payload["optimizer"]["state"]) == shapes(one)
+            and all(len(c["errors"]) == data for c in payload.get("comm", {}).values()))
+
+
+def zero_rank(d: str) -> None:
+    """One rank of 12 (e) and 13 (d) under cli.launch: on the mesh (data,
+    [stage,] model) of the saved layout, with the pipelined backbone when it
+    has stages, each saved kind ('global', 'zero1', 'fsdp', 'ddp' with
+    PowerSGD) from the saved weights for 2 steps on this rank's rows (each
+    step's launches), the canonical state and whether the checkpoint
+    payload (``train_state``, collective) is canonical (rank 0 keeps
+    both), the parameter and slot bytes between steps (and, under FSDP,
+    param_memory_bytes of the cut model over the data axis), the step's ms
+    and the peak memory."""
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.parallel.compression import make_reducer
+    from editor_tpu_torch.parallel.fsdp import param_memory_bytes
+    from editor_tpu_torch.parallel.mesh import data_size, make_mesh, shard_batch
+    from editor_tpu_torch.parallel.pipeline_vit import make_pipeline_backbone
+    from editor_tpu_torch.parallel.zero import state_memory_bytes
+    from editor_tpu_torch.utils.checkpoint import train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    multihost.initialize(timeout_s=240)
+    rank = multihost.process_index()
+    cfg, ecfg = inp["cfg"], inp["ecfg"]
+    mesh = make_mesh(inp["data"], inp["tp"], stage=inp.get("stage"))
+    tp_mesh = mesh if inp["tp"] > 1 else None
+    bb = make_pipeline_backbone(mesh, PP_M) if inp.get("stage") else None
+    sd = {k: v.cuda() for k, v in inp["sd"].items()}
+    batch = shard_batch(mesh, {k: v.cuda() for k, v in inp["batch"].items()})
+    out = {"mesh": list(mesh.shape)}
+    for kind in inp["kinds"]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reducer = make_reducer("powersgd", rank=4) if kind == "ddp" else None
+        model, step = _dp_step(kind, cfg, ecfg, sd, mesh, augment=False, reducer=reducer,
+                               backbone=bb)
+        rec = {"losses": [], "launches": []}
+        for e in (1, 2):
+            reset_counts()
+            rec["losses"].append(float(step(batch, e)["loss"]))
+            rec["launches"].append(launch_counts())
+        opt = step.optimizer
+        rec["param_bytes"] = (opt.param_bytes() if hasattr(opt, "param_bytes") else
+                              sum(p.untyped_storage().nbytes() for p in model.parameters()))
+        rec["slot_bytes"] = state_memory_bytes(opt)
+        if kind == "fsdp":
+            rec["want_bytes"] = param_memory_bytes(model, True, data_size(mesh))
+        state = _canonical_state(model, opt, mesh)
+        if rank == 0:
+            rec["sd"] = state
+        rec["ms"] = cuda_ms(lambda: step(batch, cfg.SOLVER.WARMUP_ITERS + 1), iters=3)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # the state after the timed steps, through the checkpoint's gathers
+        payload = train_state(model, opt, step.generator, 2,
+                              comm=getattr(step, "comm", None), tp_mesh=tp_mesh)
+        state = _canonical_state(model, opt, mesh)
+        if rank == 0:
+            rec["checkpoint_canonical"] = _checkpoint_canonical(payload, state, cfg, ecfg,
+                                                                inp["data"])
+        del state, payload
+        out[kind] = rec
+        del model, step, opt
+    torch.save(out, os.path.join(d, f"out_{rank}.pt"))
+    multihost.shutdown()
+
+
+def _zero_launch(world: int, inputs: dict, prefix: str) -> list:
+    """``world`` ranks of :func:`zero_rank` on ``inputs``: each rank's
+    output."""
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix=prefix)
+    try:
+        torch.save(inputs, os.path.join(d, "inputs.pt"))
+        _launch_ranks(world, "--zero-rank", d)
+        return [torch.load(os.path.join(d, f"out_{r}.pt"), weights_only=False)
+                for r in range(world)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _zero_gates(label: str, outs: list, ref: str, sd0: dict, want: dict) -> dict:
+    """ZeRO-1 against the ``ref`` kind of the same launch bit for bit, FSDP
+    bit for bit or within phase 10 (e)'s DP_W_LIMIT of it, tensor by
+    tensor; every rank's losses the same and each step's launches ``want``;
+    FSDP's parameter bytes between steps param_memory_bytes of the cut
+    model; every kind's checkpoint canonical. Returns per kind whether it
+    was bit for bit and its gate."""
+    kinds = [k for k in ("zero1", "fsdp") if k in outs[0]]
+    base = outs[0][ref]
+    names = [k for k in base["sd"] if base["sd"][k].is_floating_point()
+             and not k.endswith(("running_mean", "running_var", "_centers"))]
+    sd0c = {k: v.cpu() for k, v in sd0.items()}
+    result = {}
+    for kind in [k for k in outs[0] if k != "mesh"]:
+        if not outs[0][kind]["checkpoint_canonical"]:
+            raise AssertionError(f"{label} {kind}: the checkpoint is not canonical")
+    for kind in [ref] + kinds:
+        for r, o in enumerate(outs):
+            if o[kind]["losses"] != outs[0][kind]["losses"]:
+                raise AssertionError(f"{label} {kind}: rank {r}'s losses {o[kind]['losses']}")
+            if any(lc != want for lc in o[kind]["launches"]):
+                raise AssertionError(f"{label} {kind} rank {r}: launches "
+                                     f"{o[kind]['launches']} != {want}")
+    for kind in kinds:
+        got = outs[0][kind]
+        same = got["losses"] == base["losses"] and all(
+            torch.equal(got["sd"][k], base["sd"][k]) for k in base["sd"])
+        err = _delta_err({k: got["sd"][k].float() - sd0c[k].float() for k in names},
+                         {k: base["sd"][k].float() - sd0c[k].float() for k in names})
+        if kind == "zero1" and not same:
+            raise AssertionError(f"{label} ZeRO-1 != the {ref} step: losses {got['losses']} "
+                                 f"vs {base['losses']}; worst {_worst(err)}")
+        if kind == "fsdp":
+            if not same and max(err.values()) > DP_W_LIMIT:
+                raise AssertionError(f"{label} FSDP vs the {ref} step: worst {_worst(err)}")
+            for r, o in enumerate(outs):
+                if o["fsdp"]["param_bytes"] != o["fsdp"]["want_bytes"]:
+                    raise AssertionError(f"{label} rank {r}: {o['fsdp']['param_bytes']} "
+                                         "parameter bytes between steps, param_memory_bytes "
+                                         f"{o['fsdp']['want_bytes']}")
+        result[kind] = {"bit_for_bit": same, "max_err": f"{max(err.values()):.3e}",
+                        "limit": DP_W_LIMIT}
+    return result
+
+
+def _zero_say(label: str, outs: list, kind: str, card: str, **extra) -> None:
+    """One result line of a kind: losses, bytes, peak memory and ms."""
+    o = outs[0][kind]
+    say(label, kind=kind, mesh=outs[0]["mesh"], losses=json.dumps(o["losses"]), **extra,
+        checkpoint_canonical=o["checkpoint_canonical"],
+        param_mb_per_rank=json.dumps([round(x[kind]["param_bytes"] / 1e6, 2) for x in outs]),
+        slot_mb_per_rank=json.dumps([round(x[kind]["slot_bytes"] / 1e6, 2) for x in outs]),
+        peak_gb_per_rank=json.dumps([round(x[kind]["peak_gb"], 2) for x in outs]),
+        step_ms=f"{o['ms']:.2f}", card=repr(card))
+
+
+def _tp_zero_multi(card: str, gen: torch.Generator) -> dict:
+    """(e) with four cards: data 2 x model 2 through cli.launch, the
+    flagship (phase 12 (c)'s weights, batch and settings): ZeRO-1 equal to
+    (c)'s TP step bit for bit, FSDP within phase 10 (e)'s DP_W_LIMIT of it,
+    PowerSGD on the TP mesh within TP_LOSS_TOL of the data-2 DDP step on two
+    cards (its loss and every tensor's change, printed); each rank's
+    launches a step as (c)'s, its parameter and slot bytes between steps,
+    its peak memory and the step's ms."""
+    from editor_tpu_torch.models.init import editor_init
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        say("12e tp zero", world_sizes=str(n), note=f"{n} card(s): (e) needs four "
+            "(data 2 x model 2); not run")
+        return {}
+    cfg, ecfg = flagship(["TPU.MESH_MODEL", "2"])
+    ecfg = dataclasses.replace(ecfg, vit=dataclasses.replace(ecfg.vit, drop_path_rate=0.0))
+    L = ecfg.vit.depth
+    want = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2,
+                    attention_qkv_bwd=L, masked_attention_qkv_bwd=2)
+    h, w = ecfg.vit.img_size
+    sd0 = {k: v.cpu() for k, v in editor_init(ecfg, seed=0).state_dict().items()}
+    batch = {k: v.cpu() for k, v in _dp_id_batch(gen, _dp_batch(gen, cfg, h, w)).items()}
+    inputs = {"cfg": cfg, "ecfg": ecfg, "sd": sd0, "batch": batch}
+    outs = _zero_launch(4, dict(inputs, data=2, tp=2,
+                                kinds=["global", "zero1", "fsdp", "ddp"]), "chip_smoke_tpz_")
+    gates = _zero_gates("12e", outs, "global", sd0, want)
+    ref = _zero_launch(2, dict(inputs, data=2, tp=1, kinds=["ddp"]), "chip_smoke_ddp2_")
+    ps, ps_ref = outs[0]["ddp"], ref[0]["ddp"]
+    for r, o in enumerate(outs):
+        if any(lc != want for lc in o["ddp"]["launches"]) or o["ddp"]["losses"] != ps["losses"]:
+            raise AssertionError(f"12e powersgd rank {r}: {o['ddp']}")
+    dl = max(abs(a - b) / abs(b) for a, b in zip(ps["losses"], ps_ref["losses"]))
+    names = [k for k in ps_ref["sd"] if ps_ref["sd"][k].is_floating_point()
+             and not k.endswith(("running_mean", "running_var", "_centers"))]
+    err = _delta_err({k: ps["sd"][k].float() - sd0[k].float() for k in names},
+                     {k: ps_ref["sd"][k].float() - sd0[k].float() for k in names})
+    if dl > TP_LOSS_TOL:
+        raise AssertionError(f"12e powersgd on (2, 2): losses {ps['losses']} vs the data-2 "
+                             f"DDP step's {ps_ref['losses']}")
+    tp_ms = outs[0]["global"]["ms"]
+    _zero_say("12e tp zero", outs, "global", card, role="phase 12 (c)'s TP step")
+    for kind in ("zero1", "fsdp"):
+        _zero_say("12e tp zero", outs, kind, card, tp_step_ms=f"{tp_ms:.2f}",
+                  ref_losses=json.dumps(outs[0]["global"]["losses"]),
+                  launches_per_step=json.dumps(want), **gates[kind])
+    _zero_say("12e tp zero", outs, "ddp", card, reducer="powersgd4",
+              ref_losses=json.dumps(ps_ref["losses"]), max_rel_dloss=f"{dl:.2e}",
+              loss_limit=TP_LOSS_TOL, max_err=f"{max(err.values()):.3e}", worst=_worst(err),
+              data2_ddp_step_ms=f"{ps_ref['ms']:.2f}", tp_step_ms=f"{tp_ms:.2f}")
+    return {k: outs[0][k]["launches"][-1] for k in ("zero1", "fsdp", "ddp")}
+
+
+def _pp_zero_multi(card: str, gen: torch.Generator) -> dict:
+    """(d) with four cards: data 2 x stage 2 (M = 4) through cli.launch on
+    phase 10 (e)'s inputs: the dp x pp step against one card as (b) is
+    (losses within 1%, every tensor's change within DP_W_LIMIT), ZeRO-1
+    equal to it bit for bit and FSDP within DP_W_LIMIT of it, each rank's
+    launches for its blocks; bytes, peak memory and ms."""
+    from editor_tpu_torch.models.init import editor_init
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        say("13d pp zero", world_sizes=str(n), note=f"{n} card(s): (d) needs four "
+            "(data 2 x stage 2); not run")
+        return {}
+    cfg, ecfg = flagship()
+    ecfg = dataclasses.replace(ecfg, vit=dataclasses.replace(ecfg.vit, drop_path_rate=0.0))
+    h, w = ecfg.vit.img_size
+    sd0 = {k: v.clone() for k, v in editor_init(ecfg, seed=0).state_dict().items()}
+    batch = _dp_id_batch(gen, _dp_batch(gen, cfg, h, w))
+    ref_losses, ref_d, step = _dp_one_card(cfg, ecfg, sd0, batch)
+    one_ms = cuda_ms(lambda: step(batch, cfg.SOLVER.WARMUP_ITERS + 1), iters=3)
+    del step
+    torch.cuda.empty_cache()
+    sd0 = {k: v.cpu() for k, v in sd0.items()}
+    want = _pp_want(ecfg.vit.depth // 2, PP_M, train=True)
+    outs = _zero_launch(4, {"cfg": cfg, "ecfg": ecfg, "sd": sd0, "data": 2, "tp": 1,
+                            "stage": 2, "kinds": ["global", "zero1", "fsdp"],
+                            "batch": {k: v.cpu() for k, v in batch.items()}},
+                        "chip_smoke_ppz_")
+    base = outs[0]["global"]
+    err = _delta_err({k: base["sd"][k].float() - sd0[k].float() for k in ref_d}, ref_d)
+    dl = max(abs(a - b) / abs(b) for a, b in zip(base["losses"], ref_losses))
+    if not (dl <= 0.01 and max(err.values()) <= DP_W_LIMIT):
+        raise AssertionError(f"13d dp x pp: losses {base['losses']} vs {ref_losses}; "
+                             f"worst {_worst(err)}")
+    gates = _zero_gates("13d", outs, "global", sd0, want)
+    _zero_say("13d pp zero", outs, "global", card, stage=2, microbatches=PP_M,
+              ref_losses=json.dumps(ref_losses), max_rel_dloss=f"{dl:.2e}",
+              max_err=f"{max(err.values()):.3e}", limit=DP_W_LIMIT,
+              one_card_step_ms=f"{one_ms:.2f}")
+    for kind in ("zero1", "fsdp"):
+        _zero_say("13d pp zero", outs, kind, card, stage=2, microbatches=PP_M,
+                  dp_pp_step_ms=f"{base['ms']:.2f}", launches_per_step=json.dumps(want),
+                  **gates[kind])
+    return {f"dp2xpp2_{k}": {"train": outs[0][k]["launches"][-1], "ms": outs[0][k]["ms"]}
+            for k in ("global", "zero1", "fsdp")}
+
+
 def _mp_inputs(gen: torch.Generator) -> dict:
     """(d)'s inputs: the flagship fusion block's weights (dense and with 8
     experts; seeded), bf16 per-modality features [128, 88, 768] with a
@@ -4097,18 +4376,23 @@ def _mp_multi(card: str, gen: torch.Generator) -> dict:
         shutil.rmtree(d, ignore_errors=True)
 
 
-def mp_phase(card: str, gen: torch.Generator) -> dict:
+def mp_phase(card: str, gen: torch.Generator, cases: str = "abcde") -> dict:
     """Phase 12: model parallelism. (a) TP shard shapes of K1, K4 and K2 on
     one card; (b) the MoE flagship on one card; (c) TP through cli.launch
     and (d) expert and sequence parallelism on the fusion block, each with
-    two cards or more (on one card they say so)."""
-    shard = _tp_shard_kernels(gen)
-    moe = _moe_check(gen, card)
+    two cards or more, and (e) ZeRO-1, FSDP and PowerSGD on a data 2 x
+    model 2 mesh with four (on fewer cards they say so). ``cases``: the
+    letters of the cases to run (``--phase-12 e``)."""
+    run = lambda case, fn, *args: fn(*args) if case in cases else {}  # noqa: E731
+    shard = run("a", _tp_shard_kernels, gen)
+    moe = run("b", _moe_check, gen, card)
     torch.cuda.empty_cache()
-    tp = _tp_multi(card, gen)
+    tp = run("c", _tp_multi, card, gen)
     torch.cuda.empty_cache()
-    mp = _mp_multi(card, gen)
-    return {"shard": shard, "moe": moe, "tp": tp, "mp": mp}
+    mp = run("d", _mp_multi, card, gen)
+    torch.cuda.empty_cache()
+    tpz = run("e", _tp_zero_multi, card, gen)
+    return {"shard": shard, "moe": moe, "tp": tp, "mp": mp, "tpz": tpz}
 
 
 # Pipeline parallelism (phase 13): (a) the flagship through the pipelined
@@ -4416,13 +4700,17 @@ def _pp_multi(card: str, gen: torch.Generator) -> dict:
     return result
 
 
-def pp_phase(card: str, gen: torch.Generator, bare_step_ms=None) -> dict:
+def pp_phase(card: str, gen: torch.Generator, bare_step_ms=None, cases: str = "abcd") -> dict:
     """Phase 13: pipeline parallelism. (a) one card; (b) 2 stages and (c) 4
-    stages and 2 x 2 (pp x tp), with two and four cards (fewer: they say
-    so)."""
-    one = _pp_one_card(card, gen, bare_step_ms)
+    stages and 2 x 2 (pp x tp), with two and four cards, and (d) dp 2 x pp
+    2 with ZeRO-1 and FSDP with four (fewer: they say so). ``cases``: the
+    letters of the cases to run (``--phase-13 d``; (b) and (c) are one)."""
+    one = _pp_one_card(card, gen, bare_step_ms) if "a" in cases else {}
     torch.cuda.empty_cache()
-    return {**one, "multi": _pp_multi(card, gen)}
+    multi = _pp_multi(card, gen) if "b" in cases or "c" in cases else {}
+    torch.cuda.empty_cache()
+    zero = _pp_zero_multi(card, gen) if "d" in cases else {}
+    return {**one, "multi": {**multi, **zero}}
 
 
 def timed(name: str, fn, *args):
@@ -4436,12 +4724,15 @@ def _mp_launches(mp: dict, name: str) -> dict:
     """Phase 12's launches of one kernel row: the MoE flagship's train step
     and eval forward (b) and, where two cards ran them, a TP rank's train
     step (c) and a rank's Ulysses forward + backward and seq-sharded fusion
-    block (d)."""
+    block (d), and where four did, a (2, 2) rank's ZeRO-1, FSDP and
+    PowerSGD step (e)."""
     out = {"moe_train": mp["moe"]["train"][name], "moe_eval": mp["moe"]["eval"][name]}
     if mp["tp"]:
         out["tp_train"] = mp["tp"]["train"][name]
     if mp["mp"]:
         out.update(ulysses=mp["mp"]["ulysses"][name], seq_block=mp["mp"]["seq"][name])
+    for kind, launches in mp["tpz"].items():
+        out[f"tp_{kind}_train"] = launches[name]
     return out
 
 
@@ -4519,13 +4810,17 @@ if __name__ == "__main__":
         mp_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--pp-rank"]:  # one rank of phase 13 (b), (c)
         pp_rank(sys.argv[2])
-    elif sys.argv[1:2] == ["--phase-12"]:  # phase 12 alone, after the build
+    elif sys.argv[1:2] == ["--zero-rank"]:  # one rank of phase 12 (e), 13 (d)
+        zero_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--phase-12"]:  # phase 12 alone, after the build [cases]
         card = card_check()
         timed("1 build", build_phase)
-        timed("12 mp", mp_phase, card, torch.Generator(device="cuda").manual_seed(0))
-    elif sys.argv[1:2] == ["--phase-13"]:  # phase 13 alone, after the build
+        timed("12 mp", mp_phase, card, torch.Generator(device="cuda").manual_seed(0),
+              *sys.argv[2:3])
+    elif sys.argv[1:2] == ["--phase-13"]:  # phase 13 alone, after the build [cases]
         card = card_check()
         timed("1 build", build_phase)
-        timed("13 pp", pp_phase, card, torch.Generator(device="cuda").manual_seed(0))
+        timed("13 pp", pp_phase, card, torch.Generator(device="cuda").manual_seed(0), None,
+              *sys.argv[2:3])
     else:
         main()

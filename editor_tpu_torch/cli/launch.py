@@ -26,6 +26,9 @@ import sys
 import tempfile
 import time
 
+# how long a round's end waits for the heartbeat thread's last beat
+KEEPALIVE_JOIN_S = 10.0
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="editor_tpu_torch elastic launcher")
@@ -141,6 +144,25 @@ def _parse_rdzv_conf(s: str) -> dict:
     return conf
 
 
+def _stop_keepalive(ka_stop) -> bool:
+    """Stops the heartbeat thread of ``handler.start_keepalive()`` and joins
+    it for ``KEEPALIVE_JOIN_S`` at most; returns whether it ended. A thread
+    still inside a store call past that is reported: a beat already past
+    its stop-check could re-create the heartbeat key after a ``leave()``
+    deleted it, so the caller must not leave (the key then expires with
+    its TTL)."""
+    ka_stop.set()
+    thread = getattr(ka_stop, "thread", None)
+    if thread is None:
+        return True
+    thread.join(timeout=KEEPALIVE_JOIN_S)
+    if thread.is_alive():
+        print(f"the keep-alive thread is still in a store call after {KEEPALIVE_JOIN_S:g} s; "
+              "not leaving the rendezvous (its heartbeat key expires with the TTL)")
+        return False
+    return True
+
+
 def _elect_coordinator(args, store, node_rank: int, rnd: int) -> tuple:
     """Publish/fetch the rank-0 node's address (the workers' MASTER_ADDR and
     MASTER_PORT) through the
@@ -219,11 +241,15 @@ def _run_elastic(args, cmd) -> int:
     # join timeout: how long a re-rendezvous may wait for peers to (re)join
     # (a rebooting node can take minutes) — torchrun's join_timeout analog
     join_timeout = float(conf.get("join_timeout_s", 600.0))
-    # the heartbeat asserts AGENT liveness, not round phase: it runs for
-    # the launcher's whole lifetime so probe/teardown gaps between rounds
-    # can never read a live peer as dead (the thread dies with the process)
-    ka_stop = handler.start_keepalive()
+    # the heartbeat asserts AGENT liveness, not round phase: it beats from
+    # before each rendezvous to the end of the round's probe, so teardown
+    # gaps can never read a live peer as dead; each round ends with the
+    # thread stopped and joined (no beat races a leave(), a set_closed() or
+    # the next round's keys), and the next round starts a new one
+    ka_stop = None
     while True:
+        if ka_stop is None:
+            ka_stop = handler.start_keepalive()
         store, node_rank, nnodes = handler.next_rendezvous(
             timeout=join_timeout)
         rnd = handler.last_round
@@ -284,26 +310,6 @@ def _run_elastic(args, cmd) -> int:
             restart_count=rounds, event_log=event_log)
         outcome, failures, reason = sup.run_round()
 
-        if outcome == RoundOutcome.SUCCEEDED:
-            print(f"launch complete; restarts used: {rounds}")
-            # graceful departure: stop the heartbeat, REMOVE this node from
-            # the round's participant set (a peer still checkpointing must
-            # not read our expiring heartbeat as scale_down and kill its
-            # nearly-done workers), then drop the store connection
-            ka_stop.set()
-            # join the beat thread BEFORE leave(): a beat already past its
-            # stop-check would otherwise re-create the hb key after leave()
-            # deleted it, leaking a stale key on persistent stores
-            ka_thread = getattr(ka_stop, "thread", None)
-            if ka_thread is not None:
-                ka_thread.join(timeout=10)
-            try:
-                handler.leave()
-            except OSError:
-                pass  # store already gone (we may have hosted it)
-            handler.shutdown()
-            return rounds
-        rounds += 1
         if outcome == RoundOutcome.FAILED:
             # When one worker dies, every peer's in-flight collective fails
             # within about a second, so healthy nodes land here too (the
@@ -319,6 +325,24 @@ def _run_elastic(args, cmd) -> int:
                 reason = _membership()
                 if reason is None:
                     time.sleep(min(0.2, args.monitor_interval))
+        joined = _stop_keepalive(ka_stop)
+        ka_stop = None
+        if outcome == RoundOutcome.SUCCEEDED:
+            print(f"launch complete; restarts used: {rounds}")
+            # graceful departure: REMOVE this node from the round's
+            # participant set (a peer still checkpointing must not read our
+            # expiring heartbeat as scale_down and kill its nearly-done
+            # workers), then drop the store connection; not while a beat
+            # could still re-create the heartbeat key after leave()
+            if joined:
+                try:
+                    handler.leave()
+                except OSError:
+                    pass  # store already gone (we may have hosted it)
+            handler.shutdown()
+            return rounds
+        rounds += 1
+        if outcome == RoundOutcome.FAILED:
             if reason:
                 print(f"membership change ({reason}): local worker exit "
                       f"attributed to a peer event; re-rendezvousing")

@@ -36,7 +36,10 @@ the ranks of a model group load the same host shard, and the checkpoints
 are written in the canonical layout (gathered over the model group,
 un-permuted, with the optimizer's slots), so they load into a one-device
 run, ``cli.test`` and ``cli.export``, and resume at any t. ``ZERO_STAGE`` 1
-or 3 and ``GRAD_COMPRESSION`` with it are not ported and raise.
+and 3 partition each rank's shards (and their slots) over its data group;
+a ``GRAD_COMPRESSION`` runs the tensor-parallel forward and reduces over the
+data group, int8 and PowerSGD on the canonical leaves (``parallel.ddp``);
+the checkpoints stay canonical with each of them.
 """
 
 from __future__ import annotations
@@ -73,20 +76,18 @@ def resolve_mesh(cfg, device: torch.device, mesh=None, train: bool = True):
     builds it: ``mesh`` when given; under a process group of W ranks
     ``make_mesh(MESH_DATA, MESH_MODEL)`` (``MESH_DATA`` -1 or, with W > 1,
     1: all ranks over the model axis) unless W is 1 and both are 1; else
-    None (one device). Raises for what is not ported (a ``ZERO_STAGE``
-    other than 0, 1 and 3; ``ZERO_STAGE`` 1 or 3 or a ``GRAD_COMPRESSION``
-    with ``MESH_MODEL`` above 1), for the settings that need a mesh without
-    one (``ZERO_STAGE`` 1 and 3 among them; for an evaluation, ``train``
-    False, only ``MESH_DATA`` and ``MESH_MODEL``), and for a group whose
-    backend does not fit ``device`` (NCCL on CUDA, gloo on the CPU)."""
+    None (one device). ``ZERO_STAGE`` 1 or 3 and a ``GRAD_COMPRESSION``
+    take any ``MESH_MODEL``. Raises for what is not ported (a
+    ``ZERO_STAGE`` other than 0, 1 and 3), for the settings that need a mesh
+    without one (``ZERO_STAGE`` 1 and 3 among them; for an evaluation,
+    ``train`` False, only ``MESH_DATA`` and ``MESH_MODEL``), and for a group
+    whose backend does not fit ``device`` (NCCL on CUDA, gloo on the
+    CPU)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from editor_tpu_torch.parallel.mesh import make_mesh
 
     t = cfg.TPU
-    if train and t.MESH_MODEL > 1 and (t.ZERO_STAGE in (1, 3) or _compression(cfg)):
-        raise NotImplementedError("TPU.MESH_MODEL > 1 with ZERO_STAGE 1 or 3 or a "
-                                  "GRAD_COMPRESSION is not ported")
     if train and t.ZERO_STAGE not in (0, 1, 3):
         raise NotImplementedError(f"TPU.ZERO_STAGE {t.ZERO_STAGE} is not ported "
                                   "(ZeRO-1 and FSDP are: ZERO_STAGE 1 and 3)")
@@ -171,7 +172,7 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
 
     device = default_device(device)
     mesh = resolve_mesh(cfg, device, mesh)
-    rank, world = multihost.process_index(), multihost.process_count()
+    rank = multihost.process_index()
     primary = rank == 0
     tp = model_size(mesh)
     tp_mesh = mesh if tp > 1 else None
@@ -207,18 +208,18 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
             reducer=make_reducer(cfg.TPU.GRAD_COMPRESSION, rank=cfg.TPU.POWERSGD_RANK),
             compute_dtype=compute_dtype, augment=augment, seed=cfg.SOLVER.SEED)
         logger.info("Data parallel over %d ranks: local-batch step, %s gradient reducer",
-                    world, step.reducer.name)
+                    d_size, step.reducer.name)
     else:
         zero = None
         if mesh is not None and cfg.TPU.ZERO_STAGE == 1:
             from editor_tpu_torch.parallel.zero import zero1_state_shardings
             zero = zero1_state_shardings(opt, mesh)
-            logger.info("ZeRO-1: optimizer slots partitioned over the %d data ranks", world)
+            logger.info("ZeRO-1: optimizer slots partitioned over the %d data ranks", d_size)
         elif mesh is not None and cfg.TPU.ZERO_STAGE == 3:
             from editor_tpu_torch.engine.train import fsdp_state_shardings
             zero = fsdp_state_shardings(model, opt, mesh)
             logger.info("FSDP/ZeRO-3: params + optimizer state sharded over the data axis "
-                        "(%d ranks)", world)
+                        "(%d ranks)", d_size)
         step = build_train_step(model, opt, loss_func, lr_fn, cfg.SOLVER.BASE_LR,
                                 compute_dtype, augment=augment, grad_accum=cfg.TPU.GRAD_ACCUM,
                                 seed=cfg.SOLVER.SEED, mesh=mesh, state_shardings=zero,

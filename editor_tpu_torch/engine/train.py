@@ -37,6 +37,14 @@ is made whole over the stage group (one flat sum all-reduce, the blocks and
 the embedding exact zeros off their stage, the replicated tail's taken from
 the last stage) and then averaged over the data group, so every rank takes
 the same step and the ranks' parameters stay equal.
+
+ZeRO-1 and FSDP (``state_shardings=``) compose with both: their slots (and
+FSDP's parameter blocks) are partitioned over the data group only, each
+model rank partitioning its own tensor-parallel shards, each stage the
+same canonical model. The reductions run in this order: the pipeline's
+stage sum first, then ZeRO-1's data mean (or FSDP's data reduce-scatter);
+under tensor parallelism the replicated leaves' gradients are already the
+same on every rank of a model group and stay so.
 """
 
 from __future__ import annotations
@@ -136,20 +144,22 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
     is this rank's B/W rows of the global batch, and the step is the JAX
     step on a mesh over the global batch (module docstring); W and r are the
     data axis's size and rank, and with a model axis above 1 the step is
-    tensor-parallel (``ZERO_STAGE`` layouts then raise). Rank r's
-    generator is seeded with ``rank_seed(seed, r)``. With ``grad_accum`` A
-    the global microbatch i is the ranks' local microbatches i in rank
-    order. ``state_shardings``: the ZeRO-1 layout of ``optimizer``
-    (``parallel.zero.zero1_state_shardings``) or, with
-    ``gather_params_compute``, the FSDP layout (:func:`fsdp_state_shardings`),
-    which then steps in its place. FSDP: one all-gather of the sharded
-    leaves at the top of the step; after the microbatch loop one mean
-    reduce-scatter of their gradients into this rank's blocks and the mean
-    all-reduce of the replicated leaves'; the full parameters freed; the
-    update on the blocks. ``backbone``: the pipelined backbone
+    tensor-parallel. Rank r's generator is seeded with ``rank_seed(seed,
+    r)``. With ``grad_accum`` A the global microbatch i is the ranks' local
+    microbatches i in rank order. ``state_shardings``: the ZeRO-1 layout of
+    ``optimizer`` (``parallel.zero.zero1_state_shardings``) or the FSDP
+    layout (:func:`fsdp_state_shardings`), which then steps in its place,
+    on any mesh, with or without ``backbone``. FSDP: one all-gather of the
+    sharded leaves at the top of the step; after the microbatch loop (and
+    the pipeline's stage sum) one mean reduce-scatter of their gradients
+    into this rank's blocks and the mean all-reduce of the replicated
+    leaves'; the full parameters freed; the update on the blocks. The step
+    is the same with ``gather_params_compute`` True or False (JAX's flag
+    chooses where its compiler gathers); True asks for the FSDP layout.
+    ``backbone``: the pipelined backbone
     (``parallel.pipeline_vit.make_pipeline_backbone``) on ``mesh`` (by
     default its own), with a 'data' axis dp x pp and a 'model' axis above 1
-    pp x tp (module docstring); not with ``state_shardings``."""
+    pp x tp (module docstring)."""
     from editor_tpu_torch.parallel.fsdp import FsdpOptimizer
     from editor_tpu_torch.parallel.zero import Zero1Optimizer
 
@@ -157,11 +167,8 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
         mesh = backbone.mesh if mesh is None else mesh
         if mesh is not backbone.mesh:
             raise ValueError("the pipelined backbone's mesh is the step's mesh")
-        if state_shardings is not None:
-            raise NotImplementedError("ZeRO-1 and FSDP (state_shardings=) with a pipelined "
-                                      "backbone are not ported")
     fsdp = isinstance(state_shardings, FsdpOptimizer)
-    if gather_params_compute != fsdp or (fsdp and mesh is None):
+    if (gather_params_compute and not fsdp) or (fsdp and mesh is None):
         raise ValueError("gather_params_compute=True takes the FSDP layout "
                          "(engine.train.fsdp_state_shardings) as state_shardings, on a mesh")
     if state_shardings is not None:
@@ -172,9 +179,6 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
         optimizer = state_shardings
     from editor_tpu_torch.parallel.mesh import data_rank, model_size
     tp_mesh = mesh if model_size(mesh) > 1 else None
-    if tp_mesh is not None and state_shardings is not None:
-        raise NotImplementedError("ZeRO-1 and FSDP (state_shardings=) with a 'model' mesh "
-                                  "axis above 1 are not ported")
     rank = 0 if mesh is None else data_rank(mesh)
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(rank_seed(seed, rank))
@@ -199,12 +203,12 @@ def build_train_step(model: Editor, optimizer: Optimizer, loss_func: Callable,
                                None if cams is None else cams[sl])
             total.backward()
             loss, acc = loss + total.detach(), acc + a
+        if backbone is not None:  # whole over the stage group, then the data reduction
+            backbone.reduce_grads(model)
         if fsdp:
             optimizer.reduce_grads()
             optimizer.free()
         elif mesh is not None:
-            if backbone is not None:
-                backbone.reduce_grads(model)
             mean_all_reduce_grads(params, mesh)
         if grad_accum > 1:
             inv = 1.0 / grad_accum
@@ -226,8 +230,10 @@ def fsdp_state_shardings(model: Editor, optimizer: Optimizer, mesh):
     parameter leaf and its slots sharded, the rest, the BN stats, OCFR
     centers and generator replicated (``parallel.fsdp``). From here on the
     model holds its sharded parameters at full size only inside a step and
-    inside ``gathered()``. Pass it to ``build_train_step`` as
-    ``state_shardings`` with ``gather_params_compute=True`` and use it as the
-    run's optimizer."""
+    inside ``gathered()``. On a mesh with a 'model' axis above 1 the
+    model is cut first (``parallel.tp.shard_editor``) and each rank's
+    tensor-parallel shards are sharded over its data group. Pass it to
+    ``build_train_step`` as ``state_shardings`` and use it as the run's
+    optimizer."""
     from editor_tpu_torch.parallel.fsdp import FsdpOptimizer
     return FsdpOptimizer(model, optimizer, mesh)

@@ -29,9 +29,13 @@ counterpart of ``editor_tpu/parallel`` but for ``rpc`` and
 
 The global-batch step on a mesh is ``engine.train.build_train_step(mesh=)``
 (tensor-parallel when the mesh's model axis is above 1, pipelined with
-``backbone=make_pipeline_backbone(mesh, M)``), with FSDP
-``engine.train.fsdp_state_shardings``. ``rpc`` and ``sharded_tensor`` are
-not ported.
+``backbone=make_pipeline_backbone(mesh, M)``), with ZeRO-1
+(``zero1_state_shardings``) or FSDP (``engine.train.fsdp_state_shardings``)
+on any ('data', 'stage', 'model') mesh: their slots and blocks are
+partitioned over the data group, each model rank's over its own shards.
+The compressed local-batch step (``build_ddp_train_step``) runs on a
+model axis too, its reducers over the data group on the canonical leaves.
+``rpc`` and ``sharded_tensor`` are not ported.
 """
 
 from editor_tpu_torch.parallel.collectives import (all_gather, all_reduce, all_to_all,

@@ -6,7 +6,9 @@ powerSGD_hook.py).
 A :class:`Reducer` maps each rank's gradients to their mean over the group,
 leaf by leaf as the JAX reducers do (not in torch DDP's buckets): ``grads``
 is an ordered ``{leaf name: tensor}``, ``reduce(grads, state, group)``
-returns the averaged leaves and the new state. The reducers:
+returns the averaged leaves and the new state; ``elementwise`` says that an
+element's result depends on that element alone (so a slice of a leaf
+reduces to the slice of the leaf's result). The reducers:
 
 * ``allreduce``: the mean (the sum over the group size, as ``lax.pmean``);
 * ``fp16``/``bf16``: cast, mean in that dtype, cast back;
@@ -43,6 +45,7 @@ class Reducer:
     init: Callable[[Grads], Any]                              # template -> state
     reduce: Callable[[Grads, Any, Any], Tuple[Grads, Any]]    # (grads, state, group)
     name: str
+    elementwise: bool = False
 
 
 def _no_state(_):
@@ -57,7 +60,7 @@ def allreduce_reducer() -> Reducer:
     """The mean all-reduce (default_hooks.py ``allreduce_hook``)."""
     def reduce(grads, state, group):
         return {k: _mean(g, group) for k, g in grads.items()}, state
-    return Reducer(_no_state, reduce, "allreduce")
+    return Reducer(_no_state, reduce, "allreduce", elementwise=True)
 
 
 def _to_half(g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -80,7 +83,7 @@ def cast_compress_reducer(dtype: torch.dtype) -> Reducer:
     ``fp16_compress_hook``/``bf16_compress_hook``): half the bytes."""
     def reduce(grads, state, group):
         return {k: _mean(_to_half(g, dtype), group).to(g.dtype) for k, g in grads.items()}, state
-    return Reducer(_no_state, reduce, f"cast_{str(dtype).split('.')[-1]}")
+    return Reducer(_no_state, reduce, f"cast_{str(dtype).split('.')[-1]}", elementwise=True)
 
 
 def int8_quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

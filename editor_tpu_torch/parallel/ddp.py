@@ -12,6 +12,20 @@ depends on a leaf's layout (the int8 scale, PowerSGD's matrix) then gives
 the JAX reducer's result. Randomness is per rank: rank r's generator is
 seeded with ``engine.train.rank_seed(seed, r)`` (JAX folds the rank into
 the step's key).
+
+On a mesh whose 'model' axis is above 1 (the model cut by
+``parallel.tp.shard_editor``) the forward is tensor-parallel, every rank of
+a model group holding the same rows and drawing from its data rank's
+generator, and every reduction runs over the data group. The elementwise
+reducers (mean, fp16, bf16) reduce each rank's shards in place; int8 and
+PowerSGD, whose result depends on the whole leaf (one scale a leaf, a
+low-rank factor of the leaf's matrix), reduce the canonical leaves: each
+sharded gradient is all-gathered over the model group and un-permuted,
+the whole leaf reduced, and the rank's block kept. Their state (PowerSGD's
+Q and error feedback) lives on the canonical leaves, the same on every rank
+of a model group, so a checkpoint holds it canonical. This is the JAX
+reducer on canonical weights: JAX's ``do_train`` instead runs its DDP step
+on the shard-major qkv columns without a ``tp_mesh``, which mixes heads.
 """
 
 from __future__ import annotations
@@ -121,23 +135,28 @@ def build_ddp_train_step(model, optimizer, loss_func: Callable, lr_fn: Callable,
                          augment: Optional[Callable] = None, seed: int = 0
                          ) -> Callable[[Dict[str, torch.Tensor], Any], Dict[str, Any]]:
     """Returns ``step(batch, epoch) -> {"loss", "acc", "lr"}`` on this
-    rank's local ``batch`` (its own P x K block). The reducer's state
-    (PowerSGD's Q and error feedback; ``reducer.init`` of the parameters in
-    the JAX layout) is ``step.comm``, the generator ``step.generator``, the
-    leaf layout ``step.layout``."""
+    rank's local ``batch`` (its own P x K block; under tensor parallelism
+    its data rank's). The reducer's state (PowerSGD's Q and error feedback;
+    ``reducer.init`` of the canonical parameters in the JAX layout) is
+    ``step.comm``, the generator ``step.generator``, the leaf layout
+    ``step.layout``."""
     from editor_tpu_torch.engine.train import make_loss_of, rank_seed, step_images
-    from editor_tpu_torch.parallel.mesh import data_rank, model_size
-    if model_size(mesh) > 1:
-        raise NotImplementedError("gradient compression with a 'model' mesh axis above 1 "
-                                  "is not ported")
+    from editor_tpu_torch.parallel.mesh import data_rank, model_group, model_rank, model_size
 
     reducer = reducer or allreduce_reducer()
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(rank_seed(seed, data_rank(mesh)))
-    loss_of = make_loss_of(model, loss_func, gen)
+    tp = model_size(mesh)
+    loss_of = make_loss_of(model, loss_func, gen, tp_mesh=mesh if tp > 1 else None)
     layout = LeafLayout(model)
     named = {n: p for n, p in model.named_parameters() if p.requires_grad}
     buffers = model_state_buffers(model)
+    canonical = rank_block = lambda ts: ts
+    if tp > 1 and not reducer.elementwise:  # the whole leaves, the rank's blocks
+        from editor_tpu_torch.parallel import tp as tpm
+        heads, group, t_rank = model.cfg.vit.num_heads, model_group(mesh), model_rank(mesh)
+        canonical = lambda ts: tpm.gather_state_dict(ts, heads, group)
+        rank_block = lambda ts: tpm.shard_state_dict(ts, heads, tp, t_rank)
 
     def step(batch: Dict[str, torch.Tensor], epoch) -> Dict[str, Any]:
         images = step_images(batch, augment, gen, compute_dtype)
@@ -147,8 +166,9 @@ def build_ddp_train_step(model, optimizer, loss_func: Callable, lr_fn: Callable,
         with torch.no_grad():
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in named.items()}
-            reduced, step.comm = reducer.reduce(layout.leaves(grads), step.comm, mesh)
-            for n, g in layout.params(reduced).items():
+            reduced, step.comm = reducer.reduce(layout.leaves(canonical(grads)), step.comm,
+                                                mesh)
+            for n, g in rank_block(layout.params(reduced)).items():
                 named[n].grad = g.contiguous()
             for b in buffers:
                 b.copy_(C.all_reduce(b, mesh, "mean"))
@@ -159,7 +179,8 @@ def build_ddp_train_step(model, optimizer, loss_func: Callable, lr_fn: Callable,
         return {"loss": loss, "acc": acc, "lr": lr}
 
     with torch.no_grad():
-        step.comm = reducer.init(layout.leaves({n: p.detach() for n, p in named.items()}))
+        step.comm = reducer.init(layout.leaves(canonical({n: p.detach()
+                                                          for n, p in named.items()})))
     step.generator = gen
     step.layout = layout
     step.reducer = reducer

@@ -107,14 +107,21 @@ def _cut(sd: Dict[str, Any], tp: int, rank: int) -> Dict[str, Any]:
 
 def _gathered(sd: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
     """Every sharded tensor of ``sd`` all-gathered over ``group`` and
-    concatenated in rank order (a collective)."""
+    concatenated in rank order (a collective), on the tensor's device (a
+    host tensor goes through the current card under NCCL)."""
+    import torch.distributed as dist
+
     from editor_tpu_torch.parallel.collectives import _all_gather0
+    card = (torch.device("cuda", torch.cuda.current_device())
+            if dist.get_backend(group) == "nccl" else None)
     out = {}
     for k, v in sd.items():
         d = shard_dim(k)
         if d is not None:
             with torch.no_grad():
-                v = torch.cat(list(_all_gather0(v.detach(), group).unbind(0)), dim=d)
+                x = v.detach()
+                x = x if card is None or x.is_cuda else x.to(card)
+                v = torch.cat(list(_all_gather0(x, group).unbind(0)), dim=d).to(v.device)
         out[k] = v
     return out
 

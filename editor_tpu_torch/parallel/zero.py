@@ -17,6 +17,18 @@ changes the layout, not the math.
 (a collective: every rank calls it; the full dict comes back on rank 0, None
 elsewhere), and ``load_state_dict`` takes a rank's part of such a dict, so a
 checkpoint resumes at any world size, one process included.
+
+On a mesh (``zero1_state_shardings(optimizer, mesh)``) the group is the
+mesh's data group only, as JAX shards ``opt_state`` over 'data'. Under
+tensor parallelism each model rank's optimizer holds its own shards, and
+the rank partitions those over its data group (the shards of a model group
+have the same sizes, so every model rank draws the same partition); the
+update is elementwise, so the step equals the plain tensor-parallel step
+bit for bit. Under the pipeline every stage holds the same canonical model
+and the same partition. ``state_dict`` then gives data rank 0 of each model
+group the single-device format of its shards, which
+``utils.checkpoint.train_state`` un-shards over the model group
+(``parallel.tp.gather_train_state``) into the canonical one.
 """
 
 from __future__ import annotations
@@ -157,8 +169,9 @@ def _broadcast(t: torch.Tensor, src: int, pg) -> None:
 
 def zero1_state_shardings(optimizer: Optimizer, mesh) -> Zero1Optimizer:
     """The ZeRO-1 layout of ``optimizer`` over ``mesh``'s data axis (the
-    JAX ``zero1_state_shardings``); pass it to ``build_train_step`` as
-    ``state_shardings`` and use it as the run's optimizer."""
+    JAX ``zero1_state_shardings``), whatever its model and stage axes; pass
+    it to ``build_train_step`` as ``state_shardings`` and use it as the
+    run's optimizer."""
     return Zero1Optimizer(optimizer, mesh)
 
 

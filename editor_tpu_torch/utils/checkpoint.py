@@ -159,15 +159,17 @@ def _group() -> tuple:
     return dist.get_rank(), dist.get_world_size()
 
 
-def _comm_payload(comm: Any) -> Any:
+def _comm_payload(comm: Any, mesh=None) -> Any:
     """A reducer state consolidated: each leaf's ``q`` (the same on every
-    rank) and every rank's ``error`` in rank order, on the host."""
+    rank) and every rank's ``error`` in rank order, on the host; with a
+    ``mesh``, every data rank's (the ranks of a model group hold the same
+    canonical state)."""
     from editor_tpu_torch.parallel import collectives as C
     if not isinstance(comm, dict) or not comm:
         return {}
     out = {}
     for name, st in comm.items():
-        errors = C.all_gather(st["error"], None, tiled=False)
+        errors = C.all_gather(st["error"], mesh, tiled=False)
         out[name] = {"q": st["q"].detach().cpu(), "errors": list(errors.cpu().unbind(0))}
     return out
 
@@ -195,30 +197,38 @@ def train_state(model: torch.nn.Module, optimizer, generator: torch.Generator,
     step's reducer state, is saved with each rank's PowerSGD error feedback
     (``errors``). ``tp_mesh``: the model is cut over the mesh's model axis
     (``parallel.tp.shard_editor``); its parameters and their slots are
-    gathered over the model group and un-permuted, the canonical layout.
+    gathered over the model group and un-permuted, the canonical layout (a
+    ZeRO-1 or FSDP optimizer gathers its slots over the data group first,
+    and the data row of rank 0 gathers over its model group), and the
+    reducer's state is the data group's (its leaves are canonical already).
     The file loads into a single-device run and into any tp."""
     import torch.distributed as dist
     rank, world = _group()
     model_state = None
     tp = _tp(tp_mesh)
-    opt = optimizer.state_dict()
-    if tp is not None:
+    opt = optimizer.state_dict()  # None off data rank 0 for ZeRO-1 and FSDP
+    # the ranks that hold a part of the payload: rank 0, or under tensor
+    # parallelism its whole model group (every rank of a model group shares
+    # its data rank, so each group takes one branch)
+    keep = rank == 0 if tp is None else opt is not None
+    if hasattr(optimizer, "gathered"):  # FSDP: the full parameters exist only here
+        with optimizer.gathered():
+            if keep:
+                model_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    elif keep:
+        model_state = model.state_dict()
+    if tp is not None and keep:
         from editor_tpu_torch.parallel import tp as tpm
-        canon = tpm.gather_train_state({"model": model.state_dict(), "optimizer": opt},
+        canon = tpm.gather_train_state({"model": model_state, "optimizer": opt},
                                        tpm.slot_names(model, optimizer),
                                        model.cfg.vit.num_heads, tp[0])
         model_state, opt = canon["model"], canon["optimizer"]
-    elif hasattr(optimizer, "gathered"):  # FSDP: the full parameters exist only here
-        with optimizer.gathered():
-            if rank == 0:
-                model_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
-    elif rank == 0:
-        model_state = model.state_dict()
     gens = [generator.get_state()]
     if dist.is_initialized():
         gens = [None] * world
         dist.all_gather_object(gens, generator.get_state())
-    comm_state = _comm_payload(comm) if comm is not None else None
+    comm_state = _comm_payload(comm, tp_mesh if tp is not None else None) \
+        if comm is not None else None
     if rank != 0:
         return None
     payload = {"model": model_state, "optimizer": opt, "generator": gens[0],
@@ -242,9 +252,14 @@ def load_train_state(payload: Dict[str, Any], model: torch.nn.Module, optimizer,
     generator, the other ranks keep their fresh ones, and the error
     feedback restarts from zero (``q`` is kept). ``tp_mesh``: the model
     is cut over its model axis, and takes this rank's blocks of the
-    canonical parameters and slots."""
+    canonical parameters and slots; the error feedback is the data
+    rank's."""
     rank, world = _group()
     tp = _tp(tp_mesh)
+    c_rank, c_world = rank, world
+    if tp is not None:
+        from editor_tpu_torch.parallel.mesh import data_rank, data_size
+        c_rank, c_world = data_rank(tp_mesh), data_size(tp_mesh)
     if tp is not None:
         from editor_tpu_torch.parallel import tp as tpm
         payload = tpm.shard_train_state(payload, tpm.slot_names(model, optimizer),
@@ -267,8 +282,8 @@ def load_train_state(payload: Dict[str, Any], model: torch.nn.Module, optimizer,
                 continue
             st["q"].copy_(saved[name]["q"])
             errors = saved[name]["errors"]
-            if len(errors) == world:
-                st["error"].copy_(errors[rank])
+            if len(errors) == c_world:
+                st["error"].copy_(errors[c_rank])
             else:
                 st["error"].zero_()
     return int(payload["epoch"])

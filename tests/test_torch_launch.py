@@ -23,6 +23,9 @@
 * Two launchers on the ``file`` backend, one process each: the workers,
   with ``RANK`` unset, join one gloo group as ranks 0 and 1.
 * A deliberate ``SystemExit`` of a rank writes no error file.
+* The round loop joins its keep-alive thread at every round's end, and
+  with the last beat stuck in a store ``set`` past the join's limit it
+  says so and does not ``leave()`` the rendezvous.
 """
 
 import json
@@ -604,6 +607,85 @@ def test_launcher_cross_node_round_restart_fast(tmp_path):
         assert sum(e["event"] == "workers_started" for e in ev) == 2, ev
     fails = [e for ev in events for e in ev if e["event"] == "worker_failed"]
     assert len(fails) == 1 and fails[0]["failures"][0]["exitcode"] == 7
+
+
+def test_launcher_joins_the_keepalive_and_leaves_only_after_it(tmp_path, monkeypatch,
+                                                                capsys):
+    """``_run_elastic`` over the file backend with a stand-in supervisor: a
+    FAILED round (a budget token), then a SUCCEEDED one. Each round's
+    keep-alive thread has ended before the next rendezvous starts. In the
+    last round the store's heartbeat ``set`` blocks: the join gives up after
+    ``KEEPALIVE_JOIN_S``, the launcher reports the live thread and skips
+    ``leave()``, which a late beat could otherwise undo."""
+    from editor_tpu_torch.cli import launch
+    from editor_tpu_torch.parallel import elastic, rendezvous
+
+    block, blocked, release = threading.Event(), threading.Event(), threading.Event()
+
+    class BlockingStore:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def set(self, key, value):
+            if "/hb/" in key and block.is_set():
+                blocked.set()
+                release.wait(30)
+            return self.inner.set(key, value)
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+    beats, earlier_ended, left = [], [], []
+    create = rendezvous.rendezvous_registry.create_handler
+
+    def create_handler(params):
+        h = create(params)
+        h.store = h._rdzv.store = BlockingStore(h.store)
+        start, rendezvous_ = h.start_keepalive, h.next_rendezvous
+
+        def start_keepalive():
+            beats.append(start())
+            return beats[-1]
+
+        def next_rendezvous(timeout):
+            earlier_ended.append(all(not b.thread.is_alive() for b in beats[:-1]))
+            return rendezvous_(timeout=timeout)
+
+        h.start_keepalive, h.next_rendezvous = start_keepalive, next_rendezvous
+        h.leave = lambda: left.append(True)
+        return h
+
+    outcomes = [elastic.RoundOutcome.FAILED, elastic.RoundOutcome.SUCCEEDED]
+
+    class Supervisor:
+        def __init__(self, spec, **kw):
+            pass
+
+        def run_round(self):
+            outcome = outcomes.pop(0)
+            if outcome == elastic.RoundOutcome.SUCCEEDED:
+                block.set()  # the next beat sticks in the store
+                assert blocked.wait(10)
+            return outcome, [], None
+
+    monkeypatch.setattr(rendezvous.rendezvous_registry, "create_handler", create_handler)
+    monkeypatch.setattr(elastic, "ElasticSupervisor", Supervisor)
+    monkeypatch.setattr(launch, "KEEPALIVE_JOIN_S", 0.3)
+    try:
+        rounds = launch.main([
+            "--nproc_per_node", "1", "--rdzv_backend", "file",
+            "--rdzv_endpoint", str(tmp_path / "rdzv.json"), "--rdzv_id", "ka",
+            "--max_restarts", "1", "--monitor_interval", "0.05",
+            "--rdzv_conf", "keep_alive_interval=0.05", "--error_dir", str(tmp_path / "err"),
+            "--", sys.executable, "-c", "pass"])
+        stuck = beats[-1].thread.is_alive()
+    finally:
+        release.set()
+    out = capsys.readouterr().out
+    assert rounds == 1 and len(beats) == 2 and earlier_ended == [True, True]
+    assert stuck and "still in a store call" in out and left == []
+    beats[-1].thread.join(5)
+    assert not beats[-1].thread.is_alive()
 
 
 def test_tcp_store_client_retries_until_server_up():

@@ -9,7 +9,10 @@ tolerances. The tensor-parallel oracle (``tests/test_torch_tp.py``) is
 JAX's step on a (data, model) mesh with the qkv columns permuted
 shard-major and ``train_state_tp_shardings``, on the tiny config
 (uncompacted: its 8 patches all fit the tail) and on a compact one (128 x 64,
-HEAD_KEEP 1, FREQUENCY_KEEP 2: 32 patches cut to 15).
+HEAD_KEEP 1, FREQUENCY_KEEP 2: 32 patches cut to 15); with ``layout`` the TP
+and pipelined steps take ZeRO-1's or FSDP's state shardings instead, as
+JAX's loop builds them (``tests/test_torch_tp_zero.py``,
+``tests/test_torch_pipeline_zero.py``).
 """
 
 import functools
@@ -189,27 +192,40 @@ def jax_ddp(state, batch, W, name, steps=2):
     return losses, states, comm0["ps"]
 
 
+def _layout_shardings(layout, state, mesh):
+    """The state layout JAX's ``do_train`` gives a run on ``mesh``: 'tp'
+    (``train_state_tp_shardings``), 'zero1' or 'fsdp' (``zero1_state_shardings``,
+    ``fsdp_state_shardings``, which take precedence there), or None."""
+    from editor_tpu.engine.train import zero1_state_shardings
+    from editor_tpu.parallel.tp import train_state_tp_shardings
+    return {"tp": train_state_tp_shardings, "zero1": zero1_state_shardings,
+            "fsdp": jax_fsdp_state_shardings,
+            None: lambda st, m: None}[layout](state, mesh)
+
+
 @functools.lru_cache(maxsize=None)
-def jax_tp_step(data, model, compact=False, moe_experts=0):
+def jax_tp_step(data, model, compact=False, moe_experts=0, layout="tp"):
     """JAX's tensor-parallel step on a (data, model) mesh and its state
-    layout, built once a module."""
-    from editor_tpu.parallel.tp import permute_train_state, train_state_tp_shardings
+    layout (``layout``: the TP layout, or ZeRO-1's or FSDP's as JAX's loop
+    builds them with a model axis), built once a module."""
+    from editor_tpu.parallel.tp import permute_train_state
     jcfg, cfg, opt, state = jax_setup(compact, moe_experts)
     mesh = jax_make_mesh(data=data, model=model, devices=jax.devices()[:data * model])
-    shardings = train_state_tp_shardings(
-        permute_train_state(state, jcfg.vit.num_heads, model), mesh)
+    shardings = _layout_shardings(layout,
+                                  permute_train_state(state, jcfg.vit.num_heads, model), mesh)
     return mesh, shardings, jax_build_train_step(
         jcfg, opt, jax_make_loss(cfg, 4), jax_make_scheduler(cfg), cfg.SOLVER.BASE_LR,
-        compute_dtype=jnp.float64, mesh=mesh, donate=False, state_shardings=shardings)
+        compute_dtype=jnp.float64, mesh=mesh, donate=False, state_shardings=shardings,
+        gather_params_compute=layout == "fsdp")
 
 
-def jax_tp(state, batch, data, model, compact=False, steps=2, moe_experts=0):
+def jax_tp(state, batch, data, model, compact=False, steps=2, moe_experts=0, layout="tp"):
     """JAX's TP run from the canonical ``state``: (losses, the canonical
     train state after it)."""
     from editor_tpu.parallel.tp import permute_train_state
     jcfg = jax_setup(compact, moe_experts)[0]
     H = jcfg.vit.num_heads
-    mesh, shardings, step = jax_tp_step(data, model, compact, moe_experts)
+    mesh, shardings, step = jax_tp_step(data, model, compact, moe_experts, layout)
     st = jax.tree_util.tree_map(jax.device_put, permute_train_state(state, H, model),
                                 shardings)
     feed = jax_shard_batch(mesh, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -381,19 +397,22 @@ def pp_jax_mesh(data, stage, model):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_pp_step(data, stage, model, microbatches):
-    """JAX's train step with ``make_pipeline_backbone`` on that mesh, built
-    once a process."""
+def jax_pp_step(data, stage, model, microbatches, layout=None):
+    """JAX's train step with ``make_pipeline_backbone`` on that mesh (with
+    ``layout``, ZeRO-1's or FSDP's state shardings, as ``_layout_shardings``)
+    and that state layout, built once a process."""
     from editor_tpu.parallel.pipeline_vit import make_pipeline_backbone
-    jcfg, cfg, opt, _ = pp_jax_setup()
+    jcfg, cfg, opt, state = pp_jax_setup()
     mesh = pp_jax_mesh(data, stage, model)
-    return mesh, jax_build_train_step(
+    shardings = _layout_shardings(layout, state, mesh)
+    return mesh, shardings, jax_build_train_step(
         jcfg, opt, jax_make_loss(cfg, 4), jax_make_scheduler(cfg), cfg.SOLVER.BASE_LR,
         compute_dtype=jnp.float64, mesh=mesh, donate=False,
-        backbone=make_pipeline_backbone(mesh, num_microbatches=microbatches))
+        backbone=make_pipeline_backbone(mesh, num_microbatches=microbatches),
+        state_shardings=shardings, gather_params_compute=layout == "fsdp")
 
 
-def jax_pp(batch, data, stage, model, microbatches, steps=2):
+def jax_pp(batch, data, stage, model, microbatches, steps=2, layout=None):
     """JAX's pipelined run from :func:`pp_jax_setup`'s state: (losses, the
     canonical train state after it); under model > 1 the qkv columns are
     permuted shard-major for the run and back after it."""
@@ -405,9 +424,11 @@ def jax_pp(batch, data, stage, model, microbatches, steps=2):
     from editor_tpu.parallel.tp import permute_qkv_params
     jcfg, _, _, state = pp_jax_setup()
     H = jcfg.vit.num_heads
-    mesh, step = jax_pp_step(data, stage, model, microbatches)
+    mesh, shardings, step = jax_pp_step(data, stage, model, microbatches, layout)
     if model > 1:
         state = dataclasses.replace(state, params=permute_qkv_params(state.params, H, model))
+    if shardings is not None:
+        state = jax.tree_util.tree_map(jax.device_put, state, shardings)
     spec = P("data") if "data" in mesh.axis_names else P()
     feed = {k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, spec))
             for k, v in batch.items()}

@@ -103,7 +103,7 @@ def _state(model, opt=None, tp_mesh=None):
     parallelism gathered into the canonical layout (collectives)."""
     if hasattr(opt, "gathered"):
         with opt.gathered():
-            return _state(model)
+            return _state(model, None, tp_mesh)
     if tp_mesh is not None:
         from editor_tpu_torch.parallel.mesh import model_group
         from editor_tpu_torch.parallel.tp import gather_editor_state
@@ -120,8 +120,11 @@ def _build(kind, model, inp, mesh, backbone=None):
     opt, loss, lr_fn, base_lr = _solver(model, inp)
     dtype = inp.get("dtype", torch.float64)
     if kind == "ddp":
-        step = build_ddp_train_step(model, opt, loss, lr_fn, base_lr, mesh,
-                                    reducer=make_reducer(inp["reducer"], rank=4),
+        reducer = make_reducer(inp["reducer"], rank=4)
+        if inp.get("whole"):  # an elementwise reducer on the canonical leaves
+            import dataclasses
+            reducer = dataclasses.replace(reducer, elementwise=False)
+        step = build_ddp_train_step(model, opt, loss, lr_fn, base_lr, mesh, reducer=reducer,
                                     compute_dtype=dtype)
         for k, q in inp.get("q0", {}).items():
             step.comm[k]["q"] = _t(q).to(step.comm[k]["q"].dtype)
@@ -131,7 +134,8 @@ def _build(kind, model, inp, mesh, backbone=None):
             fsdp_state_shardings(model, opt, mesh) if kind == "fsdp" else None)
     step = build_train_step(model, opt, loss, lr_fn, base_lr, compute_dtype=dtype,
                             grad_accum=inp.get("grad_accum", 1), mesh=mesh,
-                            state_shardings=zero, gather_params_compute=kind == "fsdp",
+                            state_shardings=zero,
+                            gather_params_compute=inp.get("gather", kind == "fsdp"),
                             backbone=backbone)
     return step, step.optimizer
 
@@ -151,8 +155,10 @@ def _mesh(model: int = 1, stage=None):
 def _train_run(spec, rank, world):
     """One run: ``kind`` 'global' | 'zero1' | 'fsdp' | 'ddp' | 'single' for ``steps``
     steps on the global ``batch`` (each rank its rows); ``tp`` > 1: the
-    global-batch step on a (W / tp, tp) mesh, the model cut by
-    ``shard_editor``; optionally resumed from the checkpoint ``resume`` and
+    step on a (W / tp, tp) mesh, the model cut by ``shard_editor`` (with
+    'ddp', ``whole`` reduces an elementwise reducer on the canonical
+    leaves; with 'fsdp', ``gather`` False builds it without
+    ``gather_params_compute``); optionally resumed from the checkpoint ``resume`` and
     saving one (``train_state``, rank 0 writes) at ``save_path`` after
     ``save_after`` steps; ``stage``: the pipelined backbone over that many
     stages (``microbatches``) on a (W / (stage tp), stage, tp) mesh. Returns
@@ -528,6 +534,37 @@ def train(inp, rank, world, out_dir):
     return [_train_run({**shared, **run}, rank, world) for run in inp["runs"]]
 
 
+def loop_runs(inp, rank, world, out_dir):
+    """``cli.train.main`` on the in-memory splits for each of ``inp["runs"]``
+    ({argv, and optionally ``seed_ckpt``: a checkpoint file that rank 0
+    copies into the run's ``OUTPUT_DIR/ckpt`` first, so that the run
+    resumes from it}) in this process's group; each run's best metrics."""
+    import shutil
+
+    from editor_tpu_torch.cli import train as cli
+    from editor_tpu_torch.data.datasets import DatasetSplits
+    from tests.torch_dp import decode, items
+
+    out = []
+    for run in inp["runs"]:
+        argv = run["argv"]
+        if run.get("seed_ckpt") and rank == 0:
+            ckpt = os.path.join(argv[argv.index("OUTPUT_DIR") + 1], "ckpt")
+            os.makedirs(ckpt, exist_ok=True)
+            shutil.copy(run["seed_ckpt"], ckpt)
+        C.barrier()
+        train, query, gallery = items()
+        result = cli.main(argv, splits=DatasetSplits(train, query, gallery, 4, 2),
+                          decode_fn=decode)
+        out.append({"best": result["best"]})
+    return out
+
+
+def several(inp, rank, world, out_dir):
+    """Each (scenario, inputs) of ``inp["parts"]`` in turn, in one group."""
+    return [TASKS[name](part, rank, world, out_dir) for name, part in inp["parts"]]
+
+
 # ---------------------------------------------------------------------------
 # evaluation, the CLI, failures
 # ---------------------------------------------------------------------------
@@ -697,6 +734,7 @@ def fail(inp, rank, world, out_dir):
 
 
 TASKS = {"collectives": collectives, "reducers": reducers, "train": train,
+         "loop_runs": loop_runs, "several": several,
          "tp_eval": tp_eval, "row_parallel": row_parallel, "ring": ring, "moe": moe, "fusion_parallel": fusion_parallel,
          "pipeline_toy": pipeline_toy, "pipeline_bn": pipeline_bn, "pipeline_vit": pipeline_vit,
          "localsgd": localsgd, "cmc": cmc,
