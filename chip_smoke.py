@@ -240,10 +240,37 @@ Phases, each printing its lines and its seconds:
      and FSDP within 10 (e)'s limit, with bytes, peak memory and ms; with
      fewer cards the phase says so. ``--phase-13`` runs it alone after the
      build, ``--phase-13 d`` only the cases named.
+ 14. configs: the model configurations beyond the flagship's. (a) kernels
+     at the stride-12 backbone's N = 211 (K1 with probs, K4, K2 at Z = 4608)
+     against their plain versions with phase 2's checks, with times, library
+     times and bounds; the flagship with MODEL.STRIDE_SIZE [12, 12] (21 x 10
+     patches, N = 211, the tail still compacted to 88 / 264): the eval
+     forward launches K1 12, K2 1 and K3 2 times and meets phase 3's gates,
+     its frequency mask equals the CPU's on the same images bit for bit; ms,
+     img/s, peak memory; (b) its train step at B = 128 launches K1 12, K2 1,
+     K3 2, K4 12 and K5 2 times (ms, img/s, peak memory), and phase 5's
+     comparison with the plain fp32 run at B = 64 with TPU.REMAT (block),
+     which fits the card; (c) phase 5's step under TPU.REMAT with each
+     policy (block, dots, names, attn_out; block with REMAT_SKIP_LAST 4)
+     against the same step without remat (loss and every parameter's change
+     within 1e-3 relative, bit for bit printed, the no-remat step run twice
+     for the card's own spread), K1's launches (2 x 12 under block and dots,
+     12 under names and attn_out, 20 with the last 4 blocks kept), ms, peak;
+     (d) MODEL.ATT_DROP_RATE 0.1, MODEL.DROP_OUT 0.1 with TPU.REMAT: the step
+     launches no K1 or K4 (the plain attention) and equals the step without
+     remat from the same generator seed within 1e-3, the eval forward
+     launches K1 12, the dropped share of the attention weights in a
+     training forward within 4 sigma of 0.1, ms; (e) the frequency mask's
+     general branch (Haar, J = 4) at 264 x 136, B = 128, on the card against
+     the CPU with TF32 switched on around the call (the wavelet module turns
+     it off itself): window counts, masks, a db4 / symmetric round trip
+     within 1e-5, the mask's ms. ``--phase-14`` runs it alone after the
+     build, ``--phase-14 ce`` only the cases named.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
 (K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve, dp,
-fsdp, mp, pp), and last the result line {"ok": true, "device": {...}}. Any failed check
+fsdp, mp, pp, stride12, remat, dropout; K1, K2 and K4 at N = 211 under
+``stride12``), and last the result line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero without the result line; it does the
 same without a CUDA device.
 """
@@ -4713,6 +4740,400 @@ def pp_phase(card: str, gen: torch.Generator, bare_step_ms=None, cases: str = "a
     return {**one, "multi": {**multi, **zero}}
 
 
+# Phase 14: the model configurations the port runs beyond the flagship's:
+# overlapping patches (MODEL.STRIDE_SIZE 12: a 21 x 10 grid, N = 211 tokens a
+# modality, the tail still compacted to 88 / 264), the remat policies,
+# dropout and attention dropout, and the general frequency branch (image
+# sides 2^J does not divide). Remat and dropout run at the flagship's stride
+STRIDE12 = ["MODEL.STRIDE_SIZE", "[12, 12]"]
+N_STRIDE12 = 211
+REMAT_TOL = 1e-3  # the remat steps' relative difference from the no-remat step
+# (e): the card's frequency mask against the CPU's on the same fp32 images
+FREQ_HW = (264, 136)
+FREQ_COUNT_SHARE, FREQ_COUNT_DIFF, FREQ_ROW_SHARE = 1e-3, 2, 0.01
+
+
+def _stride12_kernels(gen: torch.Generator) -> dict:
+    """K1 (with probs), K4 and K2 at the stride-12 backbone's N = 211, past
+    K1's 144-key resident instance and K4's on-chip attention, against their
+    plain versions with phase 2's checks (K1: out within 2e-2, every probs
+    element within one bf16 ulp; K4: scaled 1e-2, the shares and their wrong
+    forms; K2: 1e-5), with times, library times and bounds."""
+    from editor_tpu_torch import ops
+
+    F = torch.nn.functional
+    Bk, N = 3 * B_EVAL, N_STRIDE12
+    randn = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    res = {}
+    qkv = randn(Bk, N, 3 * C)
+    probs = torch.empty(Bk, H, N, N, dtype=torch.bfloat16, device="cuda")
+    out, _ = ops.attention_qkv(qkv, H, SCALE, probs_out=probs)
+    torch.cuda.synchronize()
+    k1 = _k1_errors(f"attention_qkv N={N}", out, probs,
+                    ops.attention_qkv_tpu_plain(qkv, H, SCALE, True))
+    b = bound(4.0 * Bk * H * N * N * D, 2.0 * (Bk * N * 3 * C + Bk * N * C + Bk * H * N * N))
+    res["attention_qkv"] = dict(
+        shape=list(qkv.shape), max_abs_err=max(k1["out_err"], k1["probs_err"]),
+        ms=cuda_ms(lambda: ops.attention_qkv(qkv, H, SCALE, probs_out=probs)),
+        plain_ms=cuda_ms(lambda: ops.attention_qkv_tpu_plain(qkv, H, SCALE, True)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(*_heads(qkv), scale=SCALE)),
+        probs_ulps=k1["probs_ulps"], **b)
+    del probs, out
+    g = randn(Bk, N, C)
+    dq = ops.attention_qkv_bwd(qkv, g, H, SCALE)
+    ref_dq = ops.attention_qkv_bwd_plain(qkv, g, H, SCALE)
+    torch.cuda.synchronize()
+    e4 = _scaled(dq, ref_dq)
+    _require(f"attention_qkv_bwd N={N} (scaled)", e4, 1e-2)
+    shares = _bwd_shares(f"attention_qkv_bwd N={N}", dq, ref_dq, N, C)
+    caught = _wrong_forms(
+        f"attention_qkv_bwd N={N}",
+        ops.attention_qkv_bwd_plain(qkv.float(), g.float(), H, SCALE).to(torch.bfloat16),
+        ops.masked_attention_qkv_bwd_plain(qkv, torch.ones(Bk, N, device="cuda"), g, H, SCALE),
+        ref_dq, N, C)
+    del dq, ref_dq
+    b = bound(10.0 * Bk * H * N * N * D, 2.0 * Bk * N * (3 * C + C + 3 * C))
+    res["attention_qkv_bwd"] = dict(
+        shape=list(qkv.shape), max_abs_err=e4, **shares, wrong_forms=caught,
+        ms=cuda_ms(lambda: ops.attention_qkv_bwd(qkv, g, H, SCALE)),
+        plain_ms=cuda_ms(lambda: ops.attention_qkv_bwd_plain(qkv, g, H, SCALE)),
+        library_ms=_sdpa_bwd_ms(qkv, g), **b)
+    del qkv, g
+    L = 12
+    maps = torch.empty(L, Bk, H, N, N, dtype=torch.bfloat16, device="cuda")
+    for l in range(L):
+        maps[l] = torch.softmax(4.0 * torch.randn(Bk, H, N, N, generator=gen, device="cuda"),
+                                dim=-1).to(torch.bfloat16)
+    roll = ops.rollout_chain(maps)
+    e2 = _max_err(roll, ops.rollout_from_probs_plain(maps))
+    _require(f"rollout_chain N={N}", e2, 1e-5)
+    b = bound(2.0 * (L - 1) * Bk * H * N * N, 2.0 * L * Bk * H * N * N + 4.0 * Bk * H * (N - 1))
+    res["rollout_chain"] = dict(
+        L=L, Z=Bk * H, N=N, max_abs_err=e2, ms=cuda_ms(lambda: ops.rollout_chain(maps)),
+        plain_ms=cuda_ms(lambda: ops.rollout_from_probs_plain(maps)), library_ms=None, **b)
+    del maps, roll
+    for name, r in res.items():
+        say(f"14a kernel {name} N={N}", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                                           for k, v in r.items() if k not in ("flops",
+                                                                              "bytes")})
+    torch.cuda.empty_cache()
+    return res
+
+
+def _p14_batch(cfg, ecfg, gen: torch.Generator) -> dict:
+    """Phase 5's batch: uint8 images, 8 ids x 16 at B = 128."""
+    B, K = cfg.SOLVER.IMS_PER_BATCH, cfg.DATALOADER.NUM_INSTANCE
+    h, w = ecfg.vit.img_size
+    batch = {m: torch.randint(0, 256, (B, h, w, 3), generator=gen, device="cuda",
+                              dtype=torch.uint8) for m in ("RGB", "NI", "TI")}
+    batch["pid"] = torch.arange(B, device="cuda") // K
+    batch["camid"] = torch.arange(B, device="cuda") % 6
+    return batch
+
+
+def _p14_step(cfg, ecfg):
+    """(model, step): seeded weights (editor_init seed 0) and phase 5's bf16
+    step (SGD, the augmentation, generator seed 1)."""
+    from editor_tpu_torch.data.transforms import make_train_augment
+    from editor_tpu_torch.engine.train import build_train_step
+    from editor_tpu_torch.losses import make_loss
+    from editor_tpu_torch.models.init import editor_init
+    from editor_tpu_torch.solver import make_optimizer, make_scheduler
+
+    model = editor_init(ecfg, seed=0)
+    step = build_train_step(model, make_optimizer(cfg, model), make_loss(cfg, ecfg.num_classes),
+                            make_scheduler(cfg), cfg.SOLVER.BASE_LR, torch.bfloat16,
+                            augment=make_train_augment(cfg.INPUT), seed=1)
+    return model, step
+
+
+def _one_step(label: str, opts, batch: dict, want: dict, gen=None, iters: int = 3) -> dict:
+    """One step of the flagship with ``opts`` from seeded weights: its launch
+    counts (required ``want``), loss, each parameter's change, then its ms
+    (CUDA events over ``iters`` steps after one warm-up), img/s and peak
+    memory."""
+    cfg, ecfg = flagship(opts)
+    model, step = _p14_step(cfg, ecfg)
+    start = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.synchronize()
+    reset_counts()
+    loss = float(step(batch, 1)["loss"])
+    launches = launch_counts()
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches} != {want} in one step")
+    if not (np.isfinite(loss) and _grads_finite(model)):
+        raise AssertionError(f"{label}: non-finite loss {loss} or gradients")
+    delta = [p.detach() - p0 for p, p0 in zip(model.parameters(), start)]
+    del start
+    epoch = cfg.SOLVER.WARMUP_ITERS + 1
+    step(batch, epoch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(batch, epoch), iters=iters)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    B = batch["pid"].shape[0]
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(launches=launches, loss=loss, delta=delta, ms=ms, img_s=B / ms * 1e3,
+                peak_gb=peak)
+
+
+def _step_diff(got: dict, ref: dict) -> dict:
+    """A step against a reference step from the same weights, batch and
+    draws: the loss's relative difference, the largest relative difference
+    of a parameter tensor's change (floored at 1e-3 of the largest change's
+    norm) and whether every change is bit for bit the reference's."""
+    norms = [float(d.float().norm()) for d in ref["delta"]]
+    floor = 1e-3 * max(norms)
+    rel = max(float((a.float() - b.float()).norm()) / max(n, floor)
+              for a, b, n in zip(got["delta"], ref["delta"], norms))
+    return dict(rel_dloss=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]), rel_dparam=rel,
+                bit_for_bit=got["loss"] == ref["loss"]
+                and all(torch.equal(a, b) for a, b in zip(got["delta"], ref["delta"])))
+
+
+def _p14_stride12(gen: torch.Generator, cases: str) -> dict:
+    """(a) the stride-12 eval forward: K1 12, K2 1, K3 2, phase 3's gates
+    against the plain fp32 run, the frequency mask equal to the CPU's bit
+    for bit, ms, img/s, peak memory; (b) its train step at B = 128: K1 12,
+    K2 1, K3 2, K4 12, K5 2, ms, img/s, peak memory; and phase 5's
+    comparison with the plain fp32 run at B = 64 with TPU.REMAT (block): the
+    plain fp32 step at B = 128 and N = 211 would hold ~80 GB of activations
+    (PERF.md), more than the card."""
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.models.editor import _tail_keep_count
+    from editor_tpu_torch.models.frequency import frequency_token_select
+
+    out = {}
+    cfg, ecfg = flagship(STRIDE12)
+    L = ecfg.vit.depth
+    if not (ecfg.vit.stride_size == (12, 12) and ecfg.num_patches == N_STRIDE12 - 1
+            and _tail_keep_count(ecfg, 3) == 87):
+        raise AssertionError(f"stride 12: {ecfg.vit.stride_size}, {ecfg.num_patches} patches, "
+                             f"tail {_tail_keep_count(ecfg, 3)}")
+    if "a" in cases:
+        out["kernels"] = _stride12_kernels(gen)
+        model, ref_model, batch, ref, launches = eval_check(
+            ecfg, gen, "14a stride-12 forward",
+            expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2))
+        del ref_model, ref
+        mods = [batch[m].to(torch.bfloat16) for m in ("RGB", "NI", "TI")]
+        kw = dict(keep=ecfg.frequency_keep, stride=12, window=ecfg.vit.patch_size)
+        mask = frequency_token_select(mods, **kw)
+        cpu_mask = frequency_token_select([m.cpu() for m in mods], **kw)
+        if not torch.equal(mask.cpu(), cpu_mask):
+            raise AssertionError("stride-12 frequency mask: card != CPU in "
+                                 f"{int((mask.cpu() != cpu_mask).sum())} tokens")
+        del mods
+        torch.cuda.empty_cache()
+        step = build_eval_step(model, torch.bfloat16)
+        step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(batch), iters=5)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out["eval"] = dict(launches=launches, ms=ms, img_s=B_EVAL / ms * 1e3, peak_gb=peak)
+        say("14a stride-12 forward timing", B=B_EVAL, N=N_STRIDE12, mask_equal_cpu=True,
+            ms=f"{ms:.3f}", img_s=f"{B_EVAL / ms * 1e3:.1f}", peak_gb=f"{peak:.3f}")
+        del model, step, batch
+        torch.cuda.empty_cache()
+    if "b" in cases:
+        want = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2,
+                        attention_qkv_bwd=L, masked_attention_qkv_bwd=2)
+        run = _one_step("14b stride-12 train", STRIDE12, _p14_batch(cfg, ecfg, gen), want,
+                        iters=5)
+        out["train"] = {k: v for k, v in run.items() if k != "delta"}
+        say("14b stride-12 train timing", B=cfg.SOLVER.IMS_PER_BATCH, N=N_STRIDE12,
+            launches=json.dumps(run["launches"]), loss=f"{run['loss']:.5f}",
+            ms=f"{run['ms']:.3f}", img_s=f"{run['img_s']:.1f}", peak_gb=f"{run['peak_gb']:.3f}")
+        del run
+        torch.cuda.empty_cache()
+        cfg64, ecfg64 = flagship(STRIDE12 + ["SOLVER.IMS_PER_BATCH", "64", "TPU.REMAT", "True"])
+        train_check(cfg64, ecfg64, gen, "14b stride-12 train vs plain fp32 (B=64, remat block)",
+                    expected(attention_qkv=2 * L, rollout_chain=1, masked_attention_qkv=2,
+                             attention_qkv_bwd=L, masked_attention_qkv_bwd=2), learn=False)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _p14_remat(gen: torch.Generator) -> dict:
+    """(c) phase 5's step with TPU.REMAT under each policy (and block with
+    REMAT_SKIP_LAST 4) against the same step without remat from the same
+    weights, batch and draws: the loss and every parameter's change within
+    REMAT_TOL relative (bit for bit printed); the no-remat step run twice
+    shows the card's own run-to-run spread; K1's launches (recomputed under
+    block and dots, skipped on the last 4 blocks with REMAT_SKIP_LAST 4), ms
+    and peak memory of each."""
+    cfg, ecfg = flagship()
+    L = ecfg.vit.depth
+    batch = _p14_batch(cfg, ecfg, gen)
+    base_want = dict(rollout_chain=1, masked_attention_qkv=2, attention_qkv_bwd=L,
+                     masked_attention_qkv_bwd=2)
+    ref = _one_step("14c no remat", [], batch, expected(attention_qkv=L, **base_want))
+    again = _one_step("14c no remat, again", [], batch, expected(attention_qkv=L, **base_want))
+    noise = _step_diff(again, ref)
+    del again
+    say("14c no remat", ms=f"{ref['ms']:.3f}", peak_gb=f"{ref['peak_gb']:.3f}",
+        run_to_run=json.dumps(noise))
+    out = {"none": dict(launches=ref["launches"], ms=ref["ms"], peak_gb=ref["peak_gb"],
+                        run_to_run=noise)}
+    for name, policy, skip, k1 in (("block", "block", 0, 2 * L), ("dots", "dots", 0, 2 * L),
+                                   ("names", "names", 0, L), ("attn_out", "attn_out", 0, L),
+                                   ("block_skip4", "block", 4, 2 * L - 4)):
+        opts = ["TPU.REMAT", "True", "TPU.REMAT_POLICY", policy, "TPU.REMAT_SKIP_LAST", str(skip)]
+        run = _one_step(f"14c remat {name}", opts, batch, expected(attention_qkv=k1, **base_want))
+        diff = _step_diff(run, ref)
+        if not (diff["rel_dloss"] <= REMAT_TOL and diff["rel_dparam"] <= REMAT_TOL):
+            raise AssertionError(f"remat {name} vs no remat: {diff} (limit {REMAT_TOL})")
+        out[name] = dict(launches=run["launches"], ms=run["ms"], peak_gb=run["peak_gb"], **diff)
+        say(f"14c remat {name}", k1_launches=k1, ms=f"{run['ms']:.3f}",
+            peak_gb=f"{run['peak_gb']:.3f}", limit=REMAT_TOL, **diff)
+        del run
+        torch.cuda.empty_cache()
+    return out
+
+
+def _p14_dropout(gen: torch.Generator) -> dict:
+    """(d) MODEL.ATT_DROP_RATE 0.1, MODEL.DROP_OUT 0.1 and TPU.REMAT (block):
+    the train step takes the plain attention (K1 and K4 0 launches, K2 1, K3
+    2, K5 2) and equals the same step without remat from the same generator
+    seed within REMAT_TOL (bit for bit printed); the eval forward launches K1
+    12, K2 1, K3 2; in a training forward the share of dropped attention
+    weights is within 4 sigma of 0.1; the step's ms."""
+    from editor_tpu_torch.data.transforms import make_eval_transform
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.models import vit as port_vit
+
+    drop = ["MODEL.ATT_DROP_RATE", "0.1", "MODEL.DROP_OUT", "0.1"]
+    cfg, ecfg = flagship(drop + ["TPU.REMAT", "True"])
+    if not (ecfg.vit.attn_drop_rate == 0.1 and ecfg.vit.drop_rate == 0.1 and ecfg.vit.remat):
+        raise AssertionError(f"dropout options did not reach the model: {ecfg.vit}")
+    L, rate = ecfg.vit.depth, ecfg.vit.attn_drop_rate
+    batch = _p14_batch(cfg, ecfg, gen)
+    want = expected(rollout_chain=1, masked_attention_qkv=2, masked_attention_qkv_bwd=2)
+    run = _one_step("14d dropout, remat", drop + ["TPU.REMAT", "True"], batch, want)
+    ref = _one_step("14d dropout, no remat", drop, batch, want)
+    diff = _step_diff(run, ref)
+    if not (diff["rel_dloss"] <= REMAT_TOL and diff["rel_dparam"] <= REMAT_TOL):
+        raise AssertionError(f"dropout: remat vs no remat {diff} (limit {REMAT_TOL})")
+
+    model, _ = _p14_step(cfg, ecfg)
+    zeros, total = [], []
+    inner = port_vit._attention_dropped
+
+    def probe(*args):
+        out, probs = inner(*args)
+        zeros.append((probs == 0).sum())
+        total.append(probs.numel())
+        return out, probs
+
+    norm = make_eval_transform(cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD)
+    images = {m: norm(batch[m]).to(torch.bfloat16) for m in ("RGB", "NI", "TI")}
+    port_vit._attention_dropped = probe
+    try:
+        with torch.no_grad():  # the forward alone: each layer's weights once
+            model(images, batch["camid"], training=True, labels=batch["pid"],
+                  generator=torch.Generator(device="cuda").manual_seed(2))
+    finally:
+        port_vit._attention_dropped = inner
+    n = sum(total)
+    share = float(torch.stack(zeros).sum()) / n
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    if len(total) != L or not abs(share - rate) <= 4 * sigma:
+        raise AssertionError(f"attention dropout: {len(total)} layers, dropped share {share} "
+                             f"vs {rate} (4 sigma {4 * sigma})")
+    eval_batch = _eval_batch(gen, B_EVAL)
+    step = build_eval_step(model, torch.bfloat16)
+    reset_counts()
+    step(eval_batch)
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    eval_want = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2)
+    if eval_launches != eval_want:
+        raise AssertionError(f"dropout model eval: launches {eval_launches} != {eval_want}")
+    del model, step, eval_batch
+    torch.cuda.empty_cache()
+    say("14d dropout", launches=json.dumps(run["launches"]), dropped_share=f"{share:.6f}",
+        four_sigma=f"{4 * sigma:.2e}", eval_launches=json.dumps(eval_launches),
+        ms=f"{run['ms']:.3f}", ms_no_remat=f"{ref['ms']:.3f}", peak_gb=f"{run['peak_gb']:.3f}",
+        limit=REMAT_TOL, **diff)
+    return dict(train=run["launches"], eval=eval_launches, ms=run["ms"], ms_no_remat=ref["ms"],
+                dropped_share=share, **diff)
+
+
+def _p14_frequency(gen: torch.Generator) -> dict:
+    """(e) frequency_token_select's general branch (Haar, J = 4, zero mode)
+    at 264 x 136, sides 16 does not divide, B = 128, on the card against the
+    CPU on the same fp32 images, with cuDNN's TF32 switched on around the
+    card's call (the wavelet module must turn it off itself): the window
+    counts equal on all but FREQ_COUNT_SHARE of the windows and none off by
+    more than FREQ_COUNT_DIFF, the masks equal on all but FREQ_ROW_SHARE of
+    the rows; a db4 / symmetric wavedec2 -> waverec2 round trip within 1e-5;
+    the mask's ms."""
+    from editor_tpu_torch.models import frequency as fq
+    from editor_tpu_torch.ops import wavelets
+
+    mods = [torch.randn(B_EVAL, *FREQ_HW, 3, generator=gen, device="cuda") for _ in range(3)]
+    counts = []
+    inner = fq.window_positive_counts
+
+    def record(*args):
+        counts.append(inner(*args))
+        return counts[-1]
+
+    kw = dict(keep=10, stride=16, window=16)
+    fq.window_positive_counts = record
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        mask = fq.frequency_token_select(mods, **kw)
+        tf32_after = torch.backends.cudnn.allow_tf32
+        cpu_mask = fq.frequency_token_select([m.cpu() for m in mods], **kw)
+    finally:
+        fq.window_positive_counts = inner
+        torch.backends.cudnn.allow_tf32 = tf32
+    if not tf32_after:
+        raise AssertionError("the wavelet module left cuDNN's TF32 switched off")
+    card, cpu = counts[0].cpu(), counts[1]
+    grid = ((FREQ_HW[0] - 16) // 16 + 1, (FREQ_HW[1] - 16) // 16 + 1)
+    if card.shape != cpu.shape or card.shape != (B_EVAL, *grid):
+        raise AssertionError(f"frequency counts {tuple(card.shape)}, {tuple(cpu.shape)}")
+    off = (card != cpu)
+    count_share, count_diff = float(off.float().mean()), int((card - cpu).abs().max())
+    row_share = float((mask.cpu() != cpu_mask).any(dim=1).float().mean())
+    if not (count_share <= FREQ_COUNT_SHARE and count_diff <= FREQ_COUNT_DIFF
+            and row_share <= FREQ_ROW_SHARE):
+        raise AssertionError(f"frequency mask card vs CPU: counts off in {count_share} "
+                             f"(max {count_diff}), masks in {row_share} of rows")
+    x = torch.randn(8, *FREQ_HW, 3, generator=gen, device="cuda")
+    low, highs = wavelets.wavedec2(x, "db4", J=4, mode="symmetric")
+    rt = _max_err(wavelets.waverec2(low, highs, "db4", mode="symmetric"), x)
+    _require("db4 symmetric wavedec2 -> waverec2", rt, 1e-5)
+    ms = cuda_ms(lambda: fq.frequency_token_select(mods, **kw), iters=5)
+    say("14e frequency general branch", B=B_EVAL, hw=list(FREQ_HW), grid=list(grid),
+        counts_off_share=count_share, counts_max_diff=count_diff, mask_rows_off=row_share,
+        limits=f"{FREQ_COUNT_SHARE}/{FREQ_COUNT_DIFF}/{FREQ_ROW_SHARE}",
+        roundtrip_err=rt, ms=f"{ms:.3f}")
+    return dict(count_share=count_share, count_diff=count_diff, row_share=row_share,
+                roundtrip_err=rt, ms=ms)
+
+
+def config_phase(gen: torch.Generator, cases: str = "abcde") -> dict:
+    """Phase 14: the model configurations beyond the flagship's. ``cases``:
+    the letters of the cases to run (``--phase-14 ce``)."""
+    out = _p14_stride12(gen, cases)
+    torch.cuda.empty_cache()
+    if "c" in cases:
+        out["remat"] = _p14_remat(gen)
+        torch.cuda.empty_cache()
+    if "d" in cases:
+        out["dropout"] = _p14_dropout(gen)
+        torch.cuda.empty_cache()
+    if "e" in cases:
+        out["frequency"] = _p14_frequency(gen)
+    return out
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4762,6 +5183,8 @@ def main() -> None:
     mp = timed("12 mp", mp_phase, card, gen)
     torch.cuda.empty_cache()
     pp = timed("13 pp", pp_phase, card, gen, bare_step_ms)
+    torch.cuda.empty_cache()
+    cf = timed("14 configs", config_phase, gen)
     # launches, launches_eval: per train step and per eval forward (loop: eval
     # batch), summed over the three paths (compact: phases 3 and 5;
     # uncompacted: phase 6; the loop: phase 8, with its run's total), each
@@ -4777,17 +5200,24 @@ def main() -> None:
                    "mp": _mp_launches(mp, name),
                    "pp": {"train": pp["train"][name], "eval": pp["eval"][name],
                           **{f"ranks_{k}_train": v["train"][name]
-                             for k, v in pp["multi"].items()}}}
+                             for k, v in pp["multi"].items()}},
+                   "stride12": {"train": cf["train"]["launches"][name],
+                                "eval": cf["eval"]["launches"][name]},
+                   "remat": {k: v["launches"][name] for k, v in cf["remat"].items()},
+                   "dropout": {k: cf["dropout"][k][name] for k in ("train", "eval")}}
         info = {k: v for k, v in spec.items() if k != "tool"}
         extra = {"tp_shard": mp["shard"][name]} if name in mp["shard"] else {}
+        if name in cf["kernels"]:
+            extra["stride12"] = cf["kernels"][name]
         rows.append(dict(name=name, route="cuda", **info,
                          launches=(launches[name] + un_train[name] + looped["train"][name]
                                    + dp["train"][name] + fsdp["train"][name]
-                                   + mp["moe"]["train"][name] + pp["train"][name]),
+                                   + mp["moe"]["train"][name] + pp["train"][name]
+                                   + cf["train"]["launches"][name]),
                          launches_eval=(eval_launches[name] + un_eval[name]
                                         + looped["eval"][name] + dp["eval"][name]
                                         + fsdp["eval"][name] + mp["moe"]["eval"][name]
-                                        + pp["eval"][name]),
+                                        + pp["eval"][name] + cf["eval"]["launches"][name]),
                          launches_by_path=by_path, **kernels[name], **extra))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4821,6 +5251,11 @@ if __name__ == "__main__":
         card = card_check()
         timed("1 build", build_phase)
         timed("13 pp", pp_phase, card, torch.Generator(device="cuda").manual_seed(0), None,
+              *sys.argv[2:3])
+    elif sys.argv[1:2] == ["--phase-14"]:  # phase 14 alone, after the build [cases]
+        card_check()
+        timed("1 build", build_phase)
+        timed("14 configs", config_phase, torch.Generator(device="cuda").manual_seed(0),
               *sys.argv[2:3])
     else:
         main()

@@ -17,11 +17,24 @@ autograd differentiates them directly.
 Training adds per-sample stochastic depth at ``linspace(0, drop_path_rate,
 depth)`` per block (one fp32 uniform draw per sample and branch, drawn for
 all blocks up front from the caller's generator), dropout where
-``drop_rate > 0``, and, with ``remat``, ``torch.utils.checkpoint`` around
-each block (the JAX ``"block"`` policy; the drop-path draws are made before
-the checkpoint so the recompute sees the same masks, and dropout, whose
-masks would be redrawn, raises with it). Attention dropout
-(``attn_drop_rate > 0`` in training) has no kernel and raises.
+``drop_rate > 0``, and attention dropout where ``attn_drop_rate > 0``: no
+kernel has it, so the block then takes the plain attention (as JAX leaves
+its kernel for the XLA path; K1 and K4 do not launch in such a step) and
+the rollout reads the dropped weights, as JAX's does.
+
+With ``remat`` the first ``depth - remat_skip_last`` blocks recompute their
+activations in the backward under JAX's policies: ``block`` keeps the
+block's input alone; ``dots`` the Linear products (qkv, proj, fc1) and
+recomputes the attention (K1 launches again); ``names`` qkv, the attention
+output and fc1; ``attn_out`` the attention output and fc1, its qkv rebuilt
+by its product for K4 (``names`` and ``attn_out`` launch K1 once). Each
+policy is a chain of ``torch.utils.checkpoint`` regions whose inputs are
+exactly what JAX's saves; a region's recompute re-runs the region (torch
+recomputes up to the last tensor it saved), so a product JAX's dead-code
+pass skips may run again. The recompute replays what the forward drew from
+the caller's generator (:func:`_checkpoint`), so dropout and attention
+dropout compose with every policy and give the gradients of the step
+without remat.
 
 Tensor parallelism (``tp`` a :class:`TPGroup`, from ``Editor.forward(
 tp_mesh=)``): the blocks hold this rank's Megatron shards
@@ -38,6 +51,7 @@ shard draws the full width and keeps its columns).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Optional, Tuple
@@ -48,6 +62,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from editor_tpu_torch import ops
+from editor_tpu_torch.ops._checks import compute_dtype
 from editor_tpu_torch.models.layers import (LayerNorm, Linear, drop_path, dropout, gelu,
                                             linear, new_param)
 from editor_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
@@ -73,8 +88,8 @@ class ViTConfig:
     sie_xishu: float = 3.0
     ln_eps: float = 1e-6
     num_fc_classes: int = 1000  # legacy ImageNet head kept for checkpoint parity
-    # activation recompute of the train step: "block" is torch.utils.checkpoint
-    # around each block (the first depth - remat_skip_last blocks)
+    # activation recompute of the train step under JAX's policies (block,
+    # dots, names, attn_out) for the first depth - remat_skip_last blocks
     remat: bool = False
     remat_policy: str = "block"
     remat_skip_last: int = 0
@@ -178,16 +193,80 @@ class Mlp(nn.Module):
         self.fc1 = Linear(cfg.embed_dim, hid, device=device)
         self.fc2 = Linear(hid, cfg.embed_dim, device=device)
 
-    def forward(self, x: torch.Tensor, rate: float = 0.0,
-                generator: Optional[torch.Generator] = None,
-                tp: Optional[TPGroup] = None) -> torch.Tensor:
+    def hidden(self, x: torch.Tensor, tp: Optional[TPGroup] = None) -> torch.Tensor:
+        """fc1's output (before the GELU): JAX's checkpoint name ``fc1``."""
+        return self.fc1(x if tp is None else copy_to_group(x, tp.group))
+
+    def out(self, f: torch.Tensor, rate: float = 0.0,
+            generator: Optional[torch.Generator] = None,
+            tp: Optional[TPGroup] = None) -> torch.Tensor:
+        """GELU, dropout, fc2, dropout from fc1's output ``f``."""
+        y = gelu(f)
         if tp is None:
-            y = dropout(gelu(self.fc1(x)), rate, generator)
-            return dropout(self.fc2(y), rate, generator)
-        y = gelu(self.fc1(copy_to_group(x, tp.group)))
+            return dropout(self.fc2(dropout(y, rate, generator)), rate, generator)
         w = y.shape[-1]
         y = dropout(y, rate, generator, width=w * tp.size, offset=w * tp.rank)
         return dropout(_row_parallel(y, self.fc2, tp), rate, generator)
+
+
+def _attention_dropped(qkv: torch.Tensor, num_heads: int, scale: float, rate: float,
+                       generator: Optional[torch.Generator]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention with dropout on its softmax weights (JAX's XLA path in
+    training with ``attn_drop_rate > 0``; no kernel has it): qkv [B, N, 3C]
+    -> (out [B, N, C], probs [B, H, N, N]). At-least-fp32 logits and
+    softmax, the weights dropped (inverted, drawn from ``generator``), cast
+    to qkv's dtype before the p.v product; the probs the rollout reads are
+    the dropped weights, as JAX's."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    cd = compute_dtype(qkv.dtype)
+    q, k, v = qkv.reshape(B, N, 3, num_heads, C // num_heads).permute(2, 0, 3, 1, 4).to(cd)
+    attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    probs = dropout(attn, rate, generator).to(qkv.dtype)
+    out = torch.matmul(probs.to(cd), v).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(B, N, C), probs
+
+
+def _checkpoint(fn, *args, generator: Optional[torch.Generator] = None):
+    """``torch.utils.checkpoint`` of ``fn(*args)`` whose recompute draws
+    what the forward drew from ``generator``: its state at the call is
+    replayed for the recompute, and the generator is put back where it was
+    before the recompute (``preserve_rng_state`` covers only the default
+    generators)."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    entry = generator.get_state()
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:  # the forward
+            return fn(*a)
+        left = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return fn(*a)
+        finally:  # also when the recompute stops early
+            generator.set_state(left)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+@contextlib.contextmanager
+def _recomputed_saves(recompute):
+    """Every tensor autograd saves inside the block is dropped and rebuilt
+    by ``recompute()`` when the backward reads it (one checkpointed tensor:
+    the attention function's qkv under the ``attn_out`` policy)."""
+    def unpack(_):
+        with torch.no_grad():
+            return recompute()
+
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: None, unpack):
+        yield
+
+
+REMAT_POLICIES = ("block", "dots", "names", "attn_out")
 
 
 class Block(nn.Module):
@@ -202,26 +281,78 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, probs_out: torch.Tensor, use_kernels: bool,
                 rate: float = 0.0, u: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                tp: Optional[TPGroup] = None) -> torch.Tensor:
+                tp: Optional[TPGroup] = None, training: bool = False,
+                remat: Optional[str] = None) -> torch.Tensor:
         """Pre-LN block; writes this layer's attention maps into probs_out.
 
         Training: ``u`` [2, B, 1, 1] holds the drop-path draws of the two
-        branches at this block's ``rate``; ``generator`` feeds dropout.
-        ``tp``: the block holds its shards; ``probs_out`` is [B, H/tp, N, N]."""
+        branches at this block's ``rate``; ``generator`` feeds dropout and,
+        with ``attn_drop_rate > 0``, the attention's (the plain attention
+        then, as JAX leaves its kernel). ``tp``: the block holds its shards;
+        ``probs_out`` is [B, H/tp, N, N]. ``remat``: the activation
+        recompute policy (:data:`REMAT_POLICIES`), None for none; each keeps
+        what JAX's policy saves (``vit_apply``) and recomputes the rest."""
         cfg = self.cfg
         heads = cfg.num_heads if tp is None else cfg.num_heads // tp.size
-        h = self.norm1(x)
-        qkv = self.attn.qkv(h if tp is None else copy_to_group(h, tp.group))
-        if use_kernels:
-            out, _ = ops.attention_qkv_fn(qkv, heads, cfg.scale, probs_out)
-        else:
-            out, probs = ops.attention_qkv_plain(qkv, heads, cfg.scale, True)
+        drop_attn = training and cfg.attn_drop_rate > 0
+        u0, u1 = (None, None) if u is None else (u[0], u[1])
+
+        def qkv_of(x):  # LN, qkv: JAX's checkpoint name ``qkv``
+            h = self.norm1(x)
+            return self.attn.qkv(h if tp is None else copy_to_group(h, tp.group))
+
+        def attend(qkv):  # JAX's ``attn_out``
+            if drop_attn:
+                out, probs = _attention_dropped(qkv, heads, cfg.scale, cfg.attn_drop_rate,
+                                                generator)
+            elif use_kernels:
+                return ops.attention_qkv_fn(qkv, heads, cfg.scale, probs_out)[0]
+            else:
+                out, probs = ops.attention_qkv_plain(qkv, heads, cfg.scale, True)
             probs_out.copy_(probs.detach())  # the rollout stays outside the graph
-        proj = self.attn.proj(out) if tp is None else _row_parallel(out, self.attn.proj, tp)
-        mid = dropout(proj, cfg.drop_rate, generator)
-        x = x + drop_path(mid, rate, None if u is None else u[0])
-        mlp = self.mlp(self.norm2(x), cfg.drop_rate, generator, tp)
-        return x + drop_path(mlp, rate, None if u is None else u[1])
+            return out
+
+        def proj_of(out):
+            return self.attn.proj(out) if tp is None else _row_parallel(out, self.attn.proj, tp)
+
+        def add_attn(x, p):
+            return x + drop_path(dropout(p, cfg.drop_rate, generator), rate, u0)
+
+        def with_fc1(x1):  # (x1, fc1's output: JAX's ``fc1``)
+            return x1, self.mlp.hidden(self.norm2(x1), tp)
+
+        def mlp_of(f):
+            return drop_path(self.mlp.out(f, cfg.drop_rate, generator, tp), rate, u1)
+
+        def whole(x):
+            x1, f = with_fc1(add_attn(x, proj_of(attend(qkv_of(x)))))
+            return x1 + mlp_of(f)
+
+        if remat is None:
+            return whole(x)
+        ck = functools.partial(_checkpoint, generator=generator)
+        if remat == "block":  # the block's input alone
+            return ck(whole, x)
+        kernel_attn = use_kernels and not drop_attn  # K1/K4 save only qkv
+        if remat == "dots":  # x and the Linear products; K1 recomputed
+            qkv = ck(qkv_of, x)
+            p = ck(lambda q: proj_of(attend(q)), qkv)
+            x1, f = ck(lambda x, p: with_fc1(add_attn(x, p)), x, p)
+        elif remat == "names":  # x, qkv, attn_out, fc1
+            qkv = ck(qkv_of, x)
+            out = attend(qkv) if kernel_attn else ck(attend, qkv)
+            x1, f = ck(lambda x, o: with_fc1(add_attn(x, proj_of(o))), x, out)
+        elif remat == "attn_out":  # x, attn_out, fc1; qkv recomputed by its product
+            if kernel_attn:
+                qkv = ck(qkv_of, x)
+                with _recomputed_saves(lambda: qkv_of(x)):
+                    out = attend(qkv)
+            else:
+                out = ck(lambda x: attend(qkv_of(x)), x)
+            x1, f = ck(lambda x, o: with_fc1(add_attn(x, proj_of(o))), x, out)
+        else:
+            raise ValueError(f"unknown remat policy {remat!r}: one of {REMAT_POLICIES}")
+        return x1 + ck(mlp_of, f)
 
 
 class VisionTransformer(nn.Module):
@@ -309,15 +440,6 @@ class VisionTransformer(nn.Module):
                              f"{3 * heads * cfg.head_dim} at tp {1 if tp is None else tp.size}: "
                              "cut a full model with parallel.tp.shard_editor and pass "
                              "tp_mesh= on every call")
-        if training and cfg.attn_drop_rate > 0:
-            raise NotImplementedError("attention dropout (attn_drop_rate > 0) is not "
-                                      "ported: the attention kernels have none")
-        if cfg.remat and cfg.remat_policy != "block":
-            raise NotImplementedError(f"remat policy {cfg.remat_policy!r} is not "
-                                      "ported: use 'block'")
-        if training and cfg.remat and cfg.drop_rate > 0:
-            raise NotImplementedError("remat with dropout (drop_rate > 0) is not "
-                                      "ported: the recompute would redraw the masks")
         tokens = self.embed(x, camera_id, view_id)
         B, N, _ = tokens.shape
         if training:
@@ -331,13 +453,12 @@ class VisionTransformer(nn.Module):
         probs = torch.empty((cfg.depth, B, heads, N, N), dtype=tokens.dtype,
                             device=tokens.device)
         for l, blk in enumerate(self.blocks):
-            # the probs slice rides in the closure: the recompute writes it
+            # the probs slice rides in the closures: the recompute writes it
             # again, which a checkpointed input may not see
-            run = functools.partial(blk, probs_out=probs[l], use_kernels=use_kernels, tp=tp)
-            if training:
-                run = functools.partial(run, rate=rates[l], u=draws[l], generator=generator)
-            tokens = (checkpoint(run, tokens, use_reentrant=False) if l < n_remat
-                      else run(tokens))
+            kw = (dict(rate=rates[l], u=draws[l], generator=generator, training=True)
+                  if training else {})
+            tokens = blk(tokens, probs[l], use_kernels, tp=tp,
+                         remat=cfg.remat_policy if l < n_remat else None, **kw)
         tokens = self.norm(tokens)
         rollout = (ops.rollout_chain(probs) if use_kernels
                    else ops.rollout_from_probs_plain(probs))

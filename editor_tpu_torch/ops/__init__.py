@@ -32,6 +32,13 @@ the group sweeps of the design-variant tools in ``editor_tpu_torch/tools/``
 (T6 is K3 and K5 at the JAX tool's groups; the kernels T1-T6 sit beside
 their plain versions there), gives group 0's output bit for bit, and counts
 in ``variant_launches``, not ``launches``.
+
+Beside the kernels, as in the JAX package's ``ops``: the wavelet transforms
+of :mod:`.wavelets` (``wavedec2`` / ``waverec2``, ``wavedec1`` /
+``waverec1``, ``swt2`` / ``iswt2``), plain PyTorch convolutions as they are
+XLA convolutions there. JAX's ``ops`` also re-exports its pre-split-heads
+``masked_attention`` function under its submodule's name, which hides the
+submodule; here ``ops.masked_attention`` stays the module.
 """
 
 from editor_tpu_torch.ops.fused_attention import (attention_qkv, attention_qkv_bwd,
@@ -53,6 +60,7 @@ from editor_tpu_torch.ops.masked_attention import (MASK_FILL, masked_attention_f
                                                    masked_attention_tiled_fn,
                                                    masked_attention_tiled_plain)
 from editor_tpu_torch.ops.rollout import rollout_chain, rollout_from_probs_plain
+from editor_tpu_torch.ops.wavelets import iswt2, swt2, wavedec1, wavedec2, waverec1, waverec2
 
 KERNEL_WRAPPERS = (attention_qkv, rollout_chain, masked_attention_qkv,
                    attention_qkv_bwd, masked_attention_qkv_bwd, masked_attention_tiled,
@@ -70,11 +78,13 @@ def reset_launch_counts() -> None:
 __all__ = ["MASK_FILL", "KERNEL_WRAPPERS", "GROUP_WRAPPERS", "attention_qkv",
            "attention_qkv_bwd", "attention_qkv_bwd_plain", "attention_qkv_fn", "attention_qkv_plain",
            "attention_qkv_tpu_plain",
-           "ln_matmul", "ln_matmul_fn", "ln_matmul_plain", "masked_attention_from_qkv",
+           "iswt2", "ln_matmul", "ln_matmul_fn", "ln_matmul_plain",
+           "masked_attention_from_qkv",
            "masked_attention_qkv", "masked_attention_qkv_bwd",
            "masked_attention_qkv_bwd_plain", "masked_attention_qkv_fn",
            "masked_attention_qkv_plain", "masked_attention_qkv_tpu_plain",
            "masked_attention_route", "masked_attention_tiled",
            "masked_attention_tiled_bwd", "masked_attention_tiled_bwd_plain",
            "masked_attention_tiled_fn", "masked_attention_tiled_plain",
-           "reset_launch_counts", "rollout_chain", "rollout_from_probs_plain"]
+           "reset_launch_counts", "rollout_chain", "rollout_from_probs_plain", "swt2",
+           "wavedec1", "wavedec2", "waverec1", "waverec2"]

@@ -483,7 +483,10 @@ def masked_attention_route(n_tokens: int, tile: int) -> str:
     editor_tpu/ops/masked_attention.py:505-514) gives a sequence of
     ``n_tokens`` cut into ``tile``-token tiles: ``"tiled"`` (K6/K7) when it is
     a whole number of 1 + 128k-token tiles, else ``"full"`` (K3/K5) up to
-    512 tokens, else ``"plain"`` (where JAX takes its XLA path)."""
+    512 tokens, else ``"plain"`` (where JAX takes its XLA path). With the
+    tail uncompacted at ``MODEL.STRIDE_SIZE`` 12, a modality's 211 tokens
+    are ``"full"`` and the 633-token joint sequence is ``"plain"``, as in
+    JAX."""
     if tile and n_tokens % tile == 0 and (tile - 1) % 128 == 0:
         return "tiled"
     if n_tokens <= MAX_TOKENS:

@@ -208,19 +208,3 @@ def test_remat_block_recomputes_the_same_gradients():
     assert grads[0].keys() == grads[1].keys()
     for n, g in grads[0].items():
         assert_close(grads[1][n], g.numpy())
-
-
-@pytest.mark.parametrize("change", [dict(attn_drop_rate=0.1), dict(remat=True, remat_policy="dots"),
-                                    dict(remat=True, drop_rate=0.1)],
-                         ids=["attn_drop", "remat_policy", "remat_dropout"])
-def test_unported_training_options_raise(change):
-    from editor_tpu_torch.models.editor import EditorConfig, vit_tiny_test_config
-    from editor_tpu_torch.models.init import editor_init
-
-    vit = vit_tiny_test_config(img_size=(64, 32), patch_size=16, stride_size=(16, 16),
-                               camera=4, **change)
-    model = editor_init(EditorConfig(num_classes=6, vit=vit), seed=0, device="cpu")
-    imgs = {m: torch.zeros(2, 64, 32, 3) for m in MODS}
-    with pytest.raises(NotImplementedError):
-        model(imgs, torch.tensor([0, 1]), training=True, labels=torch.tensor([0, 1]),
-              generator=torch.Generator())
