@@ -266,10 +266,32 @@ Phases, each printing its lines and its seconds:
      it off itself): window counts, masks, a db4 / symmetric round trip
      within 1e-5, the mask's ms. ``--phase-14`` runs it alone after the
      build, ``--phase-14 ce`` only the cases named.
+ 15. library: the surface off the model path. (a) ops/dtcwt at the
+     flagship's images ([384, 256, 128, 3] fp32): dtcwt2 at J = 3 in both
+     modes and idtcwt2 (round trip within 1e-5 of the input's scale), card
+     against CPU within 1e-5 with cuDNN's TF32 switched on around the call;
+     scat_layer and scat_layer_j2 and one backward of each (gradients within
+     1e-4); ms and peak memory; (b) one flagship train forward at B = 128 (16
+     ids x 8; K1 12, K2 1, K3 2) and every auxiliary loss (center, cluster,
+     range, hetero-center, multi-modal margin, weighted-regularized triplet,
+     label-smoothing CE) on its feature, per-modality features and logits,
+     each value and gradient within 1e-4 of f64 on the CPU, their ms; one
+     backward of the summed losses (K4 12, K5 2), gradients finite by
+     utils.debug; (c) utils.profiling: a trace of the eval forward naming
+     K1's kernel, cost_analysis with the kernels = the plain path within 1%
+     (beside bench.py's analytic count), benchmark's p50; (d) sharded
+     tensors (DTensors) at [world x 8192, 2304] over NCCL, world 1 in this
+     process and, with 2-4 cards, that many ranks (``--shard-rank``);
+     sharded_rand equal to the world-1 tensor; (e) parallel/rpc in two
+     spawned processes (``--rpc-role``): a RemoteModule whose [2304, 171]
+     weight lives on the owner's card against the local product within
+     1e-5, a DistributedOptimizer step, an RRef fetched through two injected
+     drops, the profile's counts, the round trip's p50. ``--phase-15`` runs
+     it alone after the build, ``--phase-15 ae`` only the cases named.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
 (K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve, dp,
-fsdp, mp, pp, stride12, remat, dropout; K1, K2 and K4 at N = 211 under
+fsdp, mp, pp, stride12, remat, dropout, library; K1, K2 and K4 at N = 211 under
 ``stride12``), and last the result line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero without the result line; it does the
 same without a CUDA device.
@@ -5134,6 +5156,508 @@ def config_phase(gen: torch.Generator, cases: str = "abcde") -> dict:
     return out
 
 
+LIB_DTCWT_TOL = 1e-5  # (a) round trip and card vs CPU, relative to the largest magnitude
+LIB_GRAD_TOL = 1e-4  # (a) the scattering layers' gradients, card vs CPU
+LIB_LOSS_TOL = 1e-4  # (b) each loss and gradient on the card against f64 on the CPU
+LIB_COST_TOL = 0.01  # (c) cost_analysis with the kernels against the plain path
+LIB_RPC_TOL = 1e-5  # (e) the owner's product on the card against the local one
+LIB_CPU_ROWS = 8  # (a) the images the CPU reference transforms (the op is per image)
+LIB_SHARD_ROWS = 8192  # (d) rows a rank of the sharded tensors
+
+
+def _rel_err(got, ref) -> float:
+    """max |got - ref| over the reference's largest magnitude."""
+    ref = ref.detach().double().cpu()
+    return float((got.detach().double().cpu() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-30))
+
+
+def _p15_dtcwt(gen: torch.Generator) -> dict:
+    """(a) dtcwt2 at J = 3 in both modes and idtcwt2 on [384, 256, 128, 3]
+    fp32 (B = 128 x three modalities): the round trip within
+    LIB_DTCWT_TOL of the input's scale, every output on the card against
+    the CPU's on the first LIB_CPU_ROWS images (the transform is per image)
+    with cuDNN's TF32 switched on around the card's call (the module turns
+    it off itself); scat_layer [384,128,64,21] and scat_layer_j2
+    [384,64,32,147] and one backward of each likewise (gradients within
+    LIB_GRAD_TOL); ms from CUDA events and the peak memory."""
+    from editor_tpu_torch.ops import dtcwt
+
+    x = torch.randn(3 * B_EVAL, 256, 128, 3, generator=gen, device="cuda")
+    x_cpu = x[:LIB_CPU_ROWS].cpu()
+    tf32 = torch.backends.cudnn.allow_tf32
+    out = {}
+
+    def on_card(fn, *args):
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            res = fn(*args)
+            if not torch.backends.cudnn.allow_tf32:
+                raise AssertionError("the wavelet module left cuDNN's TF32 switched off")
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        return res
+
+    for mode in ("zero", "symmetric"):
+        torch.cuda.reset_peak_memory_stats()
+        lows, highs = on_card(dtcwt.dtcwt2, x, 3, mode)
+        y = on_card(dtcwt.idtcwt2, lows, highs, mode)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rt = _rel_err(y, x)
+        _require(f"dtcwt2/idtcwt2 {mode} round trip (relative)", rt, LIB_DTCWT_TOL)
+        ref_lows, ref_highs = dtcwt.dtcwt2(x_cpu, 3, mode)
+        vs_cpu = max(_rel_err(a[:LIB_CPU_ROWS], b) for a, b in
+                     zip(lows + highs + [y], ref_lows + ref_highs
+                         + [dtcwt.idtcwt2(ref_lows, ref_highs, mode)]))
+        _require(f"dtcwt2/idtcwt2 {mode} card vs CPU (relative)", vs_cpu, LIB_DTCWT_TOL)
+        fwd_ms = cuda_ms(lambda: dtcwt.dtcwt2(x, 3, mode), iters=5)
+        inv_ms = cuda_ms(lambda: dtcwt.idtcwt2(lows, highs, mode), iters=5)
+        say(f"15a dtcwt2 J=3 {mode}", x=list(x.shape),
+            highs=[list(h.shape) for h in highs], roundtrip_rel=rt, card_vs_cpu_rel=vs_cpu,
+            fwd_ms=f"{fwd_ms:.3f}", inv_ms=f"{inv_ms:.3f}", peak_gb=f"{peak:.3f}")
+        out[mode] = dict(roundtrip=rt, vs_cpu=vs_cpu, fwd_ms=fwd_ms, inv_ms=inv_ms,
+                         peak_gb=peak)
+        del lows, highs, y
+    for name, shape in (("scat_layer", [3 * B_EVAL, 128, 64, 21]),
+                        ("scat_layer_j2", [3 * B_EVAL, 64, 32, 147])):
+        fn = getattr(dtcwt, name)
+        xg = x.clone().requires_grad_(True)
+        torch.cuda.reset_peak_memory_stats()
+        s = on_card(fn, xg)
+        if list(s.shape) != shape or not torch.isfinite(s).all():
+            raise AssertionError(f"{name}: {tuple(s.shape)} != {shape} or non-finite")
+        g = torch.randn(s.shape, generator=gen, device="cuda")
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            s.backward(g)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not torch.isfinite(xg.grad).all():
+            raise AssertionError(f"{name}: non-finite gradient")
+        xc = x_cpu.clone().requires_grad_(True)
+        sc = fn(xc)
+        sc.backward(g[:LIB_CPU_ROWS].cpu())
+        err = _rel_err(s[:LIB_CPU_ROWS], sc)
+        grad_err = _rel_err(xg.grad[:LIB_CPU_ROWS], xc.grad)
+        _require(f"{name} card vs CPU (relative)", err, LIB_DTCWT_TOL)
+        _require(f"{name} gradient card vs CPU (relative)", grad_err, LIB_GRAD_TOL)
+        fwd_ms = cuda_ms(lambda: fn(x), iters=5)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(fn(xg), xg, g), iters=3)
+        say(f"15a {name}", out=list(s.shape), card_vs_cpu_rel=err, grad_rel=grad_err,
+            fwd_ms=f"{fwd_ms:.3f}", fwd_bwd_ms=f"{both_ms:.3f}", peak_gb=f"{peak:.3f}")
+        out[name] = dict(err=err, grad_err=grad_err, fwd_ms=fwd_ms, fwd_bwd_ms=both_ms,
+                         peak_gb=peak)
+        del xg, s, g, sc, xc
+    return out
+
+
+def _p15_losses(ecfg, gen: torch.Generator) -> dict:
+    """(b) one flagship train forward at B = 128 (16 ids x 8, bf16; K1 12,
+    K2 1, K3 2 launches), every auxiliary loss on its [128, 2304] feature,
+    its three [128, 768] per-modality features and its logits, each loss
+    and its gradients on the card within LIB_LOSS_TOL (relative) of the
+    same inputs at f64 on the CPU, its ms; one backward of the summed
+    losses through the model (K4 12, K5 2 launches), the gradients finite
+    by utils.debug.assert_tree_finite."""
+    from editor_tpu_torch.losses import center, extra, softmax, triplet
+    from editor_tpu_torch.models.init import editor_init
+    from editor_tpu_torch.utils.debug import assert_tree_finite, nonfinite_leaves
+
+    P, K = 16, 8
+    L = ecfg.vit.depth
+    model = editor_init(ecfg, seed=0)
+    batch = _eval_batch(gen, P * K)
+    pid = torch.arange(P * K, device="cuda") // K
+    images = {m: batch[m].to(torch.bfloat16) for m in ("RGB", "NI", "TI")}
+    fgen = torch.Generator(device="cuda").manual_seed(3)
+    reset_counts()
+    out = model(images, cam_ids=batch["camid"], training=True, labels=pid, generator=fgen)
+    torch.cuda.synchronize()
+    fwd = launch_counts()
+    want = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2)
+    if fwd != want:
+        raise AssertionError(f"train forward launches {fwd} != {want}")
+    live = {"feat": out.cls4t, "logits": out.score,
+            **{f"mod{i}": f for i, (_, f) in enumerate(out.pairs[1:4])}}
+    centers = center.center_loss_init(torch.Generator(device="cuda").manual_seed(4),
+                                      ecfg.num_classes, 3 * C)["centers"]
+    # each loss of (feature tensors t, labels y, centers c)
+    losses = {
+        "center": lambda t, y, c: center.center_loss({"centers": c}, t["feat"], y),
+        "cluster": lambda t, y, c: extra.cluster_loss(t["feat"], y, P, K)[0],
+        "range": lambda t, y, c: extra.range_loss(t["feat"], y, P, K)[0],
+        "hetero_center": lambda t, y, c: extra.hetero_center_loss(t["mod0"], t["mod1"], P, K),
+        "multi_modal_margin": lambda t, y, c: extra.multi_modal_margin_loss(
+            t["mod0"], t["mod1"], t["mod2"], y, P, K),
+        "weighted_regularized_triplet": lambda t, y, c: triplet.weighted_regularized_triplet(
+            t["feat"], y, normalize_feature=True),
+        "label_smoothing_ce": lambda t, y, c: softmax.label_smoothing_ce(t["logits"], y),
+    }
+    errs, ms = {}, {}
+    for name, fn in losses.items():
+        card = {k: v.detach().float().requires_grad_(True) for k, v in live.items()}
+        cpu = {k: v.detach().double().cpu().requires_grad_(True) for k, v in live.items()}
+        vc = fn(card, pid, centers)
+        vr = fn(cpu, pid.cpu(), centers.double().cpu())
+        vc.backward()
+        vr.backward()
+        v_card, v_cpu = float(vc.detach()), float(vr.detach())
+        err = abs(v_card - v_cpu) / max(abs(v_cpu), 1e-30)
+        for k in card:
+            if cpu[k].grad is not None:
+                err = max(err, _rel_err(card[k].grad, cpu[k].grad))
+            elif card[k].grad is not None:
+                raise AssertionError(f"{name}: a gradient on the card only ({k})")
+        _require(f"loss {name} card vs f64 CPU (relative)", err, LIB_LOSS_TOL)
+        leaves = list(card.values())
+        ms[name] = cuda_ms(lambda: torch.autograd.grad(fn(card, pid, centers), leaves,
+                                                       allow_unused=True), iters=5)
+        errs[name] = dict(value=v_card, rel_err=err)
+    total = sum(fn({k: v.float() for k, v in live.items()}, pid, centers)
+                for fn in losses.values())
+    reset_counts()
+    total.backward()
+    torch.cuda.synchronize()
+    bwd = launch_counts()
+    want_bwd = expected(attention_qkv_bwd=L, masked_attention_qkv_bwd=2)
+    if bwd != want_bwd:
+        raise AssertionError(f"backward of the summed losses: launches {bwd} != {want_bwd}")
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    assert_tree_finite(grads, "gradients of the summed auxiliary losses")
+    say("15b losses", B=P * K, P=P, K=K, forward_launches=json.dumps(fwd),
+        backward_launches=json.dumps(bwd), grads=len(grads),
+        nonfinite=len(nonfinite_leaves(grads)),
+        values=json.dumps({k: round(v["value"], 6) for k, v in errs.items()}),
+        errs=json.dumps({k: f"{v['rel_err']:.2e}" for k, v in errs.items()}),
+        ms=json.dumps({k: round(v, 4) for k, v in ms.items()}), tol=LIB_LOSS_TOL)
+    del model, out, live, total, grads
+    return dict(forward=fwd, backward=bwd, errs=errs, ms=ms)
+
+
+def _bench_tflop_per_image(ecfg) -> float:
+    """``bench.py::model_tflop_per_image`` (bench.py:72-118; that script
+    imports the JAX package): the analytic 2 m n k count of one tri-modal
+    eval forward per image (the one-hot tail gather counted as a product and
+    L rollout products, as there)."""
+    from editor_tpu_torch.models.editor import _tail_keep_count
+
+    v, M = ecfg.vit, 3
+    Cv, Hm, P = v.embed_dim, int(v.embed_dim * v.mlp_ratio), v.num_patches
+    N = P + 1
+    fl = M * 2.0 * P * (v.patch_size * v.patch_size * v.in_chans) * Cv
+    fl += M * v.depth * (2.0 * N * Cv * 3 * Cv + 4.0 * N * N * Cv + 2.0 * N * Cv * Cv
+                         + 4.0 * N * Cv * Hm)
+    fl += M * v.depth * 2.0 * v.num_heads * N * N
+    keep = _tail_keep_count(ecfg, M) if ecfg.compact_tail else P
+    fl += M * 2.0 * keep * P * Cv
+    t = keep + 1
+
+    def block(tokens):
+        return (2.0 * tokens * Cv * 3 * Cv + 4.0 * tokens * tokens * Cv
+                + 2.0 * tokens * Cv * Cv + 2.0 * tokens * Cv * 4 * Cv * 2)
+
+    fl += M * block(t) + block(M * t) + M * 2.0 * 2 * Cv * Cv
+    return fl / 1e12
+
+
+def _p15_profiling(ecfg, gen: torch.Generator) -> dict:
+    """(c) utils.profiling on the card: ``trace`` of one flagship eval
+    forward (B = 128, bf16) writes a Chrome trace that names K1's CUDA
+    kernel; ``cost_analysis`` of that forward with the kernels equals the
+    plain path's (``use_pallas=False``, fp32) within LIB_COST_TOL, printed
+    beside bench.py's analytic count; the eval forward's launches under the
+    count; ``benchmark``'s p50."""
+    import shutil
+    import tempfile
+
+    import re
+
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.models.editor import Editor
+    from editor_tpu_torch.models.init import editor_init
+    from editor_tpu_torch.tools import profile_forward
+    from editor_tpu_torch.utils import profiling
+
+    model = editor_init(ecfg, seed=0)
+    plain = Editor(dataclasses.replace(ecfg, use_pallas=False))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    batch = _eval_batch(gen, B_EVAL)
+    step, plain_step = build_eval_step(model, torch.bfloat16), build_eval_step(plain,
+                                                                               torch.float32)
+    step(batch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with profiling.trace(tmp):
+            with profiling.annotate("chip_smoke eval forward"):
+                step(batch)
+        path = os.path.join(tmp, "trace.json")
+        trace_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    k1 = dict(profile_forward.CATEGORIES)["K1 attention_qkv"]
+    k1_names = sorted(n for n in names if re.search(k1, n.lower()))
+    if not k1_names or "chip_smoke eval forward" not in names:
+        raise AssertionError("the trace names no K1 kernel (attention_fwd_mma_kernel, "
+                             "form 0) or not the annotated range")
+    reset_counts()
+    flops = profiling.cost_analysis(step, batch)["flops"]
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    want = expected(attention_qkv=ecfg.vit.depth, rollout_chain=1, masked_attention_qkv=2)
+    if eval_launches != want:
+        raise AssertionError(f"eval forward under cost_analysis: {eval_launches} != {want}")
+    plain_flops = profiling.cost_analysis(plain_step, batch)["flops"]
+    rel = abs(flops - plain_flops) / plain_flops
+    _require("cost_analysis kernels vs plain (relative)", rel, LIB_COST_TOL)
+    analytic = _bench_tflop_per_image(ecfg) * B_EVAL * 1e12
+    timing = profiling.benchmark(step, batch, iters=10)
+    say("15c profiling", trace_k1=repr(k1_names[0][:60]), trace_mb=f"{trace_mb:.2f}",
+        flops=f"{flops:.6e}", plain_flops=f"{plain_flops:.6e}", rel=rel,
+        bench_model_tflop=f"{analytic:.6e}", ratio_to_bench=f"{flops / analytic:.4f}",
+        p50_ms=f"{timing['p50_s'] * 1e3:.3f}", min_ms=f"{timing['min_s'] * 1e3:.3f}",
+        tflops=f"{flops / timing['p50_s'] / 1e12:.1f}", launches=json.dumps(eval_launches))
+    del model, plain
+    return dict(flops=flops, plain_flops=plain_flops, rel=rel, analytic=analytic,
+                p50_ms=timing["p50_s"] * 1e3, eval=eval_launches)
+
+
+def _shard_case(world: int, rank: int) -> dict:
+    """(d) on the group that exists: sharded_{zeros,ones,rand} and
+    from_enumerable at [world x LIB_SHARD_ROWS, 2304] fp32 over a ('data',)
+    mesh of every rank: every shard's metadata, this rank's block, the
+    gathered values; sharded_rand's gathered tensor equals the one built at
+    world 1 (the seeded CPU draw) bit for bit."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from editor_tpu_torch.parallel import sharded_tensor as ST
+
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    rows, shape = LIB_SHARD_ROWS, (world * LIB_SHARD_ROWS, 3 * C)
+    spec0, spec1 = ST.ChunkShardingSpec(dim=0), ST.ChunkShardingSpec(dim=1)
+    t0 = time.perf_counter()
+    z = ST.sharded_zeros(spec0, shape, mesh)
+    o = ST.sharded_ones(spec1, shape, mesh)
+    r = ST.sharded_rand(spec0, shape, mesh, seed=5)
+    # at least two shards: one shard at offset 0 is no layout by JAX's rule
+    n_shards = max(world, 2)
+    srows = world * rows // n_shards
+    e = ST.from_enumerable(ST.EnumerableShardingSpec(tuple(
+        ST.ShardMetadata((i * srows, 0), (srows, 3 * C), i) for i in range(n_shards))), shape,
+        lambda m: np.full(m.shard_sizes, m.shard_offsets[0], np.float32), mesh)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    want0 = [((i * rows, 0), (rows, 3 * C), i) for i in range(world)]
+    cols = 3 * C // world
+    want1 = [((0, i * cols), (world * rows, cols), i) for i in range(world)]
+    for name, arr, want in (("zeros", z, want0), ("ones", o, want1), ("rand", r, want0),
+                            ("enumerable", e, want0)):
+        got = [(m.shard_offsets, m.shard_sizes, m.device_index)
+               for m in ST.shard_metadata_of(arr)]
+        if got != want:
+            raise AssertionError(f"sharded {name}: metadata {got} != {want}")
+        if not arr.to_local().is_cuda:
+            raise AssertionError(f"sharded {name}: the block is not on the card")
+    if not (float(z.to_local().abs().sum()) == 0.0 and bool((o.to_local() == 1).all())):
+        raise AssertionError("sharded zeros / ones: wrong values")
+    full_rand = r.full_tensor().cpu()
+    if not torch.equal(full_rand, torch.rand(shape, generator=torch.Generator().manual_seed(5))):
+        raise AssertionError(f"sharded_rand at world {world} != the world-1 tensor")
+    first = torch.arange(rank * rows, (rank + 1) * rows, device=e.to_local().device)
+    if not torch.equal(e.to_local()[:, 0], (first // srows * srows).float()):
+        raise AssertionError("from_enumerable: wrong block")
+    return dict(world=world, shape=list(shape), make_s=make_s,
+                block_mb=z.to_local().numel() * 4 / 1e6)
+
+
+def shard_rank(d: str) -> None:
+    """One rank of (d) under cli.launch (2-4 cards)."""
+    from editor_tpu_torch.parallel import multihost
+
+    multihost.initialize(timeout_s=240)
+    import torch.distributed as dist
+    res = _shard_case(dist.get_world_size(), dist.get_rank())
+    torch.save(res, os.path.join(d, f"shard_{dist.get_rank()}.pt"))
+    multihost.shutdown()
+
+
+def _p15_sharded(card: str) -> dict:
+    """(d) the world-1 case on an NCCL group of one rank in this process;
+    with 2-4 cards the same on that many ranks (``--shard-rank``, through
+    cli.launch), else a line saying it did not run."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from editor_tpu_torch.parallel import multihost
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        if not multihost.initialize(init_method="file://" + os.path.join(tmp, "store"),
+                                    world_size=1, rank=0,
+                                    local_rank=torch.cuda.current_device()):
+            raise AssertionError("no process group was made")
+        one = _shard_case(1, 0)
+        multihost.shutdown()
+        say("15d sharded world 1", **one)
+        world = min(torch.cuda.device_count(), 4)
+        multi = None
+        if world >= 2:
+            _launch_ranks(world, "--shard-rank", tmp)
+            multi = [torch.load(os.path.join(tmp, f"shard_{r}.pt")) for r in range(world)]
+            say(f"15d sharded world {world}", **multi[0])
+        else:
+            say("15d sharded multi-card", ran=False, reason="one card: the 2-4 rank case "
+                "did not run", card=repr(card))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(one=one, multi=multi)
+
+
+# (e): the RPC processes' functions, sent by reference (``__main__.<name>``:
+# both processes run this script)
+RPC_IN, RPC_OUT = 3 * C, 171
+
+
+def _rpc_weight():
+    """The owner's [2304, 171] weight, on its card."""
+    return torch.randn(RPC_IN, RPC_OUT, generator=torch.Generator().manual_seed(7)).cuda()
+
+
+def _rpc_linear(w, x):
+    """The owner's forward: a CPU batch in, the product on the card, CPU out."""
+    return {"y": (x.to(w.device) @ w).cpu(), "device": str(w.device)}
+
+
+def _rpc_decay(w, lr):
+    return w * (1.0 - lr)
+
+
+def _rpc_square(x):
+    return x * x
+
+
+def _rpc_counter():
+    return 41
+
+
+def rpc_role(role: str, port: int, d: str) -> None:
+    """One process of (e): 'worker1' owns the module and serves until the
+    master is done; 'master' runs the checks and writes rpc.json."""
+    from editor_tpu_torch.parallel import rpc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    done = os.path.join(d, "rpc.done")
+    if role == "worker1":
+        rpc.init_rpc("worker1", rank=1, world_size=2, master_port=port, timeout=120.0)
+        deadline = time.time() + 240
+        while not os.path.exists(done) and time.time() < deadline:
+            time.sleep(0.02)
+        rpc.shutdown()
+        return
+    try:
+        rpc.init_rpc("master", rank=0, world_size=2, master_port=port, timeout=120.0)
+        x = torch.randn(B_EVAL, RPC_IN, generator=torch.Generator().manual_seed(8))
+        w = torch.randn(RPC_IN, RPC_OUT, generator=torch.Generator().manual_seed(7))
+        module = rpc.RemoteModule("worker1", _rpc_weight, _rpc_linear)
+        first = module(x)
+        err = _rel_err(first["y"], x @ w)
+        rpc.DistributedOptimizer(_rpc_decay, [module.params_rref]).step(0.5)
+        err_step = _rel_err(module(x)["y"], x @ (w * 0.5))
+        counter = rpc.remote("worker1", _rpc_counter)
+        rpc.enable_fault_injection(messages_to_fail=("fetch",), num_fail_sends=2)
+        fetched = counter.to_here()
+        rpc.disable_fault_injection()
+        with rpc.server_process_global_profile() as prof:
+            rpc.rpc_sync("master", _rpc_square, (5,))
+            rpc.rpc_sync("master", _rpc_square, (6,))
+        stats = prof.key_averages()
+        rtt = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            rpc.rpc_sync("worker1", _rpc_square, (2,))
+            rtt.append((time.perf_counter() - t0) * 1e3)
+        fwd = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            module(x)
+            fwd.append((time.perf_counter() - t0) * 1e3)
+        res = dict(device=first["device"], err=err, err_step=err_step, fetched=fetched,
+                   profile_count=stats["_rpc_square"]["count"], events=len(prof.events()),
+                   rtt_p50_ms=float(np.median(rtt[10:])), forward_p50_ms=float(np.median(fwd[2:])))
+    finally:
+        open(done, "w").close()
+    rpc.shutdown()
+    with open(os.path.join(d, "rpc.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _p15_rpc(card: str) -> dict:
+    """(e) two spawned processes (``--rpc-role``): the owner's RemoteModule
+    holds a [2304, 171] weight on cuda:0; a CPU batch's forward is computed
+    on the card and equals the local product within LIB_RPC_TOL; a
+    DistributedOptimizer step (the next forward equals the decayed
+    product); an RRef fetched through two injected drops; the profile's
+    counts; the p50 of a trivial rpc_sync round trip and of the forward."""
+    import shutil
+    import socket
+    import sys
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rpc_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rpc-role", role,
+                               str(port), tmp]) for role in ("worker1", "master")]
+    try:
+        codes = [p.wait(timeout=300) for p in procs]
+        if any(codes):
+            raise AssertionError(f"the rpc processes exited {codes}")
+        with open(os.path.join(tmp, "rpc.json")) as f:
+            res = json.load(f)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _require("rpc RemoteModule forward on the card vs local (relative)", res["err"], LIB_RPC_TOL)
+    _require("rpc forward after the DistributedOptimizer step (relative)", res["err_step"],
+             LIB_RPC_TOL)
+    if not (res["device"].startswith("cuda") and res["fetched"] == 41
+            and res["profile_count"] == 2 and res["events"] == 2):
+        raise AssertionError(f"rpc: {res}")
+    say("15e rpc", **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in res.items()},
+        card=repr(card))
+    return res
+
+
+def library_phase(card: str, gen: torch.Generator, cases: str = "abcde") -> dict:
+    """Phase 15: the library surface off the model path. ``cases``: the
+    letters of the cases to run (``--phase-15 ae``)."""
+    _, ecfg = flagship()
+    out = {}
+    if "a" in cases:
+        out["dtcwt"] = _p15_dtcwt(gen)
+        torch.cuda.empty_cache()
+    if "b" in cases:
+        out["losses"] = _p15_losses(ecfg, gen)
+        torch.cuda.empty_cache()
+    if "c" in cases:
+        out["profiling"] = _p15_profiling(ecfg, gen)
+        torch.cuda.empty_cache()
+    if "d" in cases:
+        out["sharded"] = _p15_sharded(card)
+    if "e" in cases:
+        out["rpc"] = _p15_rpc(card)
+    return out
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5185,6 +5709,8 @@ def main() -> None:
     pp = timed("13 pp", pp_phase, card, gen, bare_step_ms)
     torch.cuda.empty_cache()
     cf = timed("14 configs", config_phase, gen)
+    torch.cuda.empty_cache()
+    lib = timed("15 library", library_phase, card, gen)
     # launches, launches_eval: per train step and per eval forward (loop: eval
     # batch), summed over the three paths (compact: phases 3 and 5;
     # uncompacted: phase 6; the loop: phase 8, with its run's total), each
@@ -5204,7 +5730,10 @@ def main() -> None:
                    "stride12": {"train": cf["train"]["launches"][name],
                                 "eval": cf["eval"]["launches"][name]},
                    "remat": {k: v["launches"][name] for k, v in cf["remat"].items()},
-                   "dropout": {k: cf["dropout"][k][name] for k in ("train", "eval")}}
+                   "dropout": {k: cf["dropout"][k][name] for k in ("train", "eval")},
+                   "library": {"forward": lib["losses"]["forward"][name],
+                               "backward": lib["losses"]["backward"][name],
+                               "eval": lib["profiling"]["eval"][name]}}
         info = {k: v for k, v in spec.items() if k != "tool"}
         extra = {"tp_shard": mp["shard"][name]} if name in mp["shard"] else {}
         if name in cf["kernels"]:
@@ -5213,11 +5742,14 @@ def main() -> None:
                          launches=(launches[name] + un_train[name] + looped["train"][name]
                                    + dp["train"][name] + fsdp["train"][name]
                                    + mp["moe"]["train"][name] + pp["train"][name]
-                                   + cf["train"]["launches"][name]),
+                                   + cf["train"]["launches"][name]
+                                   + lib["losses"]["forward"][name]
+                                   + lib["losses"]["backward"][name]),
                          launches_eval=(eval_launches[name] + un_eval[name]
                                         + looped["eval"][name] + dp["eval"][name]
                                         + fsdp["eval"][name] + mp["moe"]["eval"][name]
-                                        + pp["eval"][name] + cf["eval"]["launches"][name]),
+                                        + pp["eval"][name] + cf["eval"]["launches"][name]
+                                        + lib["profiling"]["eval"][name]),
                          launches_by_path=by_path, **kernels[name], **extra))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5251,6 +5783,15 @@ if __name__ == "__main__":
         card = card_check()
         timed("1 build", build_phase)
         timed("13 pp", pp_phase, card, torch.Generator(device="cuda").manual_seed(0), None,
+              *sys.argv[2:3])
+    elif sys.argv[1:2] == ["--shard-rank"]:  # one rank of phase 15 (d)
+        shard_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--rpc-role"]:  # one process of phase 15 (e)
+        rpc_role(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--phase-15"]:  # phase 15 alone, after the build [cases]
+        card = card_check()
+        timed("1 build", build_phase)
+        timed("15 library", library_phase, card, torch.Generator(device="cuda").manual_seed(0),
               *sys.argv[2:3])
     elif sys.argv[1:2] == ["--phase-14"]:  # phase 14 alone, after the build [cases]
         card_check()

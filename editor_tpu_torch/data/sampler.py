@@ -6,7 +6,9 @@ A deterministic host-side index generator seeded by (seed, epoch): numpy's
 ``RandomState((seed * 1_000_003 + epoch) % 2**31)``, the JAX package's
 formula, so both packages draw the same index arrays. ``host_shard`` slices
 each global batch into contiguous per-host blocks (sampler_ddp.py:159-168),
-one in each microbatch under gradient accumulation.
+one in each microbatch under gradient accumulation. Beside them, off the
+main path as in JAX: ``CyclingIterator`` and the cross-modal
+``IdentitySampler``.
 """
 
 from __future__ import annotations
@@ -113,3 +115,58 @@ class SoftmaxSampler:
                    grad_accum: int = 1) -> np.ndarray:
         return _host_shard(self.epoch_indices(epoch), self.batch_size, host_id, num_hosts,
                            grad_accum)
+
+
+class CyclingIterator:
+    """Cycle a per-epoch iterator ``n`` times (reference
+    elastic/utils/data/cycling_iterator.py): ``generator_fn(epoch)`` builds
+    the epoch's iterator, so an elastic training loop consumes one
+    continuous stream across epochs."""
+
+    def __init__(self, n: int, generator_fn, start_epoch: int = 0):
+        self._n = n
+        self._epoch = start_epoch
+        self._generator_fn = generator_fn
+        self._iter = generator_fn(self._epoch)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        while True:
+            try:
+                return next(self._iter)
+            except StopIteration:
+                if self._epoch >= self._n - 1:
+                    raise
+                self._epoch += 1
+                self._iter = self._generator_fn(self._epoch)
+
+
+class IdentitySampler:
+    """Cross-modal identity sampler (reference data/datasets/sampler.py,
+    unused on the reference's main path): per batch, ``batch_size``
+    identities without replacement and ``num_pos`` samples of each from
+    each modality's index lists, drawn from numpy's ``RandomState(seed)`` in
+    the JAX package's order (the same indices)."""
+
+    def __init__(self, color_labels, thermal_labels, color_pos, thermal_pos,
+                 num_pos: int, batch_size: int, seed: int = 0):
+        rng = np.random.RandomState(seed)
+        uni = np.unique(color_labels)
+        N = max(len(color_labels), len(thermal_labels))
+        idx1, idx2 = [], []
+        for _ in range(N // (batch_size * num_pos) + 1):
+            batch_ids = rng.choice(uni, batch_size, replace=False)
+            for pid in batch_ids:
+                idx1.append(rng.choice(color_pos[pid], num_pos))
+                idx2.append(rng.choice(thermal_pos[pid], num_pos))
+        self.index1 = np.concatenate(idx1)
+        self.index2 = np.concatenate(idx2)
+        self.N = N
+
+    def __iter__(self):
+        return iter(np.arange(len(self.index1)))
+
+    def __len__(self):
+        return self.N

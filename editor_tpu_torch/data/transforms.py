@@ -6,7 +6,9 @@ data/datasets/make_dataloader.py): eval is uint8 NHWC -> float32 / 255 ->
 (x - mean) / std; train adds a per-sample horizontal flip, zero-pad and random
 crop back to size, and, after normalising, pixel-mode random erasing (timm
 semantics: up to 10 box proposals, the first that fits wins, filled with
-standard-normal noise). Every draw is fp32 from an explicit
+standard-normal noise). ``random_grayscale_patch`` (a box replaced by its
+grey, the same box draws) is off the main path, as in JAX. Every draw is
+fp32 from an explicit
 ``torch.Generator`` on the images' device; the train step calls the augment
 once per modality, so each modality gets its own part of the stream. The
 draws are not the JAX package's numbers (the generators differ), so the
@@ -71,16 +73,16 @@ def pad_random_crop(x: torch.Tensor, padding: int, gen: torch.Generator) -> torc
     return xp[torch.arange(B, device=x.device)[:, None, None], rows, cols]
 
 
-def random_erasing(x: torch.Tensor, prob: float, gen: torch.Generator,
-                   min_area: float = 0.02, max_area: float = 1 / 3,
-                   min_aspect: float = 0.3, attempts: int = 10) -> torch.Tensor:
-    """Pixel-mode random erasing of [B, H, W, C] (``random_erasing``)."""
-    B, H, W, C = x.shape
-    dev = x.device
-    apply = _rand(gen, B, device=dev) < prob
-    area = (min_area + (max_area - min_area) * _rand(gen, B, attempts, device=dev)) * (H * W)
+def _box_mask(shape, prob: float, gen: torch.Generator, min_area: float, max_area: float,
+              min_aspect: float, attempts: int, device) -> torch.Tensor:
+    """[B, H, W, 1] bool: per sample, with probability ``prob``, a random box
+    (timm semantics: ``attempts`` proposals of area and log-uniform aspect,
+    the first that fits wins; none fits: no box)."""
+    B, H, W = shape[:3]
+    apply = _rand(gen, B, device=device) < prob
+    area = (min_area + (max_area - min_area) * _rand(gen, B, attempts, device=device)) * (H * W)
     lo, hi = math.log(min_aspect), math.log(1.0 / min_aspect)
-    ar = torch.exp(lo + (hi - lo) * _rand(gen, B, attempts, device=dev))
+    ar = torch.exp(lo + (hi - lo) * _rand(gen, B, attempts, device=device))
     hs = torch.round(torch.sqrt(area * ar)).to(torch.int64)
     ws = torch.round(torch.sqrt(area / ar)).to(torch.int64)
     valid = (hs < H) & (ws < W)
@@ -88,15 +90,41 @@ def random_erasing(x: torch.Tensor, prob: float, gen: torch.Generator,
     h = hs.gather(1, first)[:, 0]
     w = ws.gather(1, first)[:, 0]
     do = apply & valid.any(dim=1)
-    top = torch.floor(_rand(gen, B, device=dev) * (H - h + 1)).to(torch.int64)
-    left = torch.floor(_rand(gen, B, device=dev) * (W - w + 1)).to(torch.int64)
-    rows = torch.arange(H, device=dev)[None, :, None]
-    cols = torch.arange(W, device=dev)[None, None, :]
+    top = torch.floor(_rand(gen, B, device=device) * (H - h + 1)).to(torch.int64)
+    left = torch.floor(_rand(gen, B, device=device) * (W - w + 1)).to(torch.int64)
+    rows = torch.arange(H, device=device)[None, :, None]
+    cols = torch.arange(W, device=device)[None, None, :]
     box = ((rows >= top[:, None, None]) & (rows < (top + h)[:, None, None])
            & (cols >= left[:, None, None]) & (cols < (left + w)[:, None, None]))
-    mask = (box & do[:, None, None])[..., None]
-    noise = torch.randn(x.shape, generator=gen, device=dev, dtype=x.dtype)
+    return (box & do[:, None, None])[..., None]
+
+
+def random_erasing(x: torch.Tensor, prob: float, gen: torch.Generator,
+                   min_area: float = 0.02, max_area: float = 1 / 3,
+                   min_aspect: float = 0.3, attempts: int = 10) -> torch.Tensor:
+    """Pixel-mode random erasing of [B, H, W, C] (``random_erasing``)."""
+    mask = _box_mask(x.shape, prob, gen, min_area, max_area, min_aspect, attempts, x.device)
+    noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
     return torch.where(mask, noise, x)
+
+
+def _gray_box(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, H, W, 3] with the pixels where ``mask`` [B, H, W, 1] is set
+    replaced by their ITU-R 601 grey (0.299 R + 0.587 G + 0.114 B) in every
+    channel."""
+    gray = 0.299 * x[..., 0:1] + 0.587 * x[..., 1:2] + 0.114 * x[..., 2:3]
+    return torch.where(mask, gray.expand_as(x), x)
+
+
+def random_grayscale_patch(x: torch.Tensor, prob: float, gen: torch.Generator,
+                           min_area: float = 0.02, max_area: float = 0.4,
+                           min_aspect: float = 0.3, attempts: int = 10) -> torch.Tensor:
+    """RandomGrayscalePatchReplacement of [B, H, W, 3] (reference
+    make_dataloader.py, unused on the reference's main path): with
+    probability ``prob`` a sample's random box becomes its grey, the box
+    drawn as :func:`random_erasing` draws its own."""
+    return _gray_box(x, _box_mask(x.shape, prob, gen, min_area, max_area, min_aspect,
+                                  attempts, x.device))
 
 
 def make_train_augment(input_cfg: Any) -> Callable[[torch.Tensor, torch.Generator],

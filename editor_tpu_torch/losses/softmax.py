@@ -19,6 +19,15 @@ def cross_entropy_label_smooth(logits: torch.Tensor, targets: torch.Tensor,
     return (-t * logp).mean(dim=0).sum()
 
 
+def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor,
+                       smoothing: float = 0.1) -> torch.Tensor:
+    """LabelSmoothingCrossEntropy: (1 - smoothing) NLL + smoothing x the mean
+    negative log-probability over the classes, averaged over the batch."""
+    logp = torch.log_softmax(logits.to(compute_dtype(logits.dtype)), dim=-1)
+    nll = -logp.gather(1, targets.long()[:, None])[:, 0]
+    return ((1.0 - smoothing) * nll - smoothing * logp.mean(dim=-1)).mean()
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Plain CE, mean reduction."""
     logp = torch.log_softmax(logits.to(compute_dtype(logits.dtype)), dim=-1)

@@ -31,12 +31,16 @@ package. The raw K3, K5 and K6 wrappers (:data:`GROUP_WRAPPERS`) take
 the group sweeps of the design-variant tools in ``editor_tpu_torch/tools/``
 (T6 is K3 and K5 at the JAX tool's groups; the kernels T1-T6 sit beside
 their plain versions there), gives group 0's output bit for bit, and counts
-in ``variant_launches``, not ``launches``.
+in ``variant_launches``, not ``launches``. Under
+``utils.profiling.cost_analysis`` each of K1-K8's wrappers counts its
+operations from its shapes, once, on the card and on the CPU (:mod:`._flops`).
 
 Beside the kernels, as in the JAX package's ``ops``: the wavelet transforms
 of :mod:`.wavelets` (``wavedec2`` / ``waverec2``, ``wavedec1`` /
 ``waverec1``, ``swt2`` / ``iswt2``), plain PyTorch convolutions as they are
-XLA convolutions there. JAX's ``ops`` also re-exports its pre-split-heads
+XLA convolutions there, and :mod:`.dtcwt` (the dual-tree complex wavelet
+transform and the scattering layers on them; a module of its own, as in
+JAX). JAX's ``ops`` also re-exports its pre-split-heads
 ``masked_attention`` function under its submodule's name, which hides the
 submodule; here ``ops.masked_attention`` stays the module.
 """

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from editor_tpu_torch.ops import _flops
 from editor_tpu_torch.ops._checks import (check_kernel_tensor, check_probs_out,
                                           compute_dtype)
 
@@ -123,6 +124,7 @@ def check_k4_head_dim(D: int) -> None:
     _check_head_dim("attention_qkv_bwd", D)
 
 
+@_flops.counted(_flops.attention)
 def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
                   probs_out: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -164,6 +166,7 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
 attention_qkv.launches = 0
 
 
+@_flops.counted(_flops.attention_bwd)
 def attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                       scale: float) -> torch.Tensor:
     """K4: dqkv [B, N, 3C] from qkv [B, N, 3C] and the output's cotangent g

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from editor_tpu_torch.ops import _flops
 from editor_tpu_torch.ops._checks import GEMM_MAX_C, check_kernel_tensor, compute_dtype
 
 ACTS = ("", "gelu")
@@ -71,6 +72,7 @@ def ln_matmul_plain(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.
     return out.to(x.dtype)
 
 
+@_flops.counted(_flops.ln_matmul)
 def ln_matmul(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
               ln_weight: torch.Tensor, ln_bias: torch.Tensor, eps: float = 1e-6,
               act: str = "") -> torch.Tensor:

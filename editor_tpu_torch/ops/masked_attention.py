@@ -44,6 +44,7 @@ import ctypes
 
 import torch
 
+from editor_tpu_torch.ops import _flops
 from editor_tpu_torch.ops._checks import MAX_TOKENS, check_kernel_tensor, compute_dtype
 
 MASK_FILL = -65504.0  # reference: vit_pytorch.py:252
@@ -290,6 +291,7 @@ def check_k5_head_dim(D: int) -> None:
     _check_mma_head_dim("masked_attention_qkv_bwd", D)
 
 
+@_flops.counted(_flops.attention)
 def masked_attention_qkv(qkv: torch.Tensor, mask: torch.Tensor,
                          num_heads: int, scale: float,
                          mask_fill: float = MASK_FILL, group: int = 0) -> torch.Tensor:
@@ -319,6 +321,7 @@ masked_attention_qkv.launches = 0
 masked_attention_qkv.variant_launches = 0
 
 
+@_flops.counted(_flops.attention)
 def masked_attention_tiled(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
                            scale: float, mask_fill: float = MASK_FILL,
                            tile: int = 129, group: int = 0) -> torch.Tensor:
@@ -349,6 +352,7 @@ masked_attention_tiled.launches = 0
 masked_attention_tiled.variant_launches = 0
 
 
+@_flops.counted(_flops.attention_bwd)
 def masked_attention_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                              num_heads: int, scale: float,
                              mask_fill: float = MASK_FILL, group: int = 0) -> torch.Tensor:
@@ -403,6 +407,7 @@ def k7_scratch_stride(N: int) -> int:
     return (N + 15) // 16 * 16
 
 
+@_flops.counted(_flops.attention_bwd)
 def masked_attention_tiled_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                                num_heads: int, scale: float, mask_fill: float = MASK_FILL,
                                tile: int = 129) -> torch.Tensor:

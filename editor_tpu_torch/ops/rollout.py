@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from editor_tpu_torch.ops import _flops
 from editor_tpu_torch.ops._checks import check_kernel_tensor, compute_dtype
 
 
@@ -31,6 +32,7 @@ def rollout_from_probs_plain(probs: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+@_flops.counted(_flops.rollout)
 def rollout_chain(probs: torch.Tensor) -> torch.Tensor:
     """Rollout from the stacked maps ``[L, B, H, N, N]`` -> ``[B, H, N-1]``."""
     L, B, H, N, N2 = probs.shape

@@ -14,9 +14,9 @@ average/difference, computed as a reshape and sums (the Haar fast path).
 
 The JAX package runs these as XLA convolutions at ``Precision.HIGHEST``; no
 TPU kernel is involved, so the port uses plain PyTorch convolutions. Their
-precision is set explicitly: every convolution here runs with cuDNN's TF32
-switched off (:func:`_ieee_fp32`), so an fp32 transform on the card is fp32
-throughout; a reconstruction near 0 is what the frequency mask reads the sign
+precision is set explicitly: every convolution here, and its backward, runs
+with cuDNN's TF32 switched off (:func:`_ieee_fp32`, :class:`_IeeeConv`), so an
+fp32 transform and its gradient on the card are fp32 throughout; a reconstruction near 0 is what the frequency mask reads the sign
 of, and TF32's 10-bit mantissa would move it.
 
 Filter coefficients are the standard public Daubechies/symlet/coiflet and
@@ -177,6 +177,31 @@ def _ieee_fp32():
                 torch.backends.cudnn.allow_tf32 = _TF32_STATE["saved"]
 
 
+class _IeeeConv(torch.autograd.Function):
+    """``F.conv2d`` (or ``F.conv_transpose2d``) with cuDNN's TF32 switched off
+    in the forward and in the backward: autograd runs a convolution's
+    backward after the forward's block has closed, under whatever the
+    caller's setting then is (PyTorch's default lets cuDNN use TF32)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding, dilation, groups, transposed)
+        conv = F.conv_transpose2d if transposed else F.conv2d
+        with _ieee_fp32():
+            return conv(x, w, stride=stride, padding=padding, dilation=dilation, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups, transposed = ctx.conv
+        with _ieee_fp32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, dilation, transposed, [0, 0], groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None, None, None
+
+
 def _taps(f: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(f), dtype=like.dtype, device=like.device)
 
@@ -215,8 +240,7 @@ def _grouped_conv_axis(x: torch.Tensor, kernels: torch.Tensor, axis: int, stride
     w = kernels[None].expand(C, K, L).reshape(shape)
     s = (stride, 1) if axis == 1 else (1, stride)
     d = (dilation, 1) if axis == 1 else (1, dilation)
-    with _ieee_fp32():
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=s, dilation=d, groups=C)
+    y = _IeeeConv.apply(x.permute(0, 3, 1, 2), w, s, (0, 0), d, C, False)
     B, _, Ho, Wo = y.shape
     return y.permute(0, 2, 3, 1).reshape(B, Ho, Wo, C, K)
 
@@ -262,8 +286,7 @@ def _sfb_conv(x: torch.Tensor, kernel: np.ndarray, axis: int, edge_pad: int) -> 
     w = _taps(kernel[::-1], x).reshape(1, 1, L).expand(C, 1, L).reshape(shape)
     s = (2, 1) if axis == 1 else (1, 2)
     p = (L - 1 - edge_pad, 0) if axis == 1 else (0, L - 1 - edge_pad)
-    with _ieee_fp32():
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=s, padding=p, groups=C)
+    y = _IeeeConv.apply(x.permute(0, 3, 1, 2), w, s, p, (1, 1), C, True)
     return y.permute(0, 2, 3, 1)
 
 

@@ -1,6 +1,6 @@
 """Data, model and pipeline parallelism on ``torch.distributed``:
-counterpart of ``editor_tpu/parallel`` but for ``rpc`` and
-``sharded_tensor`` (one process per device, NCCL on CUDA, gloo on the CPU).
+counterpart of ``editor_tpu/parallel`` (one process per device, NCCL on
+CUDA, gloo on the CPU).
 
 * :mod:`.multihost` - ``initialize`` (the default group from the launcher's
   environment), ``barrier``, ``shutdown``, ``fail_fast``, ranks;
@@ -25,7 +25,11 @@ counterpart of ``editor_tpu/parallel`` but for ``rpc`` and
   stage, point-to-point activations), skips, ``balance_stages``;
 * :mod:`.pipeline_vit` - the EDITOR backbone through it;
 * :mod:`.deferred_bn` - BatchNorm statistics of the mini-batch under
-  microbatching.
+  microbatching;
+* :mod:`.sharded_tensor` - chunk and enumerable sharding specs as DTensors
+  over the mesh;
+* :mod:`.rpc` - the host-side RPC control plane on ``torch.distributed.rpc``
+  (functions sent by reference: no lambdas or closures).
 
 The global-batch step on a mesh is ``engine.train.build_train_step(mesh=)``
 (tensor-parallel when the mesh's model axis is above 1, pipelined with
@@ -35,7 +39,8 @@ on any ('data', 'stage', 'model') mesh: their slots and blocks are
 partitioned over the data group, each model rank's over its own shards.
 The compressed local-batch step (``build_ddp_train_step``) runs on a
 model axis too, its reducers over the data group on the canonical leaves.
-``rpc`` and ``sharded_tensor`` are not ported.
+As in JAX, ``rpc`` and ``sharded_tensor`` are modules of their own, not
+re-exported here.
 """
 
 from editor_tpu_torch.parallel.collectives import (all_gather, all_reduce, all_to_all,

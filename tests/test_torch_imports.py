@@ -9,8 +9,12 @@ launcher ``cli.launch`` among them) and of its data parallelism
 etcd modules included: importing it needs no NCCL and makes no process
 group) and of its model parallelism (``parallel/{tp,moe,ring}``; a tiny MoE
 model's forward, with ``moe_shards`` too, and train step run there), and
-a static scan of every import statement of the port and of chip_smoke.py
-(which imports the port inside its functions) finds neither package."""
+the library surface off the model path (``parallel/{rpc,sharded_tensor}``,
+``ops/dtcwt``, the auxiliary losses, ``utils/{profiling,debug}``; the tiny
+forward's ``cost_analysis`` and a scattering layer run there), and a static
+scan of every import statement of the port and of chip_smoke.py (which
+imports the port inside its functions) finds neither package, nor
+``cloudpickle``."""
 
 import ast
 import json
@@ -61,6 +65,14 @@ from editor_tpu_torch.parallel import elastic, etcd, fsdp, localsgd, rendezvous
 from editor_tpu_torch.cli import launch as cli_launch
 from editor_tpu_torch.parallel import moe, ring, tp
 from editor_tpu_torch.parallel import deferred_bn, pipeline, pipeline_vit
+# the library surface off the model path
+from editor_tpu_torch.parallel import rpc, sharded_tensor
+from editor_tpu_torch.ops import dtcwt
+from editor_tpu_torch.losses import center, extra
+from editor_tpu_torch.utils import debug, profiling
+from editor_tpu_torch.solver.schedule import add_lr_noise
+from editor_tpu_torch.data.sampler import CyclingIterator, IdentitySampler
+from editor_tpu_torch.data.transforms import random_grayscale_patch
 import torch.distributed as dist
 group_after_import = dist.is_initialized()  # importing the data-parallel modules makes no group
 
@@ -106,6 +118,9 @@ lcfg = load_config(None, ["MODEL.TRANSFORMER_TYPE", "vit_tiny_test", "MODEL.PRET
 best = loop.do_train(lcfg, dm=loader.ReIDDataModule(lcfg, splits=splits, decode_fn=decode),
                      max_steps_per_epoch=2, device="cpu")["best"]
 n_params = cli_params.main(["MODEL.TRANSFORMER_TYPE", "vit_tiny_test"])
+# the eval forward's operations, through the kernel wrappers' own counts
+flops = profiling.cost_analysis(step, batch)["flops"]
+scat = list(dtcwt.scat_layer_j2(torch.randn(1, 16, 16, 2, generator=gen)).shape)
 new = sorted(set(sys.modules) - before)
 print(json.dumps({"shape": list(feats.shape), "finite": bool(torch.isfinite(feats).all()),
                   "loss_finite": loss == loss and abs(loss) < float("inf"),
@@ -115,7 +130,8 @@ print(json.dumps({"shape": list(feats.shape), "finite": bool(torch.isfinite(feat
                   "loop_map": best["mAP"], "n_params": n_params,
                   "new": new, "group": group_after_import or dist.is_initialized(),
                   "parallel": sorted(parallel.__all__),
-                  "launches": [fn.launches for fn in ops.KERNEL_WRAPPERS]}))
+                  "launches": [fn.launches for fn in ops.KERNEL_WRAPPERS],
+                  "flops": flops, "scat": scat}))
 """
 
 
@@ -129,7 +145,8 @@ def test_port_imports_no_jax_and_runs_tiny_forward(tmp_path):
     assert out["shape"] == [2, 288] and out["finite"] and out["loss_finite"]
     assert 0.0 < out["loop_map"] <= 1.0 and out["n_params"] > 0
     bad = [m for m in out["new"] if m.split(".")[0] in ("jax", "jaxlib", "editor_tpu", "triton",
-                                                        "yaml", "PIL", "tensorboard")]
+                                                        "yaml", "PIL", "tensorboard",
+                                                        "cloudpickle")]
     assert not bad, bad
     # the build module (ctypes + nvcc) stays unloaded on the CPU path
     assert "editor_tpu_torch.ops._build" not in out["new"]
@@ -160,6 +177,12 @@ def test_port_imports_no_jax_and_runs_tiny_forward(tmp_path):
                  "pipeline", "pipeline_vit", "deferred_bn"):
         assert f"editor_tpu_torch.parallel.{name}" in out["new"], name
     assert "editor_tpu_torch.cli.launch" in out["new"]
+    # the library surface: rpc on torch.distributed.rpc (no cloudpickle),
+    # sharded tensors, the DTCWT, the auxiliary losses, profiling and debug
+    for name in ("parallel.rpc", "parallel.sharded_tensor", "ops.dtcwt", "losses.center",
+                 "losses.extra", "utils.debug", "utils.profiling"):
+        assert f"editor_tpu_torch.{name}" in out["new"], name
+    assert out["flops"] > 0 and out["scat"] == [1, 4, 4, 98]
 
 
 def _imported_roots(path: Path) -> set:
@@ -175,9 +198,15 @@ def _imported_roots(path: Path) -> set:
 
 
 def test_no_file_of_the_port_imports_jax_statically():
+    """Nor ``cloudpickle``, which the card's machine lacks (the port's RPC
+    sends functions by reference)."""
     files = sorted((REPO / "editor_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
-    bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & {"jax", "jaxlib", "editor_tpu"})
+    for name in ("parallel/rpc.py", "parallel/sharded_tensor.py", "ops/dtcwt.py",
+                 "losses/center.py", "losses/extra.py", "utils/debug.py", "utils/profiling.py"):
+        assert REPO / "editor_tpu_torch" / name in files, name
+    bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & {"jax", "jaxlib", "editor_tpu",
+                                                                 "cloudpickle"})
            for f in files}
     assert not {f: r for f, r in bad.items() if r}
 

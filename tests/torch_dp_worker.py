@@ -733,7 +733,55 @@ def fail(inp, rank, world, out_dir):
     return {}
 
 
-TASKS = {"collectives": collectives, "reducers": reducers, "train": train,
+def sharded(inp, rank, world, out_dir):
+    """The sharded-tensor factories on a ('data',) mesh of every rank and on
+    a (data 2, model 2) mesh: each tensor's metadata (every rank's shard),
+    this rank's local block and the gathered whole; then
+    ``utils.debug.monitored_barrier`` in time and, last, with rank 1 late
+    past the deadline (every rank records what it raised; the group is
+    destroyed right after, with no barrier)."""
+    import dataclasses
+    import time
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from editor_tpu_torch.parallel import sharded_tensor as ST
+    from editor_tpu_torch.utils import debug
+
+    def record(arr):
+        return {"meta": [dataclasses.astuple(m) for m in ST.shard_metadata_of(arr)],
+                "local": arr.to_local().clone(), "full": arr.full_tensor()}
+
+    out = {}
+    for name, mesh in (("data", init_device_mesh("cpu", (world,), mesh_dim_names=("data",))),
+                       ("data_model", init_device_mesh("cpu", (2, world // 2),
+                                                       mesh_dim_names=("data", "model")))):
+        spec0, spec1 = ST.ChunkShardingSpec(dim=0), ST.ChunkShardingSpec(dim=1)
+        shards = tuple(ST.ShardMetadata((i * 16, 0), (16, 4), i) for i in range(4))
+        out[name] = {
+            "zeros": record(ST.sharded_zeros(spec0, (64, 16), mesh)),
+            "ones": record(ST.sharded_ones(spec1, (4, 32), mesh)),
+            "full": record(ST.sharded_full(spec0, (8, 6), 2.5, mesh)),
+            "rand": record(ST.sharded_rand(spec0, tuple(inp["rand_shape"]), mesh,
+                                           seed=inp["seed"])),
+            "enumerable": record(ST.from_enumerable(
+                ST.EnumerableShardingSpec(shards), (64, 4),
+                lambda m: np.full(m.shard_sizes, m.shard_offsets[0], np.float32), mesh)),
+        }
+    out["barrier_s"] = debug.monitored_barrier(30.0, "in time")
+    if rank == 1:
+        time.sleep(inp["late_s"])
+    try:
+        debug.monitored_barrier(inp["deadline_s"], "late")
+        out["late"] = None
+    except TimeoutError as e:
+        out["late"] = str(e)
+    # the failed barrier leaves messages in flight: no collective after it
+    torch.distributed.destroy_process_group()
+    return out
+
+
+TASKS = {"collectives": collectives, "sharded": sharded, "reducers": reducers, "train": train,
          "loop_runs": loop_runs, "several": several,
          "tp_eval": tp_eval, "row_parallel": row_parallel, "ring": ring, "moe": moe, "fusion_parallel": fusion_parallel,
          "pipeline_toy": pipeline_toy, "pipeline_bn": pipeline_bn, "pipeline_vit": pipeline_vit,
