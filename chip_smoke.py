@@ -5658,6 +5658,199 @@ def library_phase(card: str, gen: torch.Generator, cases: str = "abcde") -> dict
     return out
 
 
+# The CNN zoo (phase 16)
+ZOO_TOL = 1e-4  # (a) card vs CPU, fp32, relative to the CPU logits' largest magnitude
+ZOO_COS = 0.99  # (b) per-row cosine of the bf16 logits against the fp32 logits
+ZOO_CLASSES = 171  # RGBNT201's training identities
+ZOO_B_SMALL, ZOO_B = 2, 128
+ZOO_HW = (256, 128)  # (b): RGBNT201's input size
+# (a): the CPU tests' sizes (the fixed- and minimum-size entries; 64 x 32 else)
+ZOO_SMALL_HW = {
+    "squeezenet1_0": (64, 64), "squeezenet1_0_fc512": (64, 64), "squeezenet1_1": (64, 64),
+    "xception": (128, 64), "inceptionv4": (160, 96), "inceptionresnetv2": (160, 96),
+    "nasnsetmobile": (96, 96), "mudeep": (256, 128), "hacnn": (160, 64), "pcb_p6": (96, 32),
+    "cal": (128, 64),
+}
+# (b): the entries with a fixed input size (every other entry takes ZOO_HW)
+ZOO_FULL_HW = {"hacnn": (160, 64), "mudeep": (256, 128)}
+ZOO_IMPORT = ("resnet50", "cal")  # (c)
+
+
+def zoo_full_hw(name: str) -> tuple:
+    return ZOO_FULL_HW.get(name, ZOO_HW)
+
+
+def _random_bn_stats(model, x, gen: torch.Generator) -> None:
+    """Random BatchNorm statistics in the units of each BN's own input: one
+    CPU forward over ``x`` reads each BN's input (upstream BNs already set),
+    the mean m and the variance v of all its elements, and draws the running
+    mean m + N(0, 0.5) sqrt(v) and the variance v U(0.5, 2) per channel
+    (``tests/test_zoo_golden.py``'s N(0, 0.5) and U(0.5, 2), scaled). The
+    unscaled draws leave the seeded nets' activations growing with depth
+    (~1e3 in the last stages), where the SE gates make SE-ResNet-101 chaotic
+    (fp32 against f64 on the CPU: 0.12 at 256x128); a variance within each
+    channel instead of over all elements amplifies the rounding of channels
+    that barely vary (CAL's bf16 logits at a cosine of 0.954 on the card)."""
+    from editor_tpu_torch.models.zoo.common import BatchNorm
+
+    def draw(m, args):
+        t = args[0]
+        mean, var = t.mean(), t.var(unbiased=False).clamp_min(1e-12)
+        c = m.running_mean.shape[0]
+        m.running_mean.copy_(mean + torch.randn(c, generator=gen) * 0.5 * var.sqrt())
+        m.running_var.copy_(var * (torch.rand(c, generator=gen) * 1.5 + 0.5))
+
+    hooks = [m.register_forward_pre_hook(draw) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _renamed(state: dict) -> dict:
+    """The checkpoint under other names: each module prefix becomes
+    ``ckpt.m{i}``, leaf names kept (what the ordered importer reads)."""
+    out, prefixes = {}, {}
+    for key, value in state.items():
+        prefix, _, leaf = key.rpartition(".")
+        out[f"ckpt.m{prefixes.setdefault(prefix, len(prefixes))}.{leaf}"] = value
+    return out
+
+
+def _row_cosine(got, ref) -> float:
+    g, r = got.double().flatten(1), ref.double().flatten(1)
+    return float(torch.nn.functional.cosine_similarity(g, r, dim=1).min())
+
+
+def _zoo_entry(name: str, gen: torch.Generator, cases: str) -> dict:
+    """One entry: built on the CPU with seed 0 and random BN statistics
+    (``_random_bn_stats``), (a) its CPU logits against the card's, then (b)
+    at full size on the card."""
+    from editor_tpu_torch.models.zoo import build_model
+
+    model = build_model(name, ZOO_CLASSES, seed=0, device="cpu")
+    h, w = ZOO_SMALL_HW.get(name, (64, 32))
+    _random_bn_stats(model, torch.randn(8, 3, h, w, generator=gen), gen)
+    x = torch.randn(ZOO_B_SMALL, 3, h, w, generator=gen)
+    state = {k: v.clone() for k, v in model.state_dict().items()} if name in ZOO_IMPORT else None
+    out = {}
+    if "a" in cases or "c" in cases:
+        with torch.no_grad():
+            ref = model(x)
+            model.cuda()
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                            allow_tf32=False):
+                card = model(x.cuda())
+        err = _rel_err(card, ref)
+        say(f"16a {name}", hw=f"{h}x{w}", logits=list(ref.shape), card_vs_cpu=f"{err:.3e}")
+        _require(f"16a {name} card vs CPU (relative)", err, ZOO_TOL)
+        out.update(a_err=err, a_hw=(h, w), card=card, x=x)
+    if state is not None:
+        out["state"] = state
+    if "b" in cases:
+        model.cuda()
+        fh, fw = zoo_full_hw(name)
+        xf = torch.randn(ZOO_B, 3, fh, fw, generator=gen).cuda()
+        logits = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = xf.to(dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                logits[dtype] = model(xd)
+                ms = cuda_ms(lambda: model(xd), iters=10)
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            if logits[dtype].dtype != dtype or not torch.isfinite(logits[dtype]).all():
+                raise AssertionError(f"16b {name} {tag}: {logits[dtype].dtype} or non-finite")
+            out[tag] = dict(ms=ms, img_s=ZOO_B / ms * 1e3,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        cos = _row_cosine(logits[torch.bfloat16], logits[torch.float32])
+        out.update(cos=cos, b_hw=(fh, fw))
+        say(f"16b {name}", hw=f"{fh}x{fw}", B=ZOO_B, logits=list(logits[torch.float32].shape),
+            **{f"{t}_{k}": f"{v:.3f}" for t in ("fp32", "bf16") for k, v in out[t].items()},
+            bf16_cos_min=f"{cos:.6f}")
+        _require(f"16b {name} bf16 vs fp32 (1 - min row cosine)", 1.0 - cos, 1.0 - ZOO_COS)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_import(name: str, entry: dict) -> dict:
+    """(c) the entry's CPU state_dict under other names through
+    load_torch_zoo_state into a module on the card (seed 1, so every slot
+    must be written): its logits equal (a)'s card logits bit for bit."""
+    from editor_tpu_torch.models.zoo import build_model
+    from editor_tpu_torch.utils.zoo_import import frozen_bias_keys, load_torch_zoo_state
+
+    model = build_model(name, ZOO_CLASSES, seed=1, device="cuda")
+    frozen = frozen_bias_keys(model)
+    renamed = _renamed(entry["state"])
+    names = dict(zip(entry["state"], renamed))
+    load_torch_zoo_state(model, renamed, skip_keys=[names[k] for k in frozen])
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                     deterministic=True, allow_tf32=False):
+        got = model(entry["x"].cuda())
+    equal = torch.equal(got, entry["card"])
+    say(f"16c {name}", tensors=len(renamed), skipped=len(frozen), bit_for_bit=equal,
+        max_abs=float((got - entry["card"]).abs().max()))
+    if not equal:
+        raise AssertionError(f"16c {name}: imported logits differ from (a)'s card logits")
+    return dict(tensors=len(renamed), skipped=len(frozen), equal=equal)
+
+
+def _zoo_count() -> dict:
+    """(d) ``cli.params --cnn all``: 50 lines, each model_param_count."""
+    import contextlib
+    import io
+
+    from editor_tpu_torch.cli import params as cli_params
+    from editor_tpu_torch.models.zoo import MODEL_FACTORY, model_param_count
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        total = cli_params.main(["--cnn", "all"])
+    lines = buf.getvalue().splitlines()
+    counts = {name: model_param_count(name, 50) for name in sorted(MODEL_FACTORY)}
+    want = [f"{name}: {n / 1e6:.3f} M" for name, n in counts.items()]
+    say("16d cli.params --cnn all", lines=len(lines), total=total,
+        equal=lines == want and total == sum(counts.values()))
+    if lines != want or total != sum(counts.values()) or len(lines) != 50:
+        raise AssertionError("16d: cli.params --cnn all differs from model_param_count")
+    return dict(lines=len(lines), total=total)
+
+
+def zoo_phase(card: str, cases: str = "abcd") -> dict:
+    """Phase 16: the CNN zoo, every factory entry. ``cases``: the letters of
+    the cases to run (``--phase-16 bd``). The weights, statistics and images
+    come from a CPU generator, so the CPU reference and the card see the
+    same values."""
+    from editor_tpu_torch.models.zoo import MODEL_FACTORY
+
+    cpu_gen = torch.Generator().manual_seed(16)
+    reset_counts()
+    out = {}
+    if {"a", "b", "c"} & set(cases):
+        out["entries"] = {name: _zoo_entry(name, cpu_gen, cases) for name in MODEL_FACTORY}
+    if "b" in cases:
+        say("16b card", card=card, sizes={n: f"{h}x{w}" for n, (h, w) in ZOO_FULL_HW.items()},
+            others=f"{ZOO_HW[0]}x{ZOO_HW[1]}")
+    if "c" in cases:
+        out["import"] = {name: _zoo_import(name, out["entries"][name]) for name in ZOO_IMPORT}
+    if "d" in cases:
+        out["count"] = _zoo_count()
+    launched = {k: v for k, v in launch_counts().items() if v}
+    say("16 launches", kernels=launched or "none")
+    if launched:
+        raise AssertionError(f"16: the zoo launched kernels of the port: {launched}")
+    for entry in out.get("entries", {}).values():
+        for key in ("card", "x", "state"):
+            entry.pop(key, None)
+    return out
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5711,6 +5904,8 @@ def main() -> None:
     cf = timed("14 configs", config_phase, gen)
     torch.cuda.empty_cache()
     lib = timed("15 library", library_phase, card, gen)
+    torch.cuda.empty_cache()
+    timed("16 zoo", zoo_phase, card)
     # launches, launches_eval: per train step and per eval forward (loop: eval
     # batch), summed over the three paths (compact: phases 3 and 5;
     # uncompacted: phase 6; the loop: phase 8, with its run's total), each
@@ -5793,6 +5988,10 @@ if __name__ == "__main__":
         timed("1 build", build_phase)
         timed("15 library", library_phase, card, torch.Generator(device="cuda").manual_seed(0),
               *sys.argv[2:3])
+    elif sys.argv[1:2] == ["--phase-16"]:  # phase 16 alone, after the build [cases]
+        card = card_check()
+        timed("1 build", build_phase)
+        timed("16 zoo", zoo_phase, card, *sys.argv[2:3])
     elif sys.argv[1:2] == ["--phase-14"]:  # phase 14 alone, after the build [cases]
         card_check()
         timed("1 build", build_phase)

@@ -11,7 +11,9 @@ group) and of its model parallelism (``parallel/{tp,moe,ring}``; a tiny MoE
 model's forward, with ``moe_shards`` too, and train step run there), and
 the library surface off the model path (``parallel/{rpc,sharded_tensor}``,
 ``ops/dtcwt``, the auxiliary losses, ``utils/{profiling,debug}``; the tiny
-forward's ``cost_analysis`` and a scattering layer run there), and a static
+forward's ``cost_analysis`` and a scattering layer run there) and the CNN
+zoo (``models/{cnn_zoo,zoo/*}``, ``utils/zoo_import``; a SqueezeNet forward
+and ``cli.params --cnn`` run there), and a static
 scan of every import statement of the port and of chip_smoke.py (which
 imports the port inside its functions) finds neither package, nor
 ``cloudpickle``."""
@@ -73,6 +75,11 @@ from editor_tpu_torch.utils import debug, profiling
 from editor_tpu_torch.solver.schedule import add_lr_noise
 from editor_tpu_torch.data.sampler import CyclingIterator, IdentitySampler
 from editor_tpu_torch.data.transforms import random_grayscale_patch
+# the CNN zoo
+from editor_tpu_torch.models import cnn_zoo, zoo
+from editor_tpu_torch.models.zoo import (common, densenet, inception, light, nasnet, osnet,
+                                         reid_special, resnet, senet, xception)
+from editor_tpu_torch.utils import zoo_import
 import torch.distributed as dist
 group_after_import = dist.is_initialized()  # importing the data-parallel modules makes no group
 
@@ -121,6 +128,10 @@ n_params = cli_params.main(["MODEL.TRANSFORMER_TYPE", "vit_tiny_test"])
 # the eval forward's operations, through the kernel wrappers' own counts
 flops = profiling.cost_analysis(step, batch)["flops"]
 scat = list(dtcwt.scat_layer_j2(torch.randn(1, 16, 16, 2, generator=gen)).shape)
+with torch.no_grad():
+    zoo_logits = list(zoo.build_model("squeezenet1_1", 5, device="cpu")(
+        torch.randn(2, 3, 64, 64, generator=gen)).shape)
+zoo_count = cli_params.main(["--cnn", "resnet18", "--num_classes", "100"])
 new = sorted(set(sys.modules) - before)
 print(json.dumps({"shape": list(feats.shape), "finite": bool(torch.isfinite(feats).all()),
                   "loss_finite": loss == loss and abs(loss) < float("inf"),
@@ -131,7 +142,7 @@ print(json.dumps({"shape": list(feats.shape), "finite": bool(torch.isfinite(feat
                   "new": new, "group": group_after_import or dist.is_initialized(),
                   "parallel": sorted(parallel.__all__),
                   "launches": [fn.launches for fn in ops.KERNEL_WRAPPERS],
-                  "flops": flops, "scat": scat}))
+                  "flops": flops, "scat": scat, "zoo": [zoo_logits, zoo_count]}))
 """
 
 
@@ -183,6 +194,13 @@ def test_port_imports_no_jax_and_runs_tiny_forward(tmp_path):
                  "losses.extra", "utils.debug", "utils.profiling"):
         assert f"editor_tpu_torch.{name}" in out["new"], name
     assert out["flops"] > 0 and out["scat"] == [1, 4, 4, 98]
+    # the CNN zoo: every family, the facade, the importer, cli.params --cnn
+    for name in ("models.cnn_zoo", "models.zoo", "models.zoo.common", "models.zoo.densenet",
+                 "models.zoo.inception", "models.zoo.light", "models.zoo.nasnet",
+                 "models.zoo.osnet", "models.zoo.reid_special", "models.zoo.resnet",
+                 "models.zoo.senet", "models.zoo.xception", "utils.zoo_import"):
+        assert f"editor_tpu_torch.{name}" in out["new"], name
+    assert out["zoo"] == [[2, 5], 11227812]
 
 
 def _imported_roots(path: Path) -> set:
@@ -203,7 +221,9 @@ def test_no_file_of_the_port_imports_jax_statically():
     files = sorted((REPO / "editor_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
     for name in ("parallel/rpc.py", "parallel/sharded_tensor.py", "ops/dtcwt.py",
-                 "losses/center.py", "losses/extra.py", "utils/debug.py", "utils/profiling.py"):
+                 "losses/center.py", "losses/extra.py", "utils/debug.py", "utils/profiling.py",
+                 "models/cnn_zoo.py", "models/zoo/__init__.py", "models/zoo/reid_special.py",
+                 "utils/zoo_import.py"):
         assert REPO / "editor_tpu_torch" / name in files, name
     bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & {"jax", "jaxlib", "editor_tpu",
                                                                  "cloudpickle"})
