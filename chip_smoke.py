@@ -218,8 +218,20 @@ Phases, each printing its lines and its seconds:
      limit of it (its parameter bytes between steps param_memory_bytes of
      the cut model), PowerSGD on the TP mesh within TP_LOSS_TOL of the
      data-2 DDP step on two cards, every checkpoint canonical; each rank's
-     launches, parameter and slot bytes, peak memory and step ms. ``--phase-12`` runs it alone after the
-     build, ``--phase-12 e`` only the cases named.
+     launches, parameter and slot bytes, peak memory and step ms; with two
+     cards or more (f) the MoE flagship beside a data axis (``--moe-rank``
+     through cli.launch; B = 128 global, bf16, expert 2's router column x5
+     so that it overflows): layout (i), the expert group the data group, on
+     two ranks and, with four cards, layout (ii), data 2 x expert 2; each
+     rank's step (training forward, loss, backward) launches K1-K5 as (b)'s,
+     and the step holds to one card's with moe_shards 2 on the global batch
+     (loss and mean gradients within MP_TOL, cls4t within phase 3's gates,
+     the fp32 plain step within MP_F32_TOL), with each rank's ms, peak
+     memory and dropped pairs; the mesh eval forward passes MOE_ROUTE_GATE
+     (capacity one card's, drops in the rank's rows within MOE_DROP_TOL of
+     one card's, phase 3's gates) and routing each rank's rows alone must
+     fail it. ``--phase-12`` runs it alone after the build, ``--phase-12 e``
+     only the cases named.
  13. pp: pipeline parallelism. (a) On an NCCL group of one rank (mesh 1 x
      stage 1 x 1), 3 flagship steps (phase 5's batch, augmentation, drop
      path 0.1) through build_train_step(backbone=make_pipeline_backbone(mesh,
@@ -4425,13 +4437,299 @@ def _mp_multi(card: str, gen: torch.Generator) -> dict:
         shutil.rmtree(d, ignore_errors=True)
 
 
-def mp_phase(card: str, gen: torch.Generator, cases: str = "abcde") -> dict:
+# (f): the MoE beside a data axis. The gate on the mesh eval's routing
+# (MOE_ROUTE_GATE): its capacity is one card's (the global batch's), each
+# rank's dropped pairs in its rows within MOE_DROP_TOL of its pairs of one
+# card's drops in those rows, and its features within phase 3's gates of one
+# card's. Routing each rank's rows alone (the eval before it took the data
+# group) must fail it in the same run.
+MOE_ROUTE_GATE = "capacity = one card's, drops in the rank's rows within MOE_DROP_TOL, phase 3"
+MOE_DROP_TOL = 0.01
+MOE_BUSY = 2  # the expert whose router column (f) scales x5, so that it overflows
+
+
+class _Drops:
+    """Inside ``with``: each ``parallel.moe.dispatch`` call's capacity and
+    the (token, choice) pairs it drops per token, in ``calls``."""
+
+    def __enter__(self):
+        from editor_tpu_torch.parallel import moe as moe_mod
+        self.mod, self.real, self.calls = moe_mod, moe_mod.dispatch, []
+
+        def dispatch(x, idx, pos, E, capacity):
+            buf, row = self.real(x, idx, pos, E, capacity)
+            self.calls.append((capacity, (row == E * capacity).sum(dim=1).cpu()))
+            return buf, row
+
+        moe_mod.dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dispatch = self.real
+
+    def total(self) -> int:
+        return sum(int(d.sum()) for _, d in self.calls)
+
+
+def _moe_data_inputs(gen: torch.Generator) -> dict:
+    """(f)'s inputs: the MoE flagship (MODEL.MOE_EXPERTS 8, drop path 0)
+    from seeded weights with expert MOE_BUSY's router column x5, phase 10
+    (e)'s identity-like train batch (B = 128) and an eval batch of 128."""
+    from editor_tpu_torch.models.init import editor_init
+
+    cfg, ecfg = flagship(["MODEL.MOE_EXPERTS", "8"])
+    ecfg = dataclasses.replace(ecfg, vit=dataclasses.replace(ecfg.vit, drop_path_rate=0.0))
+    sd = {k: v.clone() for k, v in editor_init(ecfg, seed=0).state_dict().items()}
+    sd["FUSE_block.moe_mlp.router"][:, MOE_BUSY] *= 5.0
+    h, w = ecfg.vit.img_size
+    return {"cfg": cfg, "ecfg": ecfg, "sd": sd,
+            "batch": _dp_id_batch(gen, _dp_batch(gen, cfg, h, w)),
+            "eval": _eval_batch(gen, B_EVAL)}
+
+
+def _moe_model(inp: dict, use_kernels: bool = True):
+    from editor_tpu_torch.models.editor import Editor
+
+    model = Editor(dataclasses.replace(inp["ecfg"], use_pallas=use_kernels))
+    model.load_state_dict({k: v.cuda() for k, v in inp["sd"].items()}, strict=True)
+    return model
+
+
+def _moe_data_step(inp: dict, rows: slice, dtype: torch.dtype, timed: bool = False,
+                   **kw) -> dict:
+    """(f)'s step on this process: the EDITOR's training forward on the
+    ``rows`` of the train batch in ``dtype`` (the kernels in bf16, the plain
+    ops in fp32) with the global labels, the train step's loss (every (score,
+    feat) pair through make_loss, plus the aux loss) and its backward (``kw``:
+    ``batch_group=`` with ``moe_mesh=``, or ``moe_shards=`` on one card),
+    counted from zero: the loss, the global cls4t, every parameter's
+    gradient, the launches and the dropped pairs; with ``timed`` the ms of a
+    forward + backward and the peak memory."""
+    from editor_tpu_torch.losses import make_loss
+
+    model = _moe_model(inp, use_kernels=dtype == torch.bfloat16)
+    loss_func = make_loss(inp["cfg"], inp["ecfg"].num_classes)
+    batch = {k: v.cuda() for k, v in inp["batch"].items()}
+    labels = batch["pid"]
+    images = {m: batch[m][rows].to(dtype) for m in ("RGB", "NI", "TI")}
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        out = model(images, cam_ids=batch["camid"][rows], training=True, labels=labels,
+                    generator=torch.Generator(device="cuda").manual_seed(0), **kw)
+        total = out.aux_loss
+        for score, feat in out.pairs:
+            total = total + loss_func(score, feat, labels)
+        total.backward()
+        return total, out.cls4t
+
+    reset_counts()
+    with _Drops() as drops:
+        loss, cls4t = run()
+        torch.cuda.synchronize()
+    res = {"loss": float(loss), "cls4t": cls4t.detach().float().cpu(),
+           "launches": launch_counts(), "drops": drops.total(),
+           "capacity": [c for c, _ in drops.calls],
+           "grads": {k: p.grad.detach().float() for k, p in model.named_parameters()
+                     if p.grad is not None}}
+    if timed:
+        torch.cuda.reset_peak_memory_stats()
+        res["ms"] = cuda_ms(run, iters=3)
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def _moe_eval_run(inp: dict, mesh=None, rows: slice = slice(None)) -> dict:
+    """The eval forward of (f)'s model (bf16) on the eval batch, counted
+    from zero: through ``build_eval_step(mesh=)`` (every rank's features,
+    the routing the global batch's), or, with ``rows`` and no mesh, the
+    model on those rows alone (each rank routing its own rows, as the eval
+    step did before it took the data group), with each routing's capacity
+    and dropped pairs per token."""
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+
+    model = _moe_model(inp)
+    batch = {k: v.cuda()[rows] for k, v in inp["eval"].items()}
+    step = build_eval_step(model, torch.bfloat16, mesh)
+    reset_counts()
+    with _Drops() as drops:
+        feats = step(batch)
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    return {"feats": feats.cpu(), "launches": launches, "capacity": drops.calls[0][0],
+            "drops": torch.cat([d for _, d in drops.calls])}
+
+
+def moe_rank(d: str) -> None:
+    """One rank of (f) under cli.launch. Two ranks: layout (i), the expert
+    group is the data group (``moe_mesh`` = the data ranks); four: layout
+    (ii), a ('data', 'expert') mesh of 2 x 2. The step on this data rank's
+    rows in bf16 (launches, dropped pairs, ms, peak memory) and in fp32,
+    the gradients mean-all-reduced over every rank (rank 0 writes them);
+    the mesh eval forward and the per-rank routing of this rank's rows."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from editor_tpu_torch.parallel import collectives as Coll
+    from editor_tpu_torch.parallel import multihost
+    from editor_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inp = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
+    multihost.initialize(timeout_s=240)
+    rank, world = multihost.process_index(), multihost.process_count()
+    if world == 2:
+        mesh = make_mesh(2, 1)
+        moe_mesh = mesh.get_group("data")
+    else:
+        mesh = init_device_mesh("cuda", (2, world // 2), mesh_dim_names=("data", "expert"))
+        moe_mesh = mesh
+    r = mesh.get_local_rank("data")
+    n = B_EVAL // 2
+    rows = slice(r * n, (r + 1) * n)
+    out = {"mesh": list(mesh.shape), "data_rank": r}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        res = _moe_data_step(inp, rows, dtype, timed=dtype == torch.bfloat16,
+                             batch_group=mesh, moe_mesh=moe_mesh)
+        with torch.no_grad():
+            mean = {k: Coll.all_reduce(g, None, "mean") for k, g in res.pop("grads").items()}
+        if rank == 0:
+            res["grads"] = {k: g.cpu() for k, g in mean.items()}
+        out[name] = res
+        del mean
+        torch.cuda.empty_cache()
+    out["eval"] = _moe_eval_run(inp, mesh)
+    out["eval_per_rank"] = _moe_eval_run(inp, rows=rows)
+    torch.save(out, os.path.join(d, f"out_{rank}.pt"))
+    multihost.shutdown()
+
+
+def _route_gate(run: dict, ref: dict, rows: slice, ref_feats, feats) -> dict:
+    """MOE_ROUTE_GATE of one rank's eval routing ``run`` against one card's
+    ``ref``: the capacities, the dropped pairs in ``rows`` (tokens of those
+    batch rows) and the features' agreement."""
+    n_tok = ref["drops"].numel() // B_EVAL
+    ref_rows = int(ref["drops"][rows.start * n_tok:rows.stop * n_tok].sum())
+    got_rows = int(run["drops"].sum())
+    pairs = 2 * (rows.stop - rows.start) * n_tok
+    min_cos, max_rel = _feature_agreement(feats, ref_feats)
+    ok = (run["capacity"] == ref["capacity"]
+          and abs(got_rows - ref_rows) <= MOE_DROP_TOL * pairs
+          and min_cos >= 0.99 and max_rel <= 0.08)
+    return {"ok": ok, "capacity": run["capacity"], "ref_capacity": ref["capacity"],
+            "drops": got_rows, "ref_drops": ref_rows, "pairs": pairs,
+            "min_cos": round(min_cos, 6), "max_rel_l2": round(max_rel, 6)}
+
+
+def _moe_data_multi(card: str, gen: torch.Generator) -> dict:
+    """(f) with two cards or more: the MoE flagship beside a data axis,
+    ranks of this script (``--moe-rank``) through cli.launch: layout (i) on
+    two cards and, with four, layout (ii) (data 2 x expert 2). Each held to
+    one card's step on the global batch with ``moe_shards`` 2, the same
+    function: the bf16 step's loss and the mean of the ranks' gradients
+    (:func:`_grad_err`) within MP_TOL and its cls4t within phase 3's gates,
+    the fp32 step's within MP_F32_TOL (bf16 rounding can flip a near-tied
+    routing); each rank launches K1-K5 as (b)'s step; the mesh eval forward
+    passes MOE_ROUTE_GATE against one card's eval, and routing each rank's
+    rows alone must fail it."""
+    import shutil
+    import tempfile
+
+    if torch.cuda.device_count() < 2:
+        say("12f moe data ranks", world_sizes="1", note="one card: the MoE beside a data "
+            "axis needs two")
+        return {}
+    inp = _moe_data_inputs(gen)
+    L = inp["ecfg"].vit.depth
+    want = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2,
+                    attention_qkv_bwd=L, masked_attention_qkv_bwd=2)
+    want_eval = expected(attention_qkv=L, rollout_chain=1, masked_attention_qkv=2)
+    everything = slice(None)
+    ref = {"bf16": _moe_data_step(inp, everything, torch.bfloat16, timed=True, moe_shards=2),
+           "fp32": _moe_data_step(inp, everything, torch.float32, moe_shards=2)}
+    for res in ref.values():
+        res["grads"] = {k: g.cpu() for k, g in res["grads"].items()}
+    torch.cuda.empty_cache()
+    ref["eval"] = _moe_eval_run(inp)
+    torch.cuda.empty_cache()
+    cpu_inp = {"cfg": inp["cfg"], "ecfg": inp["ecfg"], "sd": inp["sd"],
+               "batch": {k: v.cpu() for k, v in inp["batch"].items()},
+               "eval": {k: v.cpu() for k, v in inp["eval"].items()}}
+    worlds = [2] + ([4] if torch.cuda.device_count() >= 4 else [])
+    result = {}
+    for world in worlds:
+        d = tempfile.mkdtemp(prefix=f"chip_smoke_moe{world}_")
+        try:
+            torch.save(cpu_inp, os.path.join(d, "inputs.pt"))
+            _launch_ranks(world, "--moe-rank", d)
+            outs = [torch.load(os.path.join(d, f"out_{r}.pt"), weights_only=False)
+                    for r in range(world)]
+            errs = {}
+            for name, tol in (("bf16", MP_TOL), ("fp32", MP_F32_TOL)):
+                r0, o0 = ref[name], outs[0][name]
+                grads = _grad_err(o0["grads"], r0["grads"])
+                errs[name] = {
+                    "loss": max(abs(o[name]["loss"] - r0["loss"]) / abs(r0["loss"])
+                                for o in outs),
+                    "grads": max(grads.values()), "worst": _worst(grads)}
+                if name == "fp32":
+                    errs[name]["cls4t"] = _scaled(o0["cls4t"], r0["cls4t"])
+                if max(v for k, v in errs[name].items() if k != "worst") > tol:
+                    raise AssertionError(f"(f) W = {world} {name} against one card: "
+                                         f"{errs[name]} (limit {tol})")
+            min_cos, max_rel = _feature_agreement(outs[0]["bf16"]["cls4t"],
+                                                  ref["bf16"]["cls4t"])
+            if not (min_cos >= 0.99 and max_rel <= 0.08):
+                raise AssertionError(f"(f) W = {world} cls4t: cos {min_cos}, rel {max_rel}")
+            gates, parent = [], []
+            for rk, o in enumerate(outs):
+                if o["bf16"]["launches"] != want or o["eval"]["launches"] != want_eval:
+                    raise AssertionError(f"(f) rank {rk}: launches {o['bf16']['launches']}, "
+                                         f"eval {o['eval']['launches']}")
+                n = B_EVAL // 2
+                rows = slice(o["data_rank"] * n, (o["data_rank"] + 1) * n)
+                gates.append(_route_gate(o["eval"], ref["eval"], rows, ref["eval"]["feats"],
+                                         o["eval"]["feats"]))
+                parent.append(_route_gate(o["eval_per_rank"], ref["eval"], rows,
+                                          ref["eval"]["feats"][rows], o["eval_per_rank"]["feats"]))
+            if not all(g["ok"] for g in gates):
+                raise AssertionError(f"(f) W = {world} mesh eval fails {MOE_ROUTE_GATE}: {gates}")
+            if any(g["ok"] for g in parent):
+                raise AssertionError(f"(f) W = {world}: per-rank routing passes "
+                                     f"{MOE_ROUTE_GATE}: {parent}")
+            layout = "(i) expert group = data group" if world == 2 else "(ii) data 2 x expert 2"
+            result[world] = {"train": outs[0]["bf16"]["launches"],
+                             "eval": outs[0]["eval"]["launches"]}
+            say("12f moe data ranks", world=world, layout=repr(layout), mesh=outs[0]["mesh"],
+                limit=MP_TOL, fp32_limit=MP_F32_TOL,
+                errors=json.dumps({k: {n: (f"{v:.3e}" if isinstance(v, float) else v)
+                                       for n, v in e.items()} for k, e in errs.items()}),
+                cls4t_min_cos=f"{min_cos:.6f}", cls4t_max_rel_l2=f"{max_rel:.6f}",
+                launches_per_step=json.dumps({k: v for k, v in want.items() if v}),
+                step_ms=json.dumps([round(o["bf16"]["ms"], 2) for o in outs]),
+                one_card_step_ms=f"{ref['bf16']['ms']:.2f}",
+                peak_gb=json.dumps([round(o["bf16"]["peak_gb"], 2) for o in outs]),
+                one_card_peak_gb=f"{ref['bf16']['peak_gb']:.2f}",
+                dropped_pairs=json.dumps([o["bf16"]["drops"] for o in outs]),
+                one_card_dropped_pairs=ref["bf16"]["drops"],
+                capacity=json.dumps(outs[0]["bf16"]["capacity"]),
+                one_card_capacity=json.dumps(ref["bf16"]["capacity"]), card=repr(card))
+            say("12f moe data eval", world=world, gate=repr(MOE_ROUTE_GATE),
+                drop_tol=MOE_DROP_TOL, mesh_eval=json.dumps(gates),
+                per_rank_routing_fails=json.dumps(parent))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    return result
+
+
+def mp_phase(card: str, gen: torch.Generator, cases: str = "abcdef") -> dict:
     """Phase 12: model parallelism. (a) TP shard shapes of K1, K4 and K2 on
-    one card; (b) the MoE flagship on one card; (c) TP through cli.launch
-    and (d) expert and sequence parallelism on the fusion block, each with
-    two cards or more, and (e) ZeRO-1, FSDP and PowerSGD on a data 2 x
-    model 2 mesh with four (on fewer cards they say so). ``cases``: the
-    letters of the cases to run (``--phase-12 e``)."""
+    one card; (b) the MoE flagship on one card; (c) TP through cli.launch,
+    (d) expert and sequence parallelism on the fusion block and (f) the MoE
+    flagship beside a data axis, each with two cards or more, and (e)
+    ZeRO-1, FSDP and PowerSGD on a data 2 x model 2 mesh with four (on
+    fewer cards they say so). ``cases``: the letters of the cases to run
+    (``--phase-12 e``)."""
     run = lambda case, fn, *args: fn(*args) if case in cases else {}  # noqa: E731
     shard = run("a", _tp_shard_kernels, gen)
     moe = run("b", _moe_check, gen, card)
@@ -4441,7 +4739,9 @@ def mp_phase(card: str, gen: torch.Generator, cases: str = "abcde") -> dict:
     mp = run("d", _mp_multi, card, gen)
     torch.cuda.empty_cache()
     tpz = run("e", _tp_zero_multi, card, gen)
-    return {"shard": shard, "moe": moe, "tp": tp, "mp": mp, "tpz": tpz}
+    torch.cuda.empty_cache()
+    moe_data = run("f", _moe_data_multi, card, gen)
+    return {"shard": shard, "moe": moe, "tp": tp, "mp": mp, "tpz": tpz, "moe_data": moe_data}
 
 
 # Pipeline parallelism (phase 13): (a) the flagship through the pipelined
@@ -5861,9 +6161,10 @@ def timed(name: str, fn, *args):
 def _mp_launches(mp: dict, name: str) -> dict:
     """Phase 12's launches of one kernel row: the MoE flagship's train step
     and eval forward (b) and, where two cards ran them, a TP rank's train
-    step (c) and a rank's Ulysses forward + backward and seq-sharded fusion
-    block (d), and where four did, a (2, 2) rank's ZeRO-1, FSDP and
-    PowerSGD step (e)."""
+    step (c), a rank's Ulysses forward + backward and seq-sharded fusion
+    block (d) and a MoE data rank's step and mesh eval forward (f, by world
+    size), and where four did, a (2, 2) rank's ZeRO-1, FSDP and PowerSGD
+    step (e)."""
     out = {"moe_train": mp["moe"]["train"][name], "moe_eval": mp["moe"]["eval"][name]}
     if mp["tp"]:
         out["tp_train"] = mp["tp"]["train"][name]
@@ -5871,6 +6172,9 @@ def _mp_launches(mp: dict, name: str) -> dict:
         out.update(ulysses=mp["mp"]["ulysses"][name], seq_block=mp["mp"]["seq"][name])
     for kind, launches in mp["tpz"].items():
         out[f"tp_{kind}_train"] = launches[name]
+    for world, launches in mp["moe_data"].items():
+        out.update({f"moe_data{world}_train": launches["train"][name],
+                    f"moe_data{world}_eval": launches["eval"][name]})
     return out
 
 
@@ -5965,6 +6269,8 @@ if __name__ == "__main__":
         tp_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--mp-rank"]:  # one rank of phase 12 (d)
         mp_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--moe-rank"]:  # one rank of phase 12 (f)
+        moe_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--pp-rank"]:  # one rank of phase 13 (b), (c)
         pp_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--zero-rank"]:  # one rank of phase 12 (e), 13 (d)

@@ -30,15 +30,21 @@ def build_eval_step(model: Editor, compute_dtype: torch.dtype = torch.bfloat16, 
     size, by repeating its last row) and gets every rank's features,
     all-gathered, with the padding trimmed (the JAX step's data-sharded
     batch). With a model axis above 1 the backbone runs tensor-parallel
-    over it (the model cut by ``parallel.tp.shard_editor``)."""
+    over it (the model cut by ``parallel.tp.shard_editor``). On a data
+    axis above 1 the model sees the data group, so a MoE model routes the
+    global batch, as JAX's jitted step does: slots in global order, the
+    padding last, and the capacity from the real rows' tokens
+    (``Editor.forward(batch_group=, valid_rows=)``); the features are the
+    one-device eval's."""
     from editor_tpu_torch.parallel.mesh import data_size, model_size, shard_batch
     tp_mesh = mesh if model_size(mesh) > 1 else None
+    group = mesh if mesh is not None and data_size(mesh) > 1 else None
 
-    def run(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def run(batch: Dict[str, torch.Tensor], rows: Optional[int] = None) -> torch.Tensor:
         images = {k: batch[k].to(compute_dtype) for k in MODALITIES if k in batch}
         with torch.inference_mode():
             feat = model(images, cam_ids=batch.get("camid"), training=False,
-                         tp_mesh=tp_mesh)
+                         tp_mesh=tp_mesh, batch_group=group, valid_rows=rows)
         return feat.to(torch.float32)
 
     if mesh is None:
@@ -54,7 +60,7 @@ def build_eval_step(model: Editor, compute_dtype: torch.dtype = torch.bfloat16, 
             batch = {k: torch.cat([v, v[-1:].expand((pad,) + v.shape[1:])])
                      for k, v in batch.items()}
         feat = run(shard_batch(mesh, {k: v for k, v in batch.items()
-                                      if k in MODALITIES or k == "camid"}))
+                                      if k in MODALITIES or k == "camid"}), n)
         with torch.inference_mode():
             return C.all_gather(feat, mesh)[:n]
 

@@ -252,7 +252,7 @@ class Editor(nn.Module):
                 training: bool = False, tp_mesh=None, seq_mesh=None,
                 backbone=None, labels: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None, batch_group=None,
-                moe_mesh=None, moe_shards: int = 1
+                moe_mesh=None, moe_shards: int = 1, valid_rows: Optional[int] = None
                 ) -> Union[torch.Tensor, EditorTrainOutput]:
         """images: {'RGB', 'NI', 'TI'} NHWC float tensors ('TI' optional).
         Eval: returns cls4t [B, M*dim] in the images' dtype. Training
@@ -260,26 +260,35 @@ class Editor(nn.Module):
         ``generator``): returns an :class:`EditorTrainOutput` and advances
         the BN running stats and OCFR centers in place.
 
-        ``batch_group`` (training; a ``DeviceMesh`` or process group): the
-        images are this rank's rows of a global batch, and ``labels`` are
+        ``batch_group`` (a ``DeviceMesh`` or process group): the images are
+        this rank's rows of a global batch, and ``labels`` (training) are
         the global batch's [W*B]. Every site that couples the rows of a
-        batch sees all W*B of them, as the JAX step on a mesh does: the BN
-        heads (batch stats, the n of the running variance), the OCFR class
-        means, the BCC mean and, through the returned pairs, the losses and
-        accuracy. Their inputs are all-gathered with autograd (the BCC loss
-        is all-reduced), so the output is the global batch's, the same on
-        every rank, and a rank's backward gives W times its rows' share of
-        the gradient; the step's mean all-reduce of the gradients cancels
-        the W.
+        batch sees all W*B of them, as the JAX step on a mesh does: in
+        training the BN heads (batch stats, the n of the running variance),
+        the OCFR class means, the BCC mean and, through the returned pairs,
+        the losses and accuracy; in training and in eval the MoE joint
+        MLP's routing (slots in global order, the capacity from the global
+        token count), with or without ``moe_mesh`` or ``moe_shards``. The
+        training inputs are all-gathered with autograd (the BCC loss is
+        all-reduced), so the training output is the global batch's, the
+        same on every rank, and a rank's backward gives W times its rows'
+        share of the gradient; the step's mean all-reduce of the gradients
+        cancels the W. The eval forward returns this rank's rows (its BN
+        heads use their running statistics, so nothing else couples rows).
+        ``valid_rows`` (eval): the (global) batch's rows past it are padding,
+        last in order, which the MoE's capacity does not count (the eval
+        step's padding; ``models.fusion.moe_masked_mlp``); a dense model
+        ignores it.
 
         ``tp_mesh``: a ('data', 'model') ``DeviceMesh`` whose model axis is
         above 1 (the model cut by ``parallel.tp.shard_editor``; every rank
         of a model group passes the same rows). ``seq_mesh``: a mesh with a
         'seq' dimension (or a process group) over which the fusion block's
         masked attentions run as the masked ring. ``moe_mesh`` (an 'expert'
-        dimension) / ``moe_shards``: the MoE joint MLP's experts sharded /
-        the S-shard routing on one device. The parallel paths' gradients
-        follow ``parallel.collectives`` (the module docstrings of
+        dimension: the data group's own ranks, or the second axis of a 2-D
+        ('data', 'expert') mesh) / ``moe_shards``: the MoE joint MLP's
+        experts sharded / the S-shard routing on one device. The parallel
+        paths' gradients follow ``parallel.collectives`` (the module docstrings of
         ``parallel.ring`` and ``parallel.moe``). ``backbone``: a replacement
         of the shared backbone pass, ``(model, cfg, mods, cam_ids, view_ids,
         training, generator) -> (toks, rolls)`` per modality, e.g. the
@@ -338,7 +347,7 @@ class Editor(nn.Module):
         fused, ocfr_loss, moe_aux = self.FUSE_block(
             feats, index, use_kernels, labels=labels if training else None,
             ocfr_momentum=cfg.ocfr_momentum, batch_group=batch_group, seq_mesh=seq_mesh,
-            moe_mesh=moe_mesh, moe_shards=moe_shards)
+            moe_mesh=moe_mesh, moe_shards=moe_shards, valid_rows=valid_rows)
         pooled = _masked_mean_pool(fused, index, seg_len, M)
         heads = (self.RGB_REDUCE, self.NIR_REDUCE, self.TIR_REDUCE)[:M]
         cls4t = torch.cat([head(torch.cat([cls, pool], dim=-1))

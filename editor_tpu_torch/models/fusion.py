@@ -20,11 +20,12 @@ With ``num_experts`` > 0 the joint MLP is a GShard mixture of experts
 parameters are ``FUSE_block.moe_mlp.{router, w1, b1, w2, b2}`` in the JAX
 layout (router [C, E], w1 [E, C, F], b1 [E, F], w2 [E, F, C], b2 [E, C]; the
 reference has no MoE, so these names are the port's own), and the block also
-returns the Switch load-balance loss. The routing runs over the global batch
-under ``batch_group``, over ``moe_mesh``'s 'expert' group with the experts
-sharded (``moe_ffn``), or as ``moe_shards`` independent shards on one
-device. ``seq_mesh``: every masked attention runs sequence-sharded over the
-mesh's 'seq' group as the masked ring (``parallel.ring``).
+returns the Switch load-balance loss. The routing runs over ``moe_mesh``'s
+'expert' group with the experts sharded (``moe_ffn``), as ``moe_shards``
+independent shards on one device, or over all the tokens; under
+``batch_group`` each of the three is the global batch's. ``seq_mesh``: every
+masked attention runs sequence-sharded over the mesh's 'seq' group as the
+masked ring (``parallel.ring``).
 """
 
 from __future__ import annotations
@@ -174,7 +175,7 @@ class BlockMask(nn.Module):
     def forward(self, modal_feats: List[torch.Tensor], mask_patches: torch.Tensor,
                 use_kernels: bool = True, labels: Optional[torch.Tensor] = None,
                 ocfr_momentum: float = 0.8, batch_group=None, seq_mesh=None,
-                moe_mesh=None, moe_shards: int = 1
+                moe_mesh=None, moe_shards: int = 1, valid_rows: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """modal_feats: 2-3 per-modality [B, 1+P, C]; mask_patches: [B, P, 1]
         float union mask (no cls entry). Returns (fused [B, M(1+P), C], OCFR
@@ -183,7 +184,9 @@ class BlockMask(nn.Module):
         loss is computed and the class centers move. With ``batch_group``
         the OCFR sees the global batch: the refined cls tokens are
         all-gathered with autograd, and ``labels`` are the global batch's;
-        the MoE routes the global batch."""
+        the MoE routes the global batch, in training and in eval, with or
+        without ``moe_mesh`` or ``moe_shards`` (``valid_rows``: see
+        :func:`moe_masked_mlp`)."""
         B = modal_feats[0].shape[0]
         dtype = modal_feats[0].dtype
         ones = torch.ones((B, 1, 1), dtype=mask_patches.dtype, device=mask_patches.device)
@@ -209,7 +212,7 @@ class BlockMask(nn.Module):
         if hasattr(self, "moe_mlp"):
             y, moe_aux = moe_masked_mlp(self.moe_mlp.params(), self.norm2(x), m,
                                         moe_mesh=moe_mesh, moe_shards=moe_shards,
-                                        batch_group=batch_group)
+                                        batch_group=batch_group, valid_rows=valid_rows)
             x = x + y
         else:
             x = x + self.mlp.fc2(gelu(self.mlp.fc1(self.norm2(x) * m)))
@@ -219,31 +222,33 @@ class BlockMask(nn.Module):
 
 def moe_masked_mlp(p: "moe_mod.MoEParams", x: torch.Tensor, m: torch.Tensor,
                    moe_mesh=None, moe_shards: int = 1, batch_group=None, k: int = 2,
-                   capacity_factor: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                   capacity_factor: float = 2.0, valid_rows: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``moe_masked_mlp``: the masked joint MLP as the GShard MoE over the
     B*N tokens of x [B, N, C] (m: the [B, N, 1] mask, multiplied in first).
     ``moe_mesh``: experts and tokens sharded over its 'expert' group
     (``moe_ffn``); else ``moe_shards`` S independent shards of T/S tokens,
-    each with its own capacity (the meshed run's one-device oracle), or,
-    under ``batch_group``, one routing over the global batch. Returns
-    (y [B, N, C], aux loss)."""
+    each with its own capacity (the meshed run's one-device oracle); else
+    one routing over all the tokens. Under ``batch_group`` x is this rank's
+    rows of a global batch and each form is the global batch's function
+    (``parallel.moe``'s module docstring). ``valid_rows`` (the last form
+    only): the (global) batch's rows past it are padding, last in order, so
+    they take no real row's slot, and the capacity counts the real rows'
+    tokens (the aux loss counts every row). Returns (y [B, N, C], aux
+    loss)."""
     B, N, C = x.shape
     z = (x * m).reshape(B * N, C)
+    if valid_rows is not None and (moe_mesh is not None or moe_shards != 1):
+        raise ValueError("valid_rows= takes the routing over all the tokens, "
+                         "not moe_mesh= or moe_shards=")
     if moe_mesh is not None:
-        if batch_group is not None or moe_shards != 1:
-            raise NotImplementedError("moe_mesh= with a data mesh or moe_shards is not ported")
-        y, aux = moe_mod.moe_ffn(p, z, moe_mesh, k, capacity_factor)
+        y, aux = moe_mod.moe_ffn(p, z, moe_mesh, k, capacity_factor, group=batch_group)
     elif moe_shards != 1:
-        if batch_group is not None:
-            raise NotImplementedError("moe_shards with a data mesh is not ported")
-        S = moe_shards
-        if z.shape[0] % S:
-            raise ValueError(f"tokens {z.shape[0]} not divisible by moe_shards={S}")
-        Tl = z.shape[0] // S
-        cap = int(capacity_factor * k * Tl / p.router.shape[-1]) or 1
-        outs = [moe_mod.moe_ffn_dense(p, t, k, capacity=cap) for t in z.split(Tl)]
-        y = torch.cat([o[0] for o in outs])
-        aux = torch.stack([o[1] for o in outs]).mean()
+        y, aux = moe_mod.moe_ffn_shards(p, z, moe_shards, k, capacity_factor,
+                                        group=batch_group)
     else:
-        y, aux = moe_mod.moe_ffn_dense(p, z, k, capacity_factor, group=batch_group)
+        cap = (None if valid_rows is None else
+               moe_mod.capacity_of(valid_rows * N, p.router.shape[-1], k, capacity_factor))
+        y, aux = moe_mod.moe_ffn_dense(p, z, k, capacity_factor, capacity=cap,
+                                       group=batch_group)
     return y.reshape(B, N, C), aux

@@ -28,10 +28,27 @@ plain PyTorch, as they are plain XLA in JAX (no Pallas kernel).
   its T/S tokens (its own capacity), one autograd ``all_to_all`` sends each
   expert's buffer to its owner, its E/S experts run, one ``all_to_all``
   brings the outputs back, and they are all-gathered into [T, D].
+* :func:`moe_ffn_shards`: S independent shards of T/S tokens on one device,
+  each with its own capacity, the aux loss the mean of the shards' (the
+  one-device twin of :func:`moe_ffn`).
+
+Beside a data group (``group=``; JAX jits these functions over a batch
+sharded on a 'data' axis, which only places rows) x is this rank's rows of
+a global batch in rank order and the function is the global batch's: each
+rank returns its rows of the global y. Where a rank's rows are whole shards
+(:func:`moe_ffn` whose 'expert' group is the data group, the GShard layout;
+:func:`moe_ffn_shards` with S a multiple of the data size) they are routed
+here and nothing is gathered; otherwise (a 2-D ('data', 'expert') mesh,
+where every expert rank of a data row holds the same rows) the rows are
+all-gathered over the data group, the function runs on the global tokens,
+and the rank keeps its rows.
 
 Gradients follow ``collectives``: a rank's gradient is that of the sum of
 every rank's loss, so where every rank of a group computes the same loss,
 the mean over the group of the ranks' gradients is the loss's gradient.
+With a data group, a rank's y rows are its share of the global function,
+and the gathers' backward (a reduce-scatter) hands each rank the gradient
+of its own rows, as the global-batch step expects.
 """
 
 from __future__ import annotations
@@ -171,26 +188,66 @@ def moe_ffn_dense(params: MoEParams, x: torch.Tensor, k: int = 2,
     return combine(ye, row, gates).to(x.dtype), aux
 
 
+def _group_rank(group) -> Tuple[int, int]:
+    """(rank, size) of this process in the data ``group``."""
+    pg = C._pg(group)
+    return dist.get_rank(pg), dist.get_world_size(pg)
+
+
+def moe_ffn_shards(params: MoEParams, x: torch.Tensor, shards: int, k: int = 2,
+                   capacity_factor: float = 2.0, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [T, D] as ``shards`` S consecutive shards of T/S tokens, each routed
+    by :func:`moe_ffn_dense` with the capacity of T/S tokens; the aux loss is
+    the mean of the shards'. With ``group`` (module docstring) T is the
+    global batch's: shards inside this rank's rows run here, else the rows
+    are gathered."""
+    S, n = shards, x.shape[0]
+    r, W = _group_rank(group) if group is not None else (0, 1)
+    if (n * W) % S:
+        raise ValueError(f"tokens {n * W} not divisible by moe_shards={S}")
+    Ts = n * W // S
+    cap = capacity_of(Ts, params.router.shape[-1], k, capacity_factor)
+    gather = group is not None and n % Ts != 0
+    z = C.all_gather(x, group) if gather else x
+    outs = [moe_ffn_dense(params, t, k, capacity=cap) for t in z.split(Ts)]
+    y = torch.cat([o[0] for o in outs])
+    aux = torch.stack([o[1] for o in outs]).mean()
+    if gather:
+        y = y[r * n:(r + 1) * n]
+    elif group is not None:
+        aux = C.all_reduce(aux, group, "mean")
+    return y, aux
+
+
 def moe_ffn(params: MoEParams, x: torch.Tensor, mesh, k: int = 2,
-            capacity_factor: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
+            capacity_factor: float = 2.0, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE over ``mesh``'s 'expert' group (a ``DeviceMesh``
     with an 'expert' dimension, or a process group) of S ranks: x [T, D],
     the same on every rank; rank r routes tokens ``r*T/S:(r+1)*T/S`` with a
     capacity from T/S, its experts ``r*E/S:(r+1)*E/S`` run every rank's
     tokens routed to them, and y [T, D] comes back all-gathered; the aux
     loss is the mean of the ranks'. The same function as ``moe_shards`` = S
-    on one device."""
+    on one device. ``group``: a data group beside it (module docstring);
+    where the expert group is the data group (the same ranks in the same
+    order) x is this rank's shard, and y its rows, without a gather."""
     from editor_tpu_torch.parallel.mesh import axis_group
     pg, S = axis_group(mesh, "expert")
     E = params.router.shape[-1]
     if E % S:
         raise ValueError(f"experts {E} not divisible by expert={S}")
-    if x.shape[0] % S:
-        raise ValueError(f"tokens {x.shape[0]} not divisible by expert={S}")
+    local = group is not None and (dist.get_process_group_ranks(C._pg(group))
+                                   == dist.get_process_group_ranks(pg))
+    rows = x.shape[0]
+    if group is not None and not local:
+        x = C.all_gather(x, group)  # the global batch's tokens, rank-major
+    T = rows * S if local else x.shape[0]
+    if T % S:
+        raise ValueError(f"tokens {T} not divisible by expert={S}")
     r = dist.get_rank(pg)
-    Tl, El = x.shape[0] // S, E // S
+    Tl, El = T // S, E // S
     cap = capacity_of(Tl, E, k, capacity_factor)
-    xl = x[r * Tl:(r + 1) * Tl]
+    xl = x if local else x[r * Tl:(r + 1) * Tl]
     gates, idx, probs = route(params.router, xl, k)
     aux = C.all_reduce(aux_loss(idx, probs, E), pg, "mean")
     xe, row = dispatch(xl.to(torch.float32), idx, slots(idx, E), E, cap)
@@ -201,5 +258,11 @@ def moe_ffn(params: MoEParams, x: torch.Tensor, mesh, k: int = 2,
     ye = expert_ffn(params.w1[sl], params.b1[sl], params.w2[sl], params.b2[sl], xr)
     ye = ye.reshape(El, S, cap, D).transpose(0, 1).reshape(S * El, cap, D)
     yr = C.all_to_all(ye, pg, 0, 0)                           # [E, C, D], my tokens
-    y = C.all_gather(combine(yr, row, gates).to(x.dtype), pg, axis=0)
+    y = combine(yr, row, gates).to(x.dtype)
+    if local:
+        return y, aux
+    y = C.all_gather(y, pg, axis=0)
+    if group is not None:
+        d = _group_rank(group)[0]
+        y = y[d * rows:(d + 1) * rows]
     return y, aux

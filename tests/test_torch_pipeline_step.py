@@ -7,9 +7,10 @@ CPU devices (``tests/torch_dp_jax.py``: the pipeline config, 64 x 32, width
 JAX's weights).
 
 * On 4 stages (M = 4), on data 2 x stage 2 (M = 2; each data row pipelines
-  its rows, the tail gathers the global batch) and on stage 2 x model 2
+  its rows, the tail gathers the global batch), on stage 2 x model 2
   (M = 2; the blocks Megatron-split inside each stage, the qkv columns
-  shard-major, the model cut by ``shard_editor``): the losses and every
+  shard-major, the model cut by ``shard_editor``) and on data 2 x stage 2 x
+  model 2 (M = 2, 8 ranks, all three at once): the losses and every
   parameter, BN statistic and OCFR center at ``test_torch_train_step.py``'s
   tolerances (``tests/torch_dp_jax.py::close_to_jax``: loss rtol 1e-7, each
   parameter's change within 1e-7 of its tensor's largest change), and every
@@ -32,7 +33,8 @@ from tests.torch_dp_jax import (close_to_jax, jax_pp, jax_state_dict, make_pp_ba
 from tests.torch_parity import x64  # noqa: F401
 
 LAYOUTS = {"stage4": (1, 4, 1, 4), "data2-stage2": (2, 2, 1, 2),
-           "stage2-model2": (1, 2, 2, 2)}  # data, stage, model, M
+           "stage2-model2": (1, 2, 2, 2),
+           "data2-stage2-model2": (2, 2, 2, 2)}  # data, stage, model, M
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))

@@ -295,26 +295,103 @@ def fusion_state_dict(fb, num_classes: int, dim: int) -> dict:
     return sd
 
 
-def fusion_inputs(W, experts=0, seed=3):
+def fusion_inputs(W, experts=0, seed=3, batch=2, overflow=False):
     """A fusion block of width 96 with 12 heads (JAX's init at float64),
-    its state dict in the port's names and inputs whose per-modality length
-    (1 + P = 4W) every W divides, and the fixed projection ``proj`` of the
-    fused tokens that the loss takes (mean(fused^2) would not do: the
-    output LayerNorm makes it nearly constant, and the gradients before it
-    rounding noise)."""
+    its state dict in the port's names and ``batch`` rows of inputs whose
+    per-modality length (1 + P = 4W) every W divides, and the fixed
+    projection ``proj`` of the fused tokens that the loss takes
+    (mean(fused^2) would not do: the output LayerNorm makes it nearly
+    constant, and the gradients before it rounding noise). ``overflow``:
+    the MoE router from :func:`overflowing_router`."""
     key = jax.random.PRNGKey(seed)
     fb = (blockmask_moe_init(key, dim=96, num_experts=experts) if experts
           else blockmask_init(key, dim=96))
     fb = jax.tree_util.tree_map(lambda x: x.astype(jnp.float64), fb)
+    if overflow:
+        fb["moe_mlp"]["router"] = overflowing_router(fb["moe_mlp"]["router"])
     rng = np.random.RandomState(seed)
     P = 4 * W - 1
     fusion = {"dim": 96, "num_classes": 4, "mlp_ratio": 4.0, "heads": 12, "experts": experts,
               "sd": fusion_state_dict(fb, 4, 96),
-              "feats": [rng.randn(2, 1 + P, 96) for _ in range(3)],
-              "mask": (rng.rand(2, P, 1) < 0.5).astype(np.float64),
-              "labels": np.array([0, 1]),
-              "proj": rng.randn(2, 3 * (1 + P), 96)}
+              "feats": [rng.randn(batch, 1 + P, 96) for _ in range(3)],
+              "mask": (rng.rand(batch, P, 1) < 0.5).astype(np.float64),
+              "labels": np.arange(batch) % 4,
+              "proj": rng.randn(batch, 3 * (1 + P), 96)}
     return fb, fusion
+
+
+def overflowing_router(router):
+    """The MoE router [D, E] of the data-mesh tests: expert 2's column x5,
+    so that expert 2 takes more (token, choice) pairs than its capacity on
+    their batches (the tests count the dropped pairs)."""
+    r = jnp.asarray(router)
+    return r.at[:, 2].multiply(5.0)
+
+
+def jax_fusion_data(params, fusion, data_mesh, **kw):
+    """JAX's ``blockmask_apply`` in training jitted with the features, mask
+    and labels sharded ``P('data')`` over ``data_mesh`` (``kw``: its MoE
+    options), one compile: the loss mean(fused * proj) + OCFR + 0.01 aux,
+    the fused tokens, the aux loss and the gradients in the port's names."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    proj = jnp.asarray(fusion["proj"])
+
+    def loss(params, feats, mask, labels):
+        centers = {m: jnp.zeros((4, 96)) for m in ("rgb", "nir", "tir")}
+        fused, ocfr, _, aux = blockmask_apply(params, feats, mask, centers, labels,
+                                              num_heads=12, training=True, use_pallas=False,
+                                              **kw)
+        return jnp.mean(fused * proj) + ocfr + 0.01 * aux, (fused, aux)
+
+    data = NamedSharding(data_mesh, P("data"))
+    fn = jax.jit(jax.value_and_grad(loss, has_aux=True), in_shardings=(None, data, data, data))
+    (value, (fused, aux)), g = fn(params, [jnp.asarray(f) for f in fusion["feats"]],
+                                  jnp.asarray(fusion["mask"]), jnp.asarray(fusion["labels"]))
+    grads = {k: v.numpy() for k, v in fusion_state_dict(g, 4, 96).items()
+             if "memory_cls" not in k}
+    return {"loss": float(value), "fused": np.asarray(fused), "aux": float(aux),
+            "grads": grads}
+
+
+def moe_overflow_state(moe_experts=8):
+    """(JAX EditorConfig, float64 train state) of :func:`jax_setup` with the
+    fusion MoE's router from :func:`overflowing_router`."""
+    import dataclasses
+    jcfg, _, _, state = jax_setup(moe_experts=moe_experts)
+    fb = dict(state.params["FUSE_block"])
+    fb["moe_mlp"] = dict(fb["moe_mlp"], router=overflowing_router(fb["moe_mlp"]["router"]))
+    return jcfg, dataclasses.replace(state, params=dict(state.params, FUSE_block=fb))
+
+
+def jax_moe_editor_grads(jcfg, state, batch, mesh):
+    """JAX's ``editor_apply(moe_mesh=mesh)`` in training, jitted with the
+    batch sharded ``P('data')`` over ``mesh``, and the train step's loss
+    (every (score, feat) pair through ``make_loss`` plus the aux loss):
+    (the loss, its gradients in the port's names)."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from editor_tpu.models.editor import editor_apply
+    cfg = jax_setup(moe_experts=jcfg.moe_experts)[1]
+    loss_func = jax_make_loss(cfg, jcfg.num_classes)
+
+    def loss(params, images, labels, cams):
+        out, _ = editor_apply(params, state.model_state, jcfg, images, labels=labels,
+                              cam_ids=cams, training=True, rng=jax.random.PRNGKey(0),
+                              moe_mesh=mesh)
+        total = jnp.asarray(0.0, jnp.float32)
+        for score, feat in out.pairs:
+            total = total + loss_func(score, feat, labels)
+        return total + out.aux_loss
+
+    data = NamedSharding(mesh, P("data"))
+    fn = jax.jit(jax.value_and_grad(loss), in_shardings=(None, data, data, data))
+    value, g = fn(state.params, {m: jnp.asarray(batch[m]) for m in ("RGB", "NI", "TI")},
+                  jnp.asarray(batch["pid"]), jnp.asarray(batch["camid"]))
+    return float(value), state_dict_from_jax(to_numpy_tree(g),
+                                             to_numpy_tree(state.model_state), jcfg)
 
 
 def jax_fusion_loss(params, fusion, **kw):

@@ -375,6 +375,109 @@ def moe(inp, rank, world, out_dir):
     return {"y": y.detach(), "aux": float(aux), "grads": grads}
 
 
+class _Drops:
+    """Inside ``with``: the (token, choice) pairs that each
+    ``parallel.moe.dispatch`` call on this rank drops (past capacity), in
+    ``counts``."""
+
+    def __enter__(self):
+        from editor_tpu_torch.parallel import moe as moe_mod
+        self.mod, self.real, self.counts = moe_mod, moe_mod.dispatch, []
+
+        def dispatch(x, idx, pos, E, capacity):
+            buf, row = self.real(x, idx, pos, E, capacity)
+            self.counts.append(int((row == E * capacity).sum()))
+            return buf, row
+
+        moe_mod.dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dispatch = self.real
+
+
+def _moe_layouts():
+    """The MoE data layouts over 4 ranks: name -> (data group, data rank,
+    forward options). 'gshard': the expert group is the data group (2 data
+    ranks, two replicas); 'data_expert': a 2-D ('data', 'expert') mesh;
+    'shards': ``moe_shards`` 2 under a data group of 2 (each rank's rows a
+    shard) and 'shards_gather' under one of 4 (a shard spans two ranks)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    de = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "expert"))
+    rd = init_device_mesh("cpu", (2, 2), mesh_dim_names=("rep", "data"))
+    d4 = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+    pair = rd["data"]
+    return {"gshard": (pair, pair.get_local_rank(), {"moe_mesh": pair.get_group()}),
+            "data_expert": (de, de.get_local_rank("data"), {"moe_mesh": de}),
+            "shards": (pair, pair.get_local_rank(), {"moe_shards": 2}),
+            "shards_gather": (d4, d4.get_local_rank(), {"moe_shards": 2})}
+
+
+def _rows(x, rank: int, size: int):
+    n = x.shape[0] // size
+    return x[rank * n:(rank + 1) * n]
+
+
+def moe_data(inp, rank, world, out_dir):
+    """The MoE beside a data axis on 4 ranks (``_moe_layouts``). Each
+    layout: the fusion block of ``inp["fusion"]`` in training on this
+    rank's rows of the global batch (the global labels): the loss
+    mean(fused * proj) + OCFR + 0.01 aux over the all-gathered fused
+    tokens, the fused tokens, the aux loss, every parameter's gradient and
+    the pairs dropped here. Then ``editor``: the EDITOR with ``moe_mesh`` on
+    the ('data', 'expert') mesh, the train step's loss (every pair through
+    ``make_loss`` plus the aux loss) and its gradients (zeros for a
+    parameter the loss does not reach)."""
+    from editor_tpu_torch.losses import make_loss
+    from editor_tpu_torch.config import Config
+    out = {}
+    layouts = _moe_layouts()
+    for name, (group, r, kw) in layouts.items():
+        size = 4 if name == "shards_gather" else 2
+        block, feats, mask, labels = _fusion(inp)
+        with _Drops() as drops:
+            fused, ocfr, aux = block([_rows(f, r, size) for f in feats], _rows(mask, r, size),
+                                     False, labels=labels, batch_group=group, **kw)
+        fused = C.all_gather(fused, group)
+        loss = (fused * _t(inp["fusion"]["proj"])).mean() + ocfr + 0.01 * aux
+        value, grads = _grads(loss, dict(block.named_parameters()))
+        out[name] = {"loss": value, "fused": fused.detach(), "aux": float(aux),
+                     "grads": grads, "drops": sum(drops.counts)}
+    group, r, _ = layouts["data_expert"]
+    model = _model(inp["editor"])
+    batch = {k: _t(v) for k, v in inp["editor"]["batch"].items()}
+    labels = batch["pid"]
+    images = {k: _rows(batch[k], r, 2) for k in ("RGB", "NI", "TI")}
+    res = model(images, cam_ids=_rows(batch["camid"], r, 2), training=True, labels=labels,
+                generator=torch.Generator().manual_seed(0), batch_group=group, moe_mesh=group)
+    loss_func = make_loss(Config(), inp["editor"]["ecfg"].num_classes)
+    total = sum(loss_func(score, feat, labels) for score, feat in res.pairs) + res.aux_loss
+    total.backward()
+    out["editor"] = {"loss": float(total.detach()),
+                     "grads": {k: (torch.zeros_like(p) if p.grad is None else p.grad.clone())
+                               for k, p in model.named_parameters()}}
+    return out
+
+
+def moe_eval(inp, rank, world, out_dir):
+    """The eval step of the MoE EDITOR on a data mesh of every rank: the
+    features of ``batch`` and of its first ``n_pad`` rows (a size the ranks
+    do not divide: the step pads it), the pairs dropped here in each, and
+    the one-device eval of those rows."""
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    model = _model(inp)
+    batch = {k: _t(v) for k, v in inp["batch"].items() if k != "pid"}
+    short = {k: v[:inp["n_pad"]] for k, v in batch.items()}
+    step = build_eval_step(model, torch.float64, _mesh())
+    out = {}
+    for name, b in (("feats", batch), ("padded", short)):
+        with _Drops() as drops:
+            out[name] = step(b)
+        out[name + "_drops"] = sum(drops.counts)
+    out["one_device"] = build_eval_step(model, torch.float64)(short)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the pipeline
 # ---------------------------------------------------------------------------
@@ -784,6 +887,7 @@ def sharded(inp, rank, world, out_dir):
 TASKS = {"collectives": collectives, "sharded": sharded, "reducers": reducers, "train": train,
          "loop_runs": loop_runs, "several": several,
          "tp_eval": tp_eval, "row_parallel": row_parallel, "ring": ring, "moe": moe, "fusion_parallel": fusion_parallel,
+         "moe_data": moe_data, "moe_eval": moe_eval,
          "pipeline_toy": pipeline_toy, "pipeline_bn": pipeline_bn, "pipeline_vit": pipeline_vit,
          "localsgd": localsgd, "cmc": cmc,
          "cli_train": cli_train, "cli_test": cli_test, "fail": fail,
