@@ -300,10 +300,28 @@ Phases, each printing its lines and its seconds:
      1e-5, a DistributedOptimizer step, an RRef fetched through two injected
      drops, the profile's counts, the round trip's p50. ``--phase-15`` runs
      it alone after the build, ``--phase-15 ae`` only the cases named.
+ 16. zoo: the 50 CNN-zoo entries, card against CPU and at B = 128
+     (``zoo_phase``). ``--phase-16`` runs it alone after the build.
+ 17. tools: the last of the JAX surface. (a) cli.train at the flagship on
+     phase 8's in-memory data at RGBNT201's sizes (one epoch, evaluation at
+     its end) in one process with TPU.MESH_DATA -1: plain, TPU.ZERO_STAGE
+     1 and 3 and TPU.GRAD_COMPRESSION powersgd, each of the three on a
+     one-rank NCCL group that do_train makes and destroys; ZeRO-1's and
+     FSDP's losses, final weights and mAP bit for bit the plain run's,
+     PowerSGD's first loss equal and its first reduction its formula within
+     1e-6 (phase 10's check), no group left behind, each step's launches
+     (K1 12, K2 1, K3 2, K4 12, K5 2), ms a step beside phase 5's bare
+     step; (b) tools/convert_checkpoint on a seeded
+     flagship .pth: the .npz loaded back gives eval features bit for bit
+     those of the model loaded from the .pth, and --backbone-only on a
+     seeded ImageNet ViT-B/16 .pth; (c) bench_stages, bench_train (skips
+     0-3), bench_bwd and bench_loader at reduced iterations, each printing
+     its lines and no FAIL (K1-K5 and K7). ``--phase-17`` runs it alone after
+     the build, ``--phase-17 bc`` only the cases named.
 The model configs come from load_config(None, RGBNT201_PRESET + overrides)
 through editor_config_from. Then one JSON line with each kernel's numbers
 (K1-K8, T1-T6; launches by path: compact, uncompacted, loop, serve, dp,
-fsdp, mp, pp, stride12, remat, dropout, library; K1, K2 and K4 at N = 211 under
+fsdp, mp, pp, stride12, remat, dropout, library, tools; K1, K2 and K4 at N = 211 under
 ``stride12``), and last the result line {"ok": true, "device": {...}}. Any failed check
 raises, so the script exits non-zero without the result line; it does the
 same without a CUDA device.
@@ -2038,41 +2056,50 @@ def _event_pair() -> tuple:
 
 
 class _LoopProbe:
-    """Wraps the builders of the loop's train step and eval step (the loop
-    and ``do_inference`` look them up at call time): per train step the
-    launch counts it added, CUDA events recorded at its start and its end
-    (after its last launch) and, with ``read_loss``, its loss (a host sync);
-    per eval batch the launch counts and the same two events."""
+    """Wraps the functions that build the loop's train steps (the
+    global-batch step and the DDP step) and its eval step (the loop and
+    ``do_inference`` look them up at call time): per train step the launch
+    counts it added,
+    CUDA events recorded at its start and its end (after its last launch),
+    its loss as a device tensor and, with ``read_loss``, as a float (a host
+    sync); per eval batch the launch counts and the same two events. A
+    wrapped step's attributes (its generator; the DDP step's ``comm`` and
+    ``reducer``) read through."""
 
     def __init__(self, read_loss: bool = True):
         self.read_loss = read_loss
         self.steps, self.events, self.losses, self.evals = [], [], [], []
-        self.eval_events = []
+        self.loss_tensors, self.eval_events = [], []
 
-    def __enter__(self):
-        from editor_tpu_torch.engine import evaluate, loop
+    def _step(self, inner):
+        probe = self
 
-        self._saved = loop.build_train_step, evaluate.build_eval_step
-        build_train, build_eval = self._saved
-
-        def train_builder(*a, **k):
-            inner = build_train(*a, **k)
-
-            def step(batch, epoch):
+        class Step:
+            def __call__(self, batch, epoch):
                 ev = _event_pair()
                 before = launch_counts()
                 m = inner(batch, epoch)
                 ev[1].record()
-                self.steps.append(_delta(launch_counts(), before))
-                self.events.append((epoch, *ev))
-                if self.read_loss:
-                    self.losses.append(float(m["loss"]))
+                probe.steps.append(_delta(launch_counts(), before))
+                probe.events.append((epoch, *ev))
+                probe.loss_tensors.append(m["loss"].detach())
+                if probe.read_loss:
+                    probe.losses.append(float(m["loss"]))
                 return m
 
-            step.generator = inner.generator
-            return step
+            def __getattr__(self, name):
+                return getattr(inner, name)
 
-        def eval_builder(*a, **k):
+        return Step()
+
+    def __enter__(self):
+        from editor_tpu_torch.engine import evaluate, loop
+        from editor_tpu_torch.parallel import ddp
+
+        self._saved = loop.build_train_step, evaluate.build_eval_step, ddp.build_ddp_train_step
+        build_train, build_eval, build_ddp = self._saved
+
+        def build_probed_eval(*a, **k):
             inner = build_eval(*a, **k)
 
             def extract(batch):
@@ -2086,13 +2113,16 @@ class _LoopProbe:
 
             return extract
 
-        loop.build_train_step, evaluate.build_eval_step = train_builder, eval_builder
+        loop.build_train_step = lambda *a, **k: self._step(build_train(*a, **k))
+        ddp.build_ddp_train_step = lambda *a, **k: self._step(build_ddp(*a, **k))
+        evaluate.build_eval_step = build_probed_eval
         return self
 
     def __exit__(self, *exc):
         from editor_tpu_torch.engine import evaluate, loop
+        from editor_tpu_torch.parallel import ddp
 
-        loop.build_train_step, evaluate.build_eval_step = self._saved
+        loop.build_train_step, evaluate.build_eval_step, ddp.build_ddp_train_step = self._saved
 
     def step_ms(self, skip: int) -> tuple:
         """Device ms between the starts of consecutive steps of one epoch (a
@@ -6151,6 +6181,258 @@ def zoo_phase(card: str, cases: str = "abcd") -> dict:
     return out
 
 
+# Phase 17: the one-process settings (a), the checkpoint converter (b) and
+# the JAX tools' measuring scripts (c)
+# the runs that make a one-rank group name the card as cli.train's --device
+# 'cuda' (no index), the others take the default, the current device
+P17_SETTINGS = {"plain": [], "zero1": ["--device", "cuda", "TPU.ZERO_STAGE", "1"],
+                "fsdp": ["--device", "cuda", "TPU.ZERO_STAGE", "3"],
+                "powersgd": ["--device", "cuda", "TPU.GRAD_COMPRESSION", "powersgd"]}
+P17_SKIP = 2  # (a) the run's first steps, left out of its ms a step
+P17_EVAL_B = 64  # (b) the eval batch of the converted and the .pth model
+# (c) each tool's lines: a header and one a case
+P17_TOOL_LINES = {"bench_stages": 7, "bench_train": 5, "bench_bwd": 5, "bench_loader": 4}
+
+
+def _p17_settings(card: str, bare_step_ms=None) -> dict:
+    """(a) cli.train at the flagship on phase 8's in-memory data at
+    RGBNT201's sizes (171 ids, 3951 items, one epoch, evaluation at its end)
+    in one process with ``TPU.MESH_DATA`` -1: plain, ZeRO-1, FSDP and
+    PowerSGD. ZeRO-1's and FSDP's losses, final weights and mAP equal the
+    plain run's; PowerSGD's first loss equals it (the same forward before
+    any update) and its first reduction is its formula on that step's
+    gradients (phase 10's check); every step launches the train step's
+    kernels; no process group is left after a run. Prints each run's ms a
+    step (between step starts, the first P17_SKIP steps left out) beside
+    phase 5's bare step. Returns the launches of the plain run's first step."""
+    import torch.distributed as dist
+
+    from editor_tpu_torch.cli import train
+    from editor_tpu_torch.config import RGBNT201_PRESET, load_config
+    from editor_tpu_torch.data.sampler import PKSampler
+    from editor_tpu_torch.parallel import compression
+
+    base = RGBNT201_PRESET + ["MODEL.PRETRAIN_CHOICE", "random", "TPU.MESH_DATA", "-1",
+                              "SOLVER.MAX_EPOCHS", "1", "SOLVER.LOG_PERIOD", "1000",
+                              "SOLVER.EVAL_PERIOD", "1", "OUTPUT_DIR", ""]
+    cfg = load_config(None, base)
+    _, splits, decode = _loop_data(cfg.INPUT.SIZE_TRAIN)
+    B = cfg.SOLVER.IMS_PER_BATCH
+    sampler = PKSampler(splits.train, B, cfg.DATALOADER.NUM_INSTANCE, seed=cfg.SOLVER.SEED)
+    n_steps = len(sampler.epoch_indices(1)) // B
+    want = expected(attention_qkv=12, rollout_chain=1, masked_attention_qkv=2,
+                    attention_qkv_bwd=12, masked_attention_qkv_bwd=2)
+    make_reducer, probes = compression.make_reducer, []
+
+    def probed_reducer(*a, **k):
+        red = make_reducer(*a, **k)
+        probes.append(_ReduceProbe(red))
+        return red
+
+    runs = {}
+    for name, opts in P17_SETTINGS.items():
+        compression.make_reducer = probed_reducer
+        try:
+            with _LoopProbe(read_loss=False) as probe:
+                result = train.main(opts + base, splits=splits, decode_fn=decode)
+        finally:
+            compression.make_reducer = make_reducer
+        if dist.is_initialized():
+            raise AssertionError(f"17a {name}: a process group is left after the run")
+        bad = [d for d in probe.steps if d != want]
+        if len(probe.steps) != n_steps or bad:
+            raise AssertionError(f"17a {name}: {len(probe.steps)} steps, launches "
+                                 f"{bad[:1]} != {want}")
+        ms = probe.step_ms(P17_SKIP)[0]
+        runs[name] = dict(losses=torch.stack(probe.loss_tensors).float().cpu(), result=result,
+                          ms=float(np.median(ms)), launches=probe.steps[0])
+        say(f"17a {name}", card=card, steps=len(probe.steps),
+            losses=json.dumps([round(float(x), 4) for x in runs[name]["losses"]]),
+            mAP=f"{result['best']['mAP']:.6f}", ms_step_median=f"{runs[name]['ms']:.3f}",
+            ms_step_p10_p90=json.dumps([round(float(np.percentile(ms, q)), 3) for q in (10, 90)]),
+            bare_step_ms="not measured in this run" if bare_step_ms is None
+            else f"{bare_step_ms:.3f}", group_left=dist.is_initialized())
+    plain = runs["plain"]
+    ref_sd = plain["result"]["model"].state_dict()
+    for name in ("zero1", "fsdp"):
+        got = runs[name]
+        sd = got["result"]["model"].state_dict()
+        differ = [k for k in ref_sd if not torch.equal(sd[k], ref_sd[k])]
+        if (not torch.equal(got["losses"], plain["losses"]) or differ
+                or got["result"]["best"] != plain["result"]["best"]):
+            raise AssertionError(f"17a {name}: not bit for bit the plain run (losses "
+                                 f"{got['losses'].tolist()} against {plain['losses'].tolist()}, "
+                                 f"{len(differ)} tensors differ, e.g. {differ[:3]})")
+    ps = runs["powersgd"]
+    step = ps["result"]["step"]
+    grads, state, out = probes[-1].calls[0]
+    err = _reducer_formula("powersgd", grads, state, out)
+    rel = ((ps["losses"] - plain["losses"]).abs() / plain["losses"].abs()).max().item()
+    if not (len(probes) == 1 and ps["losses"][0] == plain["losses"][0] and err <= 1e-6
+            and torch.isfinite(ps["losses"]).all() and step.reducer.name == "powersgd4"):
+        raise AssertionError(f"17a powersgd: first loss {ps['losses'][0]} against "
+                             f"{plain['losses'][0]}, reducer {step.reducer.name} ({len(probes)} "
+                             f"made), its output {err} off its formula (limit 1e-6)")
+    say("17a gates", zero1_fsdp="bit for bit the plain run", powersgd_formula_err=f"{err:.3e}",
+        powersgd_leaves=f"{len(state)} compressed of {len(grads)}",
+        powersgd_loss_rel_to_plain=f"{rel:.3e} (not gated: its rank-4 update differs)")
+    return plain["launches"]
+
+
+def _imagenet_vit_pth(path: str, ecfg, gen: torch.Generator) -> dict:
+    """A timm-layout ViT state dict of ``ecfg``'s backbone widths at
+    ImageNet's 14 x 14 grid (with its head), seeded, saved under 'model'."""
+    v = ecfg.vit
+    C, hidden = v.embed_dim, int(v.embed_dim * v.mlp_ratio)
+
+    def r(*s):
+        return torch.randn(*s, generator=gen) * 0.02
+
+    sd = {"cls_token": r(1, 1, C), "pos_embed": r(1, 197, C),
+          "patch_embed.proj.weight": r(C, 3, 16, 16), "patch_embed.proj.bias": r(C),
+          "norm.weight": 1 + r(C), "norm.bias": r(C), "head.weight": r(1000, C),
+          "head.bias": r(1000)}
+    for i in range(v.depth):
+        b = f"blocks.{i}."
+        sd.update({b + "norm1.weight": 1 + r(C), b + "norm1.bias": r(C),
+                   b + "attn.qkv.weight": r(3 * C, C), b + "attn.qkv.bias": r(3 * C),
+                   b + "attn.proj.weight": r(C, C), b + "attn.proj.bias": r(C),
+                   b + "norm2.weight": 1 + r(C), b + "norm2.bias": r(C),
+                   b + "mlp.fc1.weight": r(hidden, C), b + "mlp.fc1.bias": r(hidden),
+                   b + "mlp.fc2.weight": r(C, hidden), b + "mlp.fc2.bias": r(C)})
+    torch.save({"model": sd}, path)
+    return sd
+
+
+def _p17_convert(gen: torch.Generator) -> dict:
+    """(b) tools.convert_checkpoint at the flagship on the card: a seeded
+    reference .pth (BN statistics and OCFR centers drawn too) -> .npz ->
+    load_params_npz gives eval features bit for bit those of the model
+    loaded from the .pth (both through the kernels, B = P17_EVAL_B); with
+    ``--backbone-only`` on a seeded ImageNet ViT-B/16 .pth (14 x 14 grid) the
+    backbone holds the file's tensors (the position grid resized by
+    ``resize_pos_embed``) and the rest is ``editor_init(seed=0)``. Returns
+    one eval forward's launches."""
+    import shutil
+    import tempfile
+
+    from editor_tpu_torch.config import RGBNT201_PRESET
+    from editor_tpu_torch.engine.evaluate import build_eval_step
+    from editor_tpu_torch.models.init import editor_init
+    from editor_tpu_torch.tools import convert_checkpoint
+    from editor_tpu_torch.utils.checkpoint import load_params_npz
+    from editor_tpu_torch.utils.torch_convert import load_editor_pth, resize_pos_embed
+
+    _, ecfg = flagship()
+    cpu = torch.Generator().manual_seed(17)
+    flags = ["--num_classes", str(ecfg.num_classes), "--camera_num", str(ecfg.vit.camera)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_convert_")
+    try:
+        src = editor_init(ecfg, seed=17)
+        sd = src.state_dict()
+        for k, v in sd.items():
+            if "running" in k or "centers" in k:
+                v.copy_(torch.rand(v.shape, generator=cpu) + (0.5 if "var" in k else 0.0))
+        pth, npz = os.path.join(tmp, "editor.pth"), os.path.join(tmp, "editor.npz")
+        torch.save({"model": sd}, pth)
+        del src, sd
+        t0 = time.perf_counter()
+        convert_checkpoint.main(["--pth", pth, "--out", npz, *flags, *RGBNT201_PRESET])
+        convert_s = time.perf_counter() - t0
+        ref = editor_init(ecfg, seed=5)
+        load_editor_pth(pth, ref)
+        got = load_params_npz(npz, editor_init(ecfg, seed=3))
+        batch = _eval_batch(gen, P17_EVAL_B)
+        reset_counts()
+        f_got = build_eval_step(got, torch.bfloat16)(batch)
+        launches = launch_counts()
+        f_ref = build_eval_step(ref, torch.bfloat16)(batch)
+        if not torch.equal(f_got, f_ref) or not torch.isfinite(f_got).all():
+            raise AssertionError("17b: the converted model's features are not the .pth model's")
+        sizes = {k: os.path.getsize(os.path.join(tmp, k)) for k in ("editor.pth", "editor.npz")}
+        del ref, got
+
+        vit_pth = os.path.join(tmp, "jx_vit_base_p16_224.pth")
+        file_sd = _imagenet_vit_pth(vit_pth, ecfg, cpu)
+        convert_checkpoint.main(["--pth", vit_pth, "--out", npz, "--backbone-only", *flags,
+                                 *RGBNT201_PRESET])
+        back = load_params_npz(npz, editor_init(ecfg, seed=3)).state_dict()
+        init = editor_init(ecfg, seed=0).state_dict()
+        v = ecfg.vit
+        pos = torch.from_numpy(resize_pos_embed(file_sd["pos_embed"].numpy(),
+                                                (v.num_y, v.num_x)))
+        wrong = []
+        for k, t in back.items():
+            want = init[k]
+            if k.startswith("BACKBONE.base."):
+                name = k[len("BACKBONE.base."):]
+                want = pos if name == "pos_embed" else file_sd.get(name, want)
+            if "num_batches_tracked" not in k and not torch.equal(t.cpu(), want.cpu()):
+                wrong.append(k)
+        if wrong:
+            raise AssertionError(f"17b --backbone-only: {len(wrong)} tensors wrong, "
+                                 f"e.g. {wrong[:3]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("17b convert", features="bit for bit the .pth model's", rows=P17_EVAL_B,
+        convert_s=f"{convert_s:.2f}", bytes=json.dumps(sizes),
+        backbone_only=f"{len(file_sd) - 2} file tensors, pos_embed 14x14 -> {v.num_y}x{v.num_x}")
+    return launches
+
+
+def _p17_tools() -> dict:
+    """(c) the four measuring tools at reduced iterations, through their
+    own functions: bench_stages at B = 128, bench_train at skips 0-3,
+    bench_bwd, bench_loader (32 ids, 8 workers). Each prints its lines (here
+    under its name) and none prints FAIL. Returns the launches of all four."""
+    import contextlib
+    import io
+
+    from editor_tpu_torch.tools import bench_bwd, bench_loader, bench_stages, bench_train
+
+    runs = {"bench_stages": lambda: bench_stages.run(B_EVAL, iters=10),
+            "bench_train": lambda: bench_train.run((0, 1, 2, 3), iters=5),
+            "bench_bwd": lambda: bench_bwd.run(iters=10),
+            "bench_loader": lambda: bench_loader.run(32, 8, 3)}
+    reset_counts()
+    out = {}
+    for name, fn in runs.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out[name], failed = fn()
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            print(f"[17c {name}] {line}", flush=True)
+        say(f"17c {name}", lines=len(lines), seconds=f"{time.perf_counter() - t0:.1f}")
+        torch.cuda.empty_cache()
+        if failed or any("FAIL" in ln for ln in lines) or len(lines) != P17_TOOL_LINES[name]:
+            raise AssertionError(f"17c {name}: {len(lines)} lines (want "
+                                 f"{P17_TOOL_LINES[name]}), failed {failed}")
+    out["launches"] = launch_counts()
+    return out
+
+
+def tools_phase(card: str, gen: torch.Generator, bare_step_ms=None, cases: str = "abc") -> dict:
+    """Phase 17: the last of the JAX surface. ``cases``: the letters of the
+    cases to run (``--phase-17 bc``). Returns {'train': one step's launches
+    of (a), 'eval': one eval forward's of (b), 'bench': all of (c)'s}, each
+    0 for a case not run."""
+    zero = expected()
+    out = {"train": zero, "eval": zero, "bench": zero}
+    if "a" in cases:
+        out["train"] = _p17_settings(card, bare_step_ms)
+        torch.cuda.empty_cache()
+    if "b" in cases:
+        out["eval"] = _p17_convert(gen)
+        torch.cuda.empty_cache()
+    if "c" in cases:
+        out["bench"] = _p17_tools()["launches"]
+    say("17 launches", **{k: json.dumps({n: c for n, c in v.items() if c})
+                          for k, v in out.items()})
+    return out
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6210,6 +6492,8 @@ def main() -> None:
     lib = timed("15 library", library_phase, card, gen)
     torch.cuda.empty_cache()
     timed("16 zoo", zoo_phase, card)
+    torch.cuda.empty_cache()
+    tools = timed("17 tools", tools_phase, card, gen, bare_step_ms)
     # launches, launches_eval: per train step and per eval forward (loop: eval
     # batch), summed over the three paths (compact: phases 3 and 5;
     # uncompacted: phase 6; the loop: phase 8, with its run's total), each
@@ -6232,7 +6516,8 @@ def main() -> None:
                    "dropout": {k: cf["dropout"][k][name] for k in ("train", "eval")},
                    "library": {"forward": lib["losses"]["forward"][name],
                                "backward": lib["losses"]["backward"][name],
-                               "eval": lib["profiling"]["eval"][name]}}
+                               "eval": lib["profiling"]["eval"][name]},
+                   "tools": {k: tools[k][name] for k in ("train", "eval", "bench")}}
         info = {k: v for k, v in spec.items() if k != "tool"}
         extra = {"tp_shard": mp["shard"][name]} if name in mp["shard"] else {}
         if name in cf["kernels"]:
@@ -6243,12 +6528,14 @@ def main() -> None:
                                    + mp["moe"]["train"][name] + pp["train"][name]
                                    + cf["train"]["launches"][name]
                                    + lib["losses"]["forward"][name]
-                                   + lib["losses"]["backward"][name]),
+                                   + lib["losses"]["backward"][name]
+                                   + tools["train"][name]),
                          launches_eval=(eval_launches[name] + un_eval[name]
                                         + looped["eval"][name] + dp["eval"][name]
                                         + fsdp["eval"][name] + mp["moe"]["eval"][name]
                                         + pp["eval"][name] + cf["eval"]["launches"][name]
-                                        + lib["profiling"]["eval"][name]),
+                                        + lib["profiling"]["eval"][name]
+                                        + tools["eval"][name]),
                          launches_by_path=by_path, **kernels[name], **extra))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6298,6 +6585,11 @@ if __name__ == "__main__":
         card = card_check()
         timed("1 build", build_phase)
         timed("16 zoo", zoo_phase, card, *sys.argv[2:3])
+    elif sys.argv[1:2] == ["--phase-17"]:  # phase 17 alone, after the build [cases]
+        card = card_check()
+        timed("1 build", build_phase)
+        timed("17 tools", tools_phase, card, torch.Generator(device="cuda").manual_seed(0),
+              None, *sys.argv[2:3])
     elif sys.argv[1:2] == ["--phase-14"]:  # phase 14 alone, after the build [cases]
         card_check()
         timed("1 build", build_phase)

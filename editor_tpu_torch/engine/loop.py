@@ -25,9 +25,13 @@ slots sharded, evaluation and checkpoints on the gathered parameters) or,
 with ``TPU.GRAD_COMPRESSION`` (which takes precedence, as in JAX), the
 local-batch step with that reducer. Rank 0 alone writes the log, the
 metrics and the checkpoints; the others wait at a barrier after each save.
-Without a group the loop runs on one device, and the settings that need a
-mesh (``TPU.MESH_DATA`` above 1, ``TPU.MESH_MODEL`` above 1, ``ZERO_STAGE``
-1 or 3, a ``GRAD_COMPRESSION``) raise.
+Without a group, one process on one device with ``TPU.MESH_DATA`` -1 (the
+default) and ``MESH_MODEL`` 1 runs ``ZERO_STAGE`` 1 or 3 or a
+``GRAD_COMPRESSION`` on a group of one rank that ``do_train`` makes and
+destroys (the JAX loop's 1 x 1 mesh); otherwise the loop runs on one
+device, and the settings that need a mesh (``TPU.MESH_DATA`` above 1,
+``TPU.MESH_MODEL`` above 1, and with ``MESH_DATA`` 1 ``ZERO_STAGE`` 1 or 3
+and a ``GRAD_COMPRESSION``) raise.
 
 Tensor parallelism (``TPU.MESH_MODEL`` t above 1): the mesh is (W / t, t),
 the model is cut into its Megatron shards after the init or the ImageNet
@@ -69,6 +73,17 @@ from editor_tpu_torch.utils.meter import AverageMeter
 
 def _compression(cfg) -> bool:
     return cfg.TPU.GRAD_COMPRESSION not in ("none", "")
+
+
+def needs_one_rank_group(cfg, mesh=None) -> bool:
+    """Whether ``do_train`` makes a group of one rank for this run: no group
+    and no ``mesh``, ``TPU.MESH_DATA`` -1 and ``MESH_MODEL`` 1, and
+    ``ZERO_STAGE`` 1 or 3 or a ``GRAD_COMPRESSION``, the settings the JAX
+    loop runs on its 1 x 1 mesh. ``MESH_DATA`` 1 keeps raising in
+    :func:`resolve_mesh` (JAX builds no mesh there and drops them)."""
+    t = cfg.TPU
+    return (mesh is None and not dist.is_initialized() and t.MESH_DATA == -1
+            and t.MESH_MODEL == 1 and (t.ZERO_STAGE in (1, 3) or _compression(cfg)))
 
 
 def resolve_mesh(cfg, device: torch.device, mesh=None, train: bool = True):
@@ -167,10 +182,30 @@ def do_train(cfg, dm: Optional[ReIDDataModule] = None, mesh=None, decode_fn=None
     With ``OUTPUT_DIR`` set, the log (``train_log.txt``), the metrics
     (``metrics.jsonl``) and the checkpoints (``ckpt/``) go there, and a run
     resumes from the latest checkpoint it finds. ``mesh``: a data-parallel
-    ``DeviceMesh``; by default the one :func:`resolve_mesh` builds."""
+    ``DeviceMesh``; by default the one :func:`resolve_mesh` builds.
+
+    Where :func:`needs_one_rank_group` holds, the run makes a group of one
+    rank (``multihost.initialize_one_rank``) and destroys it when it ends,
+    also when it raises; a group the caller made is left alone. Such a run
+    returns the model with its full weights (FSDP gathers them before the
+    group goes) and ``mesh`` None; its 'optimizer' and 'step' were built on
+    the destroyed group: their counts, slots and generator can be read, but
+    they take no further step."""
+    device = default_device(device)
+    owned = needs_one_rank_group(cfg, mesh)
+    if owned:
+        multihost.initialize_one_rank(device)
+    try:
+        result = _train(cfg, dm, mesh, decode_fn, max_steps_per_epoch, device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+    return dict(result, mesh=None) if owned else result
+
+
+def _train(cfg, dm, mesh, decode_fn, max_steps_per_epoch, device) -> Dict[str, Any]:
     from editor_tpu_torch.parallel.mesh import data_rank, data_size, model_size
 
-    device = default_device(device)
     mesh = resolve_mesh(cfg, device, mesh)
     rank = multihost.process_index()
     primary = rank == 0

@@ -10,7 +10,8 @@ and ``cli.launch`` set; or ``DIST_INIT_METHOD`` in place of the first two),
 with NCCL on CUDA and gloo on the CPU, and a timeout, so that a
 collective whose peer has died raises instead of waiting for ever. On CUDA
 each rank's device is ``cuda:LOCAL_RANK``, made current before anything is
-built. Without a group every function here answers for one process.
+built. Without a group every function here answers for one process;
+``initialize_one_rank`` makes a group of one rank in this process.
 """
 
 from __future__ import annotations
@@ -72,6 +73,22 @@ def initialize(init_method: Optional[str] = None, world_size: Optional[int] = No
                             world_size=world_size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
     return True
+
+
+def initialize_one_rank(device: torch.device) -> None:
+    """Make a default group of one rank in this process: NCCL on a CUDA
+    ``device`` (made the current device first), gloo on the CPU, on an
+    in-process ``HashStore``, so no port or file is needed. For a run on one
+    device that asks for a data-parallel setting (``engine.loop.do_train``);
+    the caller destroys the group. A CUDA device without an index ('cuda')
+    is the current one."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(torch.cuda.current_device() if device.index is None
+                              else device.index)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
 
 
 def process_index() -> int:

@@ -1,1 +1,2 @@
-"""Measurement scripts for the port, run on a CUDA device."""
+"""The port's measuring scripts, run on a CUDA device, and its checkpoint
+converter (``convert_checkpoint``)."""

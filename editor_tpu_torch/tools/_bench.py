@@ -1,6 +1,7 @@
-"""Helpers shared by the design-variant tools ``bench_*.py`` and
-``chip_smoke.py``: the card check, CUDA-event timing, errors and bounds, and
-one printed line per variant."""
+"""Helpers shared by the measuring tools ``bench_*.py`` and
+``chip_smoke.py``: the card check, CUDA-event timing, errors and bounds, one
+printed line per variant or case, and a case that fails printed as ``FAIL``
+and turned into a non-zero exit."""
 
 from __future__ import annotations
 
@@ -93,6 +94,24 @@ def bound(flops: float, nbytes: float) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def case(label: str, fn, failed: list):
+    """Run one case of a tool: ``fn()``'s result, or, where it raises, None
+    after printing ``<label>: FAIL <type>: <message>`` (as the JAX tools do)
+    and adding ``label`` to ``failed``, so that the other cases still run."""
+    try:
+        return fn()
+    except Exception as e:  # reported, and turned into the exit code by finish
+        print(f"{label}: FAIL {type(e).__name__}: {str(e)[:200]}", flush=True)
+        failed.append(label)
+        return None
+
+
+def finish(tool: str, failed: list) -> None:
+    """Exit non-zero when a case of ``tool`` failed."""
+    if failed:
+        sys.exit(f"{tool}: {len(failed)} case(s) failed: {', '.join(failed)}")
 
 
 def report(label: str, ms: float, err=None, bound_ms=None, **extra) -> None:

@@ -37,13 +37,42 @@ MOE_EXPORT_ERROR = ("cannot export a MoE-fusion EDITOR (MODEL.MOE_EXPERTS > 0) t
                     "retrain with MOE_EXPERTS 0 or keep Orbax checkpoints")
 
 
-def load_editor_pth(path: str, model: torch.nn.Module) -> None:
-    """Load a reference-layout EDITOR ``.pth`` into ``model`` strictly; a
-    MoE model raises ``ValueError`` (the reference has no MoE), as JAX's
-    ``convert_editor_from_torch``."""
+# keys of the model a reference file may lack: they keep their values, as in
+# JAX's convert_editor_from_torch (the OCFR centers; the constant Haar
+# buffers and BN counters, which the .npz does not carry either)
+OPTIONAL_PREFIXES = ("FUSE_block.memory_cls.", "FREQ_INDEX.")
+# the AL head and BN load together, and only from a file with AL_HEAD.weight
+AL_PREFIXES = ("AL_HEAD.", "AL_BN.")
+
+
+def load_editor_pth(path: str, model: torch.nn.Module) -> Tuple[List[str], List[str]]:
+    """Load a reference-layout EDITOR ``.pth`` into ``model`` as JAX's
+    ``convert_editor_from_torch`` reads it, and return (the model's keys that
+    kept their values, the file's keys that were not loaded).
+
+    The OCFR class centers may be missing, and so may the AL head and BN:
+    they load only when the file has ``AL_HEAD.weight``, and then ``AL_BN``
+    must be there too. What is missing keeps its value (the seeded init), as
+    do the Haar buffers and BN counters. Any other key of the model that the
+    file lacks raises ``KeyError``; keys the model lacks (the AL keys with
+    ``MODEL.AL`` off, say) are not loaded. A MoE model raises ``ValueError``
+    (the reference has no MoE)."""
     if model.cfg.moe_experts > 0:
         raise ValueError(MOE_IMPORT_ERROR)
-    model.load_state_dict(load_torch_state_dict(path), strict=True)
+    sd = load_torch_state_dict(path)
+    al = "AL_HEAD.weight" in sd
+    optional = OPTIONAL_PREFIXES if al else OPTIONAL_PREFIXES + AL_PREFIXES
+    own = model.state_dict()
+    load = {k: v for k, v in sd.items()
+            if k in own and (al or not k.startswith(AL_PREFIXES))}
+    kept = [k for k in own if k not in load]
+    required = [k for k in kept
+                if not (k.startswith(optional) or k.endswith("num_batches_tracked"))]
+    if required:
+        raise KeyError(f"{path} lacks {len(required)} keys of the model: "
+                       + ", ".join(required[:8]) + (" ..." if len(required) > 8 else ""))
+    model.load_state_dict(load, strict=False)
+    return kept, sorted(k for k in sd if k not in load)
 
 
 def _bilinear_axis(x: np.ndarray, out_size: int, axis: int) -> np.ndarray:

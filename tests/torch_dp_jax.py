@@ -129,12 +129,13 @@ def device_shards(leaf, mesh):
     return out
 
 
-def switch_reducer():
-    """JAX's five reducers (``REDUCERS``) behind one selector in the state
-    (``which``), so that one ``build_ddp_train_step`` compile serves them
+def switch_reducer(names=REDUCERS):
+    """JAX's reducers ``names`` (by default the five of ``REDUCERS``;
+    PowerSGD last) behind one selector in the state (``which``, an index
+    into ``names``), so that one ``build_ddp_train_step`` compile serves them
     all: each branch of a ``lax.switch`` is the JAX reducer's own
     ``reduce``; the stateless ones pass PowerSGD's state (``ps``) through."""
-    reds = [jax_make_reducer(name, rank=4) for name in REDUCERS]
+    reds = [jax_make_reducer(name, rank=4) for name in names]
     ps = reds[-1]
 
     def branch(red):
